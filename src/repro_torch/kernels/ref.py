@@ -1,0 +1,158 @@
+"""Plain PyTorch versions of the kernels on the port's path.
+
+Each function is the correctness reference of one hand-written kernel
+(``similarity.py``: fused retrieval; ``scene_score.py``: scene score) and
+the path a CPU tensor takes through ``kernels.ops``. They may
+materialise what the kernels keep on chip; what they return is exactly
+the kernels' contract.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels.draws import raw_counts
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# validity
+# ---------------------------------------------------------------------------
+
+
+def as_valid_mask(valid: torch.Tensor, n: int) -> torch.Tensor:
+    """Canonical form of a stacked scan's ``valid`` argument:
+
+    * (S, N) bool mask — passes through;
+    * (S,) int sizes — valid prefix ``[0, size)``;
+    * (S, 2) int ``[start, size]`` ring windows — valid rows are
+      ``[start, start+size) mod N``.
+    """
+    dev = valid.device
+    if valid.dim() == 1:
+        return torch.arange(n, device=dev)[None, :] < valid[:, None]
+    if (valid.dim() == 2 and valid.shape[-1] == 2
+            and not valid.dtype.is_floating_point
+            and valid.dtype != torch.bool):
+        j = torch.arange(n, device=dev)[None, :]
+        # torch.remainder takes the sign of the divisor, like jnp.mod
+        return torch.remainder(j - valid[:, :1], n) < valid[:, 1:2]
+    return valid
+
+
+# ---------------------------------------------------------------------------
+# cosine similarity + temperature softmax
+# ---------------------------------------------------------------------------
+
+
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+    x = x.to(torch.float32)
+    return x * torch.rsqrt((x * x).sum(-1, keepdim=True) + 1e-12)
+
+
+def similarity_stack_ref(query: torch.Tensor, index: torch.Tensor, *,
+                         tau: float, valid: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """query (S,Q,d); index (S,N,d) f32 or int8; valid in any canonical
+    form → (sims (S,Q,N) cosine, probs (S,Q,N) softmax of sims/τ over the
+    valid rows)."""
+    valid = as_valid_mask(valid, index.shape[1])
+    sims = torch.matmul(_unit_rows(query), _unit_rows(index).transpose(1, 2))
+    logits = torch.where(valid[:, None, :], sims / tau,
+                         torch.full_like(sims, NEG_INF))
+    return sims, torch.softmax(logits, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# fused retrieval: scan + inverse-CDF draws + running top-k
+# ---------------------------------------------------------------------------
+
+
+class FusedRetrieveResult(NamedTuple):
+    """The fused scan's contract — no (S, Q, N) tensor in it. ``counts``
+    are raw lane counts #{cdf ≤ t} (the dispatch layer clips them)."""
+    counts: torch.Tensor        # (S, Q, T) int32
+    drawn_p: torch.Tensor       # (S, Q, T) f32 prob at the crossing lane
+    p_last: torch.Tensor        # (S, Q, 1) f32 prob of lane N-1
+    topk_v: torch.Tensor        # (S, Q, K) f32 top-k sims (desc)
+    topk_i: torch.Tensor        # (S, Q, K) int32 top-k lanes
+    m: torch.Tensor             # (S, Q, 1) f32 softmax max logit
+    l: torch.Tensor             # (S, Q, 1) f32 softmax sum-exp
+    p_max: torch.Tensor         # (S, Q, 1) f32 max probability
+
+
+def topk_lowest_lane(x: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over the last axis, value-descending with ties to the LOWEST
+    lane (``lax.top_k``'s order). ``torch.topk`` does not promise the tie
+    order, a stable descending sort does."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k].to(torch.int32)
+
+
+def fused_retrieve_stack_ref(query: torch.Tensor, index: torch.Tensor,
+                             valid: torch.Tensor, targets: torch.Tensor, *,
+                             tau: float, n_topk: int) -> FusedRetrieveResult:
+    """Plain version of the fused retrieval scan: query (S,Q,d), index
+    (S,N,d) f32 or int8, valid in any canonical form, targets (S,Q,T)."""
+    n = index.shape[1]
+    valid = as_valid_mask(valid, n)
+    sims, probs = similarity_stack_ref(query, index, tau=tau, valid=valid)
+    counts = raw_counts(probs, targets)
+    clipped = counts.clamp(0, n - 1).to(torch.int64)
+    drawn_p = torch.gather(probs, -1, clipped)
+    p_last = probs[:, :, n - 1:n]
+    neg = torch.full_like(sims, NEG_INF)
+    topk_v, topk_i = topk_lowest_lane(
+        torch.where(valid[:, None, :], sims, neg), n_topk)
+    logits = torch.where(valid[:, None, :], sims / tau, neg)
+    m = logits.amax(-1, keepdim=True)
+    l = torch.exp(logits - m).sum(-1, keepdim=True)
+    return FusedRetrieveResult(counts, drawn_p, p_last, topk_v, topk_i, m,
+                               l, probs.amax(-1, keepdim=True))
+
+
+# ---------------------------------------------------------------------------
+# scene score (Eq. 1)
+# ---------------------------------------------------------------------------
+
+
+def hsle(frames: torch.Tensor) -> torch.Tensor:
+    """frames (..., H, W, 3) in [0,1] → (..., H, W, 4) hue, saturation,
+    lightness and edge (L1 gradient of lightness, zero first row and
+    column)."""
+    rgb = frames.to(torch.float32)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    mx = torch.maximum(torch.maximum(r, g), b)
+    mn = torch.minimum(torch.minimum(r, g), b)
+    c = mx - mn
+    light = 0.5 * (mx + mn)
+    sat = c / (1.0 - torch.abs(2.0 * light - 1.0) + 1e-6)
+    safe_c = torch.where(c > 0, c, torch.ones_like(c))
+    hue = torch.where(
+        mx == r, torch.remainder((g - b) / safe_c, 6.0),
+        torch.where(mx == g, (b - r) / safe_c + 2.0,
+                    (r - g) / safe_c + 4.0)) / 6.0
+    hue = torch.where(c > 0, hue, torch.zeros_like(hue))
+    dx = torch.zeros_like(light)
+    dx[..., :, 1:] = torch.abs(light[..., :, 1:] - light[..., :, :-1])
+    dy = torch.zeros_like(light)
+    dy[..., 1:, :] = torch.abs(light[..., 1:, :] - light[..., :-1, :])
+    return torch.stack([hue, sat, light, dx + dy], dim=-1)
+
+
+def scene_score_ref(frames: torch.Tensor, weights: Sequence[float]
+                    ) -> torch.Tensor:
+    """frames (T,H,W,3) in [0,1] → φ (T,) per Eq. 1; φ[0] = 0."""
+    w = torch.as_tensor(tuple(weights), dtype=torch.float32,
+                        device=frames.device)
+    feats = hsle(frames)
+    diffs = torch.abs(feats[1:] - feats[:-1])
+    num = (diffs * w).sum(dim=(1, 2, 3))
+    hw = frames.shape[1] * frames.shape[2]
+    phi = num / (w.sum() * hw)
+    return torch.cat([torch.zeros(1, dtype=torch.float32,
+                                  device=frames.device), phi])
