@@ -5,26 +5,47 @@
 
 Phases (any failure exits non-zero):
 
-1. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-             (one nvcc per source, all started together) and the Triton
-             scene-score kernel;
-2. fused   — the fused retrieval kernel against its plain PyTorch version
-             at S=16, N=8192, d=768, Q=8, T=32, K=8: f32, int8 (from
-             ``quantise_rows``) and wrapping (S, 2) ring windows. Integers
-             equal; floats allclose (rtol 1e-5, atol 1e-6); draw targets
-             kept ≥ 1e-6 from every CDF value;
-3. scene   — the scene-score kernel against its plain version on 65
-             frames of 224×224 (rtol 1e-5, atol 1e-7);
-4. main    — the main path through the user entry points: a
-             ``SessionManager`` at venus-mem-large width (d=768, capacity
-             8192) ingests 16 224² streams in ticks of 64 frames, then
-             answers 8 queries per session under akr, sampling and topk
-             (one fused launch each); every kernel must have launched in
-             this run. Then the same streams through an int8 arena;
-5. parity  — a small input through the card and through the plain
-             versions on the CPU: the same partitions, clusters and
-             reservoirs, and identical frame ids when both query the
-             same memory.
+1. build      — compile the CUDA kernels from ``src/repro_torch/kernels/
+                csrc`` (one nvcc per source, all started together) and the
+                Triton scene-score kernel;
+2. fused      — the fused retrieval kernel against its plain PyTorch
+                version at S=16, N=8192, d=768, Q=8, T=32, K=8: f32, int8
+                (from ``quantise_rows``) and wrapping (S, 2) ring windows.
+                Integers equal; floats allclose (rtol 1e-5, atol 1e-6);
+                draw targets kept ≥ 1e-6 from every CDF value;
+3. similarity — the dense scan kernel (stack form) against its plain
+                version at the same shapes, f32, int8 and windows, each
+                with an all-invalid session: sims, m, l and the epilogue's
+                probabilities allclose (rtol 1e-5, atol 1e-6), l = N and
+                probs = 1/N for the empty session, and m, l bit-equal to
+                the fused kernel's on the same inputs; then its 2-D form
+                at Q=8, N=8192;
+4. scene      — the scene-score kernel against its plain version on 65
+                frames of 224×224 (rtol 1e-5, atol 1e-7);
+5. main       — the main path through the user entry points: a
+                ``SessionManager`` embedding with ``MEMEmbedder`` at
+                venus-mem-large (bf16, random weights from a seed; d=768,
+                capacity 8192) ingests 16 224² streams in ticks of 64
+                frames, then answers 8 queries per session under akr,
+                sampling and topk, and 8 text queries per session through
+                the MEM text tower (one fused launch per group); every
+                kernel must have launched in this run;
+6. dense      — on the main manager: one group each of uniform, bolt,
+                mdf and aks, and akr, sampling and topk with fused=False
+                (one dense scan each), then ``memory.search`` once per
+                session; the same akr/sampling/topk specs through the fused
+                path give the share of equal frame ids (reported, not a
+                gate);
+7. main_int8  — the same streams through an int8 arena (``PixelEmbedder``
+                for time);
+8. mem        — MEM at smoke width in float32, card against the CPU with
+                the same weights (allclose rtol 1e-4, atol 1e-5); at full
+                width the card's bf16 embeddings of 4 frames and 4 texts
+                against its float32 ones (cosine ≥ 0.9999);
+9. parity     — a small input through the card and through the plain
+                versions on the CPU: the same partitions, clusters and
+                reservoirs, and identical frame ids when both query the
+                same memory.
 
 Prints the card's name and power limit, one line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -58,6 +79,24 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time per call: a sleep kernel holds the stream until every
+    call is enqueued, so the launches run back to back and the host's
+    time between them (the wrapper's Python) is not counted."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)       # ~50 ms at the H100's clock
     start.record()
     for _ in range(reps):
         fn()
@@ -118,8 +157,11 @@ def phase_fused(gen):
              ("f32_windows", index32, wins)]
     out = {}
     for name, index, valid in cases:
-        _, probs = ref.similarity_stack_ref(query, index, tau=TAU,
-                                            valid=valid)
+        sims, m, l = ref.similarity_scan_stack_ref(query, index, valid,
+                                                   tau=TAU)
+        probs = ref.scan_probs(sims, m, l,
+                               ref.as_valid_mask(valid, N)[:, None, :], TAU)
+        del sims
         targets, margin = margin_targets(probs, gen, T)
         del probs
         run_k = lambda: similarity.fused_retrieve_scan_stack(
@@ -142,17 +184,126 @@ def phase_fused(gen):
             if f != "l":     # l sums N terms: judged relative, above
                 err = max(err, float((a - b).abs().max()))
         ms = cuda_ms(run_k, reps=10, warmup=2)
+        dev_ms = device_ms(run_k)
         plain = cuda_ms(run_p, reps=2)
         elt = index.element_size()
         nbytes = (S * N * D * elt + S * Q * D * 4 + valid.numel() * 4
                   + S * Q * T * 4 + S * Q * (2 * T + 2 * K + 3) * 4)
         flops = 2.0 * S * Q * N * D + 3.0 * S * N * D
         b, by = bound_ms(nbytes, flops)
-        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                         max_abs_err=err, margin=margin)
-        print(f"phase fused[{name}]: ok  kernel {ms:.4f} ms  plain "
+        out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                         bound_ms=b, bound_by=by, max_abs_err=err,
+                         margin=margin)
+        print(f"phase fused[{name}]: ok  kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms)  plain "
               f"{plain:.4f} ms  bound {b:.4f} ms ({by})  max_abs_err "
               f"{err:.3e}  target margin {margin:.2e}", flush=True)
+    return out
+
+
+def _scan_check(name, got, want, valid, sessions_empty=()):
+    """Kernel triple vs plain triple (+ the epilogue's probs of each):
+    allclose at rtol 1e-5 / atol 1e-6; empty sessions give l = N and
+    probs = 1/N. Returns the max abs error (l, a sum of N terms, is
+    judged relative only)."""
+    import torch
+    from repro_torch.kernels import ref
+    n = got[0].shape[-1]
+    pk = ref.scan_probs(*got, valid, TAU)
+    pp = ref.scan_probs(*want, valid, TAU)
+    err = 0.0
+    for f, a, b in (("sims", got[0], want[0]), ("m", got[1], want[1]),
+                    ("l", got[2], want[2]), ("probs", pk, pp)):
+        check(bool(torch.isfinite(a).all()), f"{name}: {f} not finite")
+        check(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
+              f"{name}: {f} max abs err {float((a - b).abs().max())}")
+        if f != "l":
+            err = max(err, float((a - b).abs().max()))
+    for si in sessions_empty:
+        check(bool((got[2][si] == n).all()), f"{name}: empty l != N")
+        check(torch.allclose(pk[si], torch.full_like(pk[si], 1.0 / n),
+                             rtol=1e-6, atol=0), f"{name}: empty probs")
+    return err
+
+
+def phase_similarity(gen):
+    """Kernel #3 (stack form) and #4 (2-D form) against their plain
+    versions, and #3's m, l against the fused kernel's."""
+    import torch
+    from repro_torch.core.memory import quantise_rows
+    from repro_torch.kernels import ref, similarity
+    dev = torch.device("cuda")
+    query = torch.randn((S, Q, D), generator=gen, device=dev)
+    index32 = torch.randn((S, N, D), generator=gen, device=dev)
+    index8 = torch.from_numpy(quantise_rows(index32.cpu().numpy())[0]).to(dev)
+    sizes = torch.randint(N // 2, N + 1, (S,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    sizes[0], sizes[1] = N, 0                      # session 1: all invalid
+    starts = torch.randint(0, N, (S,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    wins = torch.stack([starts, sizes], dim=1)
+    check(bool(((starts + sizes) > N).any()), "a window wraps")
+    cases = [("f32", index32, sizes), ("int8", index8, sizes),
+             ("f32_windows", index32, wins)]
+    out = {}
+    for name, index, valid in cases:
+        run_k = lambda: similarity.similarity_scan_stack(query, index, valid,
+                                                         tau=TAU)
+        run_p = lambda: ref.similarity_scan_stack_ref(query, index, valid,
+                                                      tau=TAU)
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        vmask = ref.as_valid_mask(valid, N)[:, None, :]
+        err = _scan_check(f"similarity {name}", got, want, vmask, (1,))
+        # the order of the stats: bit-equal to the fused kernel's m and l
+        fr = similarity.fused_retrieve_scan_stack(
+            query, index, valid, torch.zeros((S, Q, 1), device=dev),
+            tau=TAU, n_topk=1)
+        check(torch.equal(got[1], fr.m) and torch.equal(got[2], fr.l),
+              f"similarity {name}: m, l differ from the fused kernel's")
+        ms = cuda_ms(run_k, reps=50, warmup=3)
+        dev_ms = device_ms(run_k)
+        plain = cuda_ms(run_p, reps=3)
+        # yardstick: one bmm over operands normalised beforehand (sims only)
+        qn = similarity.unit_queries(query)
+        xn = similarity.unit_queries(index)
+        lib = cuda_ms(lambda: torch.bmm(qn, xn.transpose(1, 2)), reps=50,
+                      warmup=3)
+        del qn, xn
+        elt = index.element_size()
+        nbytes = (S * N * D * elt + S * Q * D * 4
+                  + valid.numel() * valid.element_size()
+                  + S * Q * N * 4 + 2 * S * Q * 4)
+        b, by = bound_ms(nbytes, 2.0 * S * Q * N * D + 3.0 * S * N * D)
+        out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                         bound_ms=b, bound_by=by, library_ms=lib,
+                         max_abs_err=err)
+        print(f"phase similarity[{name}]: ok  kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms)  plain "
+              f"{plain:.4f} ms  bound {b:.4f} ms ({by})  bmm (sims only) "
+              f"{lib:.4f} ms  max_abs_err {err:.3e}  m, l == fused",
+              flush=True)
+    # kernel #4: the 2-D form over one session's rows
+    q2, x2 = query[0], index32[0]
+    v2 = torch.arange(N, device=dev) < 6000
+    run_k = lambda: similarity.similarity_scan(q2, x2, v2, tau=TAU)
+    run_p = lambda: ref.similarity_scan_ref(q2, x2, v2, tau=TAU)
+    got, want = run_k(), run_p()
+    torch.cuda.synchronize()
+    err = _scan_check("similarity 2-D", got, want, v2[None, :])
+    ms = cuda_ms(run_k, reps=50, warmup=3)
+    dev_ms = device_ms(run_k)
+    plain = cuda_ms(run_p, reps=5)
+    qn, xn = similarity.unit_queries(q2), similarity.unit_queries(x2)
+    lib = cuda_ms(lambda: torch.mm(qn, xn.t()), reps=50, warmup=3)
+    b, by = bound_ms(N * D * 4 + Q * D * 4 + N + Q * N * 4 + 2 * Q * 4,
+                     2.0 * Q * N * D + 3.0 * N * D)
+    out["2d"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b,
+                     bound_by=by, library_ms=lib, max_abs_err=err)
+    print(f"phase similarity[2d]: ok  kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f} ms)  plain "
+          f"{plain:.4f} ms  bound {b:.4f} ms ({by})  mm (sims only) "
+          f"{lib:.4f} ms  max_abs_err {err:.3e}", flush=True)
     return out
 
 
@@ -178,13 +329,15 @@ def phase_scene(frames_np):
           f"scene: max abs err {float((got - want).abs().max())}")
     err = float((got - want).abs().max())
     ms = cuda_ms(run_k, reps=20, warmup=2)
+    dev_ms = device_ms(run_k)
     plain = cuda_ms(run_p, reps=3)
     t, h, w, _ = frames.shape
     b, by = bound_ms(t * h * w * 3 * 4 + t * 4, 40.0 * t * h * w)
-    print(f"phase scene: ok  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-          f"bound {b:.4f} ms ({by})  max_abs_err {err:.3e}", flush=True)
-    return dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                max_abs_err=err)
+    print(f"phase scene: ok  kernel {ms:.4f} ms (device {dev_ms:.4f} ms)"
+          f"  plain {plain:.4f} ms  bound {b:.4f} ms ({by})  max_abs_err "
+          f"{err:.3e}", flush=True)
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, max_abs_err=err)
 
 
 def ingest_streams(worlds, cfg, embedder, dim, device, *, chunk=64):
@@ -213,23 +366,54 @@ def ingest_streams(worlds, cfg, embedder, dim, device, *, chunk=64):
     return mgr, ticks, stages
 
 
-def run_queries(mgr, n_sessions: int, dim: int):
-    """8 queries per session under akr, sampling and topk: three
-    ``query_batch_cross`` calls, one execution group (one fused launch)
-    each. Returns (per-strategy results, host-clock seconds of each)."""
+def unit_queries_np(n: int, dim: int, seed: int):
     import numpy as np
-    rng = np.random.default_rng(5)
+    qe = np.random.default_rng(seed).standard_normal((n, dim)).astype(
+        np.float32)
+    return qe / np.linalg.norm(qe, axis=-1, keepdims=True)
+
+
+def run_queries(mgr, n_sessions: int, dim: int):
+    """8 queries per session under akr, sampling and topk, and 8 text
+    queries per session (akr, embedded by the manager's embedder): four
+    ``query_batch_cross`` calls, one execution group (one fused launch)
+    each. Returns (per-group results, host-clock seconds of each)."""
     sids = [s for s in range(n_sessions) for _ in range(8)]
-    qe = rng.standard_normal((len(sids), dim)).astype(np.float32)
-    qe /= np.linalg.norm(qe, axis=-1, keepdims=True)
+    qe = unit_queries_np(len(sids), dim, 5)
+    texts = [f"what happens on camera {s} around event {j % 8}"
+             for j, s in enumerate(sids)]
     results, qtimes = {}, {}
-    for strat, kw in (("akr", {}),
-                      ("sampling", dict(budget=16, use_akr=False)),
-                      ("topk", dict(budget=8, strategy="topk"))):
+    for strat, kw in (("akr", dict(query_embs=qe)),
+                      ("sampling", dict(query_embs=qe, budget=16,
+                                        use_akr=False)),
+                      ("topk", dict(query_embs=qe, budget=8,
+                                    strategy="topk")),
+                      ("text", dict(texts=texts))):
         t0 = time.perf_counter()
-        results[strat] = mgr.query_batch_cross(sids, query_embs=qe, **kw)
+        results[strat] = mgr.query_batch_cross(sids, **kw)
         qtimes[strat] = time.perf_counter() - t0
     return results, qtimes
+
+
+class TimedEmbedder:
+    """Wraps an embedder and adds up the host-clock seconds and frames of
+    its ``embed_frames`` calls (each ends in a device→host copy, so the
+    device work is inside)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.seconds = 0.0
+        self.frames = 0
+
+    def embed_frames(self, frames, aux_texts=None, frame_ids=None):
+        t0 = time.perf_counter()
+        out = self.inner.embed_frames(frames, aux_texts, frame_ids=frame_ids)
+        self.seconds += time.perf_counter() - t0
+        self.frames += len(out)
+        return out
+
+    def embed_queries(self, texts):
+        return self.inner.embed_queries(texts)
 
 
 def run_main_path(worlds, cfg, embedder, dim, card, label):
@@ -303,14 +487,138 @@ def check_results(mgr, worlds, results, label):
                   f"{label}: {strat} frame ids outside [0, {seen})")
 
 
+DENSE_GROUPS = (("uniform", 16), ("bolt", 16), ("mdf", 16), ("aks", 16),
+                ("akr", None), ("sampling", 16), ("topk", 8))
+
+
+def phase_dense(mgr, worlds, card):
+    """The dense query path on the main manager: one group per strategy
+    through ``execute(plan, fused=False)`` (uniform, BOLT, MDF and AKS
+    take the dense scan whatever the flag), then ``memory.search`` once
+    per session, with the launch counts read around exactly that. Then
+    the akr/sampling/topk specs again through the fused path (outside the
+    count): the share of queries with equal frame ids."""
+    import torch
+    from repro_torch.core.queryplan import QuerySpec
+    from repro_torch.kernels import ops
+    sids = [s for s in range(len(worlds)) for _ in range(8)]
+    qe = unit_queries_np(len(sids), D, 6)
+    # explicit seeds: the fused comparison below sees the same keys
+    specs = {name: [QuerySpec(sid=s, embedding=qe[j], strategy=name,
+                              budget=b, seed=1000 + j)
+                    for j, s in enumerate(sids)]
+             for name, b in DENSE_GROUPS}
+    secs, results = {}, {}
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    ops.reset_scan_counts()
+    for name, _ in DENSE_GROUPS:
+        t0 = time.perf_counter()
+        results[name] = mgr.execute(mgr.plan(specs[name]), fused=False)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    searched = [mgr[sid].memory.search(qe[8 * sid:8 * sid + 8], tau=TAU)
+                for sid in range(len(worlds))]
+    torch.cuda.synchronize()
+    secs["search"] = time.perf_counter() - t0
+    launches = ops.kernel_launches()
+    counts = ops.scan_counts()
+    n_groups, n_sess = len(DENSE_GROUPS), len(worlds)
+    check(launches["similarity_scan_stack"] == n_groups,
+          f"one dense scan per group: {launches}")
+    check(launches["similarity_scan"] == n_sess,
+          f"one 2-D scan per search: {launches}")
+    check(launches["fused_retrieve"] == 0, f"no fused launch: {launches}")
+    check(counts["dense_score_launches"] == n_groups + n_sess
+          and counts["fused_draw_launches"] == 0, f"scan counts {counts}")
+    check(mgr.io_stats["stack_rebuilds"] == 0, "dense stack_rebuilds == 0")
+    check_results(mgr, worlds, results, "dense")
+    cap = mgr.cfg.memory_capacity
+    for sid, (sims, probs) in enumerate(searched):
+        check(sims.shape == probs.shape == (8, cap)
+              and bool(torch.isfinite(probs).all()), f"search {sid} shape")
+        check(torch.allclose(probs.sum(-1), torch.ones(8, device="cuda"),
+                             atol=1e-4), f"search {sid}: probs sum to 1")
+    same = {}
+    for name in ("akr", "sampling", "topk"):
+        fused = mgr.execute(mgr.plan(specs[name]))
+        same[name] = sum(a.frame_ids.tolist() == b.frame_ids.tolist()
+                         for a, b in zip(fused, results[name])) / len(fused)
+    print(f"phase dense: ok  launches {launches}  seconds "
+          f"{ {k: round(v, 6) for k, v in secs.items()} }  share of queries "
+          f"with the fused path's frame ids {same}  [{card}]", flush=True)
+    return dict(launches=launches, seconds=secs, same_as_fused=same)
+
+
+def _mem_with_dtype(cfg, dtype: str):
+    import dataclasses
+    return dataclasses.replace(
+        cfg, text=dataclasses.replace(cfg.text, dtype=dtype),
+        vision=dataclasses.replace(cfg.vision, dtype=dtype))
+
+
+def _cosine(a, b):
+    import numpy as np
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                              * np.linalg.norm(b, axis=-1))
+
+
+def phase_mem(mem, frames_np):
+    """MEM on the card: at smoke width in float32 against the port on the
+    CPU with the same weights; at full width the bf16 embeddings against
+    float32 ones of the same weights, both on the card."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs.venus_mem import smoke_config
+    from repro_torch.core.pipeline import MEMEmbedder
+    from repro_torch.models.mem import MEM
+    texts = ["a person opens the door", "red car", "",
+             "two dogs run across the wet grass"]
+    small = MEM.init(_mem_with_dtype(smoke_config(), "float32"), seed=1,
+                     device="cpu")
+    on_cpu = MEMEmbedder(small)
+    on_card = MEMEmbedder(copy.deepcopy(small).to("cuda"))
+    small_frames = frames_np[:3, :64, :64]
+    err = 0.0
+    for what, a, b in (
+            ("frames", on_card.embed_frames(small_frames),
+             on_cpu.embed_frames(small_frames)),
+            ("texts", on_card.embed_queries(texts),
+             on_cpu.embed_queries(texts))):
+        check(np.allclose(a, b, rtol=1e-4, atol=1e-5),
+              f"mem smoke {what}: max abs err {np.abs(a - b).max()}")
+        err = max(err, float(np.abs(a - b).max()))
+    full32 = MEM.init(_mem_with_dtype(mem.cfg, "float32"), device="cuda")
+    full32.load_state_dict(mem.state_dict())
+    frames = torch.from_numpy(frames_np[:4])
+    cos = {}
+    for what, run in (("frames", lambda e: e.embed_frames(frames)),
+                      ("texts", lambda e: e.embed_queries(texts))):
+        a, b = run(MEMEmbedder(mem)), run(MEMEmbedder(full32))
+        check(a.shape == b.shape and np.isfinite(a).all(),
+              f"mem full {what}: shape / finite")
+        cos[what] = float(_cosine(a, b).min())
+        check(cos[what] >= 0.9999, f"mem full {what}: bf16 vs f32 cosine "
+              f"{cos[what]}")
+    del full32
+    print(f"phase mem: ok  smoke f32 card vs cpu max abs err {err:.3e}  "
+          f"venus-mem-large bf16 vs f32 min cosine {cos}", flush=True)
+    return dict(smoke_max_abs_err=err, full_min_cosine=cos)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from repro_torch.configs.venus_mem import config as mem_config
+    from repro_torch.core.pipeline import MEMEmbedder
     from repro_torch.core.session import VenusConfig
     from repro_torch.data.video import PixelEmbedder
     from repro_torch.kernels import build, ops
+    from repro_torch.models.mem import MEM
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -344,70 +652,121 @@ def main() -> int:
           f"{t_triton:.2f} s  (worlds generated in {t_worlds:.2f} s)",
           flush=True)
 
-    # 2-3. each kernel against its plain version
+    # 2-4. each kernel against its plain version
     fused = phase_fused(gen)
+    sim = phase_similarity(gen)
     scene = phase_scene(frames65)
 
-    # 4. the main path, with every launch counter read around it
+    # 5. the main path, with every launch counter read around it
     cfg = VenusConfig()
+    t0 = time.perf_counter()
+    mem = MEM.init(mem_config(), seed=0, device="cuda")
+    embedder = TimedEmbedder(MEMEmbedder(mem))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
     ops.reset_kernel_launches()
     ops.reset_scan_counts()
-    mgr, results, times = run_main_path(worlds, cfg, PixelEmbedder(dim=D),
-                                        D, card, "main")
+    mgr, results, times = run_main_path(worlds, cfg, embedder, D, card,
+                                        "main")
     torch.cuda.synchronize()
     launches = ops.kernel_launches()
     counts = ops.scan_counts()
-    check(launches["fused_retrieve"] == 3,
+    check(launches["fused_retrieve"] == 4,
           f"one fused launch per group: {launches}")
     check(launches["scene_score"] > 0, f"scene score launched: {launches}")
-    check(counts["fused_draw_launches"] == 3, f"scan counts {counts}")
+    check(counts["fused_draw_launches"] == 4, f"scan counts {counts}")
     check(mgr.io_stats["stack_rebuilds"] == 0, "stack_rebuilds == 0")
     check(mgr.arena.emb.shape == (S, cfg.memory_capacity, D),
           f"arena shape {tuple(mgr.arena.emb.shape)}")
     check_results(mgr, worlds, results, "main")
+    n_emb = sum(mgr[s].stats["frames_embedded"] for s in range(S))
+    check(embedder.frames == n_emb, f"embedded {embedder.frames} != {n_emb}")
     rows = [mgr[s].memory.size for s in range(S)]
+    times["embed"] = dict(seconds=embedder.seconds, frames=n_emb,
+                          frames_per_s=n_emb / embedder.seconds,
+                          init_seconds=t_init)
     print(f"phase main: ok  launches {launches}  stack_rebuilds 0  "
-          f"rows per session {rows}", flush=True)
+          f"rows per session {rows}  MEM embed (venus-mem-large, bf16) "
+          f"{embedder.seconds:.3f} s for {n_emb} frames = "
+          f"{n_emb / embedder.seconds:.1f} frames/s (init {t_init:.2f} s) "
+          f"[{card}]", flush=True)
+
+    # 6. the dense query path on the main manager
+    dense = phase_dense(mgr, worlds, card)
     del mgr
 
+    # 7. the int8 arena
     ops.reset_kernel_launches()
     mgr8, res8, _ = run_main_path(
         worlds, VenusConfig(index_dtype="int8"), PixelEmbedder(dim=D), D,
         card, "main_int8")
     l8 = ops.kernel_launches()
-    check(l8["fused_retrieve"] == 3 and l8["scene_score"] > 0,
+    check(l8["fused_retrieve"] == 4 and l8["scene_score"] > 0,
           f"int8 launches {l8}")
     check(mgr8.io_stats["stack_rebuilds"] == 0, "int8 stack_rebuilds")
     check_results(mgr8, worlds, res8, "main_int8")
     print(f"phase main_int8: ok  launches {l8}", flush=True)
     del mgr8
 
-    # 5. a small input through the card and through the plain versions
+    # 8. MEM card vs CPU, and bf16 vs f32
+    mem_out = phase_mem(mem, worlds[1].frames[:4])
+    del mem, embedder
+
+    # 9. a small input through the card and through the plain versions
     phase_parity()
 
+    dl = dense["launches"]
+
+    def scan_row(name, replaces, r, n_launch):
+        return dict(name=name, route="cuda",
+                    source="src/repro_torch/kernels/csrc/similarity_scan.cu",
+                    replaces=replaces, launches=n_launch,
+                    max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    device_ms=r["device_ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    library_note="torch.bmm/mm over operands normalised "
+                                 "beforehand: sims only")
+    stack_row = scan_row("similarity_scan_stack",
+                         "src/repro/kernels/similarity.py:244", sim["f32"],
+                         dl["similarity_scan_stack"])
+    stack_row.update(
+        max_abs_err=max(sim[c]["max_abs_err"]
+                        for c in ("f32", "int8", "f32_windows")),
+        int8_ms=sim["int8"]["ms"], int8_device_ms=sim["int8"]["device_ms"],
+        int8_bound_ms=sim["int8"]["bound_ms"],
+        int8_library_ms=sim["int8"]["library_ms"],
+        windows_ms=sim["f32_windows"]["ms"])
     kernels = [dict(
         name="fused_retrieve", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_retrieve.cu",
         replaces="src/repro/kernels/similarity.py:422",
         launches=launches["fused_retrieve"],
         max_abs_err=max(v["max_abs_err"] for v in fused.values()),
-        ms=fused["f32"]["ms"], plain_ms=fused["f32"]["plain_ms"],
+        ms=fused["f32"]["ms"], device_ms=fused["f32"]["device_ms"],
+        plain_ms=fused["f32"]["plain_ms"],
         bound_ms=fused["f32"]["bound_ms"], bound_by=fused["f32"]["bound_by"],
         library_ms=None, int8_ms=fused["int8"]["ms"],
+        int8_device_ms=fused["int8"]["device_ms"],
         int8_bound_ms=fused["int8"]["bound_ms"],
         windows_ms=fused["f32_windows"]["ms"]),
+        stack_row,
+        scan_row("similarity_scan", "src/repro/kernels/similarity.py:148",
+                 sim["2d"], dl["similarity_scan"]),
         dict(name="scene_score", route="triton",
              source="src/repro_torch/kernels/scene_score.py",
              replaces="src/repro/kernels/scene_score.py:75",
              launches=launches["scene_score"],
              max_abs_err=scene["max_abs_err"], ms=scene["ms"],
+             device_ms=scene["device_ms"],
              plain_ms=scene["plain_ms"], bound_ms=scene["bound_ms"],
              bound_by=scene["bound_by"], library_ms=None)]
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, kernels=kernels, fused=fused, scene=scene,
-                       main=times), f, indent=1)
+        json.dump(dict(card=card, kernels=kernels, fused=fused,
+                       similarity=sim, scene=scene, main=times, dense=dense,
+                       mem=mem_out), f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

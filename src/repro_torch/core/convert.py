@@ -1,18 +1,52 @@
-"""State carried across from the reference: the memory arena is this
-slice's "weights". ``arena_from_numpy`` builds a port ``SessionManager``
-whose arena and session state are exactly the reference arena's arrays,
-so both packages can be queried over identical memory, independent of
-ingest.
+"""State carried across from the reference, as numpy arrays:
+
+* ``arena_from_numpy`` builds a port ``SessionManager`` whose arena and
+  session state are exactly the reference arena's arrays, so both
+  packages can be queried over identical memory, independent of ingest;
+* ``mem_params_from_numpy`` turns the reference's ``MEM.init`` parameter
+  tree into the port's ``MEM`` state dict.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.session import SessionManager, VenusConfig
+
+_TOWER_LEAVES = ("embed", "pos_embed")
+
+
+def mem_params_from_numpy(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """The reference's MEM parameter tree (nested dicts of numpy arrays:
+    ``text``/``vision`` towers with layer-stacked ``dense_blocks``, the
+    two projections, ``logit_scale``/``logit_bias``) → a state dict for
+    ``models.mem.MEM.load_state_dict``. The stacked layer axis is split
+    into ``blocks.<i>``; the towers' unused ``lm_head`` is dropped;
+    arrays keep their dtype (``param_dtype``)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(key, x):
+        out[key] = torch.from_numpy(np.array(x))
+
+    for tower in ("text", "vision"):
+        t = tree[tower]
+        for leaf in _TOWER_LEAVES:
+            if leaf in t:
+                put(f"{tower}.{leaf}", t[leaf])
+        for k, v in t["final_norm"].items():
+            put(f"{tower}.final_norm.{k}", v)
+        blocks = t["dense_blocks"]
+        n = len(np.asarray(blocks["ln1"]["w"]))
+        for i in range(n):
+            for group, leaves in blocks.items():
+                for k, v in leaves.items():
+                    put(f"{tower}.blocks.{i}.{group}.{k}", np.asarray(v)[i])
+    for k in ("text_proj", "vision_proj", "logit_scale", "logit_bias"):
+        put(k, tree[k])
+    return out
 
 
 def arena_from_numpy(cfg: VenusConfig, embedder, *, emb: np.ndarray,

@@ -11,7 +11,8 @@ raw data layer.
   every session's rows live in. A tick's appends land with one in-place
   ``index_put_`` per super-buffer, so the buffers ARE the fused scan's
   operand and no ingest↔query interleaving ever restacks anything.
-* ``MemoryStack`` / ``ArenaStackView`` — the stacked scan views.
+* ``MemoryStack`` / ``ArenaStackView`` — the stacked scan views: the
+  fused retrieval launch and the dense ``search``.
 
 Validity is a ``(head, size)`` ring window per session; the scans take
 ``(S, 2)`` windows and derive masks on the device. Eviction ``none``
@@ -543,6 +544,15 @@ class VenusMemory:
             return self.arena.emb[self.slot], valid
         return self._detached("emb"), valid
 
+    def search(self, query_emb, *, tau: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """query_emb (Q, d) → (sims (Q, cap), probs (Q, cap)), Eq. 4+5:
+        one 2-D dense scan of this memory's rows."""
+        emb, valid = self.device_index()
+        self.io_stats["scans"] += 1
+        q = torch.as_tensor(query_emb, dtype=torch.float32).to(self.device)
+        return kops.similarity(q, emb, tau=tau, valid=valid)
+
     def device_members(self) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.arena is not None:
             return (self.arena.members[self.slot],
@@ -635,6 +645,18 @@ class MemoryStack:
             [m.device_index_frames() for m in self.memories]),
             "index_frame_stack_builds")
 
+    def search(self, query_emb: torch.Tensor, *, tau: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """query_emb (S, Q, d) → (sims, probs) (S, Q, cap): every session
+        in ONE dense scan launch. Over the arena the (S, 2) ring windows
+        are the valid operand; the mask derives on the device."""
+        a = self.arena_view()
+        if a is not None:
+            return kops.similarity_stack(query_emb, a.emb, tau=tau,
+                                         valid=a.device_windows())
+        emb, valid = self.device_stack()
+        return kops.similarity_stack(query_emb, emb, tau=tau, valid=valid)
+
     def fused_retrieve(self, query_emb: torch.Tensor, targets: torch.Tensor,
                        *, tau: float, n_topk: int) -> kops.FusedRetrieval:
         """ONE fused launch over the stack: draws and top-k resolve inside
@@ -676,6 +698,12 @@ class ArenaStackView:
 
     def device_index_frames(self) -> torch.Tensor:
         return self.arena.index_frame
+
+    def search(self, query_emb: torch.Tensor, *, tau: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        a = self.arena
+        return kops.similarity_stack(query_emb, a.emb, tau=tau,
+                                     valid=a.device_windows())
 
     def fused_retrieve(self, query_emb: torch.Tensor, targets: torch.Tensor,
                        *, tau: float, n_topk: int) -> kops.FusedRetrieval:

@@ -5,16 +5,22 @@
   policy (``seed=None`` consumes the session's PRNG chain; an int
   derives a detached key).
 * **build_plan** — groups compatible specs into ``ExecutionGroup``s
-  (same strategy + resolved budget + parameters).
-* **execute_plan** — ONE fused retrieval launch per group
-  (``kops.fused_retrieve_stack``): draws, drawn probabilities and top-k
-  resolve inside the launch, then AKR's stop rule, the reservoir
-  expansion or the index-frame gather run on the device.
+  (same strategy + resolved budget + parameters) and, given the
+  sessions, rejects ``uniform`` against a window-evicting session.
+* **execute_plan** — ONE scan launch per group. Sampling, AKR and top-k
+  groups take the fused retrieval launch (``kops.fused_retrieve_stack``):
+  draws, drawn probabilities and top-k resolve inside it. BOLT, MDF, AKS
+  and uniform consume dense scores or embeddings, so their groups take
+  the dense ``stack.search`` launch (``kops.similarity_stack``);
+  ``fused=False`` sends every group there. Both give the same frame
+  ids: the dense path draws with the same canonical CDF over the same
+  probabilities.
 
-The registry holds the three strategies the fused launch answers:
-``sampling`` and ``akr`` (expand through the member reservoirs) and
-``topk`` (expand through the index_frame table). The dense strategies
-(BOLT, MDF, AKS, uniform) and ``fused=False`` belong to the next slice.
+Strategies live in a registry (``register_strategy`` / ``get_strategy``)
+behind one batched interface over ``(S, Q, cap)`` scan outputs. Each
+declares how its draws become frame ids: ``members`` (reservoir picks:
+sampling, AKR), ``index`` (the slot's index frame: top-k, BOLT, MDF,
+AKS) or ``raw`` (draws are frame ids: uniform).
 
 PRNG discipline: within a group, lanes are visited in scan-lane order and
 each session's chain advances by exactly its own chain-policy query
@@ -26,7 +32,8 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, Mapping, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -34,8 +41,6 @@ import torch
 from repro_torch.core import retrieval as rt
 from repro_torch.core.memory import VenusMemory, expand_gather
 from repro_torch.kernels import prng
-
-_LATER = ("uniform", "bolt", "mdf", "aks")
 
 
 @dataclass(frozen=True)
@@ -59,45 +64,6 @@ class GroupKey(NamedTuple):
     tau: float
     theta: float
     beta: float
-
-
-@dataclass(frozen=True)
-class RetrievalStrategy:
-    """A retrieval rule the fused launch answers. ``expand`` says how its
-    draws become frame ids: ``members`` (reservoir picks) or ``index``
-    (the slot's index frame)."""
-    name: str
-    stochastic: bool              # consumes the session PRNG chain
-    expand: str                   # "members" | "index"
-
-
-_REGISTRY: Dict[str, RetrievalStrategy] = {}
-
-
-def register_strategy(strategy: RetrievalStrategy) -> RetrievalStrategy:
-    assert strategy.name not in _REGISTRY, strategy.name
-    _REGISTRY[strategy.name] = strategy
-    return strategy
-
-
-def get_strategy(name: str) -> RetrievalStrategy:
-    if name in _LATER:
-        raise NotImplementedError(
-            f"strategy {name!r} needs the dense similarity scan, which is "
-            f"the next slice of the port (ROADMAP.md, Queue 2 items 3-4)")
-    try:
-        return _REGISTRY[name]
-    except KeyError:
-        raise KeyError(f"unknown retrieval strategy {name!r}; "
-                       f"registered: {sorted(_REGISTRY)}") from None
-
-
-register_strategy(RetrievalStrategy("sampling", stochastic=True,
-                                    expand="members"))
-register_strategy(RetrievalStrategy("akr", stochastic=True,
-                                    expand="members"))
-register_strategy(RetrievalStrategy("topk", stochastic=False,
-                                    expand="index"))
 
 
 @dataclass
@@ -141,16 +107,33 @@ class QueryPlan:
         return "\n".join(lines)
 
 
-def build_plan(specs: Sequence[QuerySpec], cfg) -> QueryPlan:
+def build_plan(specs: Sequence[QuerySpec], cfg,
+               sessions: Optional[Mapping[int, object]] = None
+               ) -> QueryPlan:
     """Group compatible specs; groups come in first-appearance order,
     each session's queries keep arrival order. ``cfg`` supplies the
-    ``tau``/``theta``/``beta``/``n_max`` defaults."""
+    ``tau``/``theta``/``beta``/``n_max`` defaults. Given ``sessions``
+    (sid → session state, the ``SessionManager.plan`` path), ``uniform``
+    against a window-evicting session is rejected here: it draws
+    arbitrary archive frame ids, and such a session's trimmed frames are
+    gone (the port has no spill tier to fault them back)."""
     specs = list(specs)
     groups: Dict[GroupKey, ExecutionGroup] = {}
     for j, spec in enumerate(specs):
         if spec.text is None and spec.embedding is None:
             raise ValueError(f"spec {j}: needs text or embedding")
         strat = get_strategy(spec.strategy)
+        if strat.name == "uniform" and sessions is not None:
+            st = sessions.get(int(spec.sid))
+            policy = st.memory.eviction.name if st is not None else "none"
+            if policy != "none":
+                raise ValueError(
+                    f"spec {j}: strategy 'uniform' draws arbitrary "
+                    f"archive frame ids, but session {spec.sid} evicts "
+                    f"with policy '{policy}' and its trimmed frames are "
+                    f"deleted, so uniform reads would IndexError in "
+                    f"FrameStore.get. Use another strategy or keep the "
+                    f"session on eviction='none'.")
         key = GroupKey(
             strategy=strat.name,
             budget=int(spec.budget if spec.budget is not None
@@ -167,12 +150,163 @@ def build_plan(specs: Sequence[QuerySpec], cfg) -> QueryPlan:
     return QueryPlan(specs=specs, groups=list(groups.values()))
 
 
+# ---------------------------------------------------------------------------
+# Strategy registry: every retrieval.py selection rule, batched
+# ---------------------------------------------------------------------------
+
+
+class StrategyContext(NamedTuple):
+    """Everything a strategy may post-process after the ONE dense scan."""
+    sims: torch.Tensor            # (S, Q, cap) cosine similarities
+    probs: torch.Tensor           # (S, Q, cap) temperature softmax
+    valid: torch.Tensor           # (S, cap) per-session slot validity
+    emb: torch.Tensor             # (S, cap, d) index embedding stack
+    keys: Optional[np.ndarray]    # (S, Q, 2) key data (stochastic only)
+    total_frames: np.ndarray      # (S,) raw frames seen per session
+    key: GroupKey                 # resolved strategy/budget/params
+    qcount: np.ndarray            # (S,) real (non-padding) queries
+
+
+class StrategyOutput(NamedTuple):
+    draws: torch.Tensor           # (S, Q, n) int32 — see strategy.expand
+    valid: torch.Tensor           # (S, Q, n) bool — slot actually drawn
+    n_drawn: np.ndarray           # (S, Q) int
+    mass: np.ndarray              # (S, Q) float (nan if undefined)
+
+
+@dataclass(frozen=True)
+class RetrievalStrategy:
+    """A retrieval rule behind the common batched interface: ``run``
+    post-processes the dense scan outputs into draws, which the executor
+    expands as ``expand`` says. (The reference's ``run_expand`` fused the
+    selection and the reservoir gather into one jit program; run eagerly,
+    the two steps are the same launches either way.)"""
+    name: str
+    stochastic: bool              # consumes the session PRNG chain
+    expand: str                   # "members" | "index" | "raw"
+    run: Callable[[StrategyContext], StrategyOutput]
+
+    def __post_init__(self):
+        if self.expand not in ("members", "index", "raw"):
+            raise ValueError(f"unknown expand kind {self.expand!r}")
+
+
+_REGISTRY: Dict[str, RetrievalStrategy] = {}
+
+
+def register_strategy(strategy: RetrievalStrategy) -> RetrievalStrategy:
+    if strategy.name in _REGISTRY:
+        raise ValueError(f"strategy {strategy.name!r} already registered")
+    _REGISTRY[strategy.name] = strategy
+    return strategy
+
+
+def get_strategy(name: str) -> RetrievalStrategy:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown retrieval strategy {name!r}; "
+                       f"registered: {sorted(_REGISTRY)}") from None
+
+
+def _fill(sq, n_drawn) -> Tuple[np.ndarray, np.ndarray]:
+    return np.full(sq, n_drawn), np.full(sq, np.nan)
+
+
+# --- Venus sampling / AKR (expand through member reservoirs) ---------------
+
+
+def _run_sampling(ctx: StrategyContext) -> StrategyOutput:
+    n = ctx.key.budget
+    draws = rt.sampling_retrieve(ctx.probs, ctx.keys, n)
+    return StrategyOutput(draws, torch.ones_like(draws, dtype=torch.bool),
+                          *_fill(draws.shape[:2], n))
+
+
+def _run_akr(ctx: StrategyContext) -> StrategyOutput:
+    k = ctx.key
+    akr = rt.akr_progressive(ctx.probs, ctx.keys, theta=k.theta,
+                             beta=k.beta, n_max=k.budget)
+    return StrategyOutput(akr.draws, akr.valid, akr.n_drawn.cpu().numpy(),
+                          akr.mass.cpu().numpy())
+
+
+# --- baselines (expand via the index_frame table, or raw frame ids) --------
+
+
+def _run_topk(ctx: StrategyContext) -> StrategyOutput:
+    k = ctx.key.budget
+    draws = rt.topk_retrieve_batch(ctx.sims, ctx.valid, k)
+    return StrategyOutput(draws, torch.ones_like(draws, dtype=torch.bool),
+                          *_fill(draws.shape[:2], k))
+
+
+def _per_session(per_s: torch.Tensor, ctx: StrategyContext, n: int
+                 ) -> StrategyOutput:
+    """A query-agnostic rule's (S, n) draws, broadcast to every query."""
+    s, q = ctx.sims.shape[:2]
+    draws = per_s[:, None, :].expand(s, q, n)
+    return StrategyOutput(draws, torch.ones_like(draws, dtype=torch.bool),
+                          *_fill((s, q), n))
+
+
+def _run_uniform(ctx: StrategyContext) -> StrategyOutput:
+    n = ctx.key.budget
+    return _per_session(rt.uniform_retrieve_batch(
+        ctx.total_frames, n, device=ctx.sims.device), ctx, n)
+
+
+def _run_bolt(ctx: StrategyContext) -> StrategyOutput:
+    n = ctx.key.budget
+    draws = rt.bolt_inverse_transform_batch(ctx.sims, ctx.valid, n,
+                                            tau=ctx.key.tau)
+    return StrategyOutput(draws, torch.ones_like(draws, dtype=torch.bool),
+                          *_fill(draws.shape[:2], n))
+
+
+def _run_mdf(ctx: StrategyContext) -> StrategyOutput:
+    n = ctx.key.budget
+    return _per_session(rt.mdf_retrieve_batch(ctx.emb, ctx.valid, n),
+                        ctx, n)
+
+
+def _run_aks(ctx: StrategyContext) -> StrategyOutput:
+    """AKS's recursive budget split reads per-region masses back to the
+    host, so it runs lane by lane — over real queries only; padding lanes
+    stay 0. The group still costs one scan."""
+    n = ctx.key.budget
+    s, q = ctx.sims.shape[:2]
+    draws = torch.zeros((s, q, n), dtype=torch.int32, device=ctx.sims.device)
+    for si in range(s):
+        for qi in range(int(ctx.qcount[si])):
+            draws[si, qi] = rt.aks_retrieve(ctx.sims[si, qi], ctx.valid[si],
+                                            n)
+    return StrategyOutput(draws, torch.ones_like(draws, dtype=torch.bool),
+                          *_fill((s, q), n))
+
+
+register_strategy(RetrievalStrategy(
+    "sampling", stochastic=True, expand="members", run=_run_sampling))
+register_strategy(RetrievalStrategy(
+    "akr", stochastic=True, expand="members", run=_run_akr))
+register_strategy(RetrievalStrategy(
+    "topk", stochastic=False, expand="index", run=_run_topk))
+register_strategy(RetrievalStrategy(
+    "uniform", stochastic=False, expand="raw", run=_run_uniform))
+register_strategy(RetrievalStrategy(
+    "bolt", stochastic=False, expand="index", run=_run_bolt))
+register_strategy(RetrievalStrategy(
+    "mdf", stochastic=False, expand="index", run=_run_mdf))
+register_strategy(RetrievalStrategy(
+    "aks", stochastic=False, expand="index", run=_run_aks))
+
+
 @dataclass
 class QueryResult:
     frame_ids: np.ndarray          # selected raw-frame ids (deduplicated
-    #                                for reservoir strategies, rank order
-    #                                for top-k)
-    draws: np.ndarray              # index draws
+    #                                for reservoir strategies; rank or
+    #                                time order kept for the baselines)
+    draws: np.ndarray              # index draws (frame ids for "raw")
     n_drawn: int
     mass: float
     timings: Dict[str, float]
@@ -185,12 +319,9 @@ class QueryResult:
 
 def execute_plan(manager, plan: QueryPlan, *, fused: bool = True
                  ) -> List[QueryResult]:
-    """Run every group: ONE fused scan launch each. Results come back in
-    the plan's spec order."""
-    if not fused:
-        raise NotImplementedError(
-            "fused=False runs the dense similarity scan, which is the next "
-            "slice of the port (ROADMAP.md, Queue 2 items 3-4)")
+    """Run every group: ONE scan launch each — the fused retrieval scan
+    for sampling/AKR/top-k groups when ``fused``, the dense scan
+    otherwise. Results come back in the plan's spec order."""
     specs = plan.specs
     results: List[Optional[QueryResult]] = [None] * len(specs)
     t0 = time.perf_counter()
@@ -203,15 +334,19 @@ def execute_plan(manager, plan: QueryPlan, *, fused: bool = True
                     for i, j in enumerate(missing)}
     t_embed = time.perf_counter() - t0
     for group in plan.groups:
-        _execute_group(manager, group, specs, embedded, results, t_embed)
+        _execute_group(manager, group, specs, embedded, results, t_embed,
+                       fused=fused)
     return results
 
 
 def _group_keys(manager, group: ExecutionGroup, specs, qmax, lanes
-                ) -> np.ndarray:
-    """Key rows (L, qmax, 2) over the scan's lanes: chain-policy queries
-    consume their session's chain in arrival order, explicit seeds derive
-    detached keys, padding gets ``split(key(0), qmax - len)``."""
+                ) -> Optional[np.ndarray]:
+    """Key rows (L, qmax, 2) over the scan's lanes (None for a
+    deterministic strategy): chain-policy queries consume their session's
+    chain in arrival order, explicit seeds derive detached keys, padding
+    gets ``split(key(0), qmax - len)``."""
+    if not group.strategy.stochastic:
+        return None
     rows = []
     for sid in lanes:
         idxs = group.order.get(sid, ())
@@ -231,12 +366,44 @@ def _group_keys(manager, group: ExecutionGroup, specs, qmax, lanes
     return np.stack(rows)
 
 
+# Strategies the fused launch answers in-kernel: sampling and AKR consume
+# its draws (+ drawn probabilities for AKR's stop rule), top-k its
+# running top-k. The others consume dense scores or embeddings.
+_FUSED_STRATEGIES = ("sampling", "akr", "topk")
+
+
+def _fused_output(strat, k, fr, sq) -> StrategyOutput:
+    """The fused launch's draws as a strategy's output: top-k lanes,
+    sampling draws, or AKR's stop rule over the in-launch draw state."""
+    if strat.name == "topk":
+        draws = fr.topk_i
+        return StrategyOutput(draws, torch.ones_like(draws, dtype=torch.bool),
+                              *_fill(sq, draws.shape[-1]))
+    if strat.name == "sampling":
+        return StrategyOutput(fr.draws,
+                              torch.ones_like(fr.draws, dtype=torch.bool),
+                              *_fill(sq, k.budget))
+    akr = rt.akr_from_draws(fr.draws, fr.drawn_p, fr.p_max[..., 0],
+                            theta=k.theta, beta=k.beta, n_max=k.budget)
+    return StrategyOutput(akr.draws, akr.valid, akr.n_drawn.cpu().numpy(),
+                          akr.mass.cpu().numpy())
+
+
+def _gather_index_frames(table: torch.Tensor, draws: torch.Tensor
+                         ) -> torch.Tensor:
+    """table (S, cap) index_frame ids; draws (S, Q, n) slots → frame ids
+    (S, Q, n), on the device."""
+    sidx = torch.arange(table.shape[0], device=table.device)[:, None, None]
+    return table[sidx, draws.long().clamp(0, table.shape[1] - 1)]
+
+
 def _execute_group(manager, group: ExecutionGroup, specs, embedded,
-                   results, t_embed: float) -> None:
+                   results, t_embed: float, *, fused: bool = True) -> None:
     cfg = manager.cfg
     dev = manager.device
     strat = group.strategy
     k = group.key
+    use_fused = fused and strat.name in _FUSED_STRATEGIES
     sids = group.sids
     lanes = manager.scan_lanes(sids)
     lane_of = {sid: si for si, sid in enumerate(lanes) if sid is not None}
@@ -244,25 +411,30 @@ def _execute_group(manager, group: ExecutionGroup, specs, embedded,
     timings: Dict[str, float] = {"embed_query": t_embed}
 
     q_stack = np.zeros((ln, qmax, manager.embed_dim), np.float32)
+    qcount = np.zeros((ln,), np.int32)
     for sid in sids:
+        qcount[lane_of[sid]] = len(group.order[sid])
         for qi, j in enumerate(group.order[sid]):
             spec = specs[j]
             q_stack[lane_of[sid], qi] = (
                 np.asarray(spec.embedding, np.float32)
                 if spec.embedding is not None else embedded[j])
+    keys = _group_keys(manager, group, specs, qmax, lanes)
 
-    # --- the ONE fused launch of this group ------------------------------
+    # --- the ONE scan launch of this group -------------------------------
     t0 = time.perf_counter()
-    if strat.stochastic:
-        keys = _group_keys(manager, group, specs, qmax, lanes)
-        targets = rt.targets_from_keys(keys, k.budget, dev)
-    else:           # top-k ignores the draw epilogue: one dummy target
-        targets = torch.zeros((ln, qmax, 1), dtype=torch.float32,
-                              device=dev)
-    n_topk = k.budget if strat.name == "topk" else 1
     stack = manager.memory_stack(lanes)
-    fr = stack.fused_retrieve(torch.from_numpy(q_stack).to(dev), targets,
-                              tau=k.tau, n_topk=n_topk)
+    q_dev = torch.from_numpy(q_stack).to(dev)
+    if use_fused:
+        if keys is not None:
+            targets = rt.targets_from_keys(keys, k.budget, dev)
+        else:       # top-k ignores the draw epilogue: one dummy target
+            targets = torch.zeros((ln, qmax, 1), dtype=torch.float32,
+                                  device=dev)
+        n_topk = k.budget if strat.name == "topk" else 1
+        fr = stack.fused_retrieve(q_dev, targets, tau=k.tau, n_topk=n_topk)
+    else:
+        sims, probs = stack.search(q_dev, tau=k.tau)
     if len(sids) == 1:   # single-session group: per-session accounting
         manager.io_stats["scans"] += 1
         manager.sessions[sids[0]].memory.io_stats["scans"] += 1
@@ -273,33 +445,29 @@ def _execute_group(manager, group: ExecutionGroup, specs, embedded,
 
     # --- strategy post-processing + expansion ----------------------------
     t0 = time.perf_counter()
-    sq = (ln, qmax)
-    if strat.name == "topk":
-        draws = fr.topk_i
-        table = stack.device_index_frames()
-        sidx = torch.arange(ln, device=dev)[:, None, None]
-        fids = table[sidx, draws.long().clamp(0, table.shape[1] - 1)]
-        ok = torch.ones(draws.shape, dtype=torch.bool, device=dev)
-        n_drawn, mass = np.full(sq, draws.shape[-1]), np.full(sq, np.nan)
+    if use_fused:
+        out = _fused_output(strat, k, fr, (ln, qmax))
     else:
+        emb_stack, valid = stack.device_stack()
+        out = strat.run(StrategyContext(
+            sims=sims, probs=probs, valid=valid, emb=emb_stack, keys=keys,
+            total_frames=np.asarray(
+                [manager.sessions[s].stats["frames_seen"]
+                 if s is not None else 0 for s in lanes], np.int64),
+            key=k, qcount=qcount))
+    ok = out.valid
+    if strat.expand == "members":
+        members, counts = stack.device_members()
         u = torch.from_numpy(VenusMemory.expand_u(cfg.seed, k.budget)
                              ).to(dev)
-        members, counts = stack.device_members()
-        if strat.name == "sampling":
-            draws = fr.draws
-            valid = torch.ones(draws.shape, dtype=torch.bool, device=dev)
-            n_drawn, mass = np.full(sq, k.budget), np.full(sq, np.nan)
-        else:                                               # akr
-            akr = rt.akr_from_draws(fr.draws, fr.drawn_p, fr.p_max[..., 0],
-                                    theta=k.theta, beta=k.beta,
-                                    n_max=k.budget)
-            draws, valid = akr.draws, akr.valid
-            n_drawn = akr.n_drawn.cpu().numpy()
-            mass = akr.mass.cpu().numpy()
-        fids, ok = expand_gather(members, counts, draws, valid, u)
+        fids, ok = expand_gather(members, counts, out.draws, out.valid, u)
         manager.io_stats["device_expands"] += 1
+    elif strat.expand == "index":
+        fids = _gather_index_frames(stack.device_index_frames(), out.draws)
+    else:                                   # raw: draws ARE frame ids
+        fids = out.draws
     fids_np, ok_np = fids.cpu().numpy(), ok.cpu().numpy()
-    draws_np = draws.cpu().numpy()
+    draws_np = out.draws.cpu().numpy()
     timings["sample_expand"] = time.perf_counter() - t0
 
     for sid in sids:
@@ -310,5 +478,5 @@ def _execute_group(manager, group: ExecutionGroup, specs, embedded,
                 lane = np.unique(lane)
             results[j] = QueryResult(
                 frame_ids=lane, draws=draws_np[si, qi],
-                n_drawn=int(n_drawn[si, qi]), mass=float(mass[si, qi]),
-                timings=dict(timings))
+                n_drawn=int(out.n_drawn[si, qi]),
+                mass=float(out.mass[si, qi]), timings=dict(timings))

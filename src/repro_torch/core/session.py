@@ -12,8 +12,10 @@ Per-stream stages over a ``SessionState``:
 
 ``SessionManager`` owns the streams, the embedder and the
 ``MemoryArena``; queries are planned (``plan``) and executed
-(``execute``) with ONE fused retrieval launch per execution group over
-the arena buffers, so ``io_stats["stack_rebuilds"]`` stays 0.
+(``execute``) with ONE scan launch per execution group over the arena
+buffers — the fused retrieval scan, or the dense scan for the
+baselines and ``fused=False`` — so ``io_stats["stack_rebuilds"]``
+stays 0.
 
 Entry points take ``device=``: CUDA by default, raising when there is no
 card; ``device="cpu"`` runs the plain versions of the kernels.
@@ -369,11 +371,14 @@ class SessionManager:
 
     # -------------------------------------------------------------- querying
     def plan(self, specs: Sequence[QuerySpec]) -> QueryPlan:
-        return build_plan(specs, self.cfg)
+        """Group specs; strategy ↔ session compatibility is checked
+        here (``uniform`` against a window-evicting session raises)."""
+        return build_plan(specs, self.cfg, self.sessions)
 
     def execute(self, plan: QueryPlan, *, fused: bool = True
                 ) -> List[QueryResult]:
-        """Run a plan: ONE fused retrieval launch per group."""
+        """Run a plan: ONE scan launch per group (``fused=False`` sends
+        sampling/AKR/top-k groups through the dense scan too)."""
         return execute_plan(self, plan, fused=fused)
 
     def query_specs(self, specs: Sequence[QuerySpec]) -> List[QueryResult]:
@@ -409,9 +414,10 @@ class SessionManager:
                           use_akr: bool = True,
                           strategy: Optional[str] = None
                           ) -> List[QueryResult]:
-        """Queries against several sessions through ONE fused scan;
+        """Queries against several sessions through ONE scan;
         ``sids[j]`` is query j's session. ``strategy`` overrides the
-        budget/use_akr rule (e.g. ``"topk"``)."""
+        budget/use_akr rule with any registered strategy (``"topk"``,
+        ``"bolt"``, ``"mdf"``, ``"aks"``, ``"uniform"``, …)."""
         sids = [int(s) for s in sids]
         strategy = strategy or self._legacy_strategy(budget, use_akr)
         if query_embs is not None:

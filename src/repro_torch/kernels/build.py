@@ -4,8 +4,9 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds, not minutes). Builds happen at
 first use, into ``repro_torch/_build/`` (listed in ``.gitignore``), keyed
-by a hash of the source so an edited kernel is rebuilt. ``build_all``
-starts one ``nvcc`` per source, all at once.
+by a hash of the source and the shared headers (``csrc/*.cuh``) so an
+edited kernel is rebuilt. ``build_all`` starts one ``nvcc`` per source,
+all at once.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Dict
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("fused_retrieve.cu",)
+SOURCES = ("fused_retrieve.cu", "similarity_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,9 +40,12 @@ def nvcc() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
 

@@ -36,36 +36,23 @@
 // order is (value desc, lane asc): ties go to the lowest lane and masked
 // lanes carry -1e30, exactly lax.top_k over the masked scores. The index
 // is read three times (passes 1, 2, 4); nothing O(S*Q*N) is stored.
+// The tile scores, the per-chunk stats and their merge come from
+// scan_tile.cuh, shared with the dense scan (similarity_scan.cu).
 // The C entry points return cudaGetLastError() after the launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scan_tile.cuh"
+
 namespace {
 
-constexpr int kBlk = 256;         // rows per tile == DRAW_BLK
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kQG = 8;            // queries per tile (== kWarps)
-constexpr int kRows = 4;          // rows per warp step
-constexpr float kNegInf = -1e30f;
-
-static_assert(kQG == kWarps, "one warp per query in the epilogues");
-
-template <typename T> struct Vec4;
-template <> struct Vec4<float> { using type = float4; };
-template <> struct Vec4<int8_t> { using type = char4; };
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+using scan::kBlk;
+using scan::kNegInf;
+using scan::kQG;
+using scan::kThreads;
+using scan::logit_of;
+using scan::merged_stats;
 
 // (value desc, lane asc): is (v, i) ahead of (w, j)?
 __device__ __forceinline__ bool ahead(float v, int i, float w, int j) {
@@ -83,104 +70,22 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
   }
 }
 
-__device__ __forceinline__ float logit_of(float sv, float tau) {
-  return sv > -1e29f ? sv / tau : kNegInf;
-}
-
 struct Geometry {
   int S, Q, N, d, T, K, nch, Qp;
   float tau;
 };
 
-// Load the tile's (up to) 8 unit queries into shared memory (zeros for
-// padding queries).
-__device__ void load_queries(const float* __restrict__ qn, float* qs,
-                             const Geometry& g, int s, int q0) {
-  for (int i = threadIdx.x; i < kQG * g.d; i += kThreads) {
-    const int qi = i / g.d, c = i - qi * g.d;
-    qs[i] = (q0 + qi < g.Q)
-                ? qn[(static_cast<size_t>(s) * g.Q + q0 + qi) * g.d + c]
-                : 0.f;
-  }
-}
-
-// Masked cosine scores of the tile's rows for its 8 queries:
-// sv[qi * kBlk + i] = valid ? cos : -1e30, for i < len.
+// The tile's masked scores: scan::tile_scores over session s's rows.
 template <typename T>
-__device__ void tile_scores(const T* __restrict__ xs,
-                            const uint8_t* __restrict__ vs,
-                            const float* qs, float* sv, int d, int c0,
-                            int len) {
-  using V = typename Vec4<T>::type;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int d4 = d >> 2;
-  const float4* qv = reinterpret_cast<const float4*>(qs);
-  for (int base = warp * kRows; base < len; base += kWarps * kRows) {
-    float acc[kRows][kQG];
-    float ss[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      ss[r] = 0.f;
-#pragma unroll
-      for (int qi = 0; qi < kQG; ++qi) acc[r][qi] = 0.f;
-    }
-    const V* rv[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = c0 + min(base + r, len - 1);   // clamp: no OOB read
-      rv[r] = reinterpret_cast<const V*>(xs + static_cast<size_t>(row) * d);
-    }
-    for (int v = lane; v < d4; v += 32) {
-      float4 x[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        V e = __ldg(rv[r] + v);
-        x[r] = make_float4(static_cast<float>(e.x), static_cast<float>(e.y),
-                           static_cast<float>(e.z), static_cast<float>(e.w));
-        ss[r] += x[r].x * x[r].x + x[r].y * x[r].y + x[r].z * x[r].z +
-                 x[r].w * x[r].w;
-      }
-#pragma unroll
-      for (int qi = 0; qi < kQG; ++qi) {
-        const float4 q = qv[qi * d4 + v];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          acc[r][qi] += q.x * x[r].x + q.y * x[r].y + q.z * x[r].z +
-                        q.w * x[r].w;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      ss[r] = warp_sum(ss[r]);
-#pragma unroll
-      for (int qi = 0; qi < kQG; ++qi) acc[r][qi] = warp_sum(acc[r][qi]);
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = base + r;
-        if (i < len) {
-          const bool ok = vs[c0 + i] != 0;
-          const float rs = rsqrtf(ss[r] + 1e-12f);
-#pragma unroll
-          for (int qi = 0; qi < kQG; ++qi)
-            sv[qi * kBlk + i] = ok ? acc[r][qi] * rs : kNegInf;
-        }
-      }
-    }
-  }
-}
-
-// M and L of one (session, query) lane, merged from the per-chunk
-// partials in chunk order — every caller gets the same bits.
-__device__ void merged_stats(const float* __restrict__ part_m,
-                             const float* __restrict__ part_l, size_t row,
-                             int nch, float& M, float& L) {
-  M = kNegInf;
-  for (int k = 0; k < nch; ++k) M = fmaxf(M, part_m[row * nch + k]);
-  L = 0.f;
-  for (int k = 0; k < nch; ++k)
-    L += part_l[row * nch + k] * expf(part_m[row * nch + k] - M);
+__device__ __forceinline__ void masked_scores(
+    const float* __restrict__ qn, const T* __restrict__ index,
+    const uint8_t* __restrict__ valid, const Geometry& g, float* qs,
+    float* sv, int s, int q0, int c0, int len) {
+  scan::load_queries(qn, qs, g.Q, g.d, s, q0);
+  __syncthreads();
+  scan::tile_scores<true>(index + static_cast<size_t>(s) * g.N * g.d,
+                          valid + static_cast<size_t>(s) * g.N, qs, sv, g.d,
+                          c0, len);
 }
 
 // ---- pass 1: per-chunk max / sum-exp partials ----
@@ -194,20 +99,11 @@ k_stats(const float* __restrict__ qn, const T* __restrict__ index,
   float* sv = qs + kQG * g.d;
   const int chunk = blockIdx.x, s = blockIdx.y, q0 = blockIdx.z * kQG;
   const int c0 = chunk * kBlk, len = min(kBlk, g.N - c0);
-  load_queries(qn, qs, g, s, q0);
-  __syncthreads();
-  tile_scores(index + static_cast<size_t>(s) * g.N * g.d,
-              valid + static_cast<size_t>(s) * g.N, qs, sv, g.d, c0, len);
+  masked_scores(qn, index, valid, g, qs, sv, s, q0, c0, len);
   __syncthreads();
   const int lane = threadIdx.x & 31, qi = threadIdx.x >> 5;
-  float m = kNegInf;
-  for (int i = lane; i < len; i += 32)
-    m = fmaxf(m, logit_of(sv[qi * kBlk + i], g.tau));
-  m = warp_max(m);
-  float l = 0.f;
-  for (int i = lane; i < len; i += 32)
-    l += expf(logit_of(sv[qi * kBlk + i], g.tau) - m);
-  l = warp_sum(l);
+  float m, l;
+  scan::tile_stats(sv, len, g.tau, m, l);
   if (lane == 0) {
     const size_t row = static_cast<size_t>(s) * g.Qp + q0 + qi;
     part_m[row * g.nch + chunk] = m;
@@ -238,10 +134,7 @@ k_chunk(const float* __restrict__ qn, const T* __restrict__ index,
   float* ps = sv + kQG * kBlk;
   const int chunk = blockIdx.x, s = blockIdx.y, q0 = blockIdx.z * kQG;
   const int c0 = chunk * kBlk, len = min(kBlk, g.N - c0);
-  load_queries(qn, qs, g, s, q0);
-  __syncthreads();
-  tile_scores(index + static_cast<size_t>(s) * g.N * g.d,
-              valid + static_cast<size_t>(s) * g.N, qs, sv, g.d, c0, len);
+  masked_scores(qn, index, valid, g, qs, sv, s, q0, c0, len);
   __syncthreads();
   const int lane = threadIdx.x & 31, qi = threadIdx.x >> 5;
   const size_t row = static_cast<size_t>(s) * g.Qp + q0 + qi;
@@ -347,7 +240,6 @@ k_draws(const float* __restrict__ qn, const T* __restrict__ index,
   const int chunk = blockIdx.x, s = blockIdx.y, q0 = blockIdx.z * kQG;
   const int c0 = chunk * kBlk, len = min(kBlk, g.N - c0);
   const int nq = min(kQG, g.Q - q0);
-  load_queries(qn, qs, g, s, q0);
   for (int i = threadIdx.x; i < kQG * g.T; i += kThreads) {
     const int qi = i / g.T, t = i - qi * g.T;
     ts[i] = qi < nq
@@ -355,9 +247,7 @@ k_draws(const float* __restrict__ qn, const T* __restrict__ index,
                 : 0.f;
     cnt[i] = 0;
   }
-  __syncthreads();
-  tile_scores(index + static_cast<size_t>(s) * g.N * g.d,
-              valid + static_cast<size_t>(s) * g.N, qs, sv, g.d, c0, len);
+  masked_scores(qn, index, valid, g, qs, sv, s, q0, c0, len);
   __syncthreads();
   const int tid = threadIdx.x, lane = tid & 31, qi = tid >> 5;
   const size_t row = static_cast<size_t>(s) * g.Qp + q0 + qi;
@@ -409,14 +299,6 @@ size_t bytes_tile(int d, int nbuf, int T) {
          sizeof(int) * static_cast<size_t>(kQG) * T;
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 template <typename T>
 int launch(const float* qn, const T* index, const uint8_t* valid,
            const float* targets, int S, int Q, int N, int d, int nt, int K,
@@ -431,9 +313,9 @@ int launch(const float* qn, const T* index, const uint8_t* valid,
   const size_t b1 = bytes_tile(d, 1, 0), b2 = bytes_tile(d, 2, 0),
                b4 = bytes_tile(d, 2, nt);
   cudaError_t e;
-  if ((e = allow_smem(k_stats<T>, b1)) != cudaSuccess) return e;
-  if ((e = allow_smem(k_chunk<T>, b2)) != cudaSuccess) return e;
-  if ((e = allow_smem(k_draws<T>, b4)) != cudaSuccess) return e;
+  if ((e = scan::allow_smem(k_stats<T>, b1)) != cudaSuccess) return e;
+  if ((e = scan::allow_smem(k_chunk<T>, b2)) != cudaSuccess) return e;
+  if ((e = scan::allow_smem(k_draws<T>, b4)) != cudaSuccess) return e;
   k_stats<T><<<grid, kThreads, b1, st>>>(qn, index, valid, g, part_m,
                                           part_l);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;

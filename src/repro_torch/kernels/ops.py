@@ -6,16 +6,17 @@ PyTorch version. There is no backend switch and no fallback.
 
 The scan counters keep the reference's 11 names (``repro.kernels.ops``)
 so the same invariants read the same way in both packages; the ones of
-paths outside this slice (sharding, the coarse tier, standing queries)
-stay at 0.
+paths outside the port so far (sharding, the coarse tier, standing
+queries) stay at 0.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.kernels import scene_score as _scene
 from repro_torch.kernels import similarity as _sim
 
@@ -36,16 +37,52 @@ def reset_scan_counts() -> None:
         _scan_counts[k] = 0
 
 
+_KERNELS = {"fused_retrieve": _sim.fused_retrieve_scan_stack,
+            "similarity_scan_stack": _sim.similarity_scan_stack,
+            "similarity_scan": _sim.similarity_scan,
+            "scene_score": _scene.scene_score}
+
+
 def kernel_launches() -> dict:
     """Launch count of each hand-written kernel (bumped where the kernel
     is launched, never on the plain path)."""
-    return {"fused_retrieve": _sim.fused_retrieve_scan_stack.launches,
-            "scene_score": _scene.scene_score.launches}
+    return {name: fn.launches for name, fn in _KERNELS.items()}
 
 
 def reset_kernel_launches() -> None:
-    _sim.fused_retrieve_scan_stack.launches = 0
-    _scene.scene_score.launches = 0
+    for fn in _KERNELS.values():
+        fn.launches = 0
+
+
+def _count_scan(index: torch.Tensor) -> None:
+    _scan_counts["scan_bytes"] += index.numel() * index.element_size()
+
+
+def similarity(query, index, *, tau: float, valid
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """query (Q,d) × index (N,d) f32 or int8 + valid (N,) bool → (sims
+    (Q,N), probs (Q,N)): the 2-D dense scan (the kernel on the card, its
+    plain version on the CPU) and the probability epilogue."""
+    _scan_counts["similarity"] += 1
+    _scan_counts["dense_score_launches"] += 1
+    _count_scan(index)
+    valid = valid.to(index.device)
+    sims, m, l = _sim.similarity_scan(query, index, valid, tau=tau)
+    return sims, ref.scan_probs(sims, m, l, valid[None, :], tau)
+
+
+def similarity_stack(query, index, *, tau: float, valid
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-session dense scan in ONE launch: query (S,Q,d) × index
+    (S,N,d) f32 or int8 + valid in any canonical form → (sims (S,Q,N),
+    probs (S,Q,N)). The mask is built once, for the scan and the
+    epilogue. The sharded form is a later slice."""
+    _scan_counts["similarity_stack"] += 1
+    _scan_counts["dense_score_launches"] += 1
+    _count_scan(index)
+    vmask = ref.as_valid_mask(valid.to(index.device), index.shape[1])
+    sims, m, l = _sim.similarity_scan_stack(query, index, vmask, tau=tau)
+    return sims, ref.scan_probs(sims, m, l, vmask[:, None, :], tau)
 
 
 class FusedRetrieval(NamedTuple):
@@ -75,7 +112,7 @@ def fused_retrieve_stack(query, index, *, tau: float, valid, targets,
         raise ValueError(f"unknown tier {tier!r}")
     _scan_counts["similarity_stack"] += 1
     _scan_counts["fused_draw_launches"] += 1
-    _scan_counts["scan_bytes"] += index.numel() * index.element_size()
+    _count_scan(index)
     return finalize(_sim.fused_retrieve_scan_stack(
         query, index, valid, targets, tau=tau, n_topk=n_topk),
         index.shape[1])

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernels on the port's path.
 
 Each function is the correctness reference of one hand-written kernel
-(``similarity.py``: fused retrieval; ``scene_score.py``: scene score) and
-the path a CPU tensor takes through ``kernels.ops``. They may
+(``similarity.py``: fused retrieval and the dense scan;
+``scene_score.py``: scene score) and the path a CPU tensor takes through
+``kernels.ops``. They may
 materialise what the kernels keep on chip; what they return is exactly
 the kernels' contract.
 """
@@ -53,17 +54,43 @@ def _unit_rows(x: torch.Tensor) -> torch.Tensor:
     return x * torch.rsqrt((x * x).sum(-1, keepdim=True) + 1e-12)
 
 
-def similarity_stack_ref(query: torch.Tensor, index: torch.Tensor, *,
-                         tau: float, valid: torch.Tensor
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """query (S,Q,d); index (S,N,d) f32 or int8; valid in any canonical
-    form → (sims (S,Q,N) cosine, probs (S,Q,N) softmax of sims/τ over the
-    valid rows)."""
+def similarity_scan_stack_ref(query: torch.Tensor, index: torch.Tensor,
+                              valid: torch.Tensor, *, tau: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain version of the dense scan kernel: query (S,Q,d), index
+    (S,N,d) f32 or int8, valid in any canonical form → the raw triple
+    (sims (S,Q,N), m (S,Q,1), l (S,Q,1)), m and l the max and sum-exp of
+    the masked logits (an all-invalid session: m = -1e30, l = N)."""
     valid = as_valid_mask(valid, index.shape[1])
     sims = torch.matmul(_unit_rows(query), _unit_rows(index).transpose(1, 2))
     logits = torch.where(valid[:, None, :], sims / tau,
                          torch.full_like(sims, NEG_INF))
-    return sims, torch.softmax(logits, dim=-1)
+    m = logits.amax(-1, keepdim=True)
+    return sims, m, torch.exp(logits - m).sum(-1, keepdim=True)
+
+
+def similarity_scan_ref(query: torch.Tensor, index: torch.Tensor,
+                        valid: torch.Tensor, *, tau: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The 2-D raw triple: query (Q,d), index (N,d), valid (N,) bool →
+    (sims (Q,N), m (Q,1), l (Q,1))."""
+    sims, m, l = similarity_scan_stack_ref(query[None], index[None],
+                                           valid[None], tau=tau)
+    return sims[0], m[0], l[0]
+
+
+def scan_probs(sims: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+               valid: torch.Tensor, tau: float) -> torch.Tensor:
+    """The dense scan's probability epilogue, on both routes: exp(where(
+    valid, s/τ, -1e30) - m) / max(l, 1e-30), ``valid`` a mask
+    broadcastable to sims — the softmax of the masked logits, from the
+    kernel's m and l. τ is a device tensor so that s/τ is a true
+    division, the division the kernels make (a Python scalar becomes a
+    reciprocal multiply on the card); ``new_full`` makes it without a
+    host-to-device copy."""
+    logits = torch.where(valid, sims / sims.new_full((), tau), NEG_INF)
+    return torch.exp(logits - m) / torch.clamp(l, min=1e-30)
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +127,8 @@ def fused_retrieve_stack_ref(query: torch.Tensor, index: torch.Tensor,
     (S,N,d) f32 or int8, valid in any canonical form, targets (S,Q,T)."""
     n = index.shape[1]
     valid = as_valid_mask(valid, n)
-    sims, probs = similarity_stack_ref(query, index, tau=tau, valid=valid)
+    sims, m, l = similarity_scan_stack_ref(query, index, valid, tau=tau)
+    probs = scan_probs(sims, m, l, valid[:, None, :], tau)
     counts = raw_counts(probs, targets)
     clipped = counts.clamp(0, n - 1).to(torch.int64)
     drawn_p = torch.gather(probs, -1, clipped)
@@ -108,9 +136,6 @@ def fused_retrieve_stack_ref(query: torch.Tensor, index: torch.Tensor,
     neg = torch.full_like(sims, NEG_INF)
     topk_v, topk_i = topk_lowest_lane(
         torch.where(valid[:, None, :], sims, neg), n_topk)
-    logits = torch.where(valid[:, None, :], sims / tau, neg)
-    m = logits.amax(-1, keepdim=True)
-    l = torch.exp(logits - m).sum(-1, keepdim=True)
     return FusedRetrieveResult(counts, drawn_p, p_last, topk_v, topk_i, m,
                                l, probs.amax(-1, keepdim=True))
 

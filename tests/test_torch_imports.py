@@ -1,6 +1,8 @@
-"""Import hygiene of the PyTorch port: ``repro_torch`` and the imports of
+"""Import hygiene of the PyTorch port: every module of ``repro_torch``
+(kernels, core, models, configs, data) and the imports of
 ``chip_smoke.py`` load neither JAX nor anything of the reference package
-``repro``, and the entry points refuse to run on the CPU unless asked."""
+``repro``, and the entry points (the session manager, the façade, the
+MEM model) refuse to run on the CPU unless asked."""
 
 import os
 import subprocess
@@ -26,11 +28,14 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
 import torch
+from repro_torch.configs.venus_mem import smoke_config
 from repro_torch.core.session import SessionManager, VenusConfig
 from repro_torch.core.pipeline import VenusSystem
+from repro_torch.models.mem import MEM
 if not torch.cuda.is_available():
     for make in (lambda: SessionManager(VenusConfig(), None, 8),
-                 lambda: VenusSystem(VenusConfig(), None, 8)):
+                 lambda: VenusSystem(VenusConfig(), None, 8),
+                 lambda: MEM.init(smoke_config())):
         try:
             make()
         except RuntimeError as e:
@@ -49,6 +54,6 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
     n_modules, bad = lines[0].split(" ", 1)
-    assert int(n_modules) >= 15
+    assert int(n_modules) >= 29       # models/ and configs/ included
     assert bad == "[]", bad
     assert lines[-1] == "raises-ok"

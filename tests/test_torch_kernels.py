@@ -235,7 +235,9 @@ def test_fused_retrieve_ref_matches_reference(case):
     assert c["fused_draw_launches"] == 1 and c["similarity_stack"] == 1
     assert c["scan_bytes"] == index.size * index.dtype.itemsize
     # a CPU tensor takes the plain version: the kernel never launched
-    assert tops.kernel_launches() == {"fused_retrieve": 0, "scene_score": 0}
+    launches = tops.kernel_launches()
+    assert launches["fused_retrieve"] == 0
+    assert set(launches.values()) == {0}
 
 
 def test_fused_raw_contract_shapes():
