@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero):
+Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
+12, 7–9:
 
 1. build      — compile the CUDA kernels from ``src/repro_torch/kernels/
                 csrc`` (one nvcc per source, all started together) and the
@@ -45,10 +46,31 @@ Phases (any failure exits non-zero):
 9. parity     — a small input through the card and through the plain
                 versions on the CPU: the same partitions, clusters and
                 reservoirs, and identical frame ids when both query the
-                same memory.
+                same memory;
+10. decode    — the two decode-attention kernels against their plain
+                versions at the serving shapes (B=4 slots, C=2048 cache
+                rows, bf16 and f32; per-slot ragged masks with one slot of
+                a single valid row and one with none): GQA at Qwen2-VL-7B
+                (H=28, Hkv=4, D=128; also softcap 30 and q_per_kv=1), MLA
+                at MiniCPM3-4B (H=40, R=256, Dr=32). bf16 within one bf16
+                ulp (rtol 2^-7, atol 1e-6), f32 at rtol 1e-5 / atol 1e-6;
+11. serve     — ``VenusService`` over the main phase's manager (MEM
+                embedder, 16 streams) with a ``ServingEngine`` on
+                Qwen2-VL-7B at full width (bf16 weights and activations,
+                4 slots, max_len 2048): 8 ``StreamQuery``s, 12 new tokens
+                each; gqa_decode launches == 28 × decode steps; one decode
+                step's logits through the kernel against the same step
+                through the plain version (relative L2 error ≤ 2^-5);
+12. serve_mla — the engine on MiniCPM3-4B at full width (bf16): 8 text
+                requests of 8–64 tokens, 12 new tokens each;
+                mla_decode launches == 62 × decode steps; the same logits
+                check.
 
 Prints the card's name and power limit, one line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
+Every kernel's launch count is read around the phase that drives its path
+(main: fused retrieval and scene score; dense: the dense scans; serve and
+serve_mla: the decode kernels).
 """
 
 from __future__ import annotations
@@ -64,6 +86,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM, fp32 outside tensor cores
+BF16_TENSOR_FLOP_PER_S = 989e12    # H100 SXM, bf16 on the tensor cores
 S, N, D, Q, T, K = 16, 8192, 768, 8, 32, 8
 TAU = 0.1
 
@@ -105,9 +128,14 @@ def device_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(bytes_moved: float, flops: float):
+def bound_ms(bytes_moved: float, flops: float, tensor_flops: float = 0.0):
+    """The least time for the work: bytes at the memory rate, or the
+    operations at their peak rates — ``flops`` at the f32 rate,
+    ``tensor_flops`` (products of bf16 operands, which the tensor cores
+    compute exactly with f32 accumulation) at the bf16 tensor-core rate."""
     tb = bytes_moved / HBM_BYTES_PER_S * 1e3
-    tf = flops / FP32_FLOP_PER_S * 1e3
+    tf = (flops / FP32_FLOP_PER_S
+          + tensor_flops / BF16_TENSOR_FLOP_PER_S) * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -608,6 +636,398 @@ def phase_mem(mem, frames_np):
     return dict(smoke_max_abs_err=err, full_min_cosine=cos)
 
 
+BF16_TOL = dict(rtol=2 ** -7, atol=1e-6)     # one bf16 ulp
+F32_TOL = dict(rtol=1e-5, atol=1e-6)
+DEC_B, DEC_C = 4, 2048                      # serving slots, cache rows
+
+
+def decode_valid(dev):
+    """(4, 2048) ragged per-slot masks: all rows, a single row, none (the
+    mean-of-values case), 1500 rows."""
+    import torch
+    lens = torch.tensor([DEC_C, 1, 0, 1500], device=dev)
+    return torch.arange(DEC_C, device=dev)[None, :] < lens[:, None]
+
+
+def needed_rows(valid) -> int:
+    """Cache rows the masked softmax needs: the valid ones, and every row
+    of an all-invalid slot (its output is the mean of all values)."""
+    import torch
+    per = valid.sum(-1)
+    return int(torch.where(per == 0, valid.shape[-1], per).sum())
+
+
+def _kernel_check(name, got, want, tol, empty_slot, empty_mean):
+    import torch
+    a, b = got.float(), want.float()
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{name}: dtype/shape")
+    check(bool(torch.isfinite(a).all()), f"{name}: not finite")
+    check(torch.allclose(a, b, **tol),
+          f"{name}: max abs err {float((a - b).abs().max())}")
+    check(torch.allclose(a[empty_slot, 0], empty_mean.float(), rtol=1e-2,
+                         atol=1e-3), f"{name}: all-invalid slot is not the "
+          f"mean of the values")
+    return float((a - b).abs().max())
+
+
+def _opt_ms(wall, dev) -> str:
+    return "n/a" if wall is None else f"{wall:.4f} ms (device {dev:.4f} ms)"
+
+
+def phase_decode(gen):
+    """Kernels #5 and #6 against their plain versions at the serving
+    shapes, with their times, bounds and SDPA yardsticks."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    valid = decode_valid(dev)
+    rows = needed_rows(valid)
+    out = {}
+    b, c = DEC_B, DEC_C
+    # GQA at Qwen2-VL-7B: H=28, Hkv=4, D=128
+    for name, h, hkv, softcap, dt in (
+            ("bf16", 28, 4, 0.0, torch.bfloat16),
+            ("bf16_softcap30", 28, 4, 30.0, torch.bfloat16),
+            ("bf16_mha", 28, 28, 0.0, torch.bfloat16),
+            ("f32", 28, 4, 0.0, torch.float32)):
+        d = 128
+        q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, c, hkv, d), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, c, hkv, d), generator=gen, device=dev).to(dt)
+        kw = dict(scale=d ** -0.5, softcap=softcap, q_per_kv=h // hkv)
+        run_k = lambda: dk.gqa_decode(q, k, v, valid, **kw)
+        run_p = lambda: ref.decode_attention_ref(q, k, v, valid, **kw)
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        mean_v = v[2].float().mean(0).repeat_interleave(h // hkv, 0)
+        err = _kernel_check(f"gqa {name}", got, want,
+                            F32_TOL if dt == torch.float32 else BF16_TOL, 2,
+                            mean_v)
+        ms = cuda_ms(run_k, reps=50, warmup=3)
+        dev_ms = device_ms(run_k, reps=50)
+        plain = cuda_ms(run_p, reps=10, warmup=1)
+        lib = lib_dev = None
+        if softcap == 0.0:
+            qt = q.transpose(1, 2).contiguous()
+            kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+            mask = valid[:, None, None, :]
+            run_l = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=kw["scale"],
+                enable_gqa=True)
+            lib = cuda_ms(run_l, reps=50, warmup=3)
+            lib_dev = device_ms(run_l, reps=50)
+        elt = q.element_size()
+        nbytes = (2 * b * h * d * elt + 2 * rows * hkv * d * elt
+                  + valid.numel())
+        # q.k in the model dtype (bf16: tensor cores); p.v has f32 p
+        bf = dt == torch.bfloat16
+        bnd, by = bound_ms(nbytes, (2.0 if bf else 4.0) * rows * h * d,
+                           2.0 * rows * h * d if bf else 0.0)
+        bnd_full, _ = bound_ms(
+            2 * b * h * d * elt + 2 * b * c * hkv * d * elt + valid.numel(),
+            (2.0 if bf else 4.0) * b * c * h * d,
+            2.0 * b * c * h * d if bf else 0.0)
+        out[f"gqa_{name}"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                                  bound_ms=bnd, bound_by=by,
+                                  bound_full_cache_ms=bnd_full,
+                                  library_ms=lib, library_device_ms=lib_dev,
+                                  max_abs_err=err)
+        print(f"phase decode[gqa {name}]: ok  kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms)  plain {plain:.4f} ms  bound {bnd:.4f} ms "
+              f"({by}; {rows} of {b * c} rows needed; full cache "
+              f"{bnd_full:.4f} ms)  sdpa {_opt_ms(lib, lib_dev)}  "
+              f"max_abs_err {err:.3e}", flush=True)
+        del q, k, v
+    # MLA at MiniCPM3-4B: H=40, R=256, Dr=32
+    h, r, dr = 40, 256, 32
+    scale = (64 + 32) ** -0.5
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        qa = torch.randn((b, 1, h, r), generator=gen, device=dev).to(dt)
+        qr = torch.randn((b, 1, h, dr), generator=gen, device=dev).to(dt)
+        ckv = torch.randn((b, c, r), generator=gen, device=dev).to(dt)
+        kr = torch.randn((b, c, dr), generator=gen, device=dev).to(dt)
+        run_k = lambda: dk.mla_decode(qa, qr, ckv, kr, valid, scale=scale)
+        run_p = lambda: ref.mla_decode_attention_ref(qa, qr, ckv, kr, valid,
+                                                     scale=scale)
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        mean_c = ckv[2].float().mean(0)[None].expand(h, r)
+        err = _kernel_check(f"mla {name}", got, want,
+                            F32_TOL if dt == torch.float32 else BF16_TOL, 2,
+                            mean_c)
+        ms = cuda_ms(run_k, reps=50, warmup=3)
+        dev_ms = device_ms(run_k, reps=50)
+        plain = cuda_ms(run_p, reps=10, warmup=1)
+        qcat = torch.cat([qa, qr], -1).transpose(1, 2).contiguous()
+        kcat = torch.cat([ckv, kr], -1)[:, None].contiguous()
+        vlat = ckv[:, None].contiguous()
+        mask = valid[:, None, None, :]
+        run_l = lambda: F.scaled_dot_product_attention(
+            qcat, kcat, vlat, attn_mask=mask, scale=scale, enable_gqa=True)
+        try:
+            lib = cuda_ms(run_l, reps=50, warmup=3)
+            lib_dev = device_ms(run_l, reps=50)
+        except RuntimeError as e:      # a yardstick only: report, go on
+            print(f"  sdpa yardstick for mla {name} refused: {e}")
+            lib = lib_dev = None
+        elt = qa.element_size()
+        nbytes = (b * h * (2 * r + dr) * elt + rows * (r + dr) * elt
+                  + valid.numel())
+        # scores q.[ckv, krope] in the model dtype (bf16: tensor cores);
+        # the value product p.ckv has f32 p
+        bf = dt == torch.bfloat16
+
+        def mla_ops(n):
+            score, value = 2.0 * h * n * (r + dr), 2.0 * h * n * r
+            return (value, score) if bf else (value + score, 0.0)
+        bnd, by = bound_ms(nbytes, *mla_ops(rows))
+        bnd_full, _ = bound_ms(b * h * (2 * r + dr) * elt
+                               + b * c * (r + dr) * elt + valid.numel(),
+                               *mla_ops(b * c))
+        out[f"mla_{name}"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                                  bound_ms=bnd, bound_by=by,
+                                  bound_full_cache_ms=bnd_full,
+                                  library_ms=lib, library_device_ms=lib_dev,
+                                  max_abs_err=err)
+        print(f"phase decode[mla {name}]: ok  kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f} ms)  plain {plain:.4f} ms  bound {bnd:.4f} ms "
+              f"({by}; full cache {bnd_full:.4f} ms)  sdpa "
+              f"{_opt_ms(lib, lib_dev)}  max_abs_err {err:.3e}", flush=True)
+        del qa, qr, ckv, kr
+    return out
+
+
+def logits_kernel_vs_plain(engine, attr):
+    """One decode step from the engine's current cache twice: through the
+    decode kernel, and with ``kernels.ops.<attr>`` routed to its plain
+    version on the card. Returns (relative L2 error of the logits, share
+    of slots whose argmax agrees)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    model = engine.model
+    tokens = torch.full((engine.batch_slots, 1), 7, device=engine.device)
+
+    def step():
+        cache = {k: (v.clone() if torch.is_tensor(v) else
+                     {n: t.clone() for n, t in v.items()})
+                 for k, v in engine.cache.items()}
+        return model.apply(tokens, cache=cache, mode="decode")[0].float()
+
+    got = step()
+    kernel = getattr(ops, attr)
+    plain = (ref.decode_attention_ref if attr == "decode_attention"
+             else ref.mla_decode_attention_ref)
+    setattr(ops, attr, plain)
+    try:
+        want = step()
+    finally:
+        setattr(ops, attr, kernel)
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    return rel, agree
+
+
+def decode_busy(engine, steps: int = 3):
+    """Device busy share of decode steps from the engine's current cache:
+    ``steps`` steps under ``torch.profiler``; the summed time of the
+    device's kernels over the host-clock time, and the decode kernels'
+    share of the device time. A measurement only: a profiler that reports
+    no device events gives None."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    tokens = torch.full((engine.batch_slots, 1), 7, device=engine.device)
+    cache = engine.cache
+    cache = engine.model.apply(tokens, cache=cache, mode="decode")[1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            cache = engine.model.apply(tokens, cache=cache,
+                                       mode="decode")[1]
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return None
+    busy = sum(e.time_range.elapsed_us() for e in kern)
+    ours = sum(e.time_range.elapsed_us() for e in kern
+               if "k_partial" in e.name or "k_merge" in e.name)
+    return dict(steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
+                device_ms_per_step=busy / steps / 1e3,
+                busy_share=busy / wall_us, decode_kernel_share=ours / busy,
+                kernels_per_step=len(kern) / steps)
+
+
+def step_probe(engine, steps: int = 8):
+    """Seconds per decode step from the engine's current cache (the
+    engine's own step: model, token pick, read-back), first with the
+    garbage collector as it is, then with every live object frozen out of
+    its collections (``gc.freeze``), beside the count of objects the
+    collector tracks: whether the size of the Python heap, which earlier
+    phases grow, slows the host-bound step."""
+    import gc
+    import torch
+    tokens = torch.full((engine.batch_slots, 1), 7, device=engine.device)
+
+    def per_step():
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine._decode(tokens).cpu()
+        return (time.perf_counter() - t0) / steps
+    per_step()
+    tracked = len(gc.get_objects())
+    as_is = per_step()
+    gc.freeze()
+    try:
+        frozen = per_step()
+    finally:
+        gc.unfreeze()
+    return dict(steps=steps, s_per_step=as_is, s_per_step_gc_frozen=frozen,
+                gc_tracked_objects=tracked)
+
+
+def serve_report(label, engine, done, card, retrieval_s=None):
+    t = engine.timings
+    steps = len(t["decode"])
+    toks = sum(len(r.generated) - 1 for r in done)   # decode-step tokens
+    dsec = sum(t["decode"])
+    ttft = [round(r.first_token_at - r.submitted_at, 6) for r in done]
+    rep = dict(prefill_s=t["prefill"], ttft_s=ttft, decode_steps=steps,
+               decode_s=dsec, s_per_step=dsec / max(steps, 1),
+               decode_tok_per_s=toks / max(dsec, 1e-9),
+               retrieval_s=retrieval_s)
+    ret = ("" if retrieval_s is None else
+           f"  retrieval (s) {[round(x, 6) for x in retrieval_s]}")
+    print(f"phase {label}:{ret}  prefill (s) "
+          f"{[round(x, 6) for x in t['prefill']]}  ttft (s) {ttft}  decode "
+          f"{steps} steps in {dsec:.4f} s = {rep['s_per_step']:.6f} s/step, "
+          f"{rep['decode_tok_per_s']:.1f} tok/s  [{card}]", flush=True)
+    return rep
+
+
+def phase_serve(mgr, card):
+    """VenusService over the main manager, Qwen2-VL-7B at full width."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.qwen2_vl_7b import config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving import ServingEngine, StreamQuery, VenusService
+    cfg = config().replace(param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    engine = ServingEngine(model, batch_slots=4, max_len=2048)
+    svc = VenusService(mgr, engine)
+    retrieval_s = []
+    execute = mgr.execute
+
+    def timed_execute(plan, **kw):
+        t0 = time.perf_counter()
+        res = execute(plan, **kw)
+        torch.cuda.synchronize()
+        retrieval_s.append(time.perf_counter() - t0)
+        return res
+    rng = np.random.default_rng(7)
+    qe = unit_queries_np(8, D, 8)
+    queries = [StreamQuery(rid=i, sid=2 * i, text=f"what happened {i}",
+                           prompt_tokens=rng.integers(
+                               3, cfg.vocab_size, size=int(rng.integers(
+                                   16, 48))),
+                           query_emb=qe[i], max_new_tokens=12)
+               for i in range(8)]
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    ops.reset_scan_counts()
+    mgr.execute = timed_execute
+    try:
+        done = svc.answer(queries)
+    finally:
+        del mgr.execute
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    steps = len(engine.timings["decode"])
+    check(launches["gqa_decode"] == cfg.num_layers * steps,
+          f"gqa_decode launches {launches['gqa_decode']} != "
+          f"{cfg.num_layers} x {steps} decode steps")
+    check(launches["mla_decode"] == 0, f"serve launches {launches}")
+    check(svc.io_stats()["stack_rebuilds"] == 0, "serve stack_rebuilds")
+    check([r.rid for r in done] == list(range(8)), "serve: requests")
+    for q, r in zip(queries, done):
+        check(len(q.frame_ids) > 0, f"serve: query {q.rid} retrieved "
+              f"nothing")
+        check(len(r.generated) == 12 and all(
+            0 <= t < cfg.vocab_size for t in r.generated),
+            f"serve: request {r.rid} generated {r.generated}")
+    rep = serve_report("serve", engine, done, card, retrieval_s)
+    rel, agree = logits_kernel_vs_plain(engine, "decode_attention")
+    check(rel <= 2 ** -5, f"serve: kernel vs plain logits rel L2 {rel}")
+    rep.update(launches=launches, init_s=t_init, logits_rel_l2=rel,
+               argmax_agree=agree,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               probe=step_probe(engine), profile=decode_busy(engine))
+    print(f"  serve probe: {rep['probe']}\n  serve profile: "
+          f"{rep['profile']}", flush=True)
+    print(f"phase serve: ok  qwen2-vl-7b full width, bf16, init "
+          f"{t_init:.2f} s  launches {launches}  kernel vs plain logits "
+          f"rel L2 {rel:.3e} (argmax agree {agree:.2f})  peak "
+          f"{rep['peak_gb']:.1f} GB", flush=True)
+    return rep
+
+
+def phase_serve_mla(card):
+    """The engine on MiniCPM3-4B at full width: 8 text requests."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.minicpm3_4b import config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving import Request, ServingEngine
+    cfg = config().replace(param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    engine = ServingEngine(model, batch_slots=4, max_len=2048)
+    rng = np.random.default_rng(8)
+    reqs = [Request(rid=i, tokens=rng.integers(
+        3, cfg.vocab_size, size=int(rng.integers(8, 65))),
+        max_new_tokens=12) for i in range(8)]
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    steps = len(engine.timings["decode"])
+    check(launches["mla_decode"] == cfg.num_layers * steps,
+          f"mla_decode launches {launches['mla_decode']} != "
+          f"{cfg.num_layers} x {steps} decode steps")
+    check(launches["gqa_decode"] == 0, f"serve_mla launches {launches}")
+    for r in done:
+        check(len(r.generated) == 12 and all(
+            0 <= t < cfg.vocab_size for t in r.generated),
+            f"serve_mla: request {r.rid} generated {r.generated}")
+    rep = serve_report("serve_mla", engine, done, card)
+    rel, agree = logits_kernel_vs_plain(engine, "mla_decode_attention")
+    check(rel <= 2 ** -5, f"serve_mla: kernel vs plain logits rel L2 {rel}")
+    rep.update(launches=launches, init_s=t_init, logits_rel_l2=rel,
+               argmax_agree=agree, probe=step_probe(engine),
+               profile=decode_busy(engine))
+    print(f"  serve_mla probe: {rep['probe']}\n  serve_mla profile: "
+          f"{rep['profile']}", flush=True)
+    print(f"phase serve_mla: ok  minicpm3-4b full width, bf16, init "
+          f"{t_init:.2f} s  launches {launches}  kernel vs plain logits "
+          f"rel L2 {rel:.3e} (argmax agree {agree:.2f})", flush=True)
+    return rep
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -652,10 +1072,11 @@ def main() -> int:
           f"{t_triton:.2f} s  (worlds generated in {t_worlds:.2f} s)",
           flush=True)
 
-    # 2-4. each kernel against its plain version
+    # 2-4, 10. each kernel against its plain version
     fused = phase_fused(gen)
     sim = phase_similarity(gen)
     scene = phase_scene(frames65)
+    dec = phase_decode(gen)
 
     # 5. the main path, with every launch counter read around it
     cfg = VenusConfig()
@@ -693,7 +1114,13 @@ def main() -> int:
 
     # 6. the dense query path on the main manager
     dense = phase_dense(mgr, worlds, card)
+
+    # 11-12. serving: Venus retrieval feeding Qwen2-VL-7B, then MiniCPM3-4B
+    serve = phase_serve(mgr, card)
     del mgr
+    torch.cuda.empty_cache()
+    serve_mla = phase_serve_mla(card)
+    torch.cuda.empty_cache()
 
     # 7. the int8 arena
     ops.reset_kernel_launches()
@@ -761,11 +1188,37 @@ def main() -> int:
              device_ms=scene["device_ms"],
              plain_ms=scene["plain_ms"], bound_ms=scene["bound_ms"],
              bound_by=scene["bound_by"], library_ms=None)]
+
+    def decode_row(name, replaces, prefix, n_launch, cases):
+        r = dec[f"{prefix}_bf16"]
+        row = dict(name=name, route="cuda",
+                   source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                   replaces=replaces, launches=n_launch,
+                   max_abs_err=max(dec[f"{prefix}_{c}"]["max_abs_err"]
+                                   for c in cases),
+                   ms=r["ms"], device_ms=r["device_ms"],
+                   plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                   bound_by=r["bound_by"], library_ms=r["library_ms"],
+                   library_device_ms=r["library_device_ms"],
+                   library_note="F.scaled_dot_product_attention, boolean "
+                                "mask, enable_gqa",
+                   f32_ms=dec[f"{prefix}_f32"]["ms"],
+                   f32_device_ms=dec[f"{prefix}_f32"]["device_ms"],
+                   f32_bound_ms=dec[f"{prefix}_f32"]["bound_ms"])
+        return row
+    kernels += [
+        decode_row("gqa_decode", "src/repro/kernels/decode_attention.py:96",
+                   "gqa", serve["launches"]["gqa_decode"],
+                   ("bf16", "bf16_softcap30", "bf16_mha", "f32")),
+        decode_row("mla_decode", "src/repro/kernels/decode_attention.py:173",
+                   "mla", serve_mla["launches"]["mla_decode"],
+                   ("bf16", "f32"))]
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=kernels, fused=fused,
-                       similarity=sim, scene=scene, main=times, dense=dense,
+                       similarity=sim, scene=scene, decode=dec, main=times,
+                       dense=dense, serve=serve, serve_mla=serve_mla,
                        mem=mem_out), f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

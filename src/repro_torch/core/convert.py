@@ -3,8 +3,9 @@
 * ``arena_from_numpy`` builds a port ``SessionManager`` whose arena and
   session state are exactly the reference arena's arrays, so both
   packages can be queried over identical memory, independent of ingest;
-* ``mem_params_from_numpy`` turns the reference's ``MEM.init`` parameter
-  tree into the port's ``MEM`` state dict.
+* ``model_params_from_numpy`` turns the reference's ``Transformer.init``
+  parameter tree into the port's ``Transformer`` state dict, and
+  ``mem_params_from_numpy`` its ``MEM.init`` tree into a ``MEM`` one.
 """
 
 from __future__ import annotations
@@ -14,38 +15,62 @@ from typing import Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.session import SessionManager, VenusConfig
 
-_TOWER_LEAVES = ("embed", "pos_embed")
+def _t(x) -> torch.Tensor:
+    # np.array copies: the caller's arrays may be read-only views
+    return torch.from_numpy(np.array(x))
+
+
+def _decoder_params(tree: Mapping, head: bool) -> Dict[str, torch.Tensor]:
+    """A reference decoder tree → port state-dict entries: ``embed``,
+    ``pos_embed``, ``final_norm``, ``lm_head`` (if ``head``) and the
+    layer-stacked ``dense_blocks`` split into ``blocks.<i>``."""
+    if "moe_blocks" in tree:
+        raise NotImplementedError(
+            "MoE blocks belong to a later slice of the port (ROADMAP.md)")
+    out = {k: _t(tree[k]) for k in ("embed", "pos_embed") if k in tree}
+    if head and "lm_head" in tree:
+        out["lm_head"] = _t(tree["lm_head"])
+    for k, v in tree["final_norm"].items():
+        out[f"final_norm.{k}"] = _t(v)
+    blocks = tree["dense_blocks"]
+    for i in range(len(np.asarray(blocks["ln1"]["w"]))):
+        for group, leaves in blocks.items():
+            for k, v in leaves.items():
+                out[f"blocks.{i}.{group}.{k}"] = _t(np.asarray(v)[i])
+    return out
+
+
+def model_params_from_numpy(cfg: ModelConfig, tree: Mapping
+                            ) -> Dict[str, torch.Tensor]:
+    """The reference's ``Transformer.init`` tree for ``cfg`` (nested dicts
+    of numpy arrays) → a state dict for ``models.transformer.Transformer.
+    load_state_dict``, leaf for leaf; arrays keep their dtype
+    (``param_dtype``)."""
+    if cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} belongs to a later slice of the port "
+            f"(ROADMAP.md)")
+    if cfg.tie_embeddings == ("lm_head" in tree):
+        raise ValueError(f"tie_embeddings={cfg.tie_embeddings} does not "
+                         f"match the tree (lm_head present: "
+                         f"{'lm_head' in tree})")
+    return _decoder_params(tree, head=True)
 
 
 def mem_params_from_numpy(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """The reference's MEM parameter tree (nested dicts of numpy arrays:
-    ``text``/``vision`` towers with layer-stacked ``dense_blocks``, the
-    two projections, ``logit_scale``/``logit_bias``) → a state dict for
-    ``models.mem.MEM.load_state_dict``. The stacked layer axis is split
-    into ``blocks.<i>``; the towers' unused ``lm_head`` is dropped;
-    arrays keep their dtype (``param_dtype``)."""
+    """The reference's MEM parameter tree (``text``/``vision`` towers with
+    layer-stacked ``dense_blocks``, the two projections, ``logit_scale``/
+    ``logit_bias``) → a state dict for ``models.mem.MEM.load_state_dict``.
+    The towers' unused ``lm_head`` is dropped."""
     out: Dict[str, torch.Tensor] = {}
-
-    def put(key, x):
-        out[key] = torch.from_numpy(np.array(x))
-
     for tower in ("text", "vision"):
-        t = tree[tower]
-        for leaf in _TOWER_LEAVES:
-            if leaf in t:
-                put(f"{tower}.{leaf}", t[leaf])
-        for k, v in t["final_norm"].items():
-            put(f"{tower}.final_norm.{k}", v)
-        blocks = t["dense_blocks"]
-        n = len(np.asarray(blocks["ln1"]["w"]))
-        for i in range(n):
-            for group, leaves in blocks.items():
-                for k, v in leaves.items():
-                    put(f"{tower}.blocks.{i}.{group}.{k}", np.asarray(v)[i])
+        for k, v in _decoder_params(tree[tower], head=False).items():
+            out[f"{tower}.{k}"] = v
     for k in ("text_proj", "vision_proj", "logit_scale", "logit_bias"):
-        put(k, tree[k])
+        out[k] = _t(tree[k])
     return out
 
 

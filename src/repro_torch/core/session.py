@@ -258,12 +258,16 @@ class SessionManager:
                          "device_expands": 0, "group_scans": 0,
                          "stack_rebuilds": 0, "sessions_closed": 0,
                          "archive_trimmed_frames": 0}
+        # closed sessions' memory counters, so service-wide sums stay
+        # monotonic across stream churn
+        self.closed_mem_stats: Dict[str, int] = {}
         _LIVE_MANAGERS.add(self)
 
     def reset_io_stats(self, *, include_memories: bool = True) -> None:
         for k in self.io_stats:
             self.io_stats[k] = 0
         if include_memories:
+            self.closed_mem_stats.clear()
             for st in self.sessions.values():
                 st.memory.reset_io_stats()
             if self.arena is not None:
@@ -297,6 +301,8 @@ class SessionManager:
         work now; the slot's rows are zeroed when it is recycled).
         Returns the session's final ingest stats."""
         st = self.sessions.pop(sid)
+        for k, v in st.memory.io_stats.items():
+            self.closed_mem_stats[k] = self.closed_mem_stats.get(k, 0) + v
         st.frames.close()
         self._stacks = {k: v for k, v in self._stacks.items()
                         if sid not in k}

@@ -1,0 +1,182 @@
+"""The decode-attention kernels' wrappers beside their plain versions:
+
+* ``gqa_decode`` — one query token per sequence against a (B, C, Hkv, D)
+  KV cache, GQA groups, optional tanh softcap;
+* ``mla_decode`` — the matrix-absorbed MLA form against the latent cache
+  (ckv, krope), returning the latent context.
+
+Both kernels live in ``csrc/decode_attention.cu``. Each wrapper takes the
+device of its tensors as the route: a CUDA tensor launches the kernel (or
+raises), a CPU tensor runs the plain version in ``ref``. Each counts its
+own launches in ``.launches``. The Pallas wrapper pads C to a divisor of
+its block; the CUDA kernel takes any C and masks the ragged edge itself.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import ref
+
+# cache rows per block (one chunk): GQA's 64-row tiles take 71 KB of
+# shared memory at D = 128 (3 blocks an SM); MLA's 32-row tiles with all 40
+# heads' queries 88 KB (2 an SM)
+_GQA_ROWS = 64
+_MLA_ROWS = 32
+_SOURCE = "decode_attention.cu"
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_GQA_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+             + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5)
+_MLA_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
+             + [ctypes.c_void_p] * 5)
+
+
+_FNS = {}
+
+
+def _kernel_fn(stem: str, dtype: torch.dtype, argtypes):
+    key = (stem, dtype)
+    fn = _FNS.get(key)
+    if fn is None:
+        from repro_torch.kernels import build
+        fn = getattr(build.load(_SOURCE), f"{stem}_{_SUFFIX[dtype]}")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[key] = fn
+    return fn
+
+
+def _operands(*xs: torch.Tensor):
+    """Check that the operands share one CUDA device and a kernel dtype
+    (f32 or bf16) → the contiguous tensors."""
+    dev, dt = xs[0].device, xs[0].dtype
+    if dt not in _SUFFIX:
+        raise TypeError(f"decode attention takes float32 or bfloat16, "
+                        f"got {dt}")
+    out = []
+    for x in xs:
+        if x.device != dev or x.dtype != dt:
+            raise ValueError(f"operands must share one device and dtype: "
+                             f"{x.device}/{x.dtype} vs {dev}/{dt}")
+        x = x.contiguous()
+        if x.data_ptr() % (4 * x.element_size()):
+            raise ValueError("operands must be aligned to 4 elements")
+        out.append(x)
+    return out
+
+
+def _widths_ok(**widths: int) -> None:
+    for name, w in widths.items():
+        if w < 4 or w % 4:
+            raise ValueError(f"the kernel loads rows in 4-element vectors; "
+                             f"{name}={w} is not a positive multiple of 4")
+
+
+def _mask(valid: torch.Tensor, b: int, c: int, dev) -> torch.Tensor:
+    if valid.dim() != 2 or valid.shape[-1] != c or valid.shape[0] not in (1,
+                                                                          b):
+        raise ValueError(f"valid must be (B or 1, C) = ({b} or 1, {c}), "
+                         f"got {tuple(valid.shape)}")
+    return valid.to(dev).expand(b, c).to(torch.uint8).contiguous()
+
+
+def _partials(b: int, h: int, c: int, dv: int, rows: int, dev):
+    nch = -(-c // rows)
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((b, h, nch), **f32), torch.empty((b, h, nch), **f32),
+            torch.empty((b, h, nch, dv), **f32))
+
+
+def _check_rc(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _launch_gqa(q, k, v, valid, *, scale, softcap, q_per_kv):
+    b, one, h, d = q.shape
+    _, c, hkv, dk = k.shape
+    if (one != 1 or tuple(v.shape) != (b, c, hkv, d) or dk != d
+            or k.shape[0] != b or h != hkv * q_per_kv or c < 1):
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, q_per_kv {q_per_kv}")
+    _widths_ok(D=d)
+    q, k, v = _operands(q, k, v)
+    vmask = _mask(valid, b, c, q.device)
+    pm, pl, pa = _partials(b, h, c, d, _GQA_ROWS, q.device)
+    out = torch.empty_like(q)
+    fn = _kernel_fn("gqa_decode", q.dtype, _GQA_ARGS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), vmask.data_ptr(),
+                b, c, h, hkv, d, _GQA_ROWS, float(scale),
+                float(softcap or 0.0),
+                pm.data_ptr(), pl.data_ptr(), pa.data_ptr(), out.data_ptr(),
+                stream)
+    _check_rc(rc, "gqa_decode")
+    return out
+
+
+def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               valid: torch.Tensor, *, scale: float, softcap: float = 0.0,
+               q_per_kv: int = 1) -> torch.Tensor:
+    """q (B,1,H,D); k/v (B,C,Hkv,D); valid (B or 1, C) bool → (B,1,H,D)
+    in q's dtype. CUDA tensors run the kernel, CPU tensors the plain
+    version."""
+    if q.device.type == "cuda":
+        out = _launch_gqa(q, k, v, valid, scale=scale, softcap=softcap,
+                          q_per_kv=q_per_kv)
+        gqa_decode.launches += 1
+        return out
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k, v, valid, scale=scale,
+                                        softcap=softcap, q_per_kv=q_per_kv)
+    raise ValueError(f"no decode attention route for device {q.device}")
+
+
+gqa_decode.launches = 0
+
+
+def _launch_mla(q_abs, q_rope, ckv, krope, valid, *, scale):
+    b, one, h, r = q_abs.shape
+    c, dr = ckv.shape[1], krope.shape[-1]
+    if (one != 1 or tuple(q_rope.shape) != (b, 1, h, dr)
+            or tuple(ckv.shape) != (b, c, r)
+            or tuple(krope.shape) != (b, c, dr) or c < 1):
+        raise ValueError(f"shapes q_abs {tuple(q_abs.shape)}, q_rope "
+                         f"{tuple(q_rope.shape)}, ckv {tuple(ckv.shape)}, "
+                         f"krope {tuple(krope.shape)}")
+    _widths_ok(R=r, Dr=dr)
+    q_abs, q_rope, ckv, krope = _operands(q_abs, q_rope, ckv, krope)
+    vmask = _mask(valid, b, c, q_abs.device)
+    pm, pl, pa = _partials(b, h, c, r, _MLA_ROWS, q_abs.device)
+    out = torch.empty_like(q_abs)
+    fn = _kernel_fn("mla_decode", q_abs.dtype, _MLA_ARGS)
+    with torch.cuda.device(q_abs.device):
+        stream = torch.cuda.current_stream(q_abs.device).cuda_stream
+        rc = fn(q_abs.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
+                krope.data_ptr(), vmask.data_ptr(), b, c, h, r, dr, _MLA_ROWS,
+                float(scale), pm.data_ptr(), pl.data_ptr(), pa.data_ptr(),
+                out.data_ptr(), stream)
+    _check_rc(rc, "mla_decode")
+    return out
+
+
+def mla_decode(q_abs: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
+               krope: torch.Tensor, valid: torch.Tensor, *, scale: float
+               ) -> torch.Tensor:
+    """q_abs (B,1,H,R), q_rope (B,1,H,Dr), ckv (B,C,R), krope (B,C,Dr),
+    valid (B or 1, C) → latent context (B,1,H,R) in q_abs's dtype. CUDA
+    tensors run the kernel, CPU tensors the plain version."""
+    if q_abs.device.type == "cuda":
+        out = _launch_mla(q_abs, q_rope, ckv, krope, valid, scale=scale)
+        mla_decode.launches += 1
+        return out
+    if q_abs.device.type == "cpu":
+        return ref.mla_decode_attention_ref(q_abs, q_rope, ckv, krope, valid,
+                                            scale=scale)
+    raise ValueError(f"no decode attention route for device {q_abs.device}")
+
+
+mla_decode.launches = 0

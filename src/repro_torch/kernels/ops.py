@@ -16,6 +16,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import ref
 from repro_torch.kernels import scene_score as _scene
 from repro_torch.kernels import similarity as _sim
@@ -40,7 +41,9 @@ def reset_scan_counts() -> None:
 _KERNELS = {"fused_retrieve": _sim.fused_retrieve_scan_stack,
             "similarity_scan_stack": _sim.similarity_scan_stack,
             "similarity_scan": _sim.similarity_scan,
-            "scene_score": _scene.scene_score}
+            "scene_score": _scene.scene_score,
+            "gqa_decode": _decode.gqa_decode,
+            "mla_decode": _decode.mla_decode}
 
 
 def kernel_launches() -> dict:
@@ -56,6 +59,20 @@ def reset_kernel_launches() -> None:
 
 def _count_scan(index: torch.Tensor) -> None:
     _scan_counts["scan_bytes"] += index.numel() * index.element_size()
+
+
+def decode_attention(q, k, v, valid, *, scale: float, softcap: float = 0.0,
+                     q_per_kv: int = 1) -> torch.Tensor:
+    """q (B,1,H,D); k/v (B,C,Hkv,D); valid (B or 1, C) → (B,1,H,D)."""
+    return _decode.gqa_decode(q, k, v, valid, scale=scale, softcap=softcap,
+                              q_per_kv=q_per_kv)
+
+
+def mla_decode_attention(q_abs, q_rope, ckv, krope, valid, *,
+                         scale: float) -> torch.Tensor:
+    """q_abs (B,1,H,R), q_rope (B,1,H,Dr), ckv (B,C,R), krope (B,C,Dr),
+    valid (B or 1, C) → latent context (B,1,H,R)."""
+    return _decode.mla_decode(q_abs, q_rope, ckv, krope, valid, scale=scale)
 
 
 def similarity(query, index, *, tau: float, valid

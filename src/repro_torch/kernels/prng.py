@@ -81,3 +81,16 @@ def randint(k: np.ndarray, n: int, minval: int, maxval: int) -> np.ndarray:
     mult = (np.asarray([1 << 16], _U32) % span) ** _U32(2) % span
     off = ((higher % span) * mult + lower % span) % span
     return (np.int64(minval) + off.astype(np.int64)).astype(np.int32)
+
+
+def gumbel(k: np.ndarray, n: int) -> np.ndarray:
+    """``jax.random.gumbel(k, (n,), float32)`` (its default "low" mode):
+    f32 uniforms in [tiny, 1) from the mantissa bits, then -log(-log(u)).
+    The bits are the reference's; the logs are numpy's, which may differ
+    from XLA's in the last place."""
+    bits = random_bits(k, n)
+    f = ((bits >> _U32(9)) | _U32(0x3F800000)).view(np.float32) - \
+        np.float32(1.0)
+    tiny = np.finfo(np.float32).tiny
+    u = np.maximum(tiny, f * (np.float32(1.0) - tiny) + tiny)
+    return -np.log(-np.log(u))

@@ -2,8 +2,8 @@
 
 Each function is the correctness reference of one hand-written kernel
 (``similarity.py``: fused retrieval and the dense scan;
-``scene_score.py``: scene score) and the path a CPU tensor takes through
-``kernels.ops``. They may
+``scene_score.py``: scene score; ``decode_attention.py``: GQA and MLA
+decode) and the path a CPU tensor takes through ``kernels.ops``. They may
 materialise what the kernels keep on chip; what they return is exactly
 the kernels' contract.
 """
@@ -42,6 +42,53 @@ def as_valid_mask(valid: torch.Tensor, n: int) -> torch.Tensor:
         # torch.remainder takes the sign of the divisor, like jnp.mod
         return torch.remainder(j - valid[:, :1], n) < valid[:, 1:2]
     return valid
+
+
+# ---------------------------------------------------------------------------
+# decode attention: one query token against a KV cache
+# ---------------------------------------------------------------------------
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         valid: torch.Tensor, *, scale: float,
+                         softcap: float = 0.0, q_per_kv: int = 1
+                         ) -> torch.Tensor:
+    """GQA decode: q (B,1,H,D); k/v (B,C,Hkv,D); valid (B or 1, C) bool →
+    (B,1,H,D) in q's dtype. f32 logits (tanh-capped when ``softcap`` > 0)
+    masked with -1e30, a softmax, the value product in f32; an
+    all-invalid row gives the mean of v."""
+    b, _, h, d = q.shape
+    hkv = k.shape[2]
+    f32 = torch.float32
+    qg = q.reshape(b, hkv, q_per_kv, d).to(f32)            # (B,Hkv,G,D)
+    kt = k.to(f32).permute(0, 2, 3, 1)                     # (B,Hkv,D,C)
+    logits = torch.matmul(qg, kt) * scale                  # (B,Hkv,G,C)
+    if softcap and softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    mask = valid.expand(b, valid.shape[-1])
+    logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    ctx = torch.matmul(probs, v.to(f32).permute(0, 2, 1, 3))  # (B,Hkv,G,D)
+    return ctx.reshape(b, 1, h, v.shape[-1]).to(q.dtype)
+
+
+def mla_decode_attention_ref(q_abs: torch.Tensor, q_rope: torch.Tensor,
+                             ckv: torch.Tensor, krope: torch.Tensor,
+                             valid: torch.Tensor, *, scale: float
+                             ) -> torch.Tensor:
+    """MLA decode in the matrix-absorbed latent form: q_abs (B,1,H,R),
+    q_rope (B,1,H,Dr), ckv (B,C,R), krope (B,C,Dr), valid (B or 1, C) →
+    the latent context (B,1,H,R) in q_abs's dtype; the values are ckv."""
+    b = q_abs.shape[0]
+    f32 = torch.float32
+    ckv32 = ckv.to(f32)
+    logits = (torch.matmul(q_abs[:, 0].to(f32), ckv32.transpose(1, 2))
+              + torch.matmul(q_rope[:, 0].to(f32),
+                             krope.to(f32).transpose(1, 2))) * scale
+    mask = valid.expand(b, valid.shape[-1])
+    logits = torch.where(mask[:, None, :], logits, NEG_INF)   # (B,H,C)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs, ckv32)[:, None].to(q_abs.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -104,8 +104,7 @@ def rope_cos_sin(positions: torch.Tensor, rot_dim: int, theta: float
     half = rot_dim // 2
     exps = torch.arange(half, dtype=torch.float32,
                         device=positions.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=positions.device), exps)
+    freqs = 1.0 / torch.pow(theta, exps)   # no host→device copy
     ang = positions[..., None].to(torch.float32) * freqs
     return torch.cos(ang), torch.sin(ang)
 
@@ -134,3 +133,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
     head, tail = x[..., :rot], x[..., rot:]
     head = _rotate(head, cos, sin)
     return torch.cat([head, tail], dim=-1) if tail.numel() else head
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, *, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: (B, S, H, D); positions3: (3, B, S)
+    temporal/height/width position ids. ``sections`` splits the D/2
+    frequency slots among (t, h, w); each slot rotates by the position id
+    of its section."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    dev = x.device
+    exps = torch.arange(half, dtype=torch.float32, device=dev) / half
+    freqs = 1.0 / torch.pow(theta, exps)
+    # section id of each frequency slot, built on the device
+    j = torch.arange(half, device=dev)
+    sec = (j >= sections[0]).long() + (j >= sections[0] + sections[1]).long()
+    pos = positions3.to(dev, torch.float32)[sec]           # (half, B, S)
+    ang = pos.permute(1, 2, 0) * freqs                      # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    return _rotate(x, cos, sin)

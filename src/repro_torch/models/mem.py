@@ -45,8 +45,8 @@ class MEM(nn.Module):
     def __init__(self, cfg: MEMConfig, gen: torch.Generator):
         super().__init__()
         self.cfg = cfg
-        self.text = Transformer(cfg.text, gen)
-        self.vision = Transformer(cfg.vision, gen)
+        self.text = Transformer(cfg.text, gen, head=False)
+        self.vision = Transformer(cfg.vision, gen, head=False)
         d = cfg.embed_dim
         self.text_proj = nn.Parameter(dense_init(gen, cfg.text.d_model, d),
                                       requires_grad=False)

@@ -1,0 +1,281 @@
+"""The PyTorch port's decode attention held against the JAX reference on
+the CPU: the plain versions of the two decode kernels (``gqa_decode``,
+``mla_decode``) against the reference's oracles and its Pallas kernels
+(interpret mode), M-RoPE, and the GQA and MLA attention layers in
+prefill (with a cache, including the ring-tail branch) and decode.
+
+The same numpy inputs go to both packages. Everything is float32.
+Tolerances: the plain versions against the oracles at rtol 1e-5 / atol
+1e-6 (the same formula, summed in another order; atol 1e-5 where a
+softcap case's logits reach ±20); against the Pallas
+kernels at rtol 2e-5 / atol 2e-5, the reference's own tolerance for its
+kernels (an online softmax over blocks); the attention layers and their
+caches at rtol 1e-4 / atol 1e-5 (several products in a row).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jregistry
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import gqa_decode as pallas_gqa
+from repro.kernels.decode_attention import mla_decode as pallas_mla
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro_torch.configs import registry as tregistry
+from repro_torch.kernels import decode_attention as tdecode
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.models import attention as tattn
+from repro_torch.models import layers as tlayers
+
+ORACLE = dict(rtol=1e-5, atol=1e-6)
+# the softcap case's logits reach ±20 (queries scaled by 4): a last-ulp
+# difference in a logit is ~2e-6 absolute, and exp passes it on
+SOFTCAP = dict(rtol=1e-5, atol=1e-5)
+PALLAS = dict(rtol=2e-5, atol=2e-5)
+LAYER = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_counters():
+    tops.reset_kernel_launches()
+    yield
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _normal(rng, shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _valid(rng, b, c, empty_row=None):
+    """(B, C) prefix masks of random lengths in [1, C]; ``empty_row`` is
+    all invalid."""
+    lens = rng.integers(1, c + 1, size=(b, 1))
+    valid = np.arange(c)[None] < lens
+    if empty_row is not None:
+        valid[empty_row] = False
+    return valid
+
+
+# ---------------------------------------------------------------------------
+# (a) the plain decode versions vs the oracles and the Pallas kernels
+# ---------------------------------------------------------------------------
+
+GQA_CASES = [
+    # b, h, hkv, d, c, blk, empty row — tests/test_kernels.py's cases
+    (1, 4, 4, 64, 128, 64, None),      # MHA
+    (2, 8, 2, 64, 256, 64, None),      # GQA 4:1
+    (2, 8, 1, 128, 192, 64, None),     # MQA, non-pow2 cache
+    (3, 16, 4, 32, 64, 64, None),      # single block
+    (3, 8, 2, 32, 128, 64, 1),         # an all-invalid row
+]
+
+
+@pytest.mark.parametrize("b,h,hkv,d,c,blk,empty", GQA_CASES)
+def test_gqa_plain_matches_oracle_and_pallas(b, h, hkv, d, c, blk, empty):
+    rng = np.random.default_rng(b * 1000 + h * 10 + c)
+    q, k, v = (_normal(rng, s) for s in ((b, 1, h, d), (b, c, hkv, d),
+                                         (b, c, hkv, d)))
+    valid = _valid(rng, b, c, empty)
+    kw = dict(scale=d ** -0.5, q_per_kv=h // hkv)
+    got = tops.decode_attention(_t(q), _t(k), _t(v), _t(valid), **kw)
+    assert got.dtype == torch.float32 and got.shape == (b, 1, h, d)
+    want = jref.decode_attention_ref(q, k, v, valid, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ORACLE)
+    pallas = pallas_gqa(q, k, v, valid, blk_s=blk, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **PALLAS)
+    if empty is not None:        # every weight is exp(0): the mean of v
+        np.testing.assert_allclose(
+            got.numpy()[empty, 0],
+            np.repeat(v[empty].mean(0), h // hkv, axis=0), **ORACLE)
+    assert tops.kernel_launches()["gqa_decode"] == 0      # plain route
+
+
+def test_gqa_plain_softcap_and_shared_mask():
+    """The softcap case of tests/test_kernels.py, and a (1, C) mask that
+    broadcasts over the batch."""
+    rng = np.random.default_rng(1)
+    b, h, d, c = 2, 4, 32, 128
+    q = _normal(rng, (b, 1, h, d), 4.0)
+    k, v = _normal(rng, (b, c, h, d)), _normal(rng, (b, c, h, d))
+    valid = np.ones((b, c), bool)
+    kw = dict(scale=0.3, softcap=20.0)
+    got = tdecode.gqa_decode(_t(q), _t(k), _t(v), _t(valid), **kw)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.decode_attention_ref(q, k, v, valid,
+                                                          **kw)), **SOFTCAP)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(pallas_gqa(q, k, v, valid, blk_s=64, **kw)),
+        **PALLAS)
+    one = np.arange(c)[None] < 77
+    got1 = tref.decode_attention_ref(_t(q), _t(k), _t(v), _t(one), **kw)
+    np.testing.assert_allclose(
+        got1.numpy(), np.asarray(jref.decode_attention_ref(q, k, v, one,
+                                                           **kw)), **SOFTCAP)
+
+
+MLA_CASES = [
+    # b, h, r, dr, c, blk, empty row — tests/test_kernels.py's cases
+    (1, 8, 64, 16, 128, 64, None),
+    (2, 16, 128, 64, 256, 128, None),
+    (2, 4, 32, 16, 96, 32, None),      # non-pow2 cache
+    (3, 4, 64, 16, 128, 64, 2),        # an all-invalid row
+]
+
+
+@pytest.mark.parametrize("b,h,r,dr,c,blk,empty", MLA_CASES)
+def test_mla_plain_matches_oracle_and_pallas(b, h, r, dr, c, blk, empty):
+    rng = np.random.default_rng(b * 1000 + h * 10 + c + 5)
+    qa, qr = _normal(rng, (b, 1, h, r)), _normal(rng, (b, 1, h, dr))
+    ckv, kr = _normal(rng, (b, c, r)), _normal(rng, (b, c, dr))
+    valid = _valid(rng, b, c, empty)
+    got = tops.mla_decode_attention(_t(qa), _t(qr), _t(ckv), _t(kr),
+                                    _t(valid), scale=0.1)
+    assert got.shape == (b, 1, h, r)
+    want = jref.mla_decode_attention_ref(qa, qr, ckv, kr, valid, scale=0.1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ORACLE)
+    pallas = pallas_mla(qa, qr, ckv, kr, valid, scale=0.1, blk_s=blk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **PALLAS)
+    if empty is not None:
+        np.testing.assert_allclose(
+            got.numpy()[empty, 0],
+            np.broadcast_to(ckv[empty].mean(0), (h, r)), **ORACLE)
+    assert tops.kernel_launches()["mla_decode"] == 0
+
+
+def test_decode_kernels_are_listed():
+    launches = tops.kernel_launches()
+    assert {"gqa_decode", "mla_decode"} <= set(launches)
+    assert tdecode.gqa_decode.launches == tdecode.mla_decode.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# (b) M-RoPE, and the attention layers in prefill and decode
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sections", [(4, 6, 6), (16, 24, 24)])
+def test_apply_mrope_matches_reference(sections):
+    rng = np.random.default_rng(3)
+    d = 2 * sum(sections)
+    x = _normal(rng, (2, 9, 3, d))
+    pos3 = rng.integers(0, 300, size=(3, 2, 9)).astype(np.int32)
+    want = jlayers.apply_mrope(x, pos3, theta=1e6, sections=sections)
+    got = tlayers.apply_mrope(_t(x), _t(pos3), theta=1e6, sections=sections)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ORACLE)
+
+
+def _gqa_cfg(kind):
+    """(reference cfg, port cfg): qwen2-vl smoke (M-RoPE), or its RoPE
+    variant with qk-norm and a logit softcap."""
+    j = jregistry.get_smoke_config("qwen2-vl-7b").replace(dtype="float32")
+    t = tregistry.get_smoke_config("qwen2-vl-7b").replace(dtype="float32")
+    if kind == "rope_softcap":
+        kw = dict(pos_type="rope", qk_norm=True, attn_logit_softcap=30.0)
+        j, t = j.replace(**kw), t.replace(**kw)
+    return j, t
+
+
+def _jit(fn):
+    """The reference layer under ``jax.jit`` (one compile per mode, where
+    eager dispatch compiles every primitive: ~6x faster here)."""
+    return jax.jit(fn, static_argnames=("mode",))
+
+
+def _run_layer(jfn, tfn, jp, tp, x, jkw, tkw, cache_len, b, s, rng):
+    """Prefill (with a cache of ``cache_len`` rows) then two decode steps
+    at per-slot positions, in both packages; checks outputs and caches."""
+    jcache, tcache = cache_len
+    jout, jc = jfn(jp, x, mode="prefill", cache=jcache, **jkw(s, None))
+    tout, tc = tfn(tp, _t(x), mode="prefill", cache=tcache, **tkw(s, None))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **LAYER)
+    for name in jc:
+        np.testing.assert_allclose(tc[name].numpy(), np.asarray(jc[name]),
+                                   **LAYER)
+    pos = np.asarray([s, s - 3][:b], np.int32)
+    for step in range(2):
+        xd = _normal(rng, (b, 1, x.shape[-1]))
+        jout, jc = jfn(jp, xd, mode="decode", cache=jc,
+                       cache_pos=jnp.asarray(pos), **jkw(1, pos))
+        tout, tc = tfn(tp, _t(xd), mode="decode", cache=tc,
+                       cache_pos=_t(pos), **tkw(1, pos))
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **LAYER)
+        for name in jc:
+            np.testing.assert_allclose(tc[name].numpy(),
+                                       np.asarray(jc[name]), **LAYER)
+        pos = pos + 1
+
+
+@pytest.mark.parametrize("kind", ["mrope", "rope_softcap"])
+@pytest.mark.parametrize("cache_len", [16, 8])     # 8 < S: the ring tail
+def test_gqa_attention_prefill_decode_matches_reference(kind, cache_len):
+    jcfg, tcfg = _gqa_cfg(kind)
+    rng = np.random.default_rng(11)
+    jp = jattn.gqa_init(jax.random.key(4), jcfg)
+    tp = {k: _t(v) for k, v in jp.items()}
+    b, s = 2, 12
+    x = _normal(rng, (b, s, jcfg.d_model))
+
+    def positions(n, pos):
+        if pos is None:
+            p = np.broadcast_to(np.arange(n), (b, n)).astype(np.int32)
+        else:
+            p = pos[:, None].astype(np.int32)
+        p3 = np.broadcast_to(p[None] + 5, (3, b, n)).astype(np.int32)
+        return p, p3
+
+    def jkw(n, pos):
+        p, p3 = positions(n, pos)
+        return dict(positions=jnp.asarray(p), mrope_positions=(
+            jnp.asarray(p3) if kind == "mrope" else None))
+
+    def tkw(n, pos):
+        p, p3 = positions(n, pos)
+        return dict(positions=_t(p),
+                    mrope_positions=_t(p3) if kind == "mrope" else None)
+
+    caches = (jattn.gqa_cache_init(jcfg, b, cache_len, jnp.float32),
+              tattn.gqa_cache_init(tcfg, b, cache_len, torch.float32))
+    _run_layer(_jit(lambda p, x, mode, **kw: jattn.gqa_attention(
+                   p, jcfg, x, mode=mode, **kw)),
+               lambda p, x, **kw: tattn.gqa_attention(p, tcfg, x, **kw),
+               jp, tp, x, jkw, tkw, caches, b, s, rng)
+
+
+@pytest.mark.parametrize("q_lora", [96, 0])
+@pytest.mark.parametrize("cache_len", [16, 8])
+def test_mla_attention_prefill_decode_matches_reference(q_lora, cache_len):
+    jcfg = jregistry.get_smoke_config("minicpm3-4b").replace(dtype="float32")
+    tcfg = tregistry.get_smoke_config("minicpm3-4b").replace(dtype="float32")
+    jcfg = jcfg.replace(mla=jcfg.mla.__class__(**{
+        **jcfg.mla.__dict__, "q_lora_rank": q_lora}))
+    tcfg = tcfg.replace(mla=tcfg.mla.__class__(**{
+        **tcfg.mla.__dict__, "q_lora_rank": q_lora}))
+    rng = np.random.default_rng(12)
+    jp = jattn.mla_init(jax.random.key(5), jcfg)
+    assert ("w_dq" in jp) == bool(q_lora)
+    tp = {k: _t(v) for k, v in jp.items()}
+    b, s = 2, 12
+    x = _normal(rng, (b, s, jcfg.d_model))
+
+    def pos(n, p):
+        if p is None:
+            return np.broadcast_to(np.arange(n), (b, n)).astype(np.int32)
+        return p[:, None].astype(np.int32)
+
+    caches = (jattn.mla_cache_init(jcfg, b, cache_len, jnp.float32),
+              tattn.mla_cache_init(tcfg, b, cache_len, torch.float32))
+    _run_layer(_jit(lambda p, x, mode, **kw: jattn.mla_attention(
+                   p, jcfg, x, mode=mode, **kw)),
+               lambda p, x, **kw: tattn.mla_attention(p, tcfg, x, **kw),
+               jp, tp, x,
+               lambda n, p: dict(positions=jnp.asarray(pos(n, p))),
+               lambda n, p: dict(positions=_t(pos(n, p))),
+               caches, b, s, rng)

@@ -1,8 +1,9 @@
 """Import hygiene of the PyTorch port: every module of ``repro_torch``
-(kernels, core, models, configs, data) and the imports of
-``chip_smoke.py`` load neither JAX nor anything of the reference package
-``repro``, and the entry points (the session manager, the façade, the
-MEM model) refuse to run on the CPU unless asked."""
+(kernels, core, models, configs, data, serving, launch) and the imports
+of ``chip_smoke.py`` load neither JAX nor anything of the reference
+package ``repro``, and the entry points (the session manager, the façade,
+the MEM model, the serving model) refuse to run on the CPU unless
+asked."""
 
 import os
 import subprocess
@@ -32,10 +33,18 @@ from repro_torch.configs.venus_mem import smoke_config
 from repro_torch.core.session import SessionManager, VenusConfig
 from repro_torch.core.pipeline import VenusSystem
 from repro_torch.models.mem import MEM
+from repro_torch.configs.registry import get_smoke_config
+from repro_torch.models.transformer import init_model
+for name in ("repro_torch.serving.engine",
+             "repro_torch.serving.venus_service",
+             "repro_torch.kernels.decode_attention",
+             "repro_torch.launch.serve"):
+    assert name in names, name
 if not torch.cuda.is_available():
     for make in (lambda: SessionManager(VenusConfig(), None, 8),
                  lambda: VenusSystem(VenusConfig(), None, 8),
-                 lambda: MEM.init(smoke_config())):
+                 lambda: MEM.init(smoke_config()),
+                 lambda: init_model(get_smoke_config("qwen2-vl-7b"))):
         try:
             make()
         except RuntimeError as e:
@@ -54,6 +63,6 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
     n_modules, bad = lines[0].split(" ", 1)
-    assert int(n_modules) >= 29       # models/ and configs/ included
+    assert int(n_modules) >= 38       # serving/ and launch/ included
     assert bad == "[]", bad
     assert lines[-1] == "raises-ok"
