@@ -51,9 +51,16 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 versions at the serving shapes (B=4 slots, C=2048 cache
                 rows, bf16 and f32; per-slot ragged masks with one slot of
                 a single valid row and one with none): GQA at Qwen2-VL-7B
-                (H=28, Hkv=4, D=128; also softcap 30 and q_per_kv=1), MLA
-                at MiniCPM3-4B (H=40, R=256, Dr=32). bf16 within one bf16
-                ulp (rtol 2^-7, atol 1e-6), f32 at rtol 1e-5 / atol 1e-6;
+                (H=28, Hkv=4, D=128; also softcap 30 and q_per_kv=1; in
+                bf16 also masks with holes of whole tiles and a last-row
+                mask, C=2000, and G=16 at H=32, Hkv=2), MLA at
+                MiniCPM3-4B (H=40, R=256, Dr=32); each GQA case checks
+                under the profiler that its route's kernel launched
+                (bf16: k_gqa_split, f32: k_partial). bf16 within one bf16
+                ulp (rtol 2^-7, atol 1e-6), f32 at rtol 1e-5 / atol 1e-6.
+                Alone: ``python3 -c "import torch, chip_smoke;
+                chip_smoke.phase_decode(torch.Generator('cuda')
+                .manual_seed(0))"``;
 11. serve     — ``VenusService`` over the main phase's manager (MEM
                 embedder, 16 streams) with a ``ServingEngine`` on
                 Qwen2-VL-7B at full width (bf16 weights and activations,
@@ -641,12 +648,39 @@ F32_TOL = dict(rtol=1e-5, atol=1e-6)
 DEC_B, DEC_C = 4, 2048                      # serving slots, cache rows
 
 
-def decode_valid(dev):
-    """(4, 2048) ragged per-slot masks: all rows, a single row, none (the
+def decode_valid(dev, c: int = DEC_C):
+    """(4, c) ragged per-slot masks: all rows, a single row, none (the
     mean-of-values case), 1500 rows."""
     import torch
-    lens = torch.tensor([DEC_C, 1, 0, 1500], device=dev)
-    return torch.arange(DEC_C, device=dev)[None, :] < lens[:, None]
+    lens = torch.tensor([c, 1, 0, 1500], device=dev)
+    return torch.arange(c, device=dev)[None, :] < lens[:, None]
+
+
+def decode_valid_holes(dev):
+    """(4, 2048) masks with holes: two runs of valid rows with whole empty
+    64-row tiles between them, only the last row, none, and a run in the
+    middle."""
+    import torch
+    valid = torch.zeros((DEC_B, DEC_C), dtype=torch.bool, device=dev)
+    valid[0, 5:300] = True
+    valid[0, 1100:1250] = True
+    valid[1, DEC_C - 1] = True
+    valid[3, 700:1500] = True
+    return valid
+
+
+def launched_kernels(fn) -> set:
+    """Names of the device kernels one call of ``fn`` launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA}
 
 
 def needed_rows(valid) -> int:
@@ -684,28 +718,38 @@ def phase_decode(gen):
     from repro_torch.kernels import ref
     dev = torch.device("cuda")
     valid = decode_valid(dev)
-    rows = needed_rows(valid)
     out = {}
-    b, c = DEC_B, DEC_C
-    # GQA at Qwen2-VL-7B: H=28, Hkv=4, D=128
-    for name, h, hkv, softcap, dt in (
-            ("bf16", 28, 4, 0.0, torch.bfloat16),
-            ("bf16_softcap30", 28, 4, 30.0, torch.bfloat16),
-            ("bf16_mha", 28, 28, 0.0, torch.bfloat16),
-            ("f32", 28, 4, 0.0, torch.float32)):
-        d = 128
+    b = DEC_B
+    # GQA at Qwen2-VL-7B: H=28, Hkv=4, D=128; then the bf16 kernel's edges:
+    # masks with holes, C = 2000 (a ragged last tile), G = 16
+    holes = decode_valid_holes(dev)
+    for name, h, hkv, softcap, dt, cv in (
+            ("bf16", 28, 4, 0.0, torch.bfloat16, valid),
+            ("bf16_softcap30", 28, 4, 30.0, torch.bfloat16, valid),
+            ("bf16_mha", 28, 28, 0.0, torch.bfloat16, valid),
+            ("f32", 28, 4, 0.0, torch.float32, valid),
+            ("bf16_holes", 28, 4, 0.0, torch.bfloat16, holes),
+            ("bf16_c2000", 28, 4, 0.0, torch.bfloat16,
+             decode_valid(dev, 2000)),
+            ("bf16_g16", 32, 2, 0.0, torch.bfloat16, valid)):
+        d, c = 128, cv.shape[-1]
+        rows = needed_rows(cv)
         q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(dt)
         k = torch.randn((b, c, hkv, d), generator=gen, device=dev).to(dt)
         v = torch.randn((b, c, hkv, d), generator=gen, device=dev).to(dt)
         kw = dict(scale=d ** -0.5, softcap=softcap, q_per_kv=h // hkv)
-        run_k = lambda: dk.gqa_decode(q, k, v, valid, **kw)
-        run_p = lambda: ref.decode_attention_ref(q, k, v, valid, **kw)
+        run_k = lambda: dk.gqa_decode(q, k, v, cv, **kw)
+        run_p = lambda: ref.decode_attention_ref(q, k, v, cv, **kw)
         got, want = run_k(), run_p()
         torch.cuda.synchronize()
         mean_v = v[2].float().mean(0).repeat_interleave(h // hkv, 0)
         err = _kernel_check(f"gqa {name}", got, want,
                             F32_TOL if dt == torch.float32 else BF16_TOL, 2,
                             mean_v)
+        route = "k_partial" if dt == torch.float32 else "k_gqa_split"
+        names = launched_kernels(run_k)
+        check(any(route in n for n in names),
+              f"gqa {name}: {route} did not launch ({sorted(names)})")
         ms = cuda_ms(run_k, reps=50, warmup=3)
         dev_ms = device_ms(run_k, reps=50)
         plain = cuda_ms(run_p, reps=10, warmup=1)
@@ -713,7 +757,7 @@ def phase_decode(gen):
         if softcap == 0.0:
             qt = q.transpose(1, 2).contiguous()
             kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
-            mask = valid[:, None, None, :]
+            mask = cv[:, None, None, :]
             run_l = lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, scale=kw["scale"],
                 enable_gqa=True)
@@ -721,27 +765,29 @@ def phase_decode(gen):
             lib_dev = device_ms(run_l, reps=50)
         elt = q.element_size()
         nbytes = (2 * b * h * d * elt + 2 * rows * hkv * d * elt
-                  + valid.numel())
+                  + cv.numel())
         # q.k in the model dtype (bf16: tensor cores); p.v has f32 p
         bf = dt == torch.bfloat16
         bnd, by = bound_ms(nbytes, (2.0 if bf else 4.0) * rows * h * d,
                            2.0 * rows * h * d if bf else 0.0)
         bnd_full, _ = bound_ms(
-            2 * b * h * d * elt + 2 * b * c * hkv * d * elt + valid.numel(),
+            2 * b * h * d * elt + 2 * b * c * hkv * d * elt + cv.numel(),
             (2.0 if bf else 4.0) * b * c * h * d,
             2.0 * b * c * h * d if bf else 0.0)
         out[f"gqa_{name}"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
                                   bound_ms=bnd, bound_by=by,
                                   bound_full_cache_ms=bnd_full,
                                   library_ms=lib, library_device_ms=lib_dev,
-                                  max_abs_err=err)
-        print(f"phase decode[gqa {name}]: ok  kernel {ms:.4f} ms (device "
-              f"{dev_ms:.4f} ms)  plain {plain:.4f} ms  bound {bnd:.4f} ms "
-              f"({by}; {rows} of {b * c} rows needed; full cache "
-              f"{bnd_full:.4f} ms)  sdpa {_opt_ms(lib, lib_dev)}  "
+                                  max_abs_err=err, rows_needed=rows,
+                                  route=route)
+        print(f"phase decode[gqa {name}]: ok  {route}  kernel {ms:.4f} ms "
+              f"(device {dev_ms:.4f} ms)  plain {plain:.4f} ms  bound "
+              f"{bnd:.4f} ms ({by}; {rows} of {b * c} rows needed; full "
+              f"cache {bnd_full:.4f} ms)  sdpa {_opt_ms(lib, lib_dev)}  "
               f"max_abs_err {err:.3e}", flush=True)
         del q, k, v
     # MLA at MiniCPM3-4B: H=40, R=256, Dr=32
+    rows, c = needed_rows(valid), DEC_C
     h, r, dr = 40, 256, 32
     scale = (64 + 32) ** -0.5
     for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
@@ -857,7 +903,8 @@ def decode_busy(engine, steps: int = 3):
         return None
     busy = sum(e.time_range.elapsed_us() for e in kern)
     ours = sum(e.time_range.elapsed_us() for e in kern
-               if "k_partial" in e.name or "k_merge" in e.name)
+               if any(n in e.name
+                      for n in ("k_gqa_split", "k_partial", "k_merge")))
     return dict(steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
                 device_ms_per_step=busy / steps / 1e3,
                 busy_share=busy / wall_us, decode_kernel_share=ours / busy,
@@ -1209,7 +1256,8 @@ def main() -> int:
     kernels += [
         decode_row("gqa_decode", "src/repro/kernels/decode_attention.py:96",
                    "gqa", serve["launches"]["gqa_decode"],
-                   ("bf16", "bf16_softcap30", "bf16_mha", "f32")),
+                   ("bf16", "bf16_softcap30", "bf16_mha", "f32",
+                    "bf16_holes", "bf16_c2000", "bf16_g16")),
         decode_row("mla_decode", "src/repro/kernels/decode_attention.py:173",
                    "mla", serve_mla["launches"]["mla_decode"],
                    ("bf16", "f32"))]

@@ -17,33 +17,54 @@
 //
 // What bounds it on an H100. GQA: bytes. At Qwen2-VL-7B (H = 28, Hkv = 4,
 // D = 128) with B = 4 slots and C = 2048 cache rows in bf16, k and v are
-// 16.8 MB against 3.35 TB/s, 5.0 us; the arithmetic (4 B*H*C*D = 59 MFLOP)
-// is far below. MLA: operations. At MiniCPM3-4B (H = 40, R = 256, Dr = 32)
-// the rows are 4.7 MB (1.4 us of bytes) but every row meets all 40 heads:
-// 2 B*H*C*(R + Dr + R) = 0.36 GFLOP in f32 against 67 TFLOP/s, 5.3 us.
+// 16.8 MB against 3.35 TB/s, 5.0 us; the rows a masked softmax needs are
+// fewer (the serving slots hold about half their rows). The arithmetic
+// (4 B*H*C*D = 59 MFLOP) is far below. MLA: operations. At MiniCPM3-4B
+// (H = 40, R = 256, Dr = 32) the rows are 4.7 MB (1.4 us of bytes) but
+// every row meets all 40 heads: the f32 value product 2 B*H*C*R = 0.17
+// GFLOP against 67 TFLOP/s.
 //
-// Design. The TPU kernel walks the cache of one sequence in order and
-// carries (m, l, acc) in scratch; here the blocks run in parallel, so the
-// cache is split into chunks of `rows` rows and
-//   1. k_partial: one block per (chunk, kv head, sequence) — for MLA, per
-//      (chunk, sequence) with all H heads — stages the chunk's key rows
-//      (and GQA's value rows) once in shared memory as f32 with 8- or
-//      16-byte loads, computes every head's logits against them, and writes
-//      per-chunk partials m = max, l = sum exp(s - m) and
-//      acc = sum exp(s - m) v;
-//   2. k_merge: one block per (head, sequence) merges the partials (M =
-//      max m, the chunk weights e^(m - M) once into shared memory, L = sum
-//      l e^(m - M), acc = sum acc e^(m - M) in chunk order) and writes
-//      acc / max(L, 1e-30) — the same result from run to run.
-// So each key/value byte is read from device memory once, whatever the
-// number of heads sharing it; every global load is a vector load with
-// kInflight of them in flight per thread. The queries sit transposed in
-// shared memory
-// ([column][head], heads padded to a multiple of 4), so one 16-byte
-// broadcast load feeds 4 heads per key element; key rows have an odd
-// stride, so a warp reading one column of 32 rows hits 32 banks. The
-// products run on the f32 pipes, not the tensor cores (wgmma is later work).
-// The ragged last chunk is masked here; C needs no padding.
+// Two designs, one per route:
+//
+// * GQA in bf16 — k_gqa_split, then k_merge over the splits. The grid is
+//   (split, kv head, sequence); the host picks the split count so that
+//   there are about two blocks per SM, and each block walks a contiguous
+//   range of 64-row tiles with (m, l, acc) in registers — the TPU kernel's
+//   sequential grid walk, inside the block. Before any copy, the block
+//   reads its rows' mask bytes and lists the tiles with a valid row; only
+//   those are read (exact: once a row is valid, a masked row's weight is
+//   exp(-1e30 - m) = 0 in f32). A block whose range holds no valid row
+//   reads the sequence's whole mask: if any row is valid it writes an
+//   empty partial (m = -1e30, l = 0, acc = 0: weight 0 in the merge), and
+//   if none is (the all-invalid sequence) it walks every tile of its range
+//   as masked rows, so the merge gives the mean of v. The tiles stay bf16
+//   in a ring of kStages stages in shared memory, filled with cp.async (16
+//   bytes a thread, zero-filled past C), so tiles t+1 and t+2 are in
+//   flight while tile t is computed. Each of the 4 warps owns 16 rows of a
+//   tile: q.k^T is mma.m16n8k16 (the kv head's G <= 16 query heads,
+//   zero-padded to 16, as M; the rows as N; D as K; fragments by ldmatrix
+//   from rows padded by 16 bytes, so no ldmatrix has a bank conflict);
+//   scale, softcap and mask act on the f32 accumulator; p.v keeps f32
+//   weights as two bf16 mmas, p = hi + lo (relative error ~2^-17), with V
+//   by ldmatrix.trans. The 4 warps' (m, l, acc) merge in shared memory at
+//   the end. k_merge is launched as a programmatic dependent (Hopper's
+//   PDL): its blocks are placed while k_gqa_split runs and wait on the
+//   grid's end, so its launch does not follow the split kernel's end.
+// * GQA in f32, and MLA — k_partial, then k_merge over chunks: one block
+//   per (chunk of `rows` rows, kv head, sequence) — for MLA, per (chunk,
+//   sequence) with all H heads — stages the chunk's key rows (and GQA's
+//   value rows) once in shared memory as f32 with 8- or 16-byte loads,
+//   computes every head's logits against them on the f32 pipes, and writes
+//   per-chunk partials m = max, l = sum exp(s - m), acc = sum exp(s - m) v.
+//   The queries sit transposed in shared memory ([column][head], heads
+//   padded to a multiple of 4), so one 16-byte broadcast load feeds 4
+//   heads per key element; key rows have an odd stride, so a warp reading
+//   one column of 32 rows hits 32 banks.
+// k_merge: one block per (head, sequence) merges the partials in order
+// (M = max m, the weights e^(m - M) once into shared memory, L = sum
+// l e^(m - M), acc = sum acc e^(m - M)) and writes acc / max(L, 1e-30) —
+// the same result from run to run.
+// The ragged last tile or chunk is masked here; C needs no padding.
 // The C entry points return cudaGetLastError() after the launches.
 
 #include <cuda_bf16.h>
@@ -319,14 +340,17 @@ __device__ float block_reduce(float x, float* red) {
 
 // ---- pass 2: merge the chunks of each (head, sequence) in chunk order ----
 // The chunk weights e^(m - M) are computed once into shared memory, so the
-// value loop's loads are independent of each other.
-template <typename T>
+// value loop's loads are independent of each other. kDependent: launched
+// as a programmatic dependent of the kernel that writes the partials, so
+// its launch overlaps that kernel; it waits here for that grid's end.
+template <typename T, bool kDependent = false>
 __global__ void __launch_bounds__(kMergeThreads)
 k_merge(int nch, int Dv, const float* __restrict__ part_m,
         const float* __restrict__ part_l, const float* __restrict__ part_acc,
         T* __restrict__ out) {
   extern __shared__ float w[];                 // [nch]
   __shared__ float red[kMergeThreads / 32];
+  if (kDependent) asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const size_t row = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
   const float* pm = part_m + row * nch;
   const float* pl = part_l + row * nch;
@@ -407,16 +431,418 @@ int mla(const T* q_abs, const T* q_rope, const T* ckv, const T* krope,
                    0.f, part_m, part_l, part_acc, out, stream);
 }
 
+// ---- GQA in bf16: split-KV over 64-row tiles, products on the tensor cores
+
+namespace split {
+
+using bf16 = __nv_bfloat16;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;   // cache rows per tile, 16 per warp
+constexpr int kStages = 3;           // tiles in the cp.async ring
+constexpr int kHeads = 16;           // mma's M: a kv head's query heads
+
+__device__ __forceinline__ float minus_inf() {
+  return __uint_as_float(0xff800000u);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global → shared without waiting; zero-filled when !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix
+// i / 8, and gets (row i / 4, columns 2 (i % 4) and 2 (i % 4) + 1) of each
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16x8) += a (16x16, row major) . b (16x8, column major); bf16 in, f32
+// sums. Lane (g = lane / 4, t = lane % 4) holds c at rows g, g + 8 and
+// columns 2t, 2t + 1.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x, y) as two bf16 pairs, hi + lo = (x, y) to a relative 2^-17
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+struct Args {
+  const bf16* q;              // (B, H, D)
+  const bf16* k;              // (B, C, Hkv, D)
+  const bf16* v;
+  const uint8_t* valid;       // row c of sequence b at valid[b*mask_bs + c]
+  long long mask_bs;
+  int C, H, Hkv, G, tiles_per_split;
+  float scale, softcap;
+  float* part_m;              // [B][H][splits]
+  float* part_l;
+  float* part_acc;            // [B][H][splits][D]
+};
+
+// dynamic shared memory: q, the K and V rings, the tile list and flags
+__host__ __device__ constexpr size_t smem_bytes(int D, int tiles) {
+  return 2 * static_cast<size_t>(D + 8) * (kHeads + 2 * kStages * kRows) +
+         5 * static_cast<size_t>(tiles);
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads) k_gqa_split(const Args a) {
+  constexpr int kS = kD + 8;     // row stride: an odd number of 16 B units
+  constexpr int kTile = kRows * kS;
+  constexpr int kChunks = kD / 8;            // 16-byte pieces of a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // [kHeads][kS]
+  bf16* ks = qs + kHeads * kS;               // [kStages][kRows][kS]
+  bf16* vs = ks + kStages * kTile;
+  int* list = reinterpret_cast<int*>(vs + kStages * kTile);
+  uint8_t* live = reinterpret_cast<uint8_t*>(list + a.tiles_per_split);
+  __shared__ int n_live;
+
+  // the merge may launch once every block of this grid runs
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+  const int split = blockIdx.x, kg = blockIdx.y, b = blockIdx.z;
+  const int nsplit = gridDim.x, g0 = kg * a.G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t0 = split * a.tiles_per_split;
+  const int nt = min(a.tiles_per_split, (a.C + kRows - 1) / kRows - t0);
+  const uint8_t* vm = a.valid + b * a.mask_bs;
+
+  // 1. the tiles of the range that hold a valid row, in order
+  for (int i = warp; i < nt; i += kWarps) {
+    const int r = (t0 + i) * kRows + 2 * lane;
+    const bool any = (r < a.C && vm[r]) || (r + 1 < a.C && vm[r + 1]);
+    const bool t = __any_sync(0xffffffffu, any);
+    if (lane == 0) live[i] = t;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int i0 = 0; i0 < nt; i0 += 32) {
+      const bool f = i0 + lane < nt && live[i0 + lane];
+      const unsigned bal = __ballot_sync(0xffffffffu, f);
+      if (f) list[n + __popc(bal & ((1u << lane) - 1))] = t0 + i0 + lane;
+      n += __popc(bal);
+    }
+    if (lane == 0) n_live = n;
+  }
+  __syncthreads();
+  int n = n_live;
+  if (n == 0) {
+    // no valid row here: an empty partial (weight 0 in the merge), unless
+    // no row of the sequence is valid — then every row of the range counts
+    // (the mean of v). The sequence's mask with 8 loads in flight a thread.
+    int any = 0;
+    for (int r0 = tid; r0 < a.C; r0 += 8 * kThreads) {
+      uint8_t x[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        x[u] = r0 + u * kThreads < a.C ? vm[r0 + u * kThreads] : 0;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) any |= x[u];
+    }
+    if (__syncthreads_or(any)) {
+      for (int i = tid; i < a.G * kD; i += kThreads) {
+        const int j = i / kD;
+        const size_t row =
+            (static_cast<size_t>(b) * a.H + g0 + j) * nsplit + split;
+        a.part_acc[row * kD + i - j * kD] = 0.f;
+        if (i == j * kD) {
+          a.part_m[row] = kNegInf;
+          a.part_l[row] = 0.f;
+        }
+      }
+      return;
+    }
+    for (int i = tid; i < nt; i += kThreads) list[i] = t0 + i;
+    __syncthreads();
+    n = nt;
+  }
+
+  // 2. the queries (rows G.. zero) join the first tile's copy group
+  const bf16* qb = a.q + (static_cast<size_t>(b) * a.H + g0) * kD;
+  for (int i = tid; i < kHeads * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i - r * kChunks;
+    const bool in = r < a.G;
+    cp_async16(qs + r * kS + 8 * c, in ? qb + r * kD + 8 * c : a.q, in);
+  }
+  auto load = [&](int stage, int tile) {
+    bf16* kd = ks + stage * kTile;
+    bf16* vd = vs + stage * kTile;
+    for (int i = tid; i < kRows * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = i - r * kChunks;
+      const int row = tile * kRows + r;
+      const bool in = row < a.C;
+      const size_t off =
+          ((static_cast<size_t>(b) * a.C + (in ? row : 0)) * a.Hkv + kg) *
+              kD + 8 * c;
+      cp_async16(kd + r * kS + 8 * c, a.k + off, in);
+      cp_async16(vd + r * kS + 8 * c, a.v + off, in);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n) load(s, list[s]);
+    cp_commit();
+  }
+
+  // 3. the walk: (m, l) of rows g and g + 8 of the heads, acc[j] holds
+  //    columns 8j + 2t, +1
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mat = lane >> 3, mr = lane & 7;   // ldmatrix: matrix, its row
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int i = 0; i < n; ++i) {
+    cp_wait<kStages - 2>();
+    __syncthreads();       // tile i is in; every warp is done with i - 1
+    if (i + kStages - 1 < n)
+      load((i + kStages - 1) % kStages, list[i + kStages - 1]);
+    cp_commit();
+    const int tile = list[i];
+    const bf16* kt = ks + (i % kStages) * kTile + warp * 16 * kS;
+    const bf16* vt = vs + (i % kStages) * kTile + warp * 16 * kS;
+
+    // s = q . k^T over the warp's 16 rows, as two 8-row n-tiles
+    float sc[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      uint32_t qa[4], kb[4];
+      ldsm_x4(qa, qs + ((mat & 1) * 8 + mr) * kS + 16 * kk + (mat >> 1) * 8);
+      ldsm_x4(kb, kt + ((mat >> 1) * 8 + mr) * kS + 16 * kk + (mat & 1) * 8);
+      mma(sc[0], qa, kb[0], kb[1]);
+      mma(sc[1], qa, kb[2], kb[3]);
+    }
+    // scale, cap and mask in f32; rows past C weigh exactly 0
+    float mx[2] = {minus_inf(), minus_inf()};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = tile * kRows + warp * 16 + 8 * j + 2 * t4 + (e & 1);
+        float s = sc[j][e] * a.scale;
+        if (a.softcap > 0.f && g + 4 * (e & 2) < a.G)   // a real head
+          s = a.softcap * tanhf(s / a.softcap);
+        s = row >= a.C ? minus_inf() : (vm[row] ? s : kNegInf);
+        sc[j][e] = s;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s);
+      }
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float mn = fmaxf(m[h], mx[h]);   // m >= -1e30: never inf - inf
+      corr[h] = expf(m[h] - mn);
+      m[h] = mn;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = expf(sc[j][e] - m[e >> 1]);
+        rs[e >> 1] += sc[j][e];
+      }
+    l[0] = l[0] * corr[0] + rs[0];
+    l[1] = l[1] * corr[1] + rs[1];
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
+    }
+    // p . v with f32 p = hi + lo: the score fragments are the A fragments
+    uint32_t ph[4], pl[4];
+    split_pair(sc[0][0], sc[0][1], ph[0], pl[0]);
+    split_pair(sc[0][2], sc[0][3], ph[1], pl[1]);
+    split_pair(sc[1][0], sc[1][1], ph[2], pl[2]);
+    split_pair(sc[1][2], sc[1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int np = 0; np < kD / 16; ++np) {
+      uint32_t vb[4];
+      ldsm_x4_t(vb, vt + ((mat & 1) * 8 + mr) * kS + 16 * np + (mat >> 1) * 8);
+      mma(acc[2 * np], ph, vb[0], vb[1]);
+      mma(acc[2 * np], pl, vb[0], vb[1]);
+      mma(acc[2 * np + 1], ph, vb[2], vb[3]);
+      mma(acc[2 * np + 1], pl, vb[2], vb[3]);
+    }
+  }
+
+  // 4. merge the 4 warps in shared memory (the ring is free), in warp order
+  cp_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  constexpr int kA = kD + 8;                 // acc row stride, in floats
+  float* wm = reinterpret_cast<float*>(ks);  // [kWarps][kHeads]
+  float* wl = wm + kWarps * kHeads;
+  float* wa = wl + kWarps * kHeads;          // [kWarps][kHeads][kA]
+  const int r0 = warp * kHeads + g;
+  if (t4 == 0) {
+    wm[r0] = m[0];
+    wm[r0 + 8] = m[1];
+    wl[r0] = l[0];
+    wl[r0 + 8] = l[1];
+  }
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+    *reinterpret_cast<float2*>(wa + r0 * kA + 8 * j + 2 * t4) =
+        make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(wa + (r0 + 8) * kA + 8 * j + 2 * t4) =
+        make_float2(acc[j][2], acc[j][3]);
+  }
+  __syncthreads();
+  for (int i = tid; i < a.G * kD; i += kThreads) {
+    const int j = i / kD, d = i - j * kD;
+    float M = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, wm[w * kHeads + j]);
+    float A = 0.f, L = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float e = expf(wm[w * kHeads + j] - M);
+      A += wa[(w * kHeads + j) * kA + d] * e;
+      L += wl[w * kHeads + j] * e;
+    }
+    const size_t row =
+        (static_cast<size_t>(b) * a.H + g0 + j) * nsplit + split;
+    a.part_acc[row * kD + d] = A;
+    if (d == 0) {
+      a.part_m[row] = M;
+      a.part_l[row] = L;
+    }
+  }
+}
+
+template <int kD>
+int launch(const Args& a, int B, int splits, bf16* out, cudaStream_t st) {
+  const size_t smem = smem_bytes(kD, a.tiles_per_split);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e;
+  if (smem > 48 * 1024 &&
+      (e = cudaFuncSetAttribute(k_gqa_split<kD>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem))) != cudaSuccess)
+    return e;
+  k_gqa_split<kD><<<dim3(splits, a.Hkv, B), kThreads, smem, st>>>(a);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.H, B);
+  cfg.blockDim = dim3(kMergeThreads);
+  cfg.dynamicSmemBytes = sizeof(float) * splits;
+  cfg.stream = st;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  if ((e = cudaLaunchKernelEx(&cfg, k_merge<bf16, true>, splits, kD,
+                              static_cast<const float*>(a.part_m),
+                              static_cast<const float*>(a.part_l),
+                              static_cast<const float*>(a.part_acc), out)) !=
+      cudaSuccess)
+    return e;
+  return cudaGetLastError();
+}
+
+int gqa(const Args& a, int B, int D, int splits, bf16* out, void* stream) {
+  const int ntiles = (a.C + kRows - 1) / kRows;
+  if (a.C < 1 || a.G < 1 || a.G > kHeads || a.H != a.Hkv * a.G ||
+      splits < 1 || a.tiles_per_split < 1 ||
+      static_cast<long long>(splits) * a.tiles_per_split < ntiles ||
+      (splits - 1) * a.tiles_per_split >= ntiles ||
+      sizeof(float) * static_cast<size_t>(splits) > 48 * 1024)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+#define GQA_SPLIT_CASE(d) \
+  case d:                 \
+    return launch<d>(a, B, splits, out, st);
+    GQA_SPLIT_CASE(16) GQA_SPLIT_CASE(32) GQA_SPLIT_CASE(48)
+    GQA_SPLIT_CASE(64) GQA_SPLIT_CASE(80) GQA_SPLIT_CASE(96)
+    GQA_SPLIT_CASE(112) GQA_SPLIT_CASE(128) GQA_SPLIT_CASE(144)
+    GQA_SPLIT_CASE(160) GQA_SPLIT_CASE(176) GQA_SPLIT_CASE(192)
+    GQA_SPLIT_CASE(208) GQA_SPLIT_CASE(224) GQA_SPLIT_CASE(240)
+    GQA_SPLIT_CASE(256)
+#undef GQA_SPLIT_CASE
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace split
+
 }  // namespace
 
-#define DECODE_ENTRIES(SUFFIX, T)                                             \
-  extern "C" int gqa_decode_##SUFFIX(                                         \
-      const T* q, const T* k, const T* v, const uint8_t* valid, int B, int C, \
-      int H, int Hkv, int D, int rows, float scale, float softcap,            \
-      float* part_m, float* part_l, float* part_acc, T* out, void* stream) {  \
-    return gqa<T>(q, k, v, valid, B, C, H, Hkv, D, rows, scale, softcap,     \
-                  part_m, part_l, part_acc, out, stream);                     \
-  }                                                                           \
+// GQA: f32 through k_partial, bf16 through k_gqa_split; MLA: k_partial
+extern "C" int gqa_decode_f32(const float* q, const float* k, const float* v,
+                              const uint8_t* valid, int B, int C, int H,
+                              int Hkv, int D, int rows, float scale,
+                              float softcap, float* part_m, float* part_l,
+                              float* part_acc, float* out, void* stream) {
+  return gqa<float>(q, k, v, valid, B, C, H, Hkv, D, rows, scale, softcap,
+                    part_m, part_l, part_acc, out, stream);
+}
+
+extern "C" int gqa_split_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                              const __nv_bfloat16* v, const uint8_t* valid,
+                              long long mask_bs, int B, int C, int H, int Hkv,
+                              int D, int splits, int tiles_per_split,
+                              float scale, float softcap, float* part_m,
+                              float* part_l, float* part_acc,
+                              __nv_bfloat16* out, void* stream) {
+  if (Hkv < 1 || H % Hkv) return cudaErrorInvalidValue;
+  const split::Args a{q,     k,       v,      valid,  mask_bs,        C,
+                      H,     Hkv,     H / Hkv, tiles_per_split, scale, softcap,
+                      part_m, part_l, part_acc};
+  return split::gqa(a, B, D, splits, out, stream);
+}
+
+#define MLA_ENTRY(SUFFIX, T)                                                 \
   extern "C" int mla_decode_##SUFFIX(                                         \
       const T* q_abs, const T* q_rope, const T* ckv, const T* krope,          \
       const uint8_t* valid, int B, int C, int H, int R, int Dr, int rows,     \
@@ -426,5 +852,5 @@ int mla(const T* q_abs, const T* q_rope, const T* ckv, const T* krope,
                   scale, part_m, part_l, part_acc, out, stream);              \
   }
 
-DECODE_ENTRIES(f32, float)
-DECODE_ENTRIES(bf16, __nv_bfloat16)
+MLA_ENTRY(f32, float)
+MLA_ENTRY(bf16, __nv_bfloat16)

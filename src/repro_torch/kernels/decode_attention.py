@@ -5,11 +5,15 @@
 * ``mla_decode`` — the matrix-absorbed MLA form against the latent cache
   (ckv, krope), returning the latent context.
 
-Both kernels live in ``csrc/decode_attention.cu``. Each wrapper takes the
-device of its tensors as the route: a CUDA tensor launches the kernel (or
-raises), a CPU tensor runs the plain version in ``ref``. Each counts its
-own launches in ``.launches``. The Pallas wrapper pads C to a divisor of
-its block; the CUDA kernel takes any C and masks the ragged edge itself.
+Both kernels live in ``csrc/decode_attention.cu``. ``gqa_decode`` takes
+two routes by dtype: bf16 runs the split-KV kernel (cp.async ring of bf16
+tiles, tensor-core products, tiles with no valid row skipped; the split
+count from ``split_plan``), f32 the per-chunk kernel that ``mla_decode``
+runs in both dtypes. Each wrapper takes the device of its tensors as the
+route: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
+the plain version in ``ref``. Each counts its own launches in
+``.launches``. The Pallas wrapper pads C to a divisor of its block; the
+CUDA kernels take any C and mask the ragged edge themselves.
 """
 
 from __future__ import annotations
@@ -20,15 +24,24 @@ import torch
 
 from repro_torch.kernels import ref
 
-# cache rows per block (one chunk): GQA's 64-row tiles take 71 KB of
-# shared memory at D = 128 (3 blocks an SM); MLA's 32-row tiles with all 40
-# heads' queries 88 KB (2 an SM)
+# f32 GQA and MLA: cache rows per block (one chunk). GQA's 64-row tiles
+# take 71 KB of shared memory at D = 128 (3 blocks an SM); MLA's 32-row
+# tiles with all 40 heads' queries 88 KB (2 an SM)
 _GQA_ROWS = 64
 _MLA_ROWS = 32
+# bf16 GQA: rows per tile (kRows in the source), the most query heads per
+# kv head (kHeads, mma's M), and the blocks aimed at per SM (its 3-stage
+# ring takes 109 KB of shared memory at D = 128: two blocks an SM)
+SPLIT_TILE = 64
+SPLIT_MAX_G = 16
+SPLIT_BLOCKS_PER_SM = 2
 _SOURCE = "decode_attention.cu"
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _GQA_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5)
+_SPLIT_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+               + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+               + [ctypes.c_void_p] * 5)
 _MLA_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
              + [ctypes.c_void_p] * 5)
 
@@ -74,14 +87,6 @@ def _widths_ok(**widths: int) -> None:
                              f"{name}={w} is not a positive multiple of 4")
 
 
-def _mask(valid: torch.Tensor, b: int, c: int, dev) -> torch.Tensor:
-    if valid.dim() != 2 or valid.shape[-1] != c or valid.shape[0] not in (1,
-                                                                          b):
-        raise ValueError(f"valid must be (B or 1, C) = ({b} or 1, {c}), "
-                         f"got {tuple(valid.shape)}")
-    return valid.to(dev).expand(b, c).to(torch.uint8).contiguous()
-
-
 def _partials(b: int, h: int, c: int, dv: int, rows: int, dev):
     nch = -(-c // rows)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -94,26 +99,106 @@ def _check_rc(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
-def _launch_gqa(q, k, v, valid, *, scale, softcap, q_per_kv):
+def split_plan(b: int, hkv: int, c: int, sms: int) -> tuple:
+    """(splits, tiles per split) of the bf16 GQA kernel: about
+    ``SPLIT_BLOCKS_PER_SM`` blocks of (split, kv head, sequence) per SM,
+    split ``s`` walking tiles [s * per, min((s + 1) * per, tiles)) of
+    ``SPLIT_TILE`` rows, none of them empty."""
+    tiles = -(-c // SPLIT_TILE)
+    want = -(-SPLIT_BLOCKS_PER_SM * sms // (b * hkv))
+    per = -(-tiles // max(1, min(tiles, want)))
+    return -(-tiles // per), per
+
+
+_SMS = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    n = _SMS.get(dev.index)
+    if n is None:
+        n = _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
+
+
+def _on_device(dev: torch.device, launch):
+    """Run ``launch(stream)`` on ``dev``'s current stream, switching the
+    device context only when ``dev`` is not the current device."""
+    if dev.index == torch.cuda.current_device():
+        return launch(torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return launch(torch._C._cuda_getCurrentRawStream(dev.index))
+
+
+def _mask_u8(valid: torch.Tensor, b: int, c: int, dev):
+    """The (B or 1, C) bool mask as uint8, without a copy when it is a
+    contiguous bool tensor on ``dev`` → (tensor, batch stride: C, or 0
+    for a (1, C) mask)."""
+    if valid.dim() != 2 or valid.shape[-1] != c or valid.shape[0] not in (1,
+                                                                          b):
+        raise ValueError(f"valid must be (B or 1, C) = ({b} or 1, {c}), "
+                         f"got {tuple(valid.shape)}")
+    if (valid.dtype != torch.bool or valid.device != dev
+            or not valid.is_contiguous()):
+        valid = valid.to(dev, torch.bool).contiguous()
+    return valid.view(torch.uint8), (c if valid.shape[0] == b else 0)
+
+
+def _mask(valid: torch.Tensor, b: int, c: int, dev) -> torch.Tensor:
+    """The mask as a (B, C) uint8 tensor (k_partial's layout): a view when
+    ``_mask_u8`` gives one of B rows, else one copy."""
+    mask, bs = _mask_u8(valid, b, c, dev)
+    return mask if bs or b == 1 else mask.expand(b, c).contiguous()
+
+
+def _check_gqa_shapes(q, k, v, q_per_kv):
     b, one, h, d = q.shape
     _, c, hkv, dk = k.shape
     if (one != 1 or tuple(v.shape) != (b, c, hkv, d) or dk != d
             or k.shape[0] != b or h != hkv * q_per_kv or c < 1):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, q_per_kv {q_per_kv}")
+    return b, h, c, hkv, d
+
+
+def _launch_gqa_split(q, k, v, valid, *, scale, softcap, q_per_kv):
+    b, h, c, hkv, d = _check_gqa_shapes(q, k, v, q_per_kv)
+    if d % 16 or not 16 <= d <= 256:
+        raise ValueError(f"the bf16 kernel takes D a multiple of 16 up to "
+                         f"256 (mma's K step); got D={d}")
+    if q_per_kv > SPLIT_MAX_G:
+        raise ValueError(f"the bf16 kernel takes at most {SPLIT_MAX_G} query "
+                         f"heads per kv head (mma's M); got {q_per_kv}")
+    q, k, v = _operands(q, k, v)
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("bf16 operands must be 16-byte aligned (cp.async)")
+    mask, mask_bs = _mask_u8(valid, b, c, q.device)
+    splits, per = split_plan(b, hkv, c, _sm_count(q.device))
+    n = b * h * splits
+    scratch = torch.empty(n * (2 + d), dtype=torch.float32, device=q.device)
+    base = scratch.data_ptr()
+    out = torch.empty_like(q)
+    fn = _kernel_fn("gqa_split", q.dtype, _SPLIT_ARGS)
+    rc = _on_device(q.device, lambda stream: fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), mask_bs,
+        b, c, h, hkv, d, splits, per, float(scale), float(softcap or 0.0),
+        base, base + 4 * n, base + 8 * n, out.data_ptr(), stream))
+    _check_rc(rc, "gqa_decode")
+    return out
+
+
+def _launch_gqa(q, k, v, valid, *, scale, softcap, q_per_kv):
+    b, h, c, hkv, d = _check_gqa_shapes(q, k, v, q_per_kv)
     _widths_ok(D=d)
     q, k, v = _operands(q, k, v)
     vmask = _mask(valid, b, c, q.device)
     pm, pl, pa = _partials(b, h, c, d, _GQA_ROWS, q.device)
     out = torch.empty_like(q)
     fn = _kernel_fn("gqa_decode", q.dtype, _GQA_ARGS)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), vmask.data_ptr(),
-                b, c, h, hkv, d, _GQA_ROWS, float(scale),
-                float(softcap or 0.0),
-                pm.data_ptr(), pl.data_ptr(), pa.data_ptr(), out.data_ptr(),
-                stream)
+    rc = _on_device(q.device, lambda stream: fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), vmask.data_ptr(), b, c, h,
+        hkv, d, _GQA_ROWS, float(scale), float(softcap or 0.0),
+        pm.data_ptr(), pl.data_ptr(), pa.data_ptr(), out.data_ptr(), stream))
     _check_rc(rc, "gqa_decode")
     return out
 
@@ -122,11 +207,14 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                valid: torch.Tensor, *, scale: float, softcap: float = 0.0,
                q_per_kv: int = 1) -> torch.Tensor:
     """q (B,1,H,D); k/v (B,C,Hkv,D); valid (B or 1, C) bool → (B,1,H,D)
-    in q's dtype. CUDA tensors run the kernel, CPU tensors the plain
-    version."""
+    in q's dtype. CUDA tensors run the kernel (bf16: the split-KV kernel,
+    D a multiple of 16 up to 256, q_per_kv ≤ 16; f32: the per-chunk
+    kernel, D a multiple of 4), CPU tensors the plain version."""
     if q.device.type == "cuda":
-        out = _launch_gqa(q, k, v, valid, scale=scale, softcap=softcap,
-                          q_per_kv=q_per_kv)
+        launch = _launch_gqa_split if q.dtype == torch.bfloat16 else \
+            _launch_gqa
+        out = launch(q, k, v, valid, scale=scale, softcap=softcap,
+                     q_per_kv=q_per_kv)
         gqa_decode.launches += 1
         return out
     if q.device.type == "cpu":
@@ -153,12 +241,10 @@ def _launch_mla(q_abs, q_rope, ckv, krope, valid, *, scale):
     pm, pl, pa = _partials(b, h, c, r, _MLA_ROWS, q_abs.device)
     out = torch.empty_like(q_abs)
     fn = _kernel_fn("mla_decode", q_abs.dtype, _MLA_ARGS)
-    with torch.cuda.device(q_abs.device):
-        stream = torch.cuda.current_stream(q_abs.device).cuda_stream
-        rc = fn(q_abs.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
-                krope.data_ptr(), vmask.data_ptr(), b, c, h, r, dr, _MLA_ROWS,
-                float(scale), pm.data_ptr(), pl.data_ptr(), pa.data_ptr(),
-                out.data_ptr(), stream)
+    rc = _on_device(q_abs.device, lambda stream: fn(
+        q_abs.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(), krope.data_ptr(),
+        vmask.data_ptr(), b, c, h, r, dr, _MLA_ROWS, float(scale),
+        pm.data_ptr(), pl.data_ptr(), pa.data_ptr(), out.data_ptr(), stream))
     _check_rc(rc, "mla_decode")
     return out
 

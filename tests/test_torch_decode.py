@@ -56,7 +56,19 @@ def _normal(rng, shape, scale=1.0):
 
 def _valid(rng, b, c, empty_row=None):
     """(B, C) prefix masks of random lengths in [1, C]; ``empty_row`` is
-    all invalid."""
+    all invalid. ``"holes"``: every row two runs of valid rows with whole
+    empty 64-row tiles between and after them; ``"last"``: only row C-1
+    is valid."""
+    if empty_row == "holes":
+        valid = np.zeros((b, c), bool)
+        for i in range(b):
+            valid[i, 3 + i:70 + i] = True
+            valid[i, c // 2 + 5:c // 2 + 40] = True
+        return valid
+    if empty_row == "last":
+        valid = np.zeros((b, c), bool)
+        valid[:, -1] = True
+        return valid
     lens = rng.integers(1, c + 1, size=(b, 1))
     valid = np.arange(c)[None] < lens
     if empty_row is not None:
@@ -69,12 +81,18 @@ def _valid(rng, b, c, empty_row=None):
 # ---------------------------------------------------------------------------
 
 GQA_CASES = [
-    # b, h, hkv, d, c, blk, empty row — tests/test_kernels.py's cases
+    # b, h, hkv, d, c, blk, empty row or mask — tests/test_kernels.py's
+    # cases, then the bf16 kernel's edges: holes of whole tiles, a last-row
+    # mask, G = 16 (its most heads per kv head), D = 80 (zamba2's width)
     (1, 4, 4, 64, 128, 64, None),      # MHA
     (2, 8, 2, 64, 256, 64, None),      # GQA 4:1
     (2, 8, 1, 128, 192, 64, None),     # MQA, non-pow2 cache
     (3, 16, 4, 32, 64, 64, None),      # single block
     (3, 8, 2, 32, 128, 64, 1),         # an all-invalid row
+    (2, 8, 2, 64, 512, 64, "holes"),   # tiles with no valid row between
+    (2, 4, 1, 32, 192, 64, "last"),    # only row C-1 valid
+    (2, 32, 2, 64, 128, 64, None),     # G = 16
+    (2, 4, 2, 80, 128, 64, None),      # D = 80
 ]
 
 
@@ -91,7 +109,7 @@ def test_gqa_plain_matches_oracle_and_pallas(b, h, hkv, d, c, blk, empty):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **ORACLE)
     pallas = pallas_gqa(q, k, v, valid, blk_s=blk, **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **PALLAS)
-    if empty is not None:        # every weight is exp(0): the mean of v
+    if isinstance(empty, int):   # every weight is exp(0): the mean of v
         np.testing.assert_allclose(
             got.numpy()[empty, 0],
             np.repeat(v[empty].mean(0), h // hkv, axis=0), **ORACLE)
@@ -148,6 +166,43 @@ def test_mla_plain_matches_oracle_and_pallas(b, h, r, dr, c, blk, empty):
             got.numpy()[empty, 0],
             np.broadcast_to(ckv[empty].mean(0), (h, r)), **ORACLE)
     assert tops.kernel_launches()["mla_decode"] == 0
+
+
+@pytest.mark.parametrize("b,hkv,c,lo,hi", [
+    (4, 4, 2048, 8, 16),     # the serving shapes: Qwen2-VL-7B, 4 slots
+    (1, 4, 64, 1, 1),        # one tile
+    (4, 28, 2048, 1, 32),    # q_per_kv = 1
+    (4, 2, 2000, 1, 32),     # G = 16, a ragged last tile
+    (3, 2, 1, 1, 1),         # a single row
+    (1, 1, 100_000, 1, 1563),
+])
+def test_split_plan_covers_every_tile_once(b, hkv, c, lo, hi):
+    splits, per = tdecode.split_plan(b, hkv, c, sms=132)
+    assert lo <= splits <= hi
+    tiles = -(-c // tdecode.SPLIT_TILE)
+    walked = [t for s in range(splits)
+              for t in range(s * per, min((s + 1) * per, tiles))]
+    assert walked == list(range(tiles))           # each tile once, in order
+    assert (splits - 1) * per < tiles             # no split is empty
+    if splits < tiles:                            # enough blocks to fill
+        assert splits * b * hkv >= tdecode.SPLIT_BLOCKS_PER_SM * 132 / 2
+
+
+def test_split_mask_is_viewed_without_a_copy():
+    """The bf16 route's mask: a contiguous bool mask is read in place as
+    uint8 (batch stride C, or 0 for a (1, C) mask); anything else is
+    converted once."""
+    valid = torch.rand(3, 70) < 0.5
+    u8, bs = tdecode._mask_u8(valid, 3, 70, valid.device)
+    assert u8.dtype == torch.uint8 and bs == 70
+    assert u8.data_ptr() == valid.data_ptr()
+    one, bs1 = tdecode._mask_u8(valid[:1], 3, 70, valid.device)
+    assert bs1 == 0 and one.data_ptr() == valid.data_ptr()
+    cols, _ = tdecode._mask_u8(valid.t().contiguous().t(), 3, 70,
+                               valid.device)
+    assert torch.equal(cols.bool(), valid)
+    with pytest.raises(ValueError):
+        tdecode._mask_u8(valid, 2, 70, valid.device)
 
 
 def test_decode_kernels_are_listed():
