@@ -669,18 +669,28 @@ def decode_valid_holes(dev):
     return valid
 
 
-def launched_kernels(fn) -> set:
-    """Names of the device kernels one call of ``fn`` launches."""
+def kernel_us(fn, reps: int = 20) -> dict:
+    """Mean device microseconds per call of each kernel that ``fn``
+    launches, by the profiler's trace of ``reps`` calls (the port's own
+    kernels by their ``k_*`` name, others by their first 60 characters)."""
+    import re
+    from collections import defaultdict
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    return {e.name for e in prof.events()
-            if e.device_type == DeviceType.CUDA}
+    tot = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"\bk_\w+", e.name)
+            tot[m.group(0) if m else e.name[:60]] += e.time_range.elapsed_us()
+    return {k: v / reps for k, v in sorted(tot.items())}
 
 
 def needed_rows(valid) -> int:
@@ -699,9 +709,10 @@ def _kernel_check(name, got, want, tol, empty_slot, empty_mean):
     check(bool(torch.isfinite(a).all()), f"{name}: not finite")
     check(torch.allclose(a, b, **tol),
           f"{name}: max abs err {float((a - b).abs().max())}")
-    check(torch.allclose(a[empty_slot, 0], empty_mean.float(), rtol=1e-2,
-                         atol=1e-3), f"{name}: all-invalid slot is not the "
-          f"mean of the values")
+    if empty_slot is not None:
+        check(torch.allclose(a[empty_slot, 0], empty_mean.float(),
+                             rtol=1e-2, atol=1e-3),
+              f"{name}: all-invalid slot is not the mean of the values")
     return float((a - b).abs().max())
 
 
@@ -721,8 +732,11 @@ def phase_decode(gen):
     out = {}
     b = DEC_B
     # GQA at Qwen2-VL-7B: H=28, Hkv=4, D=128; then the bf16 kernel's edges:
-    # masks with holes, C = 2000 (a ragged last tile), G = 16
+    # masks with holes, C = 2000 (a ragged last tile), G = 16; and the
+    # serve phase's masks (1,060-1,110 written rows a slot)
     holes = decode_valid_holes(dev)
+    serve = (torch.arange(DEC_C, device=dev)[None, :]
+             < torch.tensor([1060, 1075, 1090, 1110], device=dev)[:, None])
     for name, h, hkv, softcap, dt, cv in (
             ("bf16", 28, 4, 0.0, torch.bfloat16, valid),
             ("bf16_softcap30", 28, 4, 30.0, torch.bfloat16, valid),
@@ -731,7 +745,8 @@ def phase_decode(gen):
             ("bf16_holes", 28, 4, 0.0, torch.bfloat16, holes),
             ("bf16_c2000", 28, 4, 0.0, torch.bfloat16,
              decode_valid(dev, 2000)),
-            ("bf16_g16", 32, 2, 0.0, torch.bfloat16, valid)):
+            ("bf16_g16", 32, 2, 0.0, torch.bfloat16, valid),
+            ("bf16_serve", 28, 4, 0.0, torch.bfloat16, serve)):
         d, c = 128, cv.shape[-1]
         rows = needed_rows(cv)
         q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(dt)
@@ -742,14 +757,15 @@ def phase_decode(gen):
         run_p = lambda: ref.decode_attention_ref(q, k, v, cv, **kw)
         got, want = run_k(), run_p()
         torch.cuda.synchronize()
+        empty = None if bool(cv[2].any()) else 2   # the serve masks: none
         mean_v = v[2].float().mean(0).repeat_interleave(h // hkv, 0)
         err = _kernel_check(f"gqa {name}", got, want,
-                            F32_TOL if dt == torch.float32 else BF16_TOL, 2,
-                            mean_v)
+                            F32_TOL if dt == torch.float32 else BF16_TOL,
+                            empty, mean_v)
         route = "k_partial" if dt == torch.float32 else "k_gqa_split"
-        names = launched_kernels(run_k)
-        check(any(route in n for n in names),
-              f"gqa {name}: {route} did not launch ({sorted(names)})")
+        per_kernel = kernel_us(run_k)
+        check(route in per_kernel,
+              f"gqa {name}: {route} did not launch ({sorted(per_kernel)})")
         ms = cuda_ms(run_k, reps=50, warmup=3)
         dev_ms = device_ms(run_k, reps=50)
         plain = cuda_ms(run_p, reps=10, warmup=1)
@@ -779,12 +795,14 @@ def phase_decode(gen):
                                   bound_full_cache_ms=bnd_full,
                                   library_ms=lib, library_device_ms=lib_dev,
                                   max_abs_err=err, rows_needed=rows,
-                                  route=route)
+                                  route=route, kernel_us=per_kernel)
         print(f"phase decode[gqa {name}]: ok  {route}  kernel {ms:.4f} ms "
               f"(device {dev_ms:.4f} ms)  plain {plain:.4f} ms  bound "
               f"{bnd:.4f} ms ({by}; {rows} of {b * c} rows needed; full "
               f"cache {bnd_full:.4f} ms)  sdpa {_opt_ms(lib, lib_dev)}  "
               f"max_abs_err {err:.3e}", flush=True)
+        print("  per launch (device us): " + "  ".join(
+            f"{k} {v:.2f}" for k, v in per_kernel.items()), flush=True)
         del q, k, v
     # MLA at MiniCPM3-4B: H=40, R=256, Dr=32
     rows, c = needed_rows(valid), DEC_C
@@ -1257,7 +1275,7 @@ def main() -> int:
         decode_row("gqa_decode", "src/repro/kernels/decode_attention.py:96",
                    "gqa", serve["launches"]["gqa_decode"],
                    ("bf16", "bf16_softcap30", "bf16_mha", "f32",
-                    "bf16_holes", "bf16_c2000", "bf16_g16")),
+                    "bf16_holes", "bf16_c2000", "bf16_g16", "bf16_serve")),
         decode_row("mla_decode", "src/repro/kernels/decode_attention.py:173",
                    "mla", serve_mla["launches"]["mla_decode"],
                    ("bf16", "f32"))]
