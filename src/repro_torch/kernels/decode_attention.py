@@ -12,8 +12,9 @@ count from ``split_plan``), f32 the per-chunk kernel that ``mla_decode``
 runs in both dtypes. Each wrapper takes the device of its tensors as the
 route: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 the plain version in ``ref``. Each counts its own launches in
-``.launches``. The Pallas wrapper pads C to a divisor of its block; the
-CUDA kernels take any C and mask the ragged edge themselves.
+``.launches``; ``gqa_decode.route_launches`` splits its count by route.
+The Pallas wrapper pads C to a divisor of its block; the CUDA kernels
+take any C and mask the ragged edge themselves.
 """
 
 from __future__ import annotations
@@ -211,11 +212,13 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D a multiple of 16 up to 256, q_per_kv ≤ 16; f32: the per-chunk
     kernel, D a multiple of 4), CPU tensors the plain version."""
     if q.device.type == "cuda":
-        launch = _launch_gqa_split if q.dtype == torch.bfloat16 else \
-            _launch_gqa
+        route, launch = (("k_gqa_split", _launch_gqa_split)
+                         if q.dtype == torch.bfloat16
+                         else ("k_partial", _launch_gqa))
         out = launch(q, k, v, valid, scale=scale, softcap=softcap,
                      q_per_kv=q_per_kv)
         gqa_decode.launches += 1
+        gqa_decode.route_launches[route] += 1
         return out
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, valid, scale=scale,
@@ -224,6 +227,8 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 gqa_decode.launches = 0
+# the launches of each route by its first kernel's name
+gqa_decode.route_launches = {"k_gqa_split": 0, "k_partial": 0}
 
 
 def _launch_mla(q_abs, q_rope, ckv, krope, valid, *, scale):

@@ -209,6 +209,8 @@ def test_decode_kernels_are_listed():
     launches = tops.kernel_launches()
     assert {"gqa_decode", "mla_decode"} <= set(launches)
     assert tdecode.gqa_decode.launches == tdecode.mla_decode.launches == 0
+    assert set(tdecode.gqa_decode.route_launches) == {"k_gqa_split",
+                                                      "k_partial"}
 
 
 # ---------------------------------------------------------------------------
