@@ -304,8 +304,9 @@ def phase_similarity(gen):
         # yardstick: one bmm over operands normalised beforehand (sims only)
         qn = similarity.unit_queries(query)
         xn = similarity.unit_queries(index)
-        lib = cuda_ms(lambda: torch.bmm(qn, xn.transpose(1, 2)), reps=50,
-                      warmup=3)
+        run_l = lambda: torch.bmm(qn, xn.transpose(1, 2))
+        lib = cuda_ms(run_l, reps=50, warmup=3)
+        lib_dev = device_ms(run_l)
         del qn, xn
         elt = index.element_size()
         nbytes = (S * N * D * elt + S * Q * D * 4
@@ -314,33 +315,87 @@ def phase_similarity(gen):
         b, by = bound_ms(nbytes, 2.0 * S * Q * N * D + 3.0 * S * N * D)
         out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
                          bound_ms=b, bound_by=by, library_ms=lib,
-                         max_abs_err=err)
+                         library_device_ms=lib_dev, max_abs_err=err)
         print(f"phase similarity[{name}]: ok  kernel {ms:.4f} ms (device "
               f"{dev_ms:.4f} ms)  plain "
               f"{plain:.4f} ms  bound {b:.4f} ms ({by})  bmm (sims only) "
-              f"{lib:.4f} ms  max_abs_err {err:.3e}  m, l == fused",
-              flush=True)
-    # kernel #4: the 2-D form over one session's rows
-    q2, x2 = query[0], index32[0]
+              f"{lib:.4f} ms (device {lib_dev:.4f} ms)  max_abs_err "
+              f"{err:.3e}  m, l == fused", flush=True)
+    out.update(phase_similarity_2d(gen, query[0], index32[0], index8[0]))
+    return out
+
+
+def phase_similarity_2d(gen, q2, x32, x8):
+    """Kernel #4, the 2-D form, against its plain version: Q=8 over one
+    session's N=8192 rows with 6,000 valid (timed, with torch.mm over
+    normalised operands as the yardstick), then int8 rows, Q=20, N=300
+    and an all-invalid mask. Each case checks that the wrapper launched
+    its kernel."""
+    import torch
+    from repro_torch.kernels import ref, similarity
+    dev = q2.device
     v2 = torch.arange(N, device=dev) < 6000
-    run_k = lambda: similarity.similarity_scan(q2, x2, v2, tau=TAU)
-    run_p = lambda: ref.similarity_scan_ref(q2, x2, v2, tau=TAU)
-    got, want = run_k(), run_p()
-    torch.cuda.synchronize()
-    err = _scan_check("similarity 2-D", got, want, v2[None, :])
-    ms = cuda_ms(run_k, reps=50, warmup=3)
-    dev_ms = device_ms(run_k)
-    plain = cuda_ms(run_p, reps=5)
-    qn, xn = similarity.unit_queries(q2), similarity.unit_queries(x2)
-    lib = cuda_ms(lambda: torch.mm(qn, xn.t()), reps=50, warmup=3)
-    b, by = bound_ms(N * D * 4 + Q * D * 4 + N + Q * N * 4 + 2 * Q * 4,
-                     2.0 * Q * N * D + 3.0 * N * D)
-    out["2d"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b,
-                     bound_by=by, library_ms=lib, max_abs_err=err)
-    print(f"phase similarity[2d]: ok  kernel {ms:.4f} ms (device "
-          f"{dev_ms:.4f} ms)  plain "
-          f"{plain:.4f} ms  bound {b:.4f} ms ({by})  mm (sims only) "
-          f"{lib:.4f} ms  max_abs_err {err:.3e}", flush=True)
+    q20 = torch.randn((20, D), generator=gen, device=dev)
+    x300 = torch.randn((300, D), generator=gen, device=dev)
+    v300 = torch.rand((300,), generator=gen, device=dev) < 0.6
+    out = {}
+    for name, q, x, v in (("2d", q2, x32, v2), ("2d_int8", q2, x8, v2),
+                          ("2d_q20", q20, x32, v2),
+                          ("2d_n300", q2, x300, v300),
+                          ("2d_all_invalid", q2, x32, torch.zeros_like(v2))):
+        run_k = lambda: similarity.similarity_scan(q, x, v, tau=TAU)
+        run_p = lambda: ref.similarity_scan_ref(q, x, v, tau=TAU)
+        before = similarity.similarity_scan.launches
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        check(similarity.similarity_scan.launches == before + 1,
+              f"similarity {name}: the kernel did not launch")
+        empty = () if bool(v.any()) else (0,)
+        err = _scan_check(f"similarity {name}", tuple(t[None] for t in got),
+                          tuple(t[None] for t in want), v[None, None, :],
+                          empty)
+        row = dict(max_abs_err=err, q=q.shape[0], n=x.shape[0])
+        if name in ("2d", "2d_int8"):
+            qn, xn = similarity.unit_queries(q), similarity.unit_queries(x)
+            run_l = lambda: torch.mm(qn, xn.t())
+            nq, n = q.shape[0], x.shape[0]
+            b, by = bound_ms(n * D * x.element_size() + nq * D * 4 + n
+                             + nq * n * 4 + 2 * nq * 4,
+                             2.0 * nq * n * D + 3.0 * n * D)
+            if name == "2d":       # the statistics pass: PDL vs last block
+                fold, res = {0: [], 1: []}, {}
+                for mode in (0, 1, 1, 0):
+                    similarity.SCAN2D_FOLD_LAST = mode
+                    res[mode] = run_k()
+                    fold[mode].append(device_ms(run_k))
+                check(all(torch.equal(a, b) for a, b in zip(res[0], res[1])),
+                      "the two statistics passes differ")
+                similarity.SCAN2D_FOLD_LAST = 0
+                row["fold_device_ms"] = fold
+                print(f"  2d statistics pass, device ms: PDL {fold[0]}  "
+                      f"last block {fold[1]}", flush=True)
+            row["kernel_us"] = kernel_us(run_k)
+            print("  per launch (device us): " + ("not measured (no device "
+                  "events in the trace)" if row["kernel_us"] is None else
+                  "  ".join(f"{k} {t:.2f}"
+                            for k, t in row["kernel_us"].items())),
+                  flush=True)
+            row.update(ms=cuda_ms(run_k, reps=50, warmup=3),
+                       device_ms=device_ms(run_k),
+                       plain_ms=cuda_ms(run_p, reps=5),
+                       library_ms=cuda_ms(run_l, reps=50, warmup=3),
+                       library_device_ms=device_ms(run_l), bound_ms=b,
+                       bound_by=by)
+            del qn, xn
+        out[name] = row
+        print(f"phase similarity[{name}]: ok  Q={row['q']} N={row['n']}  "
+              + ("" if "ms" not in row else
+                 f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}"
+                 f" ms)  plain {row['plain_ms']:.4f} ms  bound "
+                 f"{row['bound_ms']:.4f} ms ({row['bound_by']})  mm (sims "
+                 f"only) {row['library_ms']:.4f} ms (device "
+                 f"{row['library_device_ms']:.4f} ms)  ")
+              + f"max_abs_err {err:.3e}", flush=True)
     return out
 
 
@@ -745,17 +800,23 @@ def phase_decode(gen):
     holes = decode_valid_holes(dev)
     serve = (torch.arange(DEC_C, device=dev)[None, :]
              < torch.tensor([1060, 1075, 1090, 1110], device=dev)[:, None])
-    for name, h, hkv, softcap, dt, cv in (
-            ("bf16", 28, 4, 0.0, torch.bfloat16, valid),
-            ("bf16_softcap30", 28, 4, 30.0, torch.bfloat16, valid),
-            ("bf16_mha", 28, 28, 0.0, torch.bfloat16, valid),
-            ("f32", 28, 4, 0.0, torch.float32, valid),
-            ("bf16_holes", 28, 4, 0.0, torch.bfloat16, holes),
-            ("bf16_c2000", 28, 4, 0.0, torch.bfloat16,
-             decode_valid(dev, 2000)),
-            ("bf16_g16", 32, 2, 0.0, torch.bfloat16, valid),
-            ("bf16_serve", 28, 4, 0.0, torch.bfloat16, serve)):
-        d, c = 128, cv.shape[-1]
+    split, part = "k_gqa_split", "k_partial"
+    bf, f32 = torch.bfloat16, torch.float32
+    for name, h, hkv, d, softcap, dt, cv, route in (
+            ("bf16", 28, 4, 128, 0.0, bf, valid, split),
+            ("bf16_softcap30", 28, 4, 128, 30.0, bf, valid, split),
+            ("bf16_mha", 28, 28, 128, 0.0, bf, valid, split),
+            ("f32", 28, 4, 128, 0.0, f32, valid, part),
+            ("bf16_holes", 28, 4, 128, 0.0, bf, holes, split),
+            ("bf16_c2000", 28, 4, 128, 0.0, bf, decode_valid(dev, 2000),
+             split),
+            ("bf16_g16", 32, 2, 128, 0.0, bf, valid, split),
+            ("bf16_serve", 28, 4, 128, 0.0, bf, serve, split),
+            # shapes the split kernel leaves to k_partial (checked only)
+            ("bf16_g32", 32, 1, 128, 0.0, bf, valid, part),
+            ("bf16_d72", 28, 4, 72, 0.0, bf, valid, part),
+            ("f32_d6", 28, 4, 6, 0.0, f32, valid, part)):
+        c = cv.shape[-1]
         rows = needed_rows(cv)
         q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(dt)
         k = torch.randn((b, c, hkv, d), generator=gen, device=dev).to(dt)
@@ -763,7 +824,6 @@ def phase_decode(gen):
         kw = dict(scale=d ** -0.5, softcap=softcap, q_per_kv=h // hkv)
         run_k = lambda: dk.gqa_decode(q, k, v, cv, **kw)
         run_p = lambda: ref.decode_attention_ref(q, k, v, cv, **kw)
-        route = "k_partial" if dt == torch.float32 else "k_gqa_split"
         before = dict(dk.gqa_decode.route_launches)
         got, want = run_k(), run_p()
         torch.cuda.synchronize()
@@ -775,6 +835,12 @@ def phase_decode(gen):
         err = _kernel_check(f"gqa {name}", got, want,
                             F32_TOL if dt == torch.float32 else BF16_TOL,
                             empty, mean_v)
+        if name in ("bf16_g32", "bf16_d72", "f32_d6"):
+            out[f"gqa_{name}"] = dict(max_abs_err=err, route=route)
+            print(f"phase decode[gqa {name}]: ok  {route}  H={h} Hkv={hkv} "
+                  f"D={d}  max_abs_err {err:.3e}", flush=True)
+            del q, k, v
+            continue
         per_kernel = kernel_us(run_k)
         ms = cuda_ms(run_k, reps=50, warmup=3)
         dev_ms = device_ms(run_k, reps=50)
@@ -818,9 +884,11 @@ def phase_decode(gen):
         del q, k, v
     # MLA at MiniCPM3-4B: H=40, R=256, Dr=32
     rows, c = needed_rows(valid), DEC_C
-    h, r, dr = 40, 256, 32
+    h, dr = 40, 32
     scale = (64 + 32) ** -0.5
-    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    for name, dt, r in (("bf16", torch.bfloat16, 256),
+                        ("f32", torch.float32, 256),
+                        ("bf16_r30", torch.bfloat16, 30)):
         qa = torch.randn((b, 1, h, r), generator=gen, device=dev).to(dt)
         qr = torch.randn((b, 1, h, dr), generator=gen, device=dev).to(dt)
         ckv = torch.randn((b, c, r), generator=gen, device=dev).to(dt)
@@ -834,6 +902,12 @@ def phase_decode(gen):
         err = _kernel_check(f"mla {name}", got, want,
                             F32_TOL if dt == torch.float32 else BF16_TOL, 2,
                             mean_c)
+        if r != 256:            # a width not a multiple of 4: checked only
+            out[f"mla_{name}"] = dict(max_abs_err=err)
+            print(f"phase decode[mla {name}]: ok  R={r}  max_abs_err "
+                  f"{err:.3e}", flush=True)
+            del qa, qr, ckv, kr
+            continue
         ms = cuda_ms(run_k, reps=50, warmup=3)
         dev_ms = device_ms(run_k, reps=50)
         plain = cuda_ms(run_p, reps=10, warmup=1)
@@ -1221,17 +1295,18 @@ def main() -> int:
 
     dl = dense["launches"]
 
-    def scan_row(name, replaces, r, n_launch):
+    def scan_row(name, source, replaces, r, n_launch):
         return dict(name=name, route="cuda",
-                    source="src/repro_torch/kernels/csrc/similarity_scan.cu",
+                    source=f"src/repro_torch/kernels/csrc/{source}",
                     replaces=replaces, launches=n_launch,
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     device_ms=r["device_ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
+                    library_device_ms=r["library_device_ms"],
                     library_note="torch.bmm/mm over operands normalised "
                                  "beforehand: sims only")
-    stack_row = scan_row("similarity_scan_stack",
+    stack_row = scan_row("similarity_scan_stack", "similarity_scan.cu",
                          "src/repro/kernels/similarity.py:244", sim["f32"],
                          dl["similarity_scan_stack"])
     stack_row.update(
@@ -1255,8 +1330,14 @@ def main() -> int:
         int8_bound_ms=fused["int8"]["bound_ms"],
         windows_ms=fused["f32_windows"]["ms"]),
         stack_row,
-        scan_row("similarity_scan", "src/repro/kernels/similarity.py:148",
-                 sim["2d"], dl["similarity_scan"]),
+        dict(scan_row("similarity_scan", "similarity_scan_2d.cu",
+                      "src/repro/kernels/similarity.py:148", sim["2d"],
+                      dl["similarity_scan"]),
+             max_abs_err=max(v["max_abs_err"] for k, v in sim.items()
+                             if k.startswith("2d")),
+             int8_ms=sim["2d_int8"]["ms"],
+             int8_device_ms=sim["2d_int8"]["device_ms"],
+             int8_bound_ms=sim["2d_int8"]["bound_ms"]),
         dict(name="scene_score", route="triton",
              source="src/repro_torch/kernels/scene_score.py",
              replaces="src/repro/kernels/scene_score.py:75",
@@ -1287,10 +1368,11 @@ def main() -> int:
         decode_row("gqa_decode", "src/repro/kernels/decode_attention.py:96",
                    "gqa", serve["launches"]["gqa_decode"],
                    ("bf16", "bf16_softcap30", "bf16_mha", "f32",
-                    "bf16_holes", "bf16_c2000", "bf16_g16", "bf16_serve")),
+                    "bf16_holes", "bf16_c2000", "bf16_g16", "bf16_serve",
+                    "bf16_g32", "bf16_d72", "f32_d6")),
         decode_row("mla_decode", "src/repro/kernels/decode_attention.py:173",
                    "mla", serve_mla["launches"]["mla_decode"],
-                   ("bf16", "f32"))]
+                   ("bf16", "f32", "bf16_r30"))]
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

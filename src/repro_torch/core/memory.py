@@ -6,7 +6,7 @@ raw data layer.
 * ``VenusMemory`` — one session's index rows (cluster centroid
   embeddings) with bounded member reservoirs. Host mirrors in numpy are
   authoritative; the device copy lives in a ``MemoryArena`` slot (or, for
-  a detached memory, is uploaded from the mirrors when they change).
+  a detached memory, is uploaded at first use and appended in place).
 * ``MemoryArena`` — the device-resident ``(S, capacity, ·)`` super-buffers
   every session's rows live in. A tick's appends land with one in-place
   ``index_put_`` per super-buffer, so the buffers ARE the fused scan's
@@ -36,11 +36,25 @@ class FrameStore:
     """Raw data layer: host archive of frames by absolute index.
     ``trim(keep_from)`` drops every frame below an absolute id; ids stay
     stable (``base`` offsets the retained list) and reading a trimmed id
-    raises ``IndexError``. The disk spill tier is a later slice."""
+    raises ``IndexError``. The disk spill tier is a later slice: its
+    counters keep the reference's names and stay 0, as the reference's do
+    with no ``spill_dir``."""
 
     def __init__(self):
         self._frames: List[np.ndarray] = []
         self._base = 0
+        self.io_stats = {"spilled_frames": 0, "spilled_bytes": 0,
+                         "spill_faults": 0, "spill_cache_hits": 0}
+
+    def reset_io_stats(self) -> None:
+        for k in self.io_stats:
+            self.io_stats[k] = 0
+
+    @property
+    def disk_bytes(self) -> int:
+        """Bytes of this store's spill segments on disk (no spill tier
+        yet: 0)."""
+        return 0
 
     def append(self, frames: np.ndarray) -> None:
         self._frames.extend(np.asarray(frames))
@@ -200,8 +214,12 @@ class MemoryArena:
         self._valid_dev: Optional[torch.Tensor] = None
         self._valid_version = -1
         self._deferred: Optional[list] = None
+        # the reference's keys; double buffering (its carry) and the
+        # coarse tier are not ported yet, so their counters stay 0
         self.io_stats = {"grows": 0, "appends": 0, "appended_rows": 0,
-                         "slot_releases": 0, "slot_reuses": 0}
+                         "slot_releases": 0, "slot_reuses": 0,
+                         "double_flushes": 0, "carry_rows": 0,
+                         "coarse_appends": 0, "coarse_appended_rows": 0}
 
     def reset_io_stats(self) -> None:
         for k in self.io_stats:
@@ -364,6 +382,12 @@ class MemoryArena:
 # One session's memory
 # ---------------------------------------------------------------------------
 
+# each detached device buffer's counters, under the reference's names
+_UPLOAD_COUNTERS = {"emb": "full_uploads", "members": "member_uploads",
+                    "index_frame": "index_frame_uploads"}
+_APPEND_COUNTERS = {"emb": "appended_rows", "members": "appended_member_rows",
+                    "index_frame": "appended_index_frame_rows"}
+
 
 class VenusMemory:
     """Index layer: packed vector store + cluster member reservoirs."""
@@ -397,11 +421,20 @@ class VenusMemory:
         self._size = 0
         self._head = 0
         self._rng = np.random.default_rng(seed)
-        self._dev: dict = {}             # detached device copies
-        self._dev_version = -1
+        self._dev: dict = {}             # detached device copies, by name
+        self._window_key = None          # (head, size) of the cached mask
+        self._valid_dev: Optional[torch.Tensor] = None
         self.version = 0
+        # the reference's keys; the expansion API, reservoir merges and
+        # the coarse tier are not ported yet, so their counters stay 0
         self.io_stats = {"full_uploads": 0, "appended_rows": 0,
-                         "scans": 0, "evicted_rows": 0}
+                         "member_uploads": 0, "appended_member_rows": 0,
+                         "index_frame_uploads": 0,
+                         "appended_index_frame_rows": 0,
+                         "scans": 0, "host_expand_gathers": 0,
+                         "device_expand_gathers": 0,
+                         "evicted_rows": 0, "reservoir_merges": 0,
+                         "consolidated_rows": 0}
 
     def reset_io_stats(self) -> None:
         for k in self.io_stats:
@@ -462,15 +495,27 @@ class VenusMemory:
             self._member_count[pj] = m
         self._size += n
         self.version += 1
-        if self.arena is not None:
-            for pos, _off, cnt in runs:
-                moved = self.arena.append(
-                    self.slot, pos, self._emb[pos:pos + cnt],
-                    self._members[pos:pos + cnt],
-                    self._member_count[pos:pos + cnt],
-                    self._index_frame[pos:pos + cnt], self.window)
-                self.io_stats["appended_rows"] += moved
+        for pos, _off, cnt in runs:
+            self._sync_device(pos, cnt)
         return (tail + np.arange(n)) % self.capacity
+
+    def _sync_device(self, pos: int, cnt: int) -> None:
+        """Push the host rows [pos, pos+cnt) to the device copy: into the
+        arena slot, or in place into each detached buffer already
+        uploaded (one not uploaded yet takes the rows at its upload)."""
+        if self.arena is not None:
+            moved = self.arena.append(
+                self.slot, pos, self._emb[pos:pos + cnt],
+                self._members[pos:pos + cnt],
+                self._member_count[pos:pos + cnt],
+                self._index_frame[pos:pos + cnt], self.window)
+            for k in _APPEND_COUNTERS.values():
+                self.io_stats[k] += moved
+            return
+        for name, bufs in self._dev.items():
+            for buf, rows in zip(bufs, self._host_rows(name, pos, cnt)):
+                buf[pos:pos + cnt] = torch.from_numpy(rows).to(self.device)
+            self.io_stats[_APPEND_COUNTERS[name]] += cnt
 
     def _advance_head(self, need: int) -> None:
         assert 0 <= need <= self._size, (need, self._size)
@@ -510,7 +555,6 @@ class VenusMemory:
         self.arena = None
         self.slot = None
         self._dev = {}
-        self._dev_version = -1
 
     @staticmethod
     def expand_u(seed: int, size) -> np.ndarray:
@@ -520,29 +564,43 @@ class VenusMemory:
             0, _U_CARD, size=size, dtype=np.int64)
 
     # ---------------------------------------------------------- device views
-    def _detached(self, name: str) -> torch.Tensor:
-        if self._dev_version != self.version:
-            emb = (quantise_rows(self._emb)[0]
-                   if self.index_dtype == "int8" else self._emb)
-            self._dev = {
-                "emb": torch.from_numpy(emb).to(self.device),
-                "members": torch.from_numpy(self._members).to(self.device),
-                "counts": torch.from_numpy(
-                    self._member_count).to(self.device),
-                "index_frame": torch.from_numpy(
-                    self._index_frame).to(self.device)}
-            self._dev_version = self.version
-            self.io_stats["full_uploads"] += 1
-        return self._dev[name]
+    def _host_rows(self, name: str, pos: int, cnt: int):
+        """The host rows [pos, pos+cnt) of one detached device buffer,
+        as the device holds them (int8 rows quantised per row)."""
+        rows = slice(pos, pos + cnt)
+        if name == "emb":
+            emb = self._emb[rows]
+            return ((quantise_rows(emb)[0] if self.index_dtype == "int8"
+                     else np.ascontiguousarray(emb)),)
+        if name == "members":
+            return (np.ascontiguousarray(self._members[rows]),
+                    np.ascontiguousarray(self._member_count[rows]))
+        return (np.ascontiguousarray(self._index_frame[rows]),)
+
+    def _detached(self, name: str) -> Tuple[torch.Tensor, ...]:
+        """A detached buffer's device copy: uploaded whole at its first
+        use (counted as the reference counts it), then kept current by
+        in-place appends (``_sync_device``)."""
+        bufs = self._dev.get(name)
+        if bufs is None:
+            bufs = self._dev[name] = tuple(
+                torch.tensor(a, device=self.device)
+                for a in self._host_rows(name, 0, self.capacity))
+            self.io_stats[_UPLOAD_COUNTERS[name]] += 1
+        return bufs
 
     def device_index(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(embeddings (cap, d), valid (cap,)) on the device."""
-        w = torch.tensor([[self._head, self._size]], dtype=torch.int32,
-                         device=self.device)
-        valid = as_valid_mask(w, self.capacity)[0]
+        """(embeddings (cap, d), valid (cap,)) on the device. The mask is
+        cached against the ``(head, size)`` window it derives from, so a
+        search makes no host-to-device copy while the window stands."""
+        if self._window_key != self.window:
+            w = torch.tensor([self.window], dtype=torch.int32,
+                             device=self.device)
+            self._valid_dev = as_valid_mask(w, self.capacity)[0]
+            self._window_key = self.window
         if self.arena is not None:
-            return self.arena.emb[self.slot], valid
-        return self._detached("emb"), valid
+            return self.arena.emb[self.slot], self._valid_dev
+        return self._detached("emb")[0], self._valid_dev
 
     def search(self, query_emb, *, tau: float
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -557,12 +615,12 @@ class VenusMemory:
         if self.arena is not None:
             return (self.arena.members[self.slot],
                     self.arena.member_count[self.slot])
-        return self._detached("members"), self._detached("counts")
+        return self._detached("members")
 
     def device_index_frames(self) -> torch.Tensor:
         if self.arena is not None:
             return self.arena.index_frame[self.slot]
-        return self._detached("index_frame")
+        return self._detached("index_frame")[0]
 
 
 # ---------------------------------------------------------------------------

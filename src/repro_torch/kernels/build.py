@@ -21,7 +21,8 @@ from typing import Dict
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("fused_retrieve.cu", "similarity_scan.cu", "decode_attention.cu")
+SOURCES = ("fused_retrieve.cu", "similarity_scan.cu", "similarity_scan_2d.cu",
+           "decode_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

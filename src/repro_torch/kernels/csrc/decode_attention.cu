@@ -50,10 +50,13 @@
 //   the end. k_merge is launched as a programmatic dependent (Hopper's
 //   PDL): its blocks are placed while k_gqa_split runs and wait on the
 //   grid's end, so its launch does not follow the split kernel's end.
-// * GQA in f32, and MLA — k_partial, then k_merge over chunks: one block
-//   per (chunk of `rows` rows, kv head, sequence) — for MLA, per (chunk,
-//   sequence) with all H heads — stages the chunk's key rows (and GQA's
-//   value rows) once in shared memory as f32 with 8- or 16-byte loads,
+// * GQA in f32, GQA in bf16 where k_gqa_split does not apply (more than
+//   16 query heads per kv head, or D not a multiple of 16 up to 256), and
+//   MLA — k_partial, then k_merge over chunks: one block per (chunk of
+//   `rows` rows, kv head, sequence) — for MLA, per (chunk, sequence) with
+//   all H heads — stages the chunk's key rows (and GQA's value rows) once
+//   in shared memory as f32 with 8- or 16-byte loads (one element a load
+//   where a width is not a multiple of 4),
 //   computes every head's logits against them on the f32 pipes, and writes
 //   per-chunk partials m = max, l = sum exp(s - m), acc = sum exp(s - m) v.
 //   The queries sit transposed in shared memory ([column][head], heads
@@ -115,14 +118,34 @@ struct Vec4<__nv_bfloat16> {
   }
 };
 
-// rows [c0, c0+len) of segment s (sequence b, group g) → dst[r*stride +
-// col0 + e] as f32; kInflight loads in flight per thread (a 64-row tile of
-// 128 bf16 or f32 columns is one round)
+// one element per load, for rows whose width, stride or base rules out
+// four-element vectors (a width that is not a multiple of 4)
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 template <typename T>
+struct Vec1 {
+  using type = T;
+  __device__ static void unpack(const T& v, float* o) { o[0] = to_float(v); }
+};
+
+// kV consecutive elements in one load (4 or 1)
+template <typename T, int kV>
+struct Vec;
+template <typename T>
+struct Vec<T, 4> : Vec4<T> {};
+template <typename T>
+struct Vec<T, 1> : Vec1<T> {};
+
+// rows [c0, c0+len) of segment s (sequence b, group g) → dst[r*stride +
+// col0 + e] as f32, kV elements a load; kInflight loads in flight per
+// thread (a 64-row tile of 128 bf16 or f32 columns is one round at kV = 4)
+template <int kV, typename T>
 __device__ void load_tile(const Seg<T>& s, int b, int g, int c0, int len,
                           float* dst, int stride, int col0) {
-  using V = typename Vec4<T>::type;
-  const int per_row = s.width / 4, n = len * per_row;
+  using V = typename Vec<T, kV>::type;
+  const int per_row = s.width / kV, n = len * per_row;
   const T* base = s.ptr + b * s.bs + g * s.gs + c0 * s.rs;
   for (int i0 = threadIdx.x; i0 < n; i0 += kInflight * kThreads) {
     V buf[kInflight];
@@ -130,32 +153,34 @@ __device__ void load_tile(const Seg<T>& s, int b, int g, int c0, int len,
     for (int u = 0; u < kInflight; ++u) {
       const int i = i0 + u * kThreads;
       if (i < n) {
-        const int r = i / per_row, c4 = i - r * per_row;
-        buf[u] = *reinterpret_cast<const V*>(base + r * s.rs + 4 * c4);
+        const int r = i / per_row, cv = i - r * per_row;
+        buf[u] = *reinterpret_cast<const V*>(base + r * s.rs + kV * cv);
       }
     }
 #pragma unroll
     for (int u = 0; u < kInflight; ++u) {
       const int i = i0 + u * kThreads;
       if (i < n) {
-        const int r = i / per_row, c4 = i - r * per_row;
-        float f[4];
-        Vec4<T>::unpack(buf[u], f);
-        float* o = dst + r * stride + col0 + 4 * c4;
-        o[0] = f[0]; o[1] = f[1]; o[2] = f[2]; o[3] = f[3];
+        const int r = i / per_row, cv = i - r * per_row;
+        float f[kV];
+        Vec<T, kV>::unpack(buf[u], f);
+        float* o = dst + r * stride + col0 + kV * cv;
+#pragma unroll
+        for (int e = 0; e < kV; ++e) o[e] = f[e];
       }
     }
   }
 }
 
 // the G query rows of heads g0.. of sequence b (segment q, row stride gs)
-// → qT[(col0 + e) * Gp + j] as f32. Consecutive threads take consecutive
-// heads, so the transposed stores hit consecutive banks.
-template <typename T>
+// → qT[(col0 + e) * Gp + j] as f32, kV elements a load. Consecutive
+// threads take consecutive heads, so the transposed stores hit
+// consecutive banks.
+template <int kV, typename T>
 __device__ void load_queries(const Seg<T>& q, int b, int g0, int G,
                              float* qT, int Gp, int col0) {
-  using V = typename Vec4<T>::type;
-  const int n = G * (q.width / 4);
+  using V = typename Vec<T, kV>::type;
+  const int n = G * (q.width / kV);
   const T* base = q.ptr + b * q.bs + g0 * q.gs;
   for (int i0 = threadIdx.x; i0 < n; i0 += kInflight * kThreads) {
     V buf[kInflight];
@@ -163,22 +188,33 @@ __device__ void load_queries(const Seg<T>& q, int b, int g0, int G,
     for (int u = 0; u < kInflight; ++u) {
       const int i = i0 + u * kThreads;
       if (i < n) {
-        const int c4 = i / G, j = i - c4 * G;
-        buf[u] = *reinterpret_cast<const V*>(base + j * q.gs + 4 * c4);
+        const int cv = i / G, j = i - cv * G;
+        buf[u] = *reinterpret_cast<const V*>(base + j * q.gs + kV * cv);
       }
     }
 #pragma unroll
     for (int u = 0; u < kInflight; ++u) {
       const int i = i0 + u * kThreads;
       if (i < n) {
-        const int c4 = i / G, j = i - c4 * G;
-        float f[4];
-        Vec4<T>::unpack(buf[u], f);
-        float* o = qT + (col0 + 4 * c4) * Gp + j;
-        o[0] = f[0]; o[Gp] = f[1]; o[2 * Gp] = f[2]; o[3 * Gp] = f[3];
+        const int cv = i / G, j = i - cv * G;
+        float f[kV];
+        Vec<T, kV>::unpack(buf[u], f);
+        float* o = qT + (col0 + kV * cv) * Gp + j;
+#pragma unroll
+        for (int e = 0; e < kV; ++e) o[e * Gp] = f[e];
       }
     }
   }
+}
+
+// whether a segment can be read in four-element vectors: its width and
+// strides are multiples of 4 and its base is aligned to 4 elements
+template <typename T>
+bool vec4_ok(const Seg<T>& s) {
+  return s.width == 0 ||
+         (s.width % 4 == 0 && s.bs % 4 == 0 && s.gs % 4 == 0 &&
+          s.rs % 4 == 0 &&
+          reinterpret_cast<uintptr_t>(s.ptr) % (4 * sizeof(T)) == 0);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -214,21 +250,27 @@ __host__ __device__ inline Layout layout(int G, int D1, int D2, int Dv,
   return L;
 }
 
-// ---- pass 1: per (chunk, kv group, sequence) partials ----
-// q1/q2 are indexed by head h = g0 + j (j < G): ptr + b*bs + h*gs + e.
-template <typename T>
+// ---- pass 1: per (chunk, kv group, head block, sequence) partials ----
+// A kv group's G query heads are taken Gb at a time (blockIdx.y = kv
+// group * head blocks + head block), so that any G fits shared memory.
+// q1/q2 are indexed by head h = g0 + j (j < Gh): ptr + b*bs + h*gs + e.
+// kV: elements per global load (4, or 1 for widths not a multiple of 4).
+template <typename T, int kV>
 __global__ void __launch_bounds__(kThreads)
 k_partial(Seg<T> q1, Seg<T> q2, Seg<T> k1, Seg<T> k2, Seg<T> v,
-          const uint8_t* __restrict__ valid, int C, int G, int rows,
+          const uint8_t* __restrict__ valid, int C, int G, int Gb, int rows,
           float scale, float softcap, float* __restrict__ part_m,
           float* __restrict__ part_l, float* __restrict__ part_acc) {
   extern __shared__ __align__(16) float sm[];
-  const int chunk = blockIdx.x, kg = blockIdx.y, b = blockIdx.z;
-  const int nch = gridDim.x, H = gridDim.y * G, g0 = kg * G;
+  const int nsub = (G + Gb - 1) / Gb;
+  const int chunk = blockIdx.x, kg = blockIdx.y / nsub, b = blockIdx.z;
+  const int sub = blockIdx.y - kg * nsub;
+  const int nch = gridDim.x, H = gridDim.y / nsub * G;
+  const int g0 = kg * G + sub * Gb, Gh = min(Gb, G - sub * Gb);
   const int c0 = chunk * rows, len = min(rows, C - c0);
   const bool own_v = v.width > 0;
   const int D1 = k1.width, D2 = k2.width;
-  const Layout L = layout(G, D1, D2, own_v ? v.width : D1, own_v, rows);
+  const Layout L = layout(Gb, D1, D2, own_v ? v.width : D1, own_v, rows);
   float* qT = sm + L.q_off;
   float* kt = sm + L.k_off;
   float* vt = sm + L.v_off;
@@ -236,15 +278,15 @@ k_partial(Seg<T> q1, Seg<T> q2, Seg<T> k1, Seg<T> k2, Seg<T> v,
 
   // queries, transposed into qT[c][j] with vector loads in flight; the pad
   // heads' columns are zero
-  for (int i = threadIdx.x; i < L.Dk * (L.Gp - G); i += kThreads) {
-    const int c = i / (L.Gp - G);
-    qT[c * L.Gp + G + (i - c * (L.Gp - G))] = 0.f;
+  for (int i = threadIdx.x; i < L.Dk * (L.Gp - Gh); i += kThreads) {
+    const int c = i / (L.Gp - Gh);
+    qT[c * L.Gp + Gh + (i - c * (L.Gp - Gh))] = 0.f;
   }
-  load_queries(q1, b, g0, G, qT, L.Gp, 0);
-  if (D2) load_queries(q2, b, g0, G, qT, L.Gp, D1);
-  load_tile(k1, b, kg, c0, len, kt, L.ks, 0);
-  if (D2) load_tile(k2, b, kg, c0, len, kt, L.ks, D1);
-  if (own_v) load_tile(v, b, kg, c0, len, vt, L.Dv, 0);
+  load_queries<kV>(q1, b, g0, Gh, qT, L.Gp, 0);
+  if (D2) load_queries<kV>(q2, b, g0, Gh, qT, L.Gp, D1);
+  load_tile<kV>(k1, b, kg, c0, len, kt, L.ks, 0);
+  if (D2) load_tile<kV>(k2, b, kg, c0, len, kt, L.ks, D1);
+  if (own_v) load_tile<kV>(v, b, kg, c0, len, vt, L.Dv, 0);
   __syncthreads();
 
   // logits: item (head quad hq, row r); a warp shares hq, so the query
@@ -277,7 +319,7 @@ k_partial(Seg<T> q1, Seg<T> q2, Seg<T> k1, Seg<T> k2, Seg<T> v,
 
   // per head: the chunk's max and sum-exp; the logits become weights
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j = warp; j < G; j += kThreads / 32) {
+  for (int j = warp; j < Gh; j += kThreads / 32) {
     float m = kNegInf;
     for (int r = lane; r < len; r += 32) m = fmaxf(m, pT[r * L.Gp + j]);
     m = warp_max(m);
@@ -316,7 +358,7 @@ k_partial(Seg<T> q1, Seg<T> q2, Seg<T> k1, Seg<T> k2, Seg<T> v,
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int j = 4 * hq + u;
-      if (j < G)
+      if (j < Gh)
         part_acc[((static_cast<size_t>(b) * H + g0 + j) * nch + chunk) *
                      L.Dv + d] = a[u];
     }
@@ -376,26 +418,34 @@ k_merge(int nch, int Dv, const float* __restrict__ part_m,
 
 template <typename T>
 int launch(Seg<T> q1, Seg<T> q2, Seg<T> k1, Seg<T> k2, Seg<T> v,
-           const uint8_t* valid, int B, int groups, int G, int C, int rows,
+           const uint8_t* valid, int B, int groups, int G, int Gb, int C,
+           int rows,
            float scale, float softcap, float* part_m, float* part_l,
            float* part_acc, T* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool own_v = v.width > 0;
   const int Dv = own_v ? v.width : k1.width;
-  const Layout L = layout(G, k1.width, k2.width, Dv, own_v, rows);
+  if (Gb < 1 || Gb > G || rows < 1) return cudaErrorInvalidValue;
+  const Layout L = layout(Gb, k1.width, k2.width, Dv, own_v, rows);
   const size_t smem = sizeof(float) * static_cast<size_t>(L.total);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t e;
-  if (smem > 48 * 1024 &&
-      (e = cudaFuncSetAttribute(k_partial<T>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem))) != cudaSuccess)
-    return e;
   const int nch = (C + rows - 1) / rows;
-  k_partial<T><<<dim3(nch, groups, B), kThreads, smem, st>>>(
-      q1, q2, k1, k2, v, valid, C, G, rows, scale, softcap, part_m, part_l,
-      part_acc);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  auto run = [&](auto kernel) {
+    cudaError_t e;
+    if (smem > 48 * 1024 &&
+        (e = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  static_cast<int>(smem))) != cudaSuccess)
+      return e;
+    kernel<<<dim3(nch, groups * ((G + Gb - 1) / Gb), B), kThreads, smem,
+             st>>>(q1, q2, k1, k2, v, valid, C, G, Gb, rows, scale, softcap,
+                   part_m, part_l, part_acc);
+    return cudaGetLastError();
+  };
+  const bool vec = vec4_ok(q1) && vec4_ok(q2) && vec4_ok(k1) &&
+                   vec4_ok(k2) && vec4_ok(v);
+  cudaError_t e = vec ? run(k_partial<T, 4>) : run(k_partial<T, 1>);
+  if (e != cudaSuccess) return e;
   if (sizeof(float) * static_cast<size_t>(nch) > 48 * 1024)
     return cudaErrorInvalidValue;
   k_merge<T><<<dim3(groups * G, B), kMergeThreads, sizeof(float) * nch, st>>>(
@@ -405,30 +455,32 @@ int launch(Seg<T> q1, Seg<T> q2, Seg<T> k1, Seg<T> k2, Seg<T> v,
 
 template <typename T>
 int gqa(const T* q, const T* k, const T* v, const uint8_t* valid, int B,
-        int C, int H, int Hkv, int D, int rows, float scale, float softcap,
-        float* part_m, float* part_l, float* part_acc, T* out,
+        int C, int H, int Hkv, int D, int heads, int rows, float scale,
+        float softcap, float* part_m, float* part_l, float* part_acc, T* out,
         void* stream) {
+  if (Hkv < 1 || H % Hkv) return cudaErrorInvalidValue;
   const long long kv_b = static_cast<long long>(C) * Hkv * D;
   const Seg<T> q1{q, static_cast<long long>(H) * D, D, 0, D};
   const Seg<T> none{nullptr, 0, 0, 0, 0};
   const Seg<T> k1{k, kv_b, D, static_cast<long long>(Hkv) * D, D};
   const Seg<T> v1{v, kv_b, D, static_cast<long long>(Hkv) * D, D};
-  return launch<T>(q1, none, k1, none, v1, valid, B, Hkv, H / Hkv, C, rows,
-                   scale, softcap, part_m, part_l, part_acc, out, stream);
+  return launch<T>(q1, none, k1, none, v1, valid, B, Hkv, H / Hkv, heads, C,
+                   rows, scale, softcap, part_m, part_l, part_acc, out,
+                   stream);
 }
 
 template <typename T>
 int mla(const T* q_abs, const T* q_rope, const T* ckv, const T* krope,
-        const uint8_t* valid, int B, int C, int H, int R, int Dr, int rows,
-        float scale, float* part_m, float* part_l, float* part_acc, T* out,
-        void* stream) {
+        const uint8_t* valid, int B, int C, int H, int R, int Dr, int heads,
+        int rows, float scale, float* part_m, float* part_l, float* part_acc,
+        T* out, void* stream) {
   const Seg<T> q1{q_abs, static_cast<long long>(H) * R, R, 0, R};
   const Seg<T> q2{q_rope, static_cast<long long>(H) * Dr, Dr, 0, Dr};
   const Seg<T> k1{ckv, static_cast<long long>(C) * R, 0, R, R};
   const Seg<T> k2{krope, static_cast<long long>(C) * Dr, 0, Dr, Dr};
   const Seg<T> none{nullptr, 0, 0, 0, 0};
-  return launch<T>(q1, q2, k1, k2, none, valid, B, 1, H, C, rows, scale,
-                   0.f, part_m, part_l, part_acc, out, stream);
+  return launch<T>(q1, q2, k1, k2, none, valid, B, 1, H, heads, C, rows,
+                   scale, 0.f, part_m, part_l, part_acc, out, stream);
 }
 
 // ---- GQA in bf16: split-KV over 64-row tiles, products on the tensor cores
@@ -818,15 +870,19 @@ int gqa(const Args& a, int B, int D, int splits, bf16* out, void* stream) {
 
 }  // namespace
 
-// GQA: f32 through k_partial, bf16 through k_gqa_split; MLA: k_partial
-extern "C" int gqa_decode_f32(const float* q, const float* k, const float* v,
-                              const uint8_t* valid, int B, int C, int H,
-                              int Hkv, int D, int rows, float scale,
-                              float softcap, float* part_m, float* part_l,
-                              float* part_acc, float* out, void* stream) {
-  return gqa<float>(q, k, v, valid, B, C, H, Hkv, D, rows, scale, softcap,
-                    part_m, part_l, part_acc, out, stream);
-}
+// GQA: k_partial in f32, and in bf16 for the shapes k_gqa_split does not
+// take; k_gqa_split in bf16; MLA: k_partial
+#define GQA_ENTRY(SUFFIX, T)                                                 \
+  extern "C" int gqa_decode_##SUFFIX(                                         \
+      const T* q, const T* k, const T* v, const uint8_t* valid, int B, int C, \
+      int H, int Hkv, int D, int heads, int rows, float scale, float softcap, \
+      float* part_m, float* part_l, float* part_acc, T* out, void* stream) {  \
+    return gqa<T>(q, k, v, valid, B, C, H, Hkv, D, heads, rows, scale,       \
+                  softcap, part_m, part_l, part_acc, out, stream);            \
+  }
+
+GQA_ENTRY(f32, float)
+GQA_ENTRY(bf16, __nv_bfloat16)
 
 extern "C" int gqa_split_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                               const __nv_bfloat16* v, const uint8_t* valid,
@@ -845,11 +901,11 @@ extern "C" int gqa_split_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
 #define MLA_ENTRY(SUFFIX, T)                                                 \
   extern "C" int mla_decode_##SUFFIX(                                         \
       const T* q_abs, const T* q_rope, const T* ckv, const T* krope,          \
-      const uint8_t* valid, int B, int C, int H, int R, int Dr, int rows,     \
-      float scale, float* part_m, float* part_l, float* part_acc, T* out,     \
-      void* stream) {                                                         \
-    return mla<T>(q_abs, q_rope, ckv, krope, valid, B, C, H, R, Dr, rows,    \
-                  scale, part_m, part_l, part_acc, out, stream);              \
+      const uint8_t* valid, int B, int C, int H, int R, int Dr, int heads,    \
+      int rows, float scale, float* part_m, float* part_l, float* part_acc,   \
+      T* out, void* stream) {                                                 \
+    return mla<T>(q_abs, q_rope, ckv, krope, valid, B, C, H, R, Dr, heads,   \
+                  rows, scale, part_m, part_l, part_acc, out, stream);        \
   }
 
 MLA_ENTRY(f32, float)

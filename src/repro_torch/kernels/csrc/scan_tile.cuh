@@ -1,9 +1,10 @@
 // Shared building blocks of the cosine-scan kernels (fused_retrieve.cu,
-// similarity_scan.cu): the 256-row x 8-query tile that reads each index
-// row once for all 8 queries, the per-tile softmax statistics and their
-// fixed-order merge. Both kernels compute scores and statistics through
-// these same functions, so a dense scan and a fused scan of the same
-// inputs give the same score, m and l bits.
+// similarity_scan.cu, similarity_scan_2d.cu): the 256-row x 8-query tile
+// that reads each index row once for all 8 queries, the per-chunk softmax
+// statistics and their fixed-order merge. The stack and fused kernels
+// compute scores and statistics through these same functions, so a dense
+// scan and a fused scan of the same inputs give the same score, m and l
+// bits; the 2-D kernel takes its statistics the same way.
 
 #pragma once
 
@@ -123,20 +124,36 @@ __device__ __forceinline__ float logit_of(float sv, float tau) {
   return sv > -1e29f ? sv / tau : kNegInf;
 }
 
-// Max logit and sum-exp of one tile row for warp qi over len lanes of
-// masked scores (lane-strided, then a warp reduction): the per-chunk
-// partials every scan kernel writes.
-__device__ __forceinline__ void tile_stats(const float* sv, int len,
-                                           float tau, float& m, float& l) {
-  const int lane = threadIdx.x & 31, qi = threadIdx.x >> 5;
+// Max logit and sum-exp of one warp's len <= kBlk lanes of masked scores,
+// score(i) for lane i (lane-strided, then a warp reduction): the
+// per-chunk partials every scan kernel writes, in one order. A lane
+// reads its kBlk / 32 scores first, so their loads are in flight at once.
+template <typename F>
+__device__ __forceinline__ void row_stats(F score, int len, float tau,
+                                          float& m, float& l) {
+  constexpr int kPer = kBlk / 32;
+  const int lane = threadIdx.x & 31;
+  float x[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u)
+    x[u] = lane + 32 * u < len ? logit_of(score(lane + 32 * u), tau) : 0.f;
   m = kNegInf;
-  for (int i = lane; i < len; i += 32)
-    m = fmaxf(m, logit_of(sv[qi * kBlk + i], tau));
+#pragma unroll
+  for (int u = 0; u < kPer; ++u)
+    if (lane + 32 * u < len) m = fmaxf(m, x[u]);
   m = warp_max(m);
   l = 0.f;
-  for (int i = lane; i < len; i += 32)
-    l += expf(logit_of(sv[qi * kBlk + i], tau) - m);
+#pragma unroll
+  for (int u = 0; u < kPer; ++u)
+    if (lane + 32 * u < len) l += expf(x[u] - m);
   l = warp_sum(l);
+}
+
+// row_stats of tile row qi = warp over len lanes of the masked scores sv
+__device__ __forceinline__ void tile_stats(const float* sv, int len,
+                                           float tau, float& m, float& l) {
+  const float* row = sv + (threadIdx.x >> 5) * kBlk;
+  row_stats([row](int i) { return row[i]; }, len, tau, m, l);
 }
 
 // M and L of one (session, query) lane, merged from the per-chunk

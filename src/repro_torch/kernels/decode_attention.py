@@ -6,10 +6,13 @@
   (ckv, krope), returning the latent context.
 
 Both kernels live in ``csrc/decode_attention.cu``. ``gqa_decode`` takes
-two routes by dtype: bf16 runs the split-KV kernel (cp.async ring of bf16
-tiles, tensor-core products, tiles with no valid row skipped; the split
-count from ``split_plan``), f32 the per-chunk kernel that ``mla_decode``
-runs in both dtypes. Each wrapper takes the device of its tensors as the
+one of two routes, ``gqa_route(dtype, q_per_kv, D)``: bf16 with at most
+16 query heads per kv head and D a multiple of 16 up to 256 runs the
+split-KV kernel (cp.async ring of bf16 tiles, tensor-core products, tiles
+with no valid row skipped; the split count from ``split_plan``); every
+other shape, and f32, the per-chunk kernel that ``mla_decode`` runs in
+both dtypes, which takes any width (one element a load where a width is
+not a multiple of 4). Each wrapper takes the device of its tensors as the
 route: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 the plain version in ``ref``. Each counts its own launches in
 ``.launches``; ``gqa_decode.route_launches`` splits its count by route.
@@ -24,6 +27,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.device import bool_bytes, on_device, sm_count
 
 # f32 GQA and MLA: cache rows per block (one chunk). GQA's 64-row tiles
 # take 71 KB of shared memory at D = 128 (3 blocks an SM); MLA's 32-row
@@ -38,12 +42,12 @@ SPLIT_MAX_G = 16
 SPLIT_BLOCKS_PER_SM = 2
 _SOURCE = "decode_attention.cu"
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_GQA_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_GQA_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5)
 _SPLIT_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
                + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
                + [ctypes.c_void_p] * 5)
-_MLA_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
+_MLA_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
              + [ctypes.c_void_p] * 5)
 
 
@@ -64,7 +68,9 @@ def _kernel_fn(stem: str, dtype: torch.dtype, argtypes):
 
 def _operands(*xs: torch.Tensor):
     """Check that the operands share one CUDA device and a kernel dtype
-    (f32 or bf16) → the contiguous tensors."""
+    (f32 or bf16) → the contiguous tensors. The per-chunk kernel loads
+    four elements at a time only where every base, stride and width
+    allows it, else one at a time."""
     dev, dt = xs[0].device, xs[0].dtype
     if dt not in _SUFFIX:
         raise TypeError(f"decode attention takes float32 or bfloat16, "
@@ -74,18 +80,45 @@ def _operands(*xs: torch.Tensor):
         if x.device != dev or x.dtype != dt:
             raise ValueError(f"operands must share one device and dtype: "
                              f"{x.device}/{x.dtype} vs {dev}/{dt}")
-        x = x.contiguous()
-        if x.data_ptr() % (4 * x.element_size()):
-            raise ValueError("operands must be aligned to 4 elements")
-        out.append(x)
+        out.append(x.contiguous())
     return out
 
 
-def _widths_ok(**widths: int) -> None:
-    for name, w in widths.items():
-        if w < 4 or w % 4:
-            raise ValueError(f"the kernel loads rows in 4-element vectors; "
-                             f"{name}={w} is not a positive multiple of 4")
+def gqa_route(dtype: torch.dtype, q_per_kv: int, d: int) -> str:
+    """The kernel ``gqa_decode`` launches on the card for a (dtype, query
+    heads per kv head, head width): ``k_gqa_split`` where its tensor-core
+    tiles apply (bf16, q_per_kv ≤ ``SPLIT_MAX_G``, D a multiple of 16 up
+    to 256), else ``k_partial``, which takes any G and D."""
+    if (dtype == torch.bfloat16 and q_per_kv <= SPLIT_MAX_G
+            and d % 16 == 0 and 16 <= d <= 256):
+        return "k_gqa_split"
+    return "k_partial"
+
+
+_SMEM_FLOATS = 227 * 1024 // 4          # a block's shared memory
+
+
+def partial_plan(g: int, dk: int, dv: int, own_v: bool, rows: int
+                 ) -> tuple:
+    """(query heads per block, rows per chunk) of the per-chunk kernel:
+    all ``g`` heads of a kv group and ``rows`` rows where their shared
+    memory fits a block (the source's ``layout``: the transposed queries,
+    the key rows at an odd stride, GQA's value rows and the weights, in
+    floats); else the rows halve down to 16, and then the heads halve
+    (one head may go down to one row). Raises when not even one head
+    and one row fit."""
+    gb = g
+    while gb >= 1:
+        gp = -(-gb // 4) * 4
+        r, least = rows, (1 if gb == 1 else min(rows, 16))
+        while r >= least:
+            kv = r * (dk | 1) + (r * dv if own_v else 0)
+            if -(-(dk * gp + kv) // 4) * 4 + r * gp <= _SMEM_FLOATS:
+                return gb, r
+            r //= 2
+        gb = -(-gb // 2) if gb > 1 else 0
+    raise ValueError(f"a query head of width {dk} does not fit one "
+                     f"block's shared memory")
 
 
 def _partials(b: int, h: int, c: int, dv: int, rows: int, dev):
@@ -111,26 +144,6 @@ def split_plan(b: int, hkv: int, c: int, sms: int) -> tuple:
     return -(-tiles // per), per
 
 
-_SMS = {}
-
-
-def _sm_count(dev: torch.device) -> int:
-    n = _SMS.get(dev.index)
-    if n is None:
-        n = _SMS[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return n
-
-
-def _on_device(dev: torch.device, launch):
-    """Run ``launch(stream)`` on ``dev``'s current stream, switching the
-    device context only when ``dev`` is not the current device."""
-    if dev.index == torch.cuda.current_device():
-        return launch(torch._C._cuda_getCurrentRawStream(dev.index))
-    with torch.cuda.device(dev):
-        return launch(torch._C._cuda_getCurrentRawStream(dev.index))
-
-
 def _mask_u8(valid: torch.Tensor, b: int, c: int, dev):
     """The (B or 1, C) bool mask as uint8, without a copy when it is a
     contiguous bool tensor on ``dev`` → (tensor, batch stride: C, or 0
@@ -139,10 +152,7 @@ def _mask_u8(valid: torch.Tensor, b: int, c: int, dev):
                                                                           b):
         raise ValueError(f"valid must be (B or 1, C) = ({b} or 1, {c}), "
                          f"got {tuple(valid.shape)}")
-    if (valid.dtype != torch.bool or valid.device != dev
-            or not valid.is_contiguous()):
-        valid = valid.to(dev, torch.bool).contiguous()
-    return valid.view(torch.uint8), (c if valid.shape[0] == b else 0)
+    return bool_bytes(valid, dev), (c if valid.shape[0] == b else 0)
 
 
 def _mask(valid: torch.Tensor, b: int, c: int, dev) -> torch.Tensor:
@@ -164,23 +174,17 @@ def _check_gqa_shapes(q, k, v, q_per_kv):
 
 def _launch_gqa_split(q, k, v, valid, *, scale, softcap, q_per_kv):
     b, h, c, hkv, d = _check_gqa_shapes(q, k, v, q_per_kv)
-    if d % 16 or not 16 <= d <= 256:
-        raise ValueError(f"the bf16 kernel takes D a multiple of 16 up to "
-                         f"256 (mma's K step); got D={d}")
-    if q_per_kv > SPLIT_MAX_G:
-        raise ValueError(f"the bf16 kernel takes at most {SPLIT_MAX_G} query "
-                         f"heads per kv head (mma's M); got {q_per_kv}")
     q, k, v = _operands(q, k, v)
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("bf16 operands must be 16-byte aligned (cp.async)")
     mask, mask_bs = _mask_u8(valid, b, c, q.device)
-    splits, per = split_plan(b, hkv, c, _sm_count(q.device))
+    splits, per = split_plan(b, hkv, c, sm_count(q.device))
     n = b * h * splits
     scratch = torch.empty(n * (2 + d), dtype=torch.float32, device=q.device)
     base = scratch.data_ptr()
     out = torch.empty_like(q)
     fn = _kernel_fn("gqa_split", q.dtype, _SPLIT_ARGS)
-    rc = _on_device(q.device, lambda stream: fn(
+    rc = on_device(q.device, lambda stream: fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), mask_bs,
         b, c, h, hkv, d, splits, per, float(scale), float(softcap or 0.0),
         base, base + 4 * n, base + 8 * n, out.data_ptr(), stream))
@@ -190,15 +194,15 @@ def _launch_gqa_split(q, k, v, valid, *, scale, softcap, q_per_kv):
 
 def _launch_gqa(q, k, v, valid, *, scale, softcap, q_per_kv):
     b, h, c, hkv, d = _check_gqa_shapes(q, k, v, q_per_kv)
-    _widths_ok(D=d)
     q, k, v = _operands(q, k, v)
     vmask = _mask(valid, b, c, q.device)
-    pm, pl, pa = _partials(b, h, c, d, _GQA_ROWS, q.device)
+    heads, rows = partial_plan(q_per_kv, d, d, True, _GQA_ROWS)
+    pm, pl, pa = _partials(b, h, c, d, rows, q.device)
     out = torch.empty_like(q)
     fn = _kernel_fn("gqa_decode", q.dtype, _GQA_ARGS)
-    rc = _on_device(q.device, lambda stream: fn(
+    rc = on_device(q.device, lambda stream: fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), vmask.data_ptr(), b, c, h,
-        hkv, d, _GQA_ROWS, float(scale), float(softcap or 0.0),
+        hkv, d, heads, rows, float(scale), float(softcap or 0.0),
         pm.data_ptr(), pl.data_ptr(), pa.data_ptr(), out.data_ptr(), stream))
     _check_rc(rc, "gqa_decode")
     return out
@@ -208,13 +212,12 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                valid: torch.Tensor, *, scale: float, softcap: float = 0.0,
                q_per_kv: int = 1) -> torch.Tensor:
     """q (B,1,H,D); k/v (B,C,Hkv,D); valid (B or 1, C) bool → (B,1,H,D)
-    in q's dtype. CUDA tensors run the kernel (bf16: the split-KV kernel,
-    D a multiple of 16 up to 256, q_per_kv ≤ 16; f32: the per-chunk
-    kernel, D a multiple of 4), CPU tensors the plain version."""
+    in q's dtype. CUDA tensors run the kernel that ``gqa_route`` names,
+    CPU tensors the plain version."""
     if q.device.type == "cuda":
-        route, launch = (("k_gqa_split", _launch_gqa_split)
-                         if q.dtype == torch.bfloat16
-                         else ("k_partial", _launch_gqa))
+        route = gqa_route(q.dtype, q_per_kv, q.shape[-1])
+        launch = (_launch_gqa_split if route == "k_gqa_split"
+                  else _launch_gqa)
         out = launch(q, k, v, valid, scale=scale, softcap=softcap,
                      q_per_kv=q_per_kv)
         gqa_decode.launches += 1
@@ -240,15 +243,15 @@ def _launch_mla(q_abs, q_rope, ckv, krope, valid, *, scale):
         raise ValueError(f"shapes q_abs {tuple(q_abs.shape)}, q_rope "
                          f"{tuple(q_rope.shape)}, ckv {tuple(ckv.shape)}, "
                          f"krope {tuple(krope.shape)}")
-    _widths_ok(R=r, Dr=dr)
     q_abs, q_rope, ckv, krope = _operands(q_abs, q_rope, ckv, krope)
     vmask = _mask(valid, b, c, q_abs.device)
-    pm, pl, pa = _partials(b, h, c, r, _MLA_ROWS, q_abs.device)
+    heads, rows = partial_plan(h, r + dr, r, False, _MLA_ROWS)
+    pm, pl, pa = _partials(b, h, c, r, rows, q_abs.device)
     out = torch.empty_like(q_abs)
     fn = _kernel_fn("mla_decode", q_abs.dtype, _MLA_ARGS)
-    rc = _on_device(q_abs.device, lambda stream: fn(
+    rc = on_device(q_abs.device, lambda stream: fn(
         q_abs.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(), krope.data_ptr(),
-        vmask.data_ptr(), b, c, h, r, dr, _MLA_ROWS, float(scale),
+        vmask.data_ptr(), b, c, h, r, dr, heads, rows, float(scale),
         pm.data_ptr(), pl.data_ptr(), pa.data_ptr(), out.data_ptr(), stream))
     _check_rc(rc, "mla_decode")
     return out

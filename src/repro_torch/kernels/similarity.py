@@ -3,8 +3,10 @@
 * ``fused_retrieve_scan_stack`` — the fused retrieval scan
   (``csrc/fused_retrieve.cu``), returning the raw fused contract
   (``ref.FusedRetrieveResult``; ``ops.fused_retrieve_stack`` finalises it);
-* ``similarity_scan_stack`` / ``similarity_scan`` — the dense scan
-  (``csrc/similarity_scan.cu``), returning the raw triple (sims, m, l);
+* ``similarity_scan_stack`` — the dense scan over the session stack
+  (``csrc/similarity_scan.cu``), and ``similarity_scan`` — its 2-D form
+  over one memory (``csrc/similarity_scan_2d.cu``, its tiles planned by
+  ``scan2d_plan``), each returning the raw triple (sims, m, l);
   ``ops.similarity_stack`` / ``ops.similarity`` add the probabilities.
 
 Each takes the device of its tensors as the route: a CUDA tensor launches
@@ -20,6 +22,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.device import bool_bytes, on_device, sm_count
 
 _BLK = 256          # rows per kernel tile (DRAW_BLK)
 _QG = 8             # queries per kernel tile
@@ -30,16 +33,33 @@ _FUSED = ("fused_retrieve.cu", "fused_retrieve",
 _SCAN = ("similarity_scan.cu", "similarity_scan",
          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float]
          + [ctypes.c_void_p] * 6)
+_SCAN2D = ("similarity_scan_2d.cu", "similarity_scan_2d",
+           [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float]
+           + [ctypes.c_void_p] * 5)
+# the 2-D kernel (kTileMax, kStages, kQG in its source): rows per tile,
+# tiles in its shared-memory ring, queries per pass
+SCAN2D_TILE = 16
+_SCAN2D_STAGES = 3
+_SCAN2D_SMEM = 227 * 1024           # a block's shared memory
+_SM_SMEM = 228 * 1024               # an SM's, 1 KB of it reserved a block
+# the statistics pass: 0 a second kernel under PDL, 1 the last scan block
+SCAN2D_FOLD_LAST = 0
+
+
+_FNS = {}
 
 
 def _kernel_fn(entry, index_dtype: torch.dtype):
-    from repro_torch.kernels import build
-    source, stem, argtypes = entry
-    lib = build.load(source)
-    fn = getattr(lib, f"{stem}_i8" if index_dtype == torch.int8
-                 else f"{stem}_f32")
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    key = (entry[1], index_dtype)
+    fn = _FNS.get(key)
+    if fn is None:
+        from repro_torch.kernels import build
+        source, stem, argtypes = entry
+        fn = getattr(build.load(source), f"{stem}_i8"
+                     if index_dtype == torch.int8 else f"{stem}_f32")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[key] = fn
     return fn
 
 
@@ -113,15 +133,12 @@ def _launch(query, index, valid, targets, *, tau: float, n_topk: int
     m = torch.empty((s, q, 1), dtype=torch.float32, device=dev)
     l = torch.empty((s, q, 1), dtype=torch.float32, device=dev)
     fn = _kernel_fn(_FUSED, index.dtype)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(qn.data_ptr(), index.data_ptr(), vmask.data_ptr(),
-                tg.data_ptr(), s, q, n, d, t, n_topk, float(tau),
-                part_m.data_ptr(), part_l.data_ptr(), totals.data_ptr(),
-                offs.data_ptr(), ptv.data_ptr(), pti.data_ptr(),
-                cnt.data_ptr(), dp.data_ptr(), p_last.data_ptr(),
-                tv.data_ptr(), ti.data_ptr(), m.data_ptr(), l.data_ptr(),
-                stream)
+    rc = on_device(dev, lambda stream: fn(
+        qn.data_ptr(), index.data_ptr(), vmask.data_ptr(), tg.data_ptr(), s,
+        q, n, d, t, n_topk, float(tau), part_m.data_ptr(), part_l.data_ptr(),
+        totals.data_ptr(), offs.data_ptr(), ptv.data_ptr(), pti.data_ptr(),
+        cnt.data_ptr(), dp.data_ptr(), p_last.data_ptr(), tv.data_ptr(),
+        ti.data_ptr(), m.data_ptr(), l.data_ptr(), stream))
     if rc != 0:
         raise RuntimeError(f"fused_retrieve kernel launch failed: "
                            f"cudaError {rc}")
@@ -163,12 +180,10 @@ def _launch_scan(query, index, valid, *, tau: float):
     m = torch.empty((s, q, 1), **f32)
     l = torch.empty((s, q, 1), **f32)
     fn = _kernel_fn(_SCAN, index.dtype)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(qn.data_ptr(), index.data_ptr(), vmask.data_ptr(), s, q, n,
-                index.shape[2], float(tau), part_m.data_ptr(),
-                part_l.data_ptr(), sims.data_ptr(), m.data_ptr(),
-                l.data_ptr(), stream)
+    rc = on_device(dev, lambda stream: fn(
+        qn.data_ptr(), index.data_ptr(), vmask.data_ptr(), s, q, n,
+        index.shape[2], float(tau), part_m.data_ptr(), part_l.data_ptr(),
+        sims.data_ptr(), m.data_ptr(), l.data_ptr(), stream))
     if rc != 0:
         raise RuntimeError(f"similarity_scan kernel launch failed: "
                            f"cudaError {rc}")
@@ -195,16 +210,88 @@ def similarity_scan_stack(query: torch.Tensor, index: torch.Tensor,
 similarity_scan_stack.launches = 0
 
 
+def _scan2d_smem(tile: int, qg: int, d: int, elt: int) -> int:
+    """Shared memory of a 2-D scan block (the source's ``smem_bytes``):
+    the queries and two tiles of staged scores in f32, the ring."""
+    qp, dq = -(-qg // 8) * 8, -(-d // 4) * 4
+    stage = -(-(tile * d * elt + 16) // 16) * 16
+    return 4 * (qp * dq + 2 * qp * SCAN2D_TILE) + _SCAN2D_STAGES * stage
+
+
+def scan2d_plan(n: int, d: int, elt: int, q: int, sms: int) -> tuple:
+    """(rows per tile, queries per block, blocks along the rows, tiles per
+    block) of the 2-D kernel for N rows of d elements of ``elt`` bytes
+    and Q queries on ``sms`` SMs. A block holds all Q queries where
+    shared memory allows (else groups of a multiple of 8, the grid's
+    second axis), and full tiles unless a row is so wide that 8 queries
+    and the ring do not fit (then the tile halves). The blocks fill every
+    SM as often as shared memory lets them be resident, each walking
+    ``per`` contiguous tiles: block b takes tiles [b*per, min((b+1)*per,
+    tiles)), none of them empty."""
+    tile = SCAN2D_TILE
+    while True:
+        ring = _scan2d_smem(tile, 0, d, elt)
+        per_q = _scan2d_smem(tile, 8, d, elt) - ring
+        fit = (_SCAN2D_SMEM - ring) // per_q * 8
+        if fit >= 8:
+            break
+        if tile == 1:
+            raise ValueError(f"rows of {d} elements do not fit the 2-D "
+                             f"scan's shared memory")
+        tile //= 2
+    qg = min(q, fit)
+    resident = max(1, _SM_SMEM // (_scan2d_smem(tile, qg, d, elt) + 1024))
+    want = -(-resident * sms // -(-q // qg))
+    tiles = -(-n // tile)
+    per = -(-tiles // max(1, min(tiles, want)))
+    return tile, qg, -(-tiles // per), per
+
+
+def _launch_scan_2d(query, index, valid, *, tau: float):
+    q, d = query.shape
+    n = index.shape[0]
+    dev = index.device
+    if index.dtype not in (torch.float32, torch.int8):
+        raise TypeError(f"index must be float32 or int8, got {index.dtype}")
+    if index.dim() != 2 or index.shape[1] != d or n < 1 or q < 1:
+        raise ValueError(f"shapes query {tuple(query.shape)}, index "
+                         f"{tuple(index.shape)}")
+    if query.device != dev:
+        raise ValueError(f"query on {query.device}, index on {dev}")
+    if tuple(valid.shape) != (n,):
+        raise ValueError(f"valid must be ({n},), got {tuple(valid.shape)}")
+    query = query.to(torch.float32).contiguous()
+    index = index.contiguous()
+    vmask = bool_bytes(valid, dev)
+    tile, qg, _, per = scan2d_plan(n, d, index.element_size(), q,
+                                   sm_count(dev))
+    # one allocation: sims, m, l, then the chunk partials and the ticket
+    nch = -(-n // _BLK)
+    buf = torch.empty(q * n + 2 * q + 2 * q * nch + 1, dtype=torch.float32,
+                      device=dev)
+    base = buf.data_ptr()
+    fn = _kernel_fn(_SCAN2D, index.dtype)
+    rc = on_device(dev, lambda stream: fn(
+        query.data_ptr(), index.data_ptr(), vmask.data_ptr(), q, n, d, tile,
+        qg, per, SCAN2D_FOLD_LAST, float(tau), base + 4 * (q * n + 2 * q),
+        base, base + 4 * q * n, base + 4 * (q * n + q), stream))
+    if rc != 0:
+        raise RuntimeError(f"similarity_scan kernel launch failed: "
+                           f"cudaError {rc}")
+    return (buf[:q * n].view(q, n), buf[q * n:q * n + q].view(q, 1),
+            buf[q * n + q:q * n + 2 * q].view(q, 1))
+
+
 def similarity_scan(query: torch.Tensor, index: torch.Tensor,
                     valid: torch.Tensor, *, tau: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The 2-D form: query (Q,d), index (N,d), valid (N,) bool → (sims
-    (Q,N), m (Q,1), l (Q,1)); on the card the stack kernel at S = 1."""
+    """The 2-D form: query (Q,d), index (N,d) f32 or int8, valid (N,) bool
+    → (sims (Q,N), m (Q,1), l (Q,1)). CUDA tensors run the 2-D kernel,
+    CPU tensors the plain version."""
     if index.device.type == "cuda":
-        sims, m, l = _launch_scan(query[None], index[None], valid[None],
-                                  tau=tau)
+        out = _launch_scan_2d(query, index, valid, tau=tau)
         similarity_scan.launches += 1
-        return sims[0], m[0], l[0]
+        return out
     if index.device.type == "cpu":
         return ref.similarity_scan_ref(query, index, valid, tau=tau)
     raise ValueError(f"no dense scan route for device {index.device}")

@@ -150,13 +150,17 @@ class VenusService:
 
     # ------------------------------------------------------------ monitoring
     def io_stats(self) -> Dict[str, int]:
-        """One monitoring surface over the service, under the reference's
-        names: the manager's counters, ``kops_*`` (the dispatch layer's
-        scan counts, process-global), ``arena_*`` and ``mem_*`` (per-memory
-        counters summed over live and closed sessions). The invariant to
-        alert on: ``stack_rebuilds == 0``. The spill and standing counters
-        belong to later slices."""
+        """One monitoring surface over the service, with the reference's
+        key set: the manager's counters, ``standing_specs``, ``kops_*``
+        (the dispatch layer's scan counts, process-global), ``arena_*``,
+        ``mem_*`` (per-memory counters summed over live and closed
+        sessions), the frame stores' spill counters and
+        ``spill_disk_bytes``. The invariant to alert on:
+        ``stack_rebuilds == 0``. Standing queries, sharding and the spill
+        tier are later slices: their keys read 0, as the reference's do
+        with the feature off."""
         out: Dict[str, int] = dict(self.manager.io_stats)
+        out["standing_specs"] = 0
         for k, v in kops.scan_counts().items():
             out[f"kops_{k}"] = v
         if self.manager.arena is not None:
@@ -169,4 +173,11 @@ class VenusService:
                 mem_sums[k] = mem_sums.get(k, 0) + v
         for k, v in mem_sums.items():
             out[f"mem_{k}"] = v
+        frame_sums = dict(self.manager.closed_frame_stats)
+        for st in self.manager.sessions.values():
+            for k, v in st.frames.io_stats.items():
+                frame_sums[k] = frame_sums.get(k, 0) + v
+        out.update(frame_sums)
+        out["spill_disk_bytes"] = sum(st.frames.disk_bytes
+                                      for st in self.manager.sessions.values())
         return out

@@ -93,6 +93,9 @@ GQA_CASES = [
     (2, 4, 1, 32, 192, 64, "last"),    # only row C-1 valid
     (2, 32, 2, 64, 128, 64, None),     # G = 16
     (2, 4, 2, 80, 128, 64, None),      # D = 80
+    # shapes the bf16 split kernel leaves to the per-chunk kernel
+    (1, 32, 1, 72, 64, 64, None),      # G = 32, D = 72
+    (2, 4, 2, 6, 64, 64, 1),           # D = 6: not a multiple of 4
 ]
 
 
@@ -145,6 +148,7 @@ MLA_CASES = [
     (2, 16, 128, 64, 256, 128, None),
     (2, 4, 32, 16, 96, 32, None),      # non-pow2 cache
     (3, 4, 64, 16, 128, 64, 2),        # an all-invalid row
+    (2, 4, 30, 16, 64, 32, None),      # R = 30: not a multiple of 4
 ]
 
 
@@ -186,6 +190,53 @@ def test_split_plan_covers_every_tile_once(b, hkv, c, lo, hi):
     assert (splits - 1) * per < tiles             # no split is empty
     if splits < tiles:                            # enough blocks to fill
         assert splits * b * hkv >= tdecode.SPLIT_BLOCKS_PER_SM * 132 / 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gqa_route_takes_every_shape(dtype):
+    """Every (dtype, G, D) has a route: the split kernel where its bf16
+    tensor-core tiles apply (G ≤ 16, D a multiple of 16 up to 256), the
+    per-chunk kernel elsewhere, with rows per chunk whose shared memory
+    fits a block."""
+    for g in (1, 4, 7, 16, 17, 32, 128):
+        for d in (1, 6, 16, 72, 80, 128, 136, 256, 264, 512):
+            split = (dtype == torch.bfloat16 and g <= tdecode.SPLIT_MAX_G
+                     and d % 16 == 0 and d <= 256)
+            route = tdecode.gqa_route(dtype, g, d)
+            assert route == ("k_gqa_split" if split else "k_partial")
+            if route == "k_partial":
+                heads, rows = tdecode.partial_plan(g, d, d, True, 64)
+                assert 1 <= heads <= g and 1 <= rows <= 64
+    # the serving shapes keep their routes, rows and heads
+    assert tdecode.gqa_route(torch.bfloat16, 7, 128) == "k_gqa_split"
+    assert tdecode.gqa_route(torch.bfloat16, 16, 128) == "k_gqa_split"
+    assert tdecode.partial_plan(7, 128, 128, True, 64) == (7, 64)
+    assert tdecode.partial_plan(40, 288, 256, False, 32) == (40, 32)
+
+
+def _partial_floats(g, d, rows):
+    """Shared memory of a GQA per-chunk block, in floats (the source's
+    ``layout``)."""
+    gp = -(-g // 4) * 4
+    return -(-(d * gp + rows * (d | 1) + rows * d) // 4) * 4 + rows * gp
+
+
+@pytest.mark.parametrize("g,d,want", [
+    (128, 256, (128, 32)),    # all heads, fewer rows
+    (128, 512, (64, 16)),     # the queries alone overflow: half the heads
+    (32, 1024, (16, 16)),
+    (1, 8000, (1, 1)),        # one head of one row
+])
+def test_partial_plan_fits_shared_memory(g, d, want):
+    """Rows halve to 16 and then heads halve until a chunk's shared memory
+    fits 227 KB; a width that does not fit one head and one row raises."""
+    heads, rows = tdecode.partial_plan(g, d, d, True, 64)
+    assert (heads, rows) == want
+    assert _partial_floats(heads, d, rows) * 4 <= 227 * 1024
+    if rows < 64 and rows >= 16:
+        assert _partial_floats(heads, d, 2 * rows) * 4 > 227 * 1024
+    with pytest.raises(ValueError):
+        tdecode.partial_plan(1, 30000, 30000, True, 64)
 
 
 def test_split_mask_is_viewed_without_a_copy():

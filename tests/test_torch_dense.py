@@ -134,6 +134,57 @@ def test_dense_scan_2d_matches_reference(name):
     assert tops.kernel_launches()["similarity_scan"] == 0
 
 
+@pytest.mark.parametrize("name", ["mask", "all_invalid", "int8"])
+def test_dense_scan_2d_q20_matches_reference(name):
+    """The 2-D plain route at the card's edge shapes: Q = 20 (not a
+    multiple of the kernel's 8-query pass), N = 300 (not a multiple of
+    its tiles or 256-row chunks), an int8 index, an all-invalid mask."""
+    rng = np.random.default_rng(20 + len(name))
+    query = rng.standard_normal((20, 24)).astype(np.float32)
+    index = rng.standard_normal((300, 24)).astype(np.float32)
+    mask = (rng.random(300) < 0.6) & (name != "all_invalid")
+    if name == "int8":
+        index = np.asarray(jquantise_rows(index)[0])
+    want_sims, want_probs = jops.similarity(
+        jnp.asarray(query), jnp.asarray(index), tau=TAU,
+        valid=jnp.asarray(mask))
+    sims, m, l = tsim.similarity_scan(_t(query), _t(index), _t(mask),
+                                      tau=TAU)
+    assert sims.shape == (20, 300) and m.shape == l.shape == (20, 1)
+    _close(sims, want_sims)
+    _close(tref.scan_probs(sims, m, l, _t(mask)[None, :], TAU), want_probs)
+    if name == "all_invalid":       # the oracle's 1/N, as on the card
+        np.testing.assert_array_equal(l.numpy(), 300.0)
+    assert tops.kernel_launches()["similarity_scan"] == 0
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 300, 8192])
+def test_scan2d_plan_covers_every_row_once(n):
+    """The 2-D kernel's plan: its blocks walk every tile exactly once, in
+    order, none empty; the blocks fill the SMs as far as the tiles go;
+    shared memory fits a block, with all queries where they fit."""
+    for d, elt, q in ((768, 4, 8), (768, 1, 8), (768, 4, 20), (16, 4, 1),
+                      (768, 4, 200), (4096, 4, 8), (4099, 1, 3)):
+        for sms in (1, 7, 132):
+            tile, qg, blocks, per = tsim.scan2d_plan(n, d, elt, q, sms)
+            assert 1 <= tile <= tsim.SCAN2D_TILE and 1 <= qg <= q
+            assert tsim._scan2d_smem(tile, qg, d, elt) <= 227 * 1024
+            tiles = -(-n // tile)
+            walked = [t for b in range(blocks)
+                      for t in range(b * per, min((b + 1) * per, tiles))]
+            assert walked == list(range(tiles))
+            assert (blocks - 1) * per < tiles             # none empty
+            groups = -(-q // qg)
+            if blocks < tiles:        # the SMs fill, up to per's rounding
+                assert 2 * blocks * groups >= sms
+            rows = {r for t in walked
+                    for r in range(t * tile, min((t + 1) * tile, n))}
+            assert rows == set(range(n))
+    assert tsim.scan2d_plan(8192, 768, 4, 8, 132)[:2] == (16, 8)
+    assert tsim.scan2d_plan(8192, 768, 4, 20, 132)[1] == 20
+    assert tsim.scan2d_plan(8192, 768, 4, 200, 132)[1] % 8 == 0
+
+
 def test_empty_session_follows_the_oracle_not_the_padded_kernel():
     """An all-invalid session: the port (no padding of N) gives m = -1e30,
     l = N and probabilities 1/N, as the reference's jnp oracle does. The

@@ -46,6 +46,12 @@ from repro_torch.serving import (Request, ServingEngine, StreamQuery,
 
 LOGITS = dict(rtol=1e-4, atol=1e-4)
 GAP = 1e-4
+# io_stats values the port counts otherwise (ROADMAP Queue 3), by
+# use_arena: the reference counts the pow2 bucket rows of each padded
+# scatter, the port the rows it writes
+IO_STATS_NOT_EQUAL = {
+    True: frozenset({"arena_appended_rows"}),
+    False: frozenset({"mem_appended_rows", "mem_appended_member_rows"})}
 ARCHS = ["qwen2-vl-7b", "minicpm3-4b"]
 
 
@@ -309,6 +315,18 @@ def test_step_factories(twin):
 # ---------------------------------------------------------------------------
 
 
+class _Router:
+    """One embedder per stream: frames go to their world's oracle (each
+    tick holds one stream's chunk)."""
+
+    def __init__(self, oracles):
+        self.oracles, self.sid = oracles, 0
+
+    def embed_frames(self, frames, aux_texts=None, frame_ids=None):
+        return self.oracles[self.sid].embed_frames(
+            frames, aux_texts, frame_ids=frame_ids)
+
+
 @pytest.fixture(scope="module")
 def qwen():
     jcfg = jregistry.get_smoke_config("qwen2-vl-7b").replace(dtype="float32")
@@ -329,18 +347,7 @@ def test_venus_service_matches_reference(qwen):
     joracles = [JOracle(w, dim=64) for w in jworlds]
     toracles = [OracleEmbedder(w, dim=64) for w in tworlds]
 
-    class Router:
-        """One embedder per stream: frames go to their world's oracle
-        (each tick holds one stream's chunk)."""
-
-        def __init__(self, oracles):
-            self.oracles, self.sid = oracles, 0
-
-        def embed_frames(self, frames, aux_texts=None, frame_ids=None):
-            return self.oracles[self.sid].embed_frames(
-                frames, aux_texts, frame_ids=frame_ids)
-
-    jr, tr = Router(joracles), Router(toracles)
+    jr, tr = _Router(joracles), _Router(toracles)
     jsvc = JService(JManager(JConfig(), jr, embed_dim=64),
                     JEngine(jcfg, params, batch_slots=2, max_len=128,
                             cache_dtype=jnp.float32), max_frames=2)
@@ -396,3 +403,68 @@ def test_venus_service_matches_reference(qwen):
     assert stats["kops_fused_draw_launches"] == 1       # one plan, one group
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsvc.poll_alerts()
+
+
+@pytest.mark.parametrize("use_arena", [True, False])
+def test_io_stats_match_reference(use_arena):
+    """Both services report the same io_stats keys at every point, and
+    equal values on the ported paths after ingest, a query, more ingest
+    and a stream close (arena slots, or detached memories that upload
+    their buffers at the query and append in place after it)."""
+    from repro.kernels import ops as jops
+    wcfgs = [dict(n_scenes=3, seed=41), dict(n_scenes=3, seed=42)]
+    jworlds = [JWorld(JWorldConfig(**w)) for w in wcfgs]
+    tworlds = [VideoWorld(WorldConfig(**w)) for w in wcfgs]
+    jr = _Router([JOracle(w, dim=64) for w in jworlds])
+    tr = _Router([OracleEmbedder(w, dim=64) for w in tworlds])
+    jsvc = JService(JManager(JConfig(), jr, embed_dim=64,
+                             use_arena=use_arena), None)
+    tsvc = VenusService(SessionManager(VenusConfig(), tr, embed_dim=64,
+                                       use_arena=use_arena, device="cpu"),
+                        None)
+    jops.reset_scan_counts()
+
+    def same(stage):
+        js, ts = jsvc.io_stats(), tsvc.io_stats()
+        assert sorted(ts) == sorted(js), (stage, set(ts) ^ set(js))
+        diff = {k: (ts[k], js[k]) for k in js
+                if ts[k] != js[k] and k not in IO_STATS_NOT_EQUAL[use_arena]}
+        assert not diff, (stage, diff)
+
+    half = [len(w.frames) // 2 for w in jworlds]
+    for sid in range(2):
+        assert jsvc.create_stream() == tsvc.create_stream() == sid
+        jr.sid = tr.sid = sid
+        jsvc.ingest_tick({sid: jworlds[sid].frames[:half[sid]]})
+        tsvc.ingest_tick({sid: tworlds[sid].frames[:half[sid]]})
+    same("ingest")
+    emb = [jr.oracles[s].embed_query(jworlds[s].make_queries(1, seed=5)[0])
+           for s in range(2)]
+    for svc, cls in ((jsvc, JQuery), (tsvc, StreamQuery)):
+        qs = [cls(rid=s, sid=s, text="", prompt_tokens=np.zeros(1, np.int32),
+                  query_emb=emb[s]) for s in range(2)]
+        svc.manager.execute(svc.plan(qs))
+    same("query")
+    rows = sum(tsvc.manager[s].memory.size for s in range(2))
+    for sid in range(2):
+        jr.sid = tr.sid = sid
+        jsvc.ingest_tick({sid: jworlds[sid].frames[half[sid]:]})
+        tsvc.ingest_tick({sid: tworlds[sid].frames[half[sid]:]})
+    jsvc.flush()
+    tsvc.flush()
+    same("ingest after the query")
+    added = sum(tsvc.manager[s].memory.size for s in range(2)) - rows
+    ts = tsvc.io_stats()
+    if not use_arena:       # the rows written, each once, into both copies
+        assert ts["mem_appended_rows"] == ts["mem_appended_member_rows"] \
+            == added > 0
+    jsvc.close_stream(1)
+    tsvc.close_stream(1)
+    same("close")
+    ts = tsvc.io_stats()
+    assert ts["mem_scans"] == 0 and ts["kops_fused_draw_launches"] == 1
+    assert ts["sessions_closed"] == 1 and ts["mem_appended_rows"] > 0
+    if use_arena:
+        assert ts["stack_rebuilds"] == 0 and ts["arena_shards"] == 1
+    else:
+        assert ts["mem_full_uploads"] == ts["mem_member_uploads"] == 2
