@@ -362,18 +362,6 @@ def phase_similarity_2d(gen, q2, x32, x8):
             b, by = bound_ms(n * D * x.element_size() + nq * D * 4 + n
                              + nq * n * 4 + 2 * nq * 4,
                              2.0 * nq * n * D + 3.0 * n * D)
-            if name == "2d":       # the statistics pass: PDL vs last block
-                fold, res = {0: [], 1: []}, {}
-                for mode in (0, 1, 1, 0):
-                    similarity.SCAN2D_FOLD_LAST = mode
-                    res[mode] = run_k()
-                    fold[mode].append(device_ms(run_k))
-                check(all(torch.equal(a, b) for a, b in zip(res[0], res[1])),
-                      "the two statistics passes differ")
-                similarity.SCAN2D_FOLD_LAST = 0
-                row["fold_device_ms"] = fold
-                print(f"  2d statistics pass, device ms: PDL {fold[0]}  "
-                      f"last block {fold[1]}", flush=True)
             row["kernel_us"] = kernel_us(run_k)
             print("  per launch (device us): " + ("not measured (no device "
                   "events in the trace)" if row["kernel_us"] is None else

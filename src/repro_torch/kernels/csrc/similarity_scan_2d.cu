@@ -30,27 +30,27 @@
 // element a load), so every row is read from device memory once for any
 // Q. Scores are staged per tile in shared memory and written with
 // coalesced stores while the next tile is computed.
-// k_stats2d (launched as a programmatic dependent, Hopper's PDL): one
-// block per query reads back its written scores and the mask, takes the
-// (m, l) partials of each 256-row chunk in scan::tile_stats' lane order
-// (scan::row_stats) and merges them in chunk order (scan::merged_stats):
-// the same bits from run to run. With `fold_last` the last scan block to
-// finish (an atomic ticket) takes the statistics instead, and no second
-// kernel is launched.
+// k_stats2d (launched as a programmatic dependent, Hopper's PDL: placed
+// while k_scan2d runs, it waits on that grid's end): one block per query
+// reads back its written scores and the mask, a warp per 256-row chunk,
+// takes each chunk's (m, l) partials in scan::tile_stats' lane order
+// (scan::row_stats) into shared memory and merges them in chunk order
+// (scan::merged_stats): the same bits from run to run.
 // The C entry points return cudaGetLastError() after the launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdlib.h>
 
 #include "scan_tile.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kRowGroups = 4;                     // warps along the rows
+constexpr int kWarps = 2 * kRowGroups;            // and two halves of d
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsPerWarp = 2;
-constexpr int kTileMax = kWarps * kRowsPerWarp;   // rows of a full tile
-constexpr int kStages = 3;                        // tiles in the ring
+constexpr int kRowsPerWarp = 8;
+constexpr int kTileMax = kRowGroups * kRowsPerWarp;   // rows of a full tile
 constexpr int kQG = 8;                            // queries per pass
 constexpr int kStatThreads = 1024;   // k_stats2d: a warp per 256-row chunk
 constexpr size_t kMaxSmem = 227 * 1024;
@@ -81,12 +81,14 @@ __device__ __forceinline__ float4 as_f4(char4 v) {
   return make_float4(v.x, v.y, v.z, v.w);
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+// acc + a . b as four chained fused multiply-adds
+__device__ __forceinline__ float fma4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
 }
 
-// shared memory of a block: the queries [qp][dq] and the staged scores
-// [2][qp][kTileMax] in f32, then the ring of kStages tile byte ranges
+// shared memory of a block: the queries [qp][dq], the staged scores
+// [2][qp][kTileMax] and the second half's partials [kRowGroups][3][32] in
+// f32, then the ring of kStages tile byte ranges
 __host__ __device__ inline size_t stage_bytes(int tile, int d, int elt) {
   return (static_cast<size_t>(tile) * d * elt + 16 + 15) / 16 * 16;
 }
@@ -95,68 +97,52 @@ __host__ __device__ inline int padded_queries(int qg) {
   return (qg + kQG - 1) / kQG * kQG;
 }
 
-__host__ __device__ inline size_t smem_bytes(int tile, int qg, int d,
-                                             int elt) {
+__host__ __device__ inline size_t smem_bytes(int tile, int stages, int qg,
+                                             int d, int elt) {
   const size_t qp = padded_queries(qg), dq = (d + 3) / 4 * 4;
-  return 4 * (qp * dq + 2 * qp * kTileMax) + kStages * stage_bytes(tile, d,
-                                                                   elt);
+  return 4 * (qp * dq + 2 * qp * kTileMax + kRowGroups * 3 * 32) +
+         stages * stage_bytes(tile, d, elt);
+}
+
+// Sums each of N values (a power of two) over the warp and spreads the
+// totals over the lanes: lane L ends with values L * N/32 .. (L+1) * N/32
+// - 1 in v[0 .. N/32) where N >= 32, else with value L / (32/N) in v[0].
+// Every value takes warp_sum's tree (xor 16, 8, 4, 2, 1, own value first),
+// so the same bits, in N - 1 shuffles (N >= 32) instead of 5 N.
+template <int N, int kOff = 16>
+__device__ __forceinline__ void warp_sum_spread(float (&v)[N]) {
+  if constexpr (kOff > 0) {
+    if constexpr (N > 1) {
+      constexpr int H = N / 2;
+      const bool hi = (threadIdx.x & kOff) != 0;
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        const float send = hi ? v[j] : v[j + H];
+        const float keep = hi ? v[j + H] : v[j];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
+      }
+      warp_sum_spread<H, kOff / 2>(reinterpret_cast<float(&)[H]>(v));
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], kOff);
+      warp_sum_spread<1, kOff / 2>(v);
+    }
+  }
 }
 
 struct Scan {
   const float* query;         // (Q, d) f32, raw
   const void* index;          // (N, d) f32 or int8
   const uint8_t* valid;       // (N,)
-  int Q, N, d, tile, qg, per;
+  int Q, N, d, tile, stages, qg, per;
   float tau;
-  float* part_m;              // [Q][nch] per-256-row-chunk partials
-  float* part_l;
-  unsigned int* ticket;       // fold_last: blocks finished (starts at 0)
   float* sims;                // (Q, N)
   float* m;                   // (Q,)
   float* l;
+  int exp;
 };
 
-// the (m, l) partials of every 256-row chunk of queries [q_lo, q_hi), one
-// warp a chunk, in tile_stats' lane order, read from the written scores
-// (through L2: another block may have written them)
-__device__ void chunk_partials(const Scan& a, int q_lo, int q_hi) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  const int nch = (a.N + scan::kBlk - 1) / scan::kBlk;
-  for (int t = q_lo * nch + warp; t < q_hi * nch; t += warps) {
-    const int q = t / nch, k = t - q * nch;
-    const int c0 = k * scan::kBlk, len = min(scan::kBlk, a.N - c0);
-    const float* row = a.sims + static_cast<size_t>(q) * a.N + c0;
-    const uint8_t* vs = a.valid + c0;
-    float m, l;
-    scan::row_stats(
-        [row, vs](int i) {
-          const float s = __ldcg(row + i);
-          return vs[i] ? s : scan::kNegInf;
-        },
-        len, a.tau, m, l);
-    if (lane == 0) {
-      a.part_m[t] = m;
-      a.part_l[t] = l;
-    }
-  }
-}
-
-// chunk_partials, then M, L of each query merged in chunk order
-__device__ void stats(const Scan& a, int q_lo, int q_hi) {
-  chunk_partials(a, q_lo, q_hi);
-  __syncthreads();
-  const int nch = (a.N + scan::kBlk - 1) / scan::kBlk;
-  for (int q = q_lo + threadIdx.x; q < q_hi; q += blockDim.x) {
-    float M, L;
-    scan::merged_stats(a.part_m, a.part_l, q, nch, M, L);
-    a.m[q] = M;
-    a.l[q] = L;
-  }
-}
-
 // ---- pass 1: the scores, tile by tile through the ring ----
-template <typename T, bool kVec>
+template <typename T, bool kVec, int kStages>
 __global__ void __launch_bounds__(kThreads) k_scan2d(const Scan a) {
   extern __shared__ __align__(16) unsigned char smem[];
   // the statistics kernel may launch once every block of this grid runs
@@ -167,7 +153,8 @@ __global__ void __launch_bounds__(kThreads) k_scan2d(const Scan a) {
   const int q0 = blockIdx.y * a.qg, nq = min(a.qg, a.Q - q0);
   float* qs = reinterpret_cast<float*>(smem);            // [qp][dq]
   float* sv = qs + static_cast<size_t>(qp) * dq;          // [2][qp][kTileMax]
-  unsigned char* ring = reinterpret_cast<unsigned char*>(sv + 2 * qp * kTileMax);
+  float* xh = sv + 2 * qp * kTileMax;                    // [kRowGroups][3][32]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(xh + kRowGroups * 96);
   const size_t rowb = static_cast<size_t>(d) * sizeof(T);
   const size_t stage = stage_bytes(a.tile, d, sizeof(T));
   const int ntiles = (a.N + a.tile - 1) / a.tile;
@@ -181,6 +168,7 @@ __global__ void __launch_bounds__(kThreads) k_scan2d(const Scan a) {
     return gbase + static_cast<size_t>(t) * a.tile * rowb;
   };
   auto load = [&](int s, int t) {
+    if (a.exp == 5) return;
     const char* b0 = tile_start(t);
     const char* b1 = b0 + a.tile * rowb < gend ? b0 + a.tile * rowb : gend;
     const char* a0 = reinterpret_cast<const char*>(
@@ -244,103 +232,129 @@ __global__ void __launch_bounds__(kThreads) k_scan2d(const Scan a) {
     cp_commit();
     if (i > 0) write_scores(i - 1);
     const int row0 = (t0 + i) * a.tile, len = min(a.tile, a.N - row0);
-    const int r0 = warp * kRowsPerWarp;
-    if (r0 >= len) continue;
+    // warp = (half h of d, row group): 8 rows, every query, half the
+    // columns (32-float4 blocks h, h + 2, ...); the halves meet in xh
+    const int h = warp / kRowGroups, rg = warp - h * kRowGroups;
+    const int r0 = rg * kRowsPerWarp;
+    const bool active = r0 < len && a.exp != 4;
     const int off = static_cast<int>(
         reinterpret_cast<uintptr_t>(tile_start(t0 + i)) & 15);
     const unsigned char* base = ring + (i % kStages) * stage + off;
-    const int r1 = min(r0 + 1, len - 1);     // a lone row is scored twice
-    const T* x0 = reinterpret_cast<const T*>(base + r0 * rowb);
-    const T* x1 = reinterpret_cast<const T*>(base + r1 * rowb);
-    float* out = sv + (i & 1) * qp * kTileMax;
-    float rs0 = 0.f, rs1 = 0.f;
-    for (int g0 = 0; g0 < qp; g0 += kQG) {
-      float acc[2][kQG];
-      float ss0 = 0.f, ss1 = 0.f;
+    const T* x[kRowsPerWarp];       // rows past the tile repeat its last
 #pragma unroll
-      for (int qi = 0; qi < kQG; ++qi) acc[0][qi] = acc[1][qi] = 0.f;
-      if (kVec) {
-        const V* v0 = reinterpret_cast<const V*>(x0);
-        const V* v1 = reinterpret_cast<const V*>(x1);
+    for (int r = 0; r < kRowsPerWarp; ++r)
+      x[r] = reinterpret_cast<const T*>(base + min(r0 + r, len - 1) * rowb);
+    float* out = sv + (i & 1) * qp * kTileMax;
+    float* mine = xh + rg * 96;
+    // lane L scores row r0 + L / 4 (its rsqrt in rs after the first pass)
+    float rs = 0.f;
+    for (int g0 = 0; g0 < qp; g0 += kQG) {
+      float acc[kRowsPerWarp * kQG] = {};     // [row][query]
+      float ss[kRowsPerWarp] = {};
+      if (active && kVec) {
         const float4* q4 = reinterpret_cast<const float4*>(qs + g0 * dq);
-        for (int v = lane; v < d / 4; v += 32) {
-          const float4 e0 = as_f4(v0[v]), e1 = as_f4(v1[v]);
-          ss0 += dot4(e0, e0);
-          ss1 += dot4(e1, e1);
+        for (int v = lane + 32 * h; v < d / 4; v += 64) {
+          float4 e[kRowsPerWarp];
+#pragma unroll
+          for (int r = 0; r < kRowsPerWarp; ++r) {
+            e[r] = as_f4(reinterpret_cast<const V*>(x[r])[v]);
+            if (g0 == 0) ss[r] = fma4(e[r], e[r], ss[r]);
+          }
 #pragma unroll
           for (int qi = 0; qi < kQG; ++qi) {
             const float4 q = q4[qi * (dq / 4) + v];
-            acc[0][qi] += dot4(q, e0);
-            acc[1][qi] += dot4(q, e1);
+#pragma unroll
+            for (int r = 0; r < kRowsPerWarp; ++r)
+              acc[r * kQG + qi] = fma4(q, e[r], acc[r * kQG + qi]);
           }
         }
-      } else {
-        for (int c = lane; c < d; c += 32) {
-          const float e0 = static_cast<float>(x0[c]);
-          const float e1 = static_cast<float>(x1[c]);
-          ss0 += e0 * e0;
-          ss1 += e1 * e1;
+      } else if (active) {
+        for (int c = lane + 32 * h; c < d; c += 64) {
+          float e[kRowsPerWarp];
+#pragma unroll
+          for (int r = 0; r < kRowsPerWarp; ++r) {
+            e[r] = static_cast<float>(x[r][c]);
+            if (g0 == 0) ss[r] = fmaf(e[r], e[r], ss[r]);
+          }
 #pragma unroll
           for (int qi = 0; qi < kQG; ++qi) {
             const float q = qs[(g0 + qi) * dq + c];
-            acc[0][qi] += q * e0;
-            acc[1][qi] += q * e1;
+#pragma unroll
+            for (int r = 0; r < kRowsPerWarp; ++r)
+              acc[r * kQG + qi] = fmaf(q, e[r], acc[r * kQG + qi]);
           }
         }
       }
-      if (g0 == 0) {
-        rs0 = rsqrtf(scan::warp_sum(ss0) + 1e-12f);
-        rs1 = rsqrtf(scan::warp_sum(ss1) + 1e-12f);
+      if (g0 == 0) warp_sum_spread(ss);  // lane L: row L / 4
+      warp_sum_spread(acc);              // lane L: values 2L, 2L + 1
+      if (h == 1) {
+        mine[lane] = acc[0];
+        mine[32 + lane] = acc[1];
+        mine[64 + lane] = ss[0];
       }
-#pragma unroll
-      for (int qi = 0; qi < kQG; ++qi) {
-        const float s0 = scan::warp_sum(acc[0][qi]) * rs0;
-        const float s1 = scan::warp_sum(acc[1][qi]) * rs1;
-        if (lane == qi) {
-          out[(g0 + qi) * kTileMax + r0] = s0;
-          out[(g0 + qi) * kTileMax + r0 + 1] = s1;
-        }
+      __syncthreads();
+      if (h == 0 && active) {
+        if (g0 == 0) rs = rsqrtf(ss[0] + mine[64 + lane] + 1e-12f);
+        const int r = lane >> 2, qi = 2 * (lane & 3);
+        out[(g0 + qi) * kTileMax + r0 + r] = (acc[0] + mine[lane]) * rs;
+        out[(g0 + qi + 1) * kTileMax + r0 + r] =
+            (acc[1] + mine[32 + lane]) * rs;
       }
+      if (g0 + kQG < qp) __syncthreads();   // xh is rewritten next pass
     }
   }
   __syncthreads();
   if (nt > 0) write_scores(nt - 1);
-  if (a.ticket == nullptr) return;
-
-  // fold_last: the last block to finish takes every query's statistics
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (tid == 0)
-    last = atomicAdd(a.ticket, 1u) == gridDim.x * gridDim.y - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  stats(a, 0, a.Q);
-  if (tid == 0) *a.ticket = 0;
 }
 
-// ---- pass 2: one block per query, after the scan grid's end ----
+// ---- pass 2: (m, l) of query blockIdx.x, after the scan grid's end ----
 __global__ void __launch_bounds__(kStatThreads) k_stats2d(const Scan a) {
+  extern __shared__ float part[];       // [2][nch]: m, then l, per chunk
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  stats(a, blockIdx.x, blockIdx.x + 1);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nch = (a.N + scan::kBlk - 1) / scan::kBlk;
+  const float* row = a.sims + static_cast<size_t>(blockIdx.x) * a.N;
+  for (int k = warp; k < nch; k += kStatThreads / 32) {
+    const int c0 = k * scan::kBlk, len = min(scan::kBlk, a.N - c0);
+    const float* s = row + c0;
+    const uint8_t* vs = a.valid + c0;
+    float m, l;
+    scan::row_stats(
+        [s, vs](int i) {
+          const float x = __ldcg(s + i);
+          return vs[i] ? x : scan::kNegInf;
+        },
+        len, a.tau, m, l);
+    if (lane == 0) {
+      part[k] = m;
+      part[nch + k] = l;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float M, L;
+    scan::merged_stats(part, part + nch, 0, nch, M, L);
+    a.m[blockIdx.x] = M;
+    a.l[blockIdx.x] = L;
+  }
 }
 
 template <typename T>
-int launch(Scan a, int fold_last, cudaStream_t st) {
+int launch(Scan a, cudaStream_t st) {
+  const char* ex = getenv("SCAN2D_EXP");
+  const int exp = ex ? atoi(ex) : 0;
+  a.exp = exp;
   const int ntiles = (a.N + a.tile - 1) / a.tile;
-  const size_t smem = smem_bytes(a.tile, a.qg, a.d, sizeof(T));
+  const size_t smem = smem_bytes(a.tile, a.stages, a.qg, a.d, sizeof(T));
+  const size_t stat_smem =
+      2 * sizeof(float) * ((a.N + scan::kBlk - 1) / scan::kBlk);
   if (a.Q < 1 || a.N < 1 || a.d < 1 || a.tile < 1 || a.tile > kTileMax ||
-      a.qg < 1 || a.qg > a.Q || a.per < 1 || smem > kMaxSmem)
+      a.qg < 1 || a.qg > a.Q || a.per < 1 || smem > kMaxSmem ||
+      (a.stages != 2 && a.stages != 3) ||
+      stat_smem > kMaxSmem)
     return cudaErrorInvalidValue;
   const int blocks = (ntiles + a.per - 1) / a.per;
   const dim3 grid(blocks, (a.Q + a.qg - 1) / a.qg);
-  cudaError_t e;
-  if (fold_last &&
-      (e = cudaMemsetAsync(a.ticket, 0, sizeof(unsigned int), st)) !=
-          cudaSuccess)
-    return e;
-  if (!fold_last) a.ticket = nullptr;
   const bool vec = a.d % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(a.index) % (4 * sizeof(T)) == 0;
   auto run = [&](auto kernel) {
@@ -349,38 +363,40 @@ int launch(Scan a, int fold_last, cudaStream_t st) {
     kernel<<<grid, kThreads, smem, st>>>(a);
     return cudaGetLastError();
   };
-  if ((e = vec ? run(k_scan2d<T, true>) : run(k_scan2d<T, false>)) !=
-      cudaSuccess)
-    return e;
-  if (fold_last) return cudaSuccess;
+  cudaError_t e;
+  e = a.stages == 3 ? (vec ? run(k_scan2d<T, true, 3>)
+                           : run(k_scan2d<T, false, 3>))
+                    : (vec ? run(k_scan2d<T, true, 2>)
+                           : run(k_scan2d<T, false, 2>));
+  if (e != cudaSuccess) return e;
+  if (exp >= 3) return cudaSuccess;
+  if ((e = scan::allow_smem(k_stats2d, stat_smem)) != cudaSuccess) return e;
   cudaLaunchAttribute pdl;
   pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   pdl.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.Q);
   cfg.blockDim = dim3(kStatThreads);
+  cfg.dynamicSmemBytes = stat_smem;
   cfg.stream = st;
   cfg.attrs = &pdl;
-  cfg.numAttrs = 1;
-  if ((e = cudaLaunchKernelEx(&cfg, k_stats2d, a)) != cudaSuccess) return e;
+  cfg.numAttrs = exp == 1 ? 0 : 1;
+  Scan b = a;
+  if (exp == 2) b.N = 0;
+  if ((e = cudaLaunchKernelEx(&cfg, k_stats2d, b)) != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// scratch: [Q * nch] m partials, [Q * nch] l partials, then one uint ticket
 #define SCAN2D_ENTRY(NAME, T)                                                 \
   extern "C" int NAME(const float* query, const T* index,                     \
                       const uint8_t* valid, int Q, int N, int d, int tile,     \
-                      int qg, int per, int fold_last, float tau,              \
-                      float* scratch, float* sims, float* m, float* l,        \
-                      void* stream) {                                         \
-    const size_t nch = (static_cast<size_t>(N) + scan::kBlk - 1) / scan::kBlk;\
-    const Scan a{query, index, valid, Q, N, d, tile, qg, per, tau, scratch,  \
-                 scratch + Q * nch,                                           \
-                 reinterpret_cast<unsigned int*>(scratch + 2 * Q * nch),      \
-                 sims, m, l};                                                 \
-    return launch<T>(a, fold_last, static_cast<cudaStream_t>(stream));       \
+                      int stages, int qg, int per, float tau, float* sims,    \
+                      float* m, float* l, void* stream) {                     \
+    const Scan a{query, index, valid, Q, N, d, tile, stages, qg, per, tau,   \
+                 sims, m, l, 0};                                              \
+    return launch<T>(a, static_cast<cudaStream_t>(stream));                  \
   }
 
 SCAN2D_ENTRY(similarity_scan_2d_f32, float)

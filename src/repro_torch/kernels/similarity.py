@@ -35,15 +35,11 @@ _SCAN = ("similarity_scan.cu", "similarity_scan",
          + [ctypes.c_void_p] * 6)
 _SCAN2D = ("similarity_scan_2d.cu", "similarity_scan_2d",
            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float]
-           + [ctypes.c_void_p] * 5)
-# the 2-D kernel (kTileMax, kStages, kQG in its source): rows per tile,
-# tiles in its shared-memory ring, queries per pass
-SCAN2D_TILE = 16
-_SCAN2D_STAGES = 3
+           + [ctypes.c_void_p] * 4)
+# the 2-D kernel (kTileMax in its source): rows per full tile
+SCAN2D_TILE = 32
 _SCAN2D_SMEM = 227 * 1024           # a block's shared memory
 _SM_SMEM = 228 * 1024               # an SM's, 1 KB of it reserved a block
-# the statistics pass: 0 a second kernel under PDL, 1 the last scan block
-SCAN2D_FOLD_LAST = 0
 
 
 _FNS = {}
@@ -210,41 +206,48 @@ def similarity_scan_stack(query: torch.Tensor, index: torch.Tensor,
 similarity_scan_stack.launches = 0
 
 
-def _scan2d_smem(tile: int, qg: int, d: int, elt: int) -> int:
+def _scan2d_smem(tile: int, stages: int, qg: int, d: int, elt: int) -> int:
     """Shared memory of a 2-D scan block (the source's ``smem_bytes``):
-    the queries and two tiles of staged scores in f32, the ring."""
+    the queries, two tiles of staged scores and the halves' partials in
+    f32, the ring."""
     qp, dq = -(-qg // 8) * 8, -(-d // 4) * 4
     stage = -(-(tile * d * elt + 16) // 16) * 16
-    return 4 * (qp * dq + 2 * qp * SCAN2D_TILE) + _SCAN2D_STAGES * stage
+    return 4 * (qp * dq + 2 * qp * SCAN2D_TILE + 384) + stages * stage
 
 
 def scan2d_plan(n: int, d: int, elt: int, q: int, sms: int) -> tuple:
-    """(rows per tile, queries per block, blocks along the rows, tiles per
-    block) of the 2-D kernel for N rows of d elements of ``elt`` bytes
-    and Q queries on ``sms`` SMs. A block holds all Q queries where
-    shared memory allows (else groups of a multiple of 8, the grid's
-    second axis), and full tiles unless a row is so wide that 8 queries
-    and the ring do not fit (then the tile halves). The blocks fill every
-    SM as often as shared memory lets them be resident, each walking
+    """(rows per tile, ring stages, queries per block, blocks along the
+    rows, tiles per block) of the 2-D kernel for N rows of d elements of
+    ``elt`` bytes and Q queries on ``sms`` SMs. A block holds all Q
+    queries where shared memory allows, with the largest tile of 32, 16
+    or 8 rows and a ring of 3 stages, else 2; else groups of a multiple
+    of 8 queries (the grid's second axis) with 2 stages, the tile halving
+    for rows so wide that 8 queries do not fit. The blocks fill every SM
+    as often as shared memory lets them be resident, each walking
     ``per`` contiguous tiles: block b takes tiles [b*per, min((b+1)*per,
-    tiles)), none of them empty."""
+    tiles)), none empty."""
+    plan = next(((tile, st, q) for tile in (SCAN2D_TILE, 16, 8)
+                 for st in (3, 2)
+                 if _scan2d_smem(tile, st, q, d, elt) <= _SCAN2D_SMEM), None)
     tile = SCAN2D_TILE
-    while True:
-        ring = _scan2d_smem(tile, 0, d, elt)
-        per_q = _scan2d_smem(tile, 8, d, elt) - ring
+    while plan is None:
+        ring = _scan2d_smem(tile, 2, 0, d, elt)
+        per_q = _scan2d_smem(tile, 2, 8, d, elt) - ring
         fit = (_SCAN2D_SMEM - ring) // per_q * 8
         if fit >= 8:
-            break
-        if tile == 1:
+            plan = (tile, 2, min(q, fit))
+        elif tile == 1:
             raise ValueError(f"rows of {d} elements do not fit the 2-D "
                              f"scan's shared memory")
-        tile //= 2
-    qg = min(q, fit)
-    resident = max(1, _SM_SMEM // (_scan2d_smem(tile, qg, d, elt) + 1024))
+        else:
+            tile //= 2
+    tile, stages, qg = plan
+    smem = _scan2d_smem(tile, stages, qg, d, elt)
+    resident = max(1, _SM_SMEM // (smem + 1024))
     want = -(-resident * sms // -(-q // qg))
     tiles = -(-n // tile)
     per = -(-tiles // max(1, min(tiles, want)))
-    return tile, qg, -(-tiles // per), per
+    return tile, stages, qg, -(-tiles // per), per
 
 
 def _launch_scan_2d(query, index, valid, *, tau: float):
@@ -260,21 +263,22 @@ def _launch_scan_2d(query, index, valid, *, tau: float):
         raise ValueError(f"query on {query.device}, index on {dev}")
     if tuple(valid.shape) != (n,):
         raise ValueError(f"valid must be ({n},), got {tuple(valid.shape)}")
+    if 8 * -(-n // _BLK) > _SCAN2D_SMEM:
+        raise ValueError(f"N={n}: the statistics pass keeps two floats a "
+                         f"256-row chunk in shared memory")
     query = query.to(torch.float32).contiguous()
     index = index.contiguous()
     vmask = bool_bytes(valid, dev)
-    tile, qg, _, per = scan2d_plan(n, d, index.element_size(), q,
-                                   sm_count(dev))
-    # one allocation: sims, m, l, then the chunk partials and the ticket
-    nch = -(-n // _BLK)
-    buf = torch.empty(q * n + 2 * q + 2 * q * nch + 1, dtype=torch.float32,
-                      device=dev)
+    tile, stages, qg, _, per = scan2d_plan(n, d, index.element_size(), q,
+                                           sm_count(dev))
+    # one allocation: sims, then m and l
+    buf = torch.empty(q * n + 2 * q, dtype=torch.float32, device=dev)
     base = buf.data_ptr()
     fn = _kernel_fn(_SCAN2D, index.dtype)
     rc = on_device(dev, lambda stream: fn(
         query.data_ptr(), index.data_ptr(), vmask.data_ptr(), q, n, d, tile,
-        qg, per, SCAN2D_FOLD_LAST, float(tau), base + 4 * (q * n + 2 * q),
-        base, base + 4 * q * n, base + 4 * (q * n + q), stream))
+        stages, qg, per, float(tau), base, base + 4 * q * n, base + 4 * (q * n + q),
+        stream))
     if rc != 0:
         raise RuntimeError(f"similarity_scan kernel launch failed: "
                            f"cudaError {rc}")

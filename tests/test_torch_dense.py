@@ -166,9 +166,11 @@ def test_scan2d_plan_covers_every_row_once(n):
     for d, elt, q in ((768, 4, 8), (768, 1, 8), (768, 4, 20), (16, 4, 1),
                       (768, 4, 200), (4096, 4, 8), (4099, 1, 3)):
         for sms in (1, 7, 132):
-            tile, qg, blocks, per = tsim.scan2d_plan(n, d, elt, q, sms)
+            tile, stages, qg, blocks, per = tsim.scan2d_plan(n, d, elt, q,
+                                                             sms)
             assert 1 <= tile <= tsim.SCAN2D_TILE and 1 <= qg <= q
-            assert tsim._scan2d_smem(tile, qg, d, elt) <= 227 * 1024
+            assert stages in (2, 3)
+            assert tsim._scan2d_smem(tile, stages, qg, d, elt) <= 227 * 1024
             tiles = -(-n // tile)
             walked = [t for b in range(blocks)
                       for t in range(b * per, min((b + 1) * per, tiles))]
@@ -180,9 +182,10 @@ def test_scan2d_plan_covers_every_row_once(n):
             rows = {r for t in walked
                     for r in range(t * tile, min((t + 1) * tile, n))}
             assert rows == set(range(n))
-    assert tsim.scan2d_plan(8192, 768, 4, 8, 132)[:2] == (16, 8)
-    assert tsim.scan2d_plan(8192, 768, 4, 20, 132)[1] == 20
-    assert tsim.scan2d_plan(8192, 768, 4, 200, 132)[1] % 8 == 0
+    # the smoke shape: 32-row tiles, 2 stages; Q = 20 still in one block
+    assert tsim.scan2d_plan(8192, 768, 4, 8, 132) == (32, 2, 8, 128, 2)
+    assert tsim.scan2d_plan(8192, 768, 4, 20, 132)[:3] == (16, 3, 20)
+    assert tsim.scan2d_plan(8192, 768, 4, 200, 132)[2] % 8 == 0
 
 
 def test_empty_session_follows_the_oracle_not_the_padded_kernel():
