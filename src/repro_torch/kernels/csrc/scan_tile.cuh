@@ -162,8 +162,10 @@ __device__ __forceinline__ void merged_stats(
     const float* __restrict__ part_m, const float* __restrict__ part_l,
     size_t row, int nch, float& M, float& L) {
   M = kNegInf;
+#pragma unroll 8
   for (int k = 0; k < nch; ++k) M = fmaxf(M, part_m[row * nch + k]);
   L = 0.f;
+#pragma unroll 8
   for (int k = 0; k < nch; ++k)
     L += part_l[row * nch + k] * expf(part_m[row * nch + k] - M);
 }

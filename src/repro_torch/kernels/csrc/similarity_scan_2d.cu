@@ -145,6 +145,9 @@ struct Scan {
 template <typename T, bool kVec, int kStages>
 __global__ void __launch_bounds__(kThreads) k_scan2d(const Scan a) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // launched after the kernel before it on the stream may have started (a
+  // programmatic dependent): nothing is read or written before its end
+  if (a.exp == 10) asm volatile("griddepcontrol.wait;\n" ::: "memory");
   // the statistics kernel may launch once every block of this grid runs
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
   using V = typename scan::Vec4<T>::type;
@@ -195,10 +198,21 @@ __global__ void __launch_bounds__(kThreads) k_scan2d(const Scan a) {
       qs[i] = (j < nq && c < d) ? qg0[static_cast<size_t>(j) * d + c] : 0.f;
     }
   }
+  cp_commit();
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nt) load(s, t0 + s);
     cp_commit();
+  }
+  // while the tiles are in flight, each warp scales whole query rows by
+  // rsqrt(sum q^2 + 1e-12)
+  cp_wait<kStages - 1>();
+  __syncthreads();
+  for (int j = warp; j < nq; j += kWarps) {
+    float ss = 0.f;
+    for (int c = lane; c < d; c += 32) ss += qs[j * dq + c] * qs[j * dq + c];
+    const float inv = rsqrtf(scan::warp_sum(ss) + 1e-12f);
+    for (int c = lane; c < d; c += 32) qs[j * dq + c] *= inv;
   }
 
   // tile i's staged scores → sims, 16 consecutive rows a query
@@ -216,17 +230,6 @@ __global__ void __launch_bounds__(kThreads) k_scan2d(const Scan a) {
   for (int i = 0; i < nt; ++i) {
     cp_wait<kStages - 2>();
     __syncthreads();   // tile i is in; tile i - 1 is computed everywhere
-    if (i == 0) {
-      // each warp scales whole query rows by rsqrt(sum q^2 + 1e-12)
-      for (int j = warp; j < nq; j += kWarps) {
-        float ss = 0.f;
-        for (int c = lane; c < d; c += 32)
-          ss += qs[j * dq + c] * qs[j * dq + c];
-        const float inv = rsqrtf(scan::warp_sum(ss) + 1e-12f);
-        for (int c = lane; c < d; c += 32) qs[j * dq + c] *= inv;
-      }
-      __syncthreads();
-    }
     if (i + kStages - 1 < nt) load((i + kStages - 1) % kStages,
                                    t0 + i + kStages - 1);
     cp_commit();
@@ -311,6 +314,8 @@ __global__ void __launch_bounds__(kThreads) k_scan2d(const Scan a) {
 __global__ void __launch_bounds__(kStatThreads) k_stats2d(const Scan a) {
   extern __shared__ float part[];       // [2][nch]: m, then l, per chunk
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  // the next scan may place its blocks while this one runs
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nch = (a.N + scan::kBlk - 1) / scan::kBlk;
   const float* row = a.sims + static_cast<size_t>(blockIdx.x) * a.N;
@@ -360,24 +365,35 @@ int launch(Scan a, cudaStream_t st) {
   auto run = [&](auto kernel) {
     cudaError_t e;
     if ((e = scan::allow_smem(kernel, smem)) != cudaSuccess) return e;
-    kernel<<<grid, kThreads, smem, st>>>(a);
+    cudaLaunchAttribute pdl;
+    pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    pdl.val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = &pdl;
+    cfg.numAttrs = a.exp == 10 ? 1 : 0;
+    if ((e = cudaLaunchKernelEx(&cfg, kernel, a)) != cudaSuccess) return e;
     return cudaGetLastError();
   };
   cudaError_t e;
+  if (exp == 11) e = cudaSuccess; else
   e = a.stages == 3 ? (vec ? run(k_scan2d<T, true, 3>)
                            : run(k_scan2d<T, false, 3>))
                     : (vec ? run(k_scan2d<T, true, 2>)
                            : run(k_scan2d<T, false, 2>));
   if (e != cudaSuccess) return e;
-  if (exp >= 3) return cudaSuccess;
-  if ((e = scan::allow_smem(k_stats2d, stat_smem)) != cudaSuccess) return e;
+  if (exp == 3 || exp == 4 || exp == 5) return cudaSuccess;
+  if ((e = scan::allow_smem(k_stats2d, exp >= 9 ? 120 * 1024 : stat_smem)) != cudaSuccess) return e;
   cudaLaunchAttribute pdl;
   pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   pdl.val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.Q);
   cfg.blockDim = dim3(kStatThreads);
-  cfg.dynamicSmemBytes = stat_smem;
+  cfg.dynamicSmemBytes = exp >= 9 ? 120 * 1024 : stat_smem;
   cfg.stream = st;
   cfg.attrs = &pdl;
   cfg.numAttrs = exp == 1 ? 0 : 1;
