@@ -19,8 +19,10 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 with an all-invalid session: sims, m, l and the epilogue's
                 probabilities allclose (rtol 1e-5, atol 1e-6), l = N and
                 probs = 1/N for the empty session, and m, l bit-equal to
-                the fused kernel's on the same inputs; then its 2-D form
-                at Q=8, N=8192;
+                the fused kernel's on the same inputs; then the 2-D form's
+                own kernels at Q=8, N=8192 (6,000 valid rows; timed
+                beside torch.mm), int8, Q=20, N=300 and an all-invalid
+                mask (l = N), each checked to have launched;
 4. scene      — the scene-score kernel against its plain version on 65
                 frames of 224×224 (rtol 1e-5, atol 1e-7);
 5. main       — the main path through the user entry points: a
@@ -53,10 +55,13 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 a single valid row and one with none): GQA at Qwen2-VL-7B
                 (H=28, Hkv=4, D=128; also softcap 30 and q_per_kv=1; in
                 bf16 also masks with holes of whole tiles and a last-row
-                mask, C=2000, and G=16 at H=32, Hkv=2), MLA at
-                MiniCPM3-4B (H=40, R=256, Dr=32); each GQA case checks
-                by the wrapper's route count that its route's kernel
-                launched (bf16: k_gqa_split, f32: k_partial), and
+                mask, C=2000, and G=16 at H=32, Hkv=2; and the shapes
+                k_gqa_split leaves to k_partial: bf16 G=32 at H=32,
+                Hkv=1, bf16 D=72, f32 D=6, and H=128, Hkv=1, D=512,
+                which it takes 64 heads to a block), MLA at MiniCPM3-4B (H=40,
+                R=256, Dr=32; and R=30); each GQA case checks by the
+                wrapper's route count that its route's kernel launched
+                (k_gqa_split or k_partial), and
                 records each kernel's device µs per launch by the
                 profiler. bf16 within one bf16 ulp (rtol 2^-7, atol
                 1e-6), f32 at rtol 1e-5 / atol 1e-6.
@@ -803,7 +808,9 @@ def phase_decode(gen):
             # shapes the split kernel leaves to k_partial (checked only)
             ("bf16_g32", 32, 1, 128, 0.0, bf, valid, part),
             ("bf16_d72", 28, 4, 72, 0.0, bf, valid, part),
-            ("f32_d6", 28, 4, 6, 0.0, f32, valid, part)):
+            ("f32_d6", 28, 4, 6, 0.0, f32, valid, part),
+            # 128 heads of 512: k_partial takes them 64 to a block
+            ("bf16_g128_d512", 128, 1, 512, 0.0, bf, valid, part)):
         c = cv.shape[-1]
         rows = needed_rows(cv)
         q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(dt)
@@ -823,7 +830,7 @@ def phase_decode(gen):
         err = _kernel_check(f"gqa {name}", got, want,
                             F32_TOL if dt == torch.float32 else BF16_TOL,
                             empty, mean_v)
-        if name in ("bf16_g32", "bf16_d72", "f32_d6"):
+        if name in ("bf16_g32", "bf16_d72", "f32_d6", "bf16_g128_d512"):
             out[f"gqa_{name}"] = dict(max_abs_err=err, route=route)
             print(f"phase decode[gqa {name}]: ok  {route}  H={h} Hkv={hkv} "
                   f"D={d}  max_abs_err {err:.3e}", flush=True)
@@ -1357,7 +1364,7 @@ def main() -> int:
                    "gqa", serve["launches"]["gqa_decode"],
                    ("bf16", "bf16_softcap30", "bf16_mha", "f32",
                     "bf16_holes", "bf16_c2000", "bf16_g16", "bf16_serve",
-                    "bf16_g32", "bf16_d72", "f32_d6")),
+                    "bf16_g32", "bf16_d72", "f32_d6", "bf16_g128_d512")),
         decode_row("mla_decode", "src/repro/kernels/decode_attention.py:173",
                    "mla", serve_mla["launches"]["mla_decode"],
                    ("bf16", "f32", "bf16_r30"))]

@@ -15,32 +15,40 @@
 // rows are 25.2 MB and the scores 0.26 MB against 3.35 TB/s, 7.6 us; the
 // arithmetic, 2*Q*N*d = 0.1 GFLOP, is 1.5 us at the f32 rate.
 //
-// Design. k_scan2d: the rows are cut into tiles of `tile` rows (16, fewer
-// only for very wide rows); block b walks the contiguous tiles [b*per,
-// (b+1)*per), and the host takes `per` so that the blocks fill every SM
-// once (scan2d_plan in similarity.py). A tile's rows are contiguous in
-// memory, so a tile is one byte range, streamed into a ring of kStages
-// stages in shared memory by 16-byte cp.async copies (zero-filled past
-// the end; any d and any element alignment) while the block computes the
-// tile before it: two tiles in flight a block. The block's queries (up to
-// `qg`, all of them unless shared memory runs out) are normalised into
-// shared memory once; each warp takes 2 rows of a tile and walks the
-// queries in groups of 8 over them, lanes striding over d (float4 or
-// char4 loads where d % 4 == 0 and the rows are so aligned, else one
-// element a load), so every row is read from device memory once for any
-// Q. Scores are staged per tile in shared memory and written with
+// Design. k_scan2d: the rows are cut into tiles of 32 rows (fewer where
+// the queries or very wide rows leave no room); block b walks the
+// contiguous tiles [b*per, (b+1)*per), and the host takes `per` so that
+// the blocks fill every SM once (scan2d_plan in similarity.py: at the
+// smoke shape 128 blocks of 2 tiles, one an SM). A tile's rows are
+// contiguous in memory, so a tile is one byte range, streamed into a ring
+// of 2 or 3 stages in shared memory by 16-byte cp.async copies
+// (zero-filled past the end; any d and any element alignment): at the
+// smoke shape both of a block's tiles are in flight from its start, 192
+// KB an SM. The block's queries (up to `qg`, all of them unless shared
+// memory runs out) arrive in their own copy group and are normalised in
+// shared memory while the tiles are in flight. Eight warps share a tile:
+// warp (h, g) scores rows 8g..8g+7 against 8 queries over half h of d
+// (lanes striding over float4 or char4 columns where d % 4 == 0 and the
+// rows are so aligned, else one element a load), so each query element
+// read from shared memory serves 8 rows; sums are spread over the lanes
+// (warp_sum_spread: 63 shuffles for 64 sums) and the halves meet in
+// shared memory, added in a fixed order. Every row is read from device
+// memory once for any Q. Scores are staged per tile and written with
 // coalesced stores while the next tile is computed.
-// k_stats2d (launched as a programmatic dependent, Hopper's PDL: placed
-// while k_scan2d runs, it waits on that grid's end): one block per query
-// reads back its written scores and the mask, a warp per 256-row chunk,
-// takes each chunk's (m, l) partials in scan::tile_stats' lane order
-// (scan::row_stats) into shared memory and merges them in chunk order
-// (scan::merged_stats): the same bits from run to run.
-// The C entry points return cudaGetLastError() after the launches.
+// k_stats2d: one block per query reads back its written scores and the
+// mask, a warp per 256-row chunk, takes each chunk's (m, l) in
+// scan::tile_stats' lane order (scan::row_stats) and merges them in chunk
+// order (scan::merged_stats): the same bits from run to run. Its blocks
+// reserve enough shared memory to take an SM each.
+// Both kernels are programmatic dependents (Hopper's PDL): each is placed
+// while the kernel before it on the stream runs and waits on that grid's
+// end (griddepcontrol.wait) before it reads or writes device memory, so
+// its launch is off the critical path. A statistics pass after the last
+// block, by atomic tickets, took longer on the card (PERF.md).
+// The C entry point returns cudaGetLastError() after the launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <stdlib.h>
 
 #include "scan_tile.cuh"
 
@@ -53,6 +61,10 @@ constexpr int kRowsPerWarp = 8;
 constexpr int kTileMax = kRowGroups * kRowsPerWarp;   // rows of a full tile
 constexpr int kQG = 8;                            // queries per pass
 constexpr int kStatThreads = 1024;   // k_stats2d: a warp per 256-row chunk
+// k_stats2d's shared memory at least: more than half an SM's, so that its
+// blocks, placed early under PDL, do not crowd onto the SMs the scan
+// leaves free
+constexpr size_t kStatSmem = 120 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -138,17 +150,16 @@ struct Scan {
   float* sims;                // (Q, N)
   float* m;                   // (Q,)
   float* l;
-  int exp;
 };
 
 // ---- pass 1: the scores, tile by tile through the ring ----
 template <typename T, bool kVec, int kStages>
 __global__ void __launch_bounds__(kThreads) k_scan2d(const Scan a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  // launched after the kernel before it on the stream may have started (a
-  // programmatic dependent): nothing is read or written before its end
-  if (a.exp == 10) asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  // the statistics kernel may launch once every block of this grid runs
+  // placed while the kernel before it on the stream may still run: nothing
+  // is read or written before that grid's end; then the statistics kernel
+  // may be placed
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
   using V = typename scan::Vec4<T>::type;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -171,7 +182,6 @@ __global__ void __launch_bounds__(kThreads) k_scan2d(const Scan a) {
     return gbase + static_cast<size_t>(t) * a.tile * rowb;
   };
   auto load = [&](int s, int t) {
-    if (a.exp == 5) return;
     const char* b0 = tile_start(t);
     const char* b1 = b0 + a.tile * rowb < gend ? b0 + a.tile * rowb : gend;
     const char* a0 = reinterpret_cast<const char*>(
@@ -239,7 +249,7 @@ __global__ void __launch_bounds__(kThreads) k_scan2d(const Scan a) {
     // columns (32-float4 blocks h, h + 2, ...); the halves meet in xh
     const int h = warp / kRowGroups, rg = warp - h * kRowGroups;
     const int r0 = rg * kRowsPerWarp;
-    const bool active = r0 < len && a.exp != 4;
+    const bool active = r0 < len;
     const int off = static_cast<int>(
         reinterpret_cast<uintptr_t>(tile_start(t0 + i)) & 15);
     const unsigned char* base = ring + (i % kStages) * stage + off;
@@ -314,7 +324,7 @@ __global__ void __launch_bounds__(kThreads) k_scan2d(const Scan a) {
 __global__ void __launch_bounds__(kStatThreads) k_stats2d(const Scan a) {
   extern __shared__ float part[];       // [2][nch]: m, then l, per chunk
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  // the next scan may place its blocks while this one runs
+  // a programmatic dependent after it (the next scan) may be placed
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nch = (a.N + scan::kBlk - 1) / scan::kBlk;
@@ -344,63 +354,51 @@ __global__ void __launch_bounds__(kStatThreads) k_stats2d(const Scan a) {
   }
 }
 
+// `kernel` on `grid` as a programmatic dependent of the kernel before it
+template <typename K>
+cudaError_t launch_dependent(K kernel, dim3 grid, int threads, size_t smem,
+                             cudaStream_t st, const Scan& a) {
+  cudaError_t e;
+  if ((e = scan::allow_smem(kernel, smem)) != cudaSuccess) return e;
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  if ((e = cudaLaunchKernelEx(&cfg, kernel, a)) != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 template <typename T>
-int launch(Scan a, cudaStream_t st) {
-  const char* ex = getenv("SCAN2D_EXP");
-  const int exp = ex ? atoi(ex) : 0;
-  a.exp = exp;
+int launch(const Scan& a, cudaStream_t st) {
   const int ntiles = (a.N + a.tile - 1) / a.tile;
   const size_t smem = smem_bytes(a.tile, a.stages, a.qg, a.d, sizeof(T));
   const size_t stat_smem =
       2 * sizeof(float) * ((a.N + scan::kBlk - 1) / scan::kBlk);
   if (a.Q < 1 || a.N < 1 || a.d < 1 || a.tile < 1 || a.tile > kTileMax ||
       a.qg < 1 || a.qg > a.Q || a.per < 1 || smem > kMaxSmem ||
-      (a.stages != 2 && a.stages != 3) ||
-      stat_smem > kMaxSmem)
+      (a.stages != 2 && a.stages != 3) || stat_smem > kMaxSmem)
     return cudaErrorInvalidValue;
-  const int blocks = (ntiles + a.per - 1) / a.per;
-  const dim3 grid(blocks, (a.Q + a.qg - 1) / a.qg);
+  const dim3 grid((ntiles + a.per - 1) / a.per, (a.Q + a.qg - 1) / a.qg);
   const bool vec = a.d % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(a.index) % (4 * sizeof(T)) == 0;
   auto run = [&](auto kernel) {
-    cudaError_t e;
-    if ((e = scan::allow_smem(kernel, smem)) != cudaSuccess) return e;
-    cudaLaunchAttribute pdl;
-    pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    pdl.val.programmaticStreamSerializationAllowed = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = st;
-    cfg.attrs = &pdl;
-    cfg.numAttrs = a.exp == 10 ? 1 : 0;
-    if ((e = cudaLaunchKernelEx(&cfg, kernel, a)) != cudaSuccess) return e;
-    return cudaGetLastError();
+    return launch_dependent(kernel, grid, kThreads, smem, st, a);
   };
-  cudaError_t e;
-  if (exp == 11) e = cudaSuccess; else
-  e = a.stages == 3 ? (vec ? run(k_scan2d<T, true, 3>)
-                           : run(k_scan2d<T, false, 3>))
-                    : (vec ? run(k_scan2d<T, true, 2>)
-                           : run(k_scan2d<T, false, 2>));
+  const cudaError_t e = a.stages == 3
+                            ? (vec ? run(k_scan2d<T, true, 3>)
+                                   : run(k_scan2d<T, false, 3>))
+                            : (vec ? run(k_scan2d<T, true, 2>)
+                                   : run(k_scan2d<T, false, 2>));
   if (e != cudaSuccess) return e;
-  if (exp == 3 || exp == 4 || exp == 5) return cudaSuccess;
-  if ((e = scan::allow_smem(k_stats2d, exp >= 9 ? 120 * 1024 : stat_smem)) != cudaSuccess) return e;
-  cudaLaunchAttribute pdl;
-  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.Q);
-  cfg.blockDim = dim3(kStatThreads);
-  cfg.dynamicSmemBytes = exp >= 9 ? 120 * 1024 : stat_smem;
-  cfg.stream = st;
-  cfg.attrs = &pdl;
-  cfg.numAttrs = exp == 1 ? 0 : 1;
-  Scan b = a;
-  if (exp == 2) b.N = 0;
-  if ((e = cudaLaunchKernelEx(&cfg, k_stats2d, b)) != cudaSuccess) return e;
-  return cudaGetLastError();
+  return launch_dependent(k_stats2d, dim3(a.Q), kStatThreads,
+                          stat_smem > kStatSmem ? stat_smem : kStatSmem, st,
+                          a);
 }
 
 }  // namespace
@@ -411,7 +409,7 @@ int launch(Scan a, cudaStream_t st) {
                       int stages, int qg, int per, float tau, float* sims,    \
                       float* m, float* l, void* stream) {                     \
     const Scan a{query, index, valid, Q, N, d, tile, stages, qg, per, tau,   \
-                 sims, m, l, 0};                                              \
+                 sims, m, l};                                                 \
     return launch<T>(a, static_cast<cudaStream_t>(stream));                  \
   }
 

@@ -17,6 +17,7 @@ Each counts its own launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -215,6 +216,7 @@ def _scan2d_smem(tile: int, stages: int, qg: int, d: int, elt: int) -> int:
     return 4 * (qp * dq + 2 * qp * SCAN2D_TILE + 384) + stages * stage
 
 
+@functools.lru_cache(maxsize=256)
 def scan2d_plan(n: int, d: int, elt: int, q: int, sms: int) -> tuple:
     """(rows per tile, ring stages, queries per block, blocks along the
     rows, tiles per block) of the 2-D kernel for N rows of d elements of
@@ -277,8 +279,8 @@ def _launch_scan_2d(query, index, valid, *, tau: float):
     fn = _kernel_fn(_SCAN2D, index.dtype)
     rc = on_device(dev, lambda stream: fn(
         query.data_ptr(), index.data_ptr(), vmask.data_ptr(), q, n, d, tile,
-        stages, qg, per, float(tau), base, base + 4 * q * n, base + 4 * (q * n + q),
-        stream))
+        stages, qg, per, float(tau), base, base + 4 * q * n,
+        base + 4 * (q * n + q), stream))
     if rc != 0:
         raise RuntimeError(f"similarity_scan kernel launch failed: "
                            f"cudaError {rc}")
