@@ -36,25 +36,11 @@ class FrameStore:
     """Raw data layer: host archive of frames by absolute index.
     ``trim(keep_from)`` drops every frame below an absolute id; ids stay
     stable (``base`` offsets the retained list) and reading a trimmed id
-    raises ``IndexError``. The disk spill tier is a later slice: its
-    counters keep the reference's names and stay 0, as the reference's do
-    with no ``spill_dir``."""
+    raises ``IndexError``. The disk spill tier is a later slice."""
 
     def __init__(self):
         self._frames: List[np.ndarray] = []
         self._base = 0
-        self.io_stats = {"spilled_frames": 0, "spilled_bytes": 0,
-                         "spill_faults": 0, "spill_cache_hits": 0}
-
-    def reset_io_stats(self) -> None:
-        for k in self.io_stats:
-            self.io_stats[k] = 0
-
-    @property
-    def disk_bytes(self) -> int:
-        """Bytes of this store's spill segments on disk (no spill tier
-        yet: 0)."""
-        return 0
 
     def append(self, frames: np.ndarray) -> None:
         self._frames.extend(np.asarray(frames))

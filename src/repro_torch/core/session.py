@@ -263,10 +263,9 @@ class SessionManager:
                          "two_stage_groups": 0,
                          "archive_trimmed_frames": 0,
                          "alerts_fired": 0, "alerts_suppressed": 0}
-        # closed sessions' memory and frame-store counters, so
-        # service-wide sums stay monotonic across stream churn
+        # closed sessions' memory counters, so service-wide sums stay
+        # monotonic across stream churn
         self.closed_mem_stats: Dict[str, int] = {}
-        self.closed_frame_stats: Dict[str, int] = {}
         _LIVE_MANAGERS.add(self)
 
     def reset_io_stats(self, *, include_memories: bool = True) -> None:
@@ -274,10 +273,8 @@ class SessionManager:
             self.io_stats[k] = 0
         if include_memories:
             self.closed_mem_stats.clear()
-            self.closed_frame_stats.clear()
             for st in self.sessions.values():
                 st.memory.reset_io_stats()
-                st.frames.reset_io_stats()
             if self.arena is not None:
                 self.arena.reset_io_stats()
 
@@ -311,9 +308,6 @@ class SessionManager:
         st = self.sessions.pop(sid)
         for k, v in st.memory.io_stats.items():
             self.closed_mem_stats[k] = self.closed_mem_stats.get(k, 0) + v
-        for k, v in st.frames.io_stats.items():
-            self.closed_frame_stats[k] = (
-                self.closed_frame_stats.get(k, 0) + v)
         st.frames.close()
         self._stacks = {k: v for k, v in self._stacks.items()
                         if sid not in k}

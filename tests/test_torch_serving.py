@@ -11,7 +11,9 @@ as numpy, carried across by ``model_params_from_numpy``), in float32:
   seen between the packages), so a near-tie fails loudly instead of
   flipping a token;
 * ``VenusService.answer`` over two streams driven by ``OracleEmbedder``:
-  the same frame ids and the same generated tokens.
+  the same frame ids and the same generated tokens;
+* ``VenusService.io_stats()`` and the surfaces under it (manager, arena,
+  memories): the reference's key sets, and its values on ported paths.
 """
 
 import jax
