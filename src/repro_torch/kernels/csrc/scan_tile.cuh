@@ -124,10 +124,10 @@ __device__ __forceinline__ float logit_of(float sv, float tau) {
   return sv > -1e29f ? sv / tau : kNegInf;
 }
 
-// Max logit and sum-exp of one warp's len <= kBlk lanes of masked scores,
-// score(i) for lane i (lane-strided, then a warp reduction): the
-// per-chunk partials every scan kernel writes, in one order. A lane
-// reads its kBlk / 32 scores first, so their loads are in flight at once.
+// Max logit and sum-exp of one warp's len <= kBlk lanes of masked scores
+// (lane-strided, then a warp reduction): the per-chunk partials every scan
+// kernel writes, in one order. score(u) is the masked score of lane
+// (threadIdx.x % 32) + 32 u; a lane reads its kBlk / 32 scores first.
 template <typename F>
 __device__ __forceinline__ void row_stats(F score, int len, float tau,
                                           float& m, float& l) {
@@ -136,7 +136,7 @@ __device__ __forceinline__ void row_stats(F score, int len, float tau,
   float x[kPer];
 #pragma unroll
   for (int u = 0; u < kPer; ++u)
-    x[u] = lane + 32 * u < len ? logit_of(score(lane + 32 * u), tau) : 0.f;
+    x[u] = lane + 32 * u < len ? logit_of(score(u), tau) : 0.f;
   m = kNegInf;
 #pragma unroll
   for (int u = 0; u < kPer; ++u)
@@ -152,8 +152,8 @@ __device__ __forceinline__ void row_stats(F score, int len, float tau,
 // row_stats of tile row qi = warp over len lanes of the masked scores sv
 __device__ __forceinline__ void tile_stats(const float* sv, int len,
                                            float tau, float& m, float& l) {
-  const float* row = sv + (threadIdx.x >> 5) * kBlk;
-  row_stats([row](int i) { return row[i]; }, len, tau, m, l);
+  const float* row = sv + (threadIdx.x >> 5) * kBlk + (threadIdx.x & 31);
+  row_stats([row](int u) { return row[32 * u]; }, len, tau, m, l);
 }
 
 // M and L of one (session, query) lane, merged from the per-chunk

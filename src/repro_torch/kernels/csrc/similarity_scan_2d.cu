@@ -331,15 +331,21 @@ __global__ void __launch_bounds__(kStatThreads) k_stats2d(const Scan a) {
   const float* row = a.sims + static_cast<size_t>(blockIdx.x) * a.N;
   for (int k = warp; k < nch; k += kStatThreads / 32) {
     const int c0 = k * scan::kBlk, len = min(scan::kBlk, a.N - c0);
-    const float* s = row + c0;
-    const uint8_t* vs = a.valid + c0;
+    // the lane's scores and mask bytes, all loads in flight together
+    // before any division (whose slow path is a call the compiler does
+    // not move loads across)
+    constexpr int kPer = scan::kBlk / 32;
+    float x[kPer];
+    uint8_t ok[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int i = c0 + lane + 32 * u;
+      x[u] = i < a.N ? __ldcg(row + i) : 0.f;
+      ok[u] = i < a.N ? a.valid[i] : 0;
+    }
     float m, l;
-    scan::row_stats(
-        [s, vs](int i) {
-          const float x = __ldcg(s + i);
-          return vs[i] ? x : scan::kNegInf;
-        },
-        len, a.tau, m, l);
+    scan::row_stats([&](int u) { return ok[u] ? x[u] : scan::kNegInf; },
+                    len, a.tau, m, l);
     if (lane == 0) {
       part[k] = m;
       part[nch + k] = l;
