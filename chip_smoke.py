@@ -11,11 +11,14 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 Triton scene-score kernel;
 2. fused      — the fused retrieval kernel against its plain PyTorch
                 version at S=16, N=8192, d=768, Q=8, T=32, K=8: f32, int8
-                (from ``quantise_rows``) and wrapping (S, 2) ring windows.
-                Integers equal; floats allclose (rtol 1e-5, atol 1e-6);
-                draw targets kept ≥ 1e-6 from every CDF value;
+                (from ``quantise_rows``) and wrapping (S, 2) ring windows;
+                then the edge cases of ``scan_edge_cases`` (S=4, N=1000:
+                d=6 and d=770, and d=768 from an unaligned index view, f32
+                and int8). Integers equal; floats allclose (rtol 1e-5,
+                atol 1e-6); draw targets kept ≥ 1e-6 from every CDF value;
 3. similarity — the dense scan kernel (stack form) against its plain
-                version at the same shapes, f32, int8 and windows, each
+                version at the same shapes, f32, int8 and windows, and the
+                fused phase's edge cases, each
                 with an all-invalid session: sims, m, l and the epilogue's
                 probabilities allclose (rtol 1e-5, atol 1e-6), l = N and
                 probs = 1/N for the empty session, and m, l bit-equal to
@@ -58,13 +61,17 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 mask, C=2000, and G=16 at H=32, Hkv=2; and the shapes
                 k_gqa_split leaves to k_partial: bf16 G=32 at H=32,
                 Hkv=1, bf16 D=72, f32 D=6, and H=128, Hkv=1, D=512,
-                which it takes 64 heads to a block), MLA at MiniCPM3-4B (H=40,
-                R=256, Dr=32; and R=30); each GQA case checks by the
-                wrapper's route count that its route's kernel launched
-                (k_gqa_split or k_partial), and
-                records each kernel's device µs per launch by the
-                profiler. bf16 within one bf16 ulp (rtol 2^-7, atol
-                1e-6), f32 at rtol 1e-5 / atol 1e-6.
+                which it takes 64 heads to a block); MLA at MiniCPM3-4B
+                (H=40, R=256, Dr=32: bf16 on k_mla with the table's masks,
+                holes, C=2000 and the serve phase's 9-76 rows a slot, f32
+                on k_partial), DeepSeek-V2-Lite (H=16, R=512, Dr=64),
+                DeepSeek-V3's 128 heads and R=30 (k_partial), checked
+                only. Each case checks by the wrapper's route count that
+                its route's kernel launched, and records each kernel's
+                device µs per launch by the profiler; the bf16 MLA case
+                also times k_partial on the same inputs (A, B, B, A) and
+                k_mla at 4, 8, 16 and 32 splits. bf16 within one bf16 ulp
+                (rtol 2^-7, atol 1e-6), f32 at rtol 1e-5 / atol 1e-6.
                 Alone: ``python3 -c "import torch, chip_smoke;
                 chip_smoke.phase_decode(torch.Generator('cuda')
                 .manual_seed(0))"``;
@@ -77,7 +84,9 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 through the plain version (relative L2 error ≤ 2^-5);
 12. serve_mla — the engine on MiniCPM3-4B at full width (bf16): 8 text
                 requests of 8–64 tokens, 12 new tokens each;
-                mla_decode launches == 62 × decode steps; the same logits
+                mla_decode launches == 62 × decode steps, every one on
+                k_mla (``mla_decode.route_launches``); #6's device µs a
+                launch in the step by the profiler; the same logits
                 check.
 
 Prints the card's name and power limit, one line per phase, the
@@ -180,6 +189,42 @@ def margin_targets(probs, gen, n_targets: int, margin: float = 1e-6):
     return t, float(g.min())
 
 
+EDGE_S, EDGE_N = 4, 1000           # the scans' edge cases: shapes
+
+
+def scan_edge_cases(gen):
+    """The stack and fused scans' edge cases at S=4, Q=8, N=1000 (a ragged
+    last chunk; session 1 all invalid): d = 6 and d = 770 (not multiples
+    of 4) in f32 and int8, and d = 768 from an index view whose base is
+    one element past an aligned address (4 bytes of f32, 1 of int8), so
+    both kernels take their one-element-a-load path. → [(name, query,
+    index, valid)]."""
+    import torch
+    from repro_torch.core.memory import quantise_rows
+    dev = torch.device("cuda")
+    sizes = torch.tensor([EDGE_N, 0, 613, EDGE_N], dtype=torch.int32,
+                         device=dev)
+    out = []
+    for d in (6, 770, 768):
+        query = torch.randn((EDGE_S, Q, d), generator=gen, device=dev)
+        x32 = torch.randn((EDGE_S, EDGE_N, d), generator=gen, device=dev)
+        x8 = torch.from_numpy(quantise_rows(x32.cpu().numpy())[0]).to(dev)
+        if d == 768:                  # the same rows at an unaligned base
+            n = x32.numel()
+            b32 = torch.empty(n + 1, device=dev)
+            b8 = torch.empty(n + 1, dtype=torch.int8, device=dev)
+            x32 = b32[1:].view(x32.shape).copy_(x32)
+            x8 = b8[1:].view(x8.shape).copy_(x8)
+            check(x32.data_ptr() % 16 == 4 and x8.data_ptr() % 4 == 1,
+                  "unaligned index views")
+            tag = "unaligned"
+        else:
+            tag = f"d{d}"
+        out += [(f"{tag}_f32", query, x32, sizes),
+                (f"{tag}_int8", query, x8, sizes)]
+    return out
+
+
 def phase_fused(gen):
     import torch
     from repro_torch.core.memory import quantise_rows
@@ -195,14 +240,15 @@ def phase_fused(gen):
                            dtype=torch.int32)
     wins = torch.stack([starts, sizes], dim=1)
     check(bool(((starts + sizes) > N).any()), "a window wraps")
-    cases = [("f32", index32, sizes), ("int8", index8, sizes),
-             ("f32_windows", index32, wins)]
+    cases = [("f32", query, index32, sizes), ("int8", query, index8, sizes),
+             ("f32_windows", query, index32, wins)] + scan_edge_cases(gen)
     out = {}
-    for name, index, valid in cases:
+    for name, query, index, valid in cases:
+        n = index.shape[1]
         sims, m, l = ref.similarity_scan_stack_ref(query, index, valid,
                                                    tau=TAU)
         probs = ref.scan_probs(sims, m, l,
-                               ref.as_valid_mask(valid, N)[:, None, :], TAU)
+                               ref.as_valid_mask(valid, n)[:, None, :], TAU)
         del sims
         targets, margin = margin_targets(probs, gen, T)
         del probs
@@ -210,7 +256,7 @@ def phase_fused(gen):
             query, index, valid, targets, tau=TAU, n_topk=K)
         run_p = lambda: ref.fused_retrieve_stack_ref(
             query, index, valid, targets, tau=TAU, n_topk=K)
-        got, want = ops.finalize(run_k(), N), ops.finalize(run_p(), N)
+        got, want = ops.finalize(run_k(), n), ops.finalize(run_p(), n)
         torch.cuda.synchronize()
         for f in ("draws", "topk_i"):
             check(torch.equal(getattr(got, f), getattr(want, f)),
@@ -225,6 +271,13 @@ def phase_fused(gen):
                   f"{float((a - b).abs().max())}")
             if f != "l":     # l sums N terms: judged relative, above
                 err = max(err, float((a - b).abs().max()))
+        if n != N:           # an edge case: checked only
+            out[name] = dict(max_abs_err=err, margin=margin,
+                             d=index.shape[2])
+            print(f"phase fused[{name}]: ok  d={index.shape[2]} N={n}  "
+                  f"max_abs_err {err:.3e}  target margin {margin:.2e}",
+                  flush=True)
+            continue
         ms = cuda_ms(run_k, reps=10, warmup=2)
         dev_ms = device_ms(run_k)
         plain = cuda_ms(run_p, reps=2)
@@ -285,24 +338,30 @@ def phase_similarity(gen):
                            dtype=torch.int32)
     wins = torch.stack([starts, sizes], dim=1)
     check(bool(((starts + sizes) > N).any()), "a window wraps")
-    cases = [("f32", index32, sizes), ("int8", index8, sizes),
-             ("f32_windows", index32, wins)]
+    cases = [("f32", query, index32, sizes), ("int8", query, index8, sizes),
+             ("f32_windows", query, index32, wins)] + scan_edge_cases(gen)
     out = {}
-    for name, index, valid in cases:
-        run_k = lambda: similarity.similarity_scan_stack(query, index, valid,
+    for name, q, index, valid in cases:
+        n = index.shape[1]
+        run_k = lambda: similarity.similarity_scan_stack(q, index, valid,
                                                          tau=TAU)
-        run_p = lambda: ref.similarity_scan_stack_ref(query, index, valid,
+        run_p = lambda: ref.similarity_scan_stack_ref(q, index, valid,
                                                       tau=TAU)
         got, want = run_k(), run_p()
         torch.cuda.synchronize()
-        vmask = ref.as_valid_mask(valid, N)[:, None, :]
+        vmask = ref.as_valid_mask(valid, n)[:, None, :]
         err = _scan_check(f"similarity {name}", got, want, vmask, (1,))
         # the order of the stats: bit-equal to the fused kernel's m and l
         fr = similarity.fused_retrieve_scan_stack(
-            query, index, valid, torch.zeros((S, Q, 1), device=dev),
+            q, index, valid, torch.zeros(q.shape[:2] + (1,), device=dev),
             tau=TAU, n_topk=1)
         check(torch.equal(got[1], fr.m) and torch.equal(got[2], fr.l),
               f"similarity {name}: m, l differ from the fused kernel's")
+        if n != N:           # an edge case: checked only
+            out[name] = dict(max_abs_err=err, d=index.shape[2])
+            print(f"phase similarity[{name}]: ok  d={index.shape[2]} N={n}  "
+                  f"max_abs_err {err:.3e}  m, l == fused", flush=True)
+            continue
         ms = cuda_ms(run_k, reps=50, warmup=3)
         dev_ms = device_ms(run_k)
         plain = cuda_ms(run_p, reps=3)
@@ -872,75 +931,138 @@ def phase_decode(gen):
               f"{bnd:.4f} ms ({by}; {rows} of {b * c} rows needed; full "
               f"cache {bnd_full:.4f} ms)  sdpa {_opt_ms(lib, lib_dev)}  "
               f"max_abs_err {err:.3e}", flush=True)
-        print("  per launch (device us): " + ("not measured (no device "
-              "events in the trace)" if per_kernel is None else "  ".join(
-                  f"{k} {v:.2f}" for k, v in per_kernel.items())),
-              flush=True)
+        _print_kernel_us(per_kernel)
         del q, k, v
-    # MLA at MiniCPM3-4B: H=40, R=256, Dr=32
-    rows, c = needed_rows(valid), DEC_C
-    h, dr = 40, 32
-    scale = (64 + 32) ** -0.5
-    for name, dt, r in (("bf16", torch.bfloat16, 256),
-                        ("f32", torch.float32, 256),
-                        ("bf16_r30", torch.bfloat16, 30)):
+    out.update(phase_decode_mla(gen, valid, holes))
+    return out
+
+
+def _print_kernel_us(per_kernel) -> None:
+    print("  per launch (device us): " + ("not measured (no device events "
+          "in the trace)" if per_kernel is None else "  ".join(
+              f"{k} {v:.2f}" for k, v in per_kernel.items())), flush=True)
+
+
+def phase_decode_mla(gen, valid, holes):
+    """Kernel #6 against its plain version: MiniCPM3-4B's widths (H=40,
+    R=256, Dr=32) at the table's masks (bf16 on ``k_mla``, f32 on
+    ``k_partial``), with holes, C=2000, the serve phase's masks (9-76
+    written rows a slot), DeepSeek-V2-Lite's (H=16, R=512, Dr=64) and,
+    checked only, DeepSeek-V3's (H=128) and R=30 (``k_partial``). Each
+    case checks its route by ``mla_decode.route_launches``. The bf16 case
+    also times ``k_partial`` on the same inputs (A, B, B, A) and ``k_mla``
+    at 4, 8, 16 and 32 splits."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.device import sm_count
+    dev = torch.device("cuda")
+    b = DEC_B
+    serve = (torch.arange(DEC_C, device=dev)[None, :]
+             < torch.tensor([9, 30, 52, 76], device=dev)[:, None])
+    bf, f32 = torch.bfloat16, torch.float32
+    new, part = "k_mla", "k_partial"
+    out = {}
+    for name, dt, h, r, dr, nope, cv, route, timed in (
+            ("bf16", bf, 40, 256, 32, 64, valid, new, True),
+            ("f32", f32, 40, 256, 32, 64, valid, part, True),
+            ("bf16_holes", bf, 40, 256, 32, 64, holes, new, True),
+            ("bf16_c2000", bf, 40, 256, 32, 64, decode_valid(dev, 2000), new,
+             True),
+            ("bf16_serve", bf, 40, 256, 32, 64, serve, new, True),
+            ("bf16_dsv2", bf, 16, 512, 64, 128, valid, new, True),
+            ("bf16_dsv3", bf, 128, 512, 64, 128, valid, new, False),
+            ("bf16_r30", bf, 40, 30, 32, 64, valid, part, False)):
+        c = cv.shape[-1]
+        rows = needed_rows(cv)
+        scale = (nope + dr) ** -0.5
         qa = torch.randn((b, 1, h, r), generator=gen, device=dev).to(dt)
         qr = torch.randn((b, 1, h, dr), generator=gen, device=dev).to(dt)
         ckv = torch.randn((b, c, r), generator=gen, device=dev).to(dt)
         kr = torch.randn((b, c, dr), generator=gen, device=dev).to(dt)
-        run_k = lambda: dk.mla_decode(qa, qr, ckv, kr, valid, scale=scale)
-        run_p = lambda: ref.mla_decode_attention_ref(qa, qr, ckv, kr, valid,
+        run_k = lambda: dk.mla_decode(qa, qr, ckv, kr, cv, scale=scale)
+        run_p = lambda: ref.mla_decode_attention_ref(qa, qr, ckv, kr, cv,
                                                      scale=scale)
+        check(dk.mla_route(dt, h, r, dr) == route,
+              f"mla {name}: mla_route is {dk.mla_route(dt, h, r, dr)}")
+        before = dict(dk.mla_decode.route_launches)
         got, want = run_k(), run_p()
         torch.cuda.synchronize()
+        ran = [k for k, n in dk.mla_decode.route_launches.items()
+               if n != before[k]]
+        check(ran == [route], f"mla {name}: ran {ran}, not {route}")
+        empty = None if bool(cv[2].any()) else 2
         mean_c = ckv[2].float().mean(0)[None].expand(h, r)
         err = _kernel_check(f"mla {name}", got, want,
-                            F32_TOL if dt == torch.float32 else BF16_TOL, 2,
+                            F32_TOL if dt == f32 else BF16_TOL, empty,
                             mean_c)
-        if r != 256:            # a width not a multiple of 4: checked only
-            out[f"mla_{name}"] = dict(max_abs_err=err)
-            print(f"phase decode[mla {name}]: ok  R={r}  max_abs_err "
-                  f"{err:.3e}", flush=True)
+        head = f"phase decode[mla {name}]: ok  {route}  H={h} R={r} Dr={dr}"
+        if not timed:
+            out[f"mla_{name}"] = dict(max_abs_err=err, route=route)
+            print(f"{head}  max_abs_err {err:.3e}", flush=True)
             del qa, qr, ckv, kr
             continue
+        per_kernel = kernel_us(run_k)
         ms = cuda_ms(run_k, reps=50, warmup=3)
         dev_ms = device_ms(run_k, reps=50)
         plain = cuda_ms(run_p, reps=10, warmup=1)
-        qcat = torch.cat([qa, qr], -1).transpose(1, 2).contiguous()
-        kcat = torch.cat([ckv, kr], -1)[:, None].contiguous()
-        vlat = ckv[:, None].contiguous()
-        mask = valid[:, None, None, :]
-        run_l = lambda: F.scaled_dot_product_attention(
-            qcat, kcat, vlat, attn_mask=mask, scale=scale, enable_gqa=True)
-        try:
-            lib = cuda_ms(run_l, reps=50, warmup=3)
-            lib_dev = device_ms(run_l, reps=50)
-        except RuntimeError as e:      # a yardstick only: report, go on
-            print(f"  sdpa yardstick for mla {name} refused: {e}")
-            lib = lib_dev = None
+        lib = lib_dev = None
+        if name in ("bf16", "f32"):
+            qcat = torch.cat([qa, qr], -1).transpose(1, 2).contiguous()
+            kcat = torch.cat([ckv, kr], -1)[:, None].contiguous()
+            vlat = ckv[:, None].contiguous()
+            mask = cv[:, None, None, :]
+            run_l = lambda: F.scaled_dot_product_attention(
+                qcat, kcat, vlat, attn_mask=mask, scale=scale,
+                enable_gqa=True)
+            try:
+                lib = cuda_ms(run_l, reps=50, warmup=3)
+                lib_dev = device_ms(run_l, reps=50)
+            except RuntimeError as e:      # a yardstick only: report, go on
+                print(f"  sdpa yardstick for mla {name} refused: {e}")
+            del qcat, kcat, vlat
         elt = qa.element_size()
         nbytes = (b * h * (2 * r + dr) * elt + rows * (r + dr) * elt
-                  + valid.numel())
+                  + cv.numel())
+
         # scores q.[ckv, krope] in the model dtype (bf16: tensor cores);
         # the value product p.ckv has f32 p
-        bf = dt == torch.bfloat16
-
         def mla_ops(n):
             score, value = 2.0 * h * n * (r + dr), 2.0 * h * n * r
-            return (value, score) if bf else (value + score, 0.0)
+            return (value, score) if dt == bf else (value + score, 0.0)
         bnd, by = bound_ms(nbytes, *mla_ops(rows))
         bnd_full, _ = bound_ms(b * h * (2 * r + dr) * elt
-                               + b * c * (r + dr) * elt + valid.numel(),
+                               + b * c * (r + dr) * elt + cv.numel(),
                                *mla_ops(b * c))
-        out[f"mla_{name}"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                                  bound_ms=bnd, bound_by=by,
-                                  bound_full_cache_ms=bnd_full,
-                                  library_ms=lib, library_device_ms=lib_dev,
-                                  max_abs_err=err)
-        print(f"phase decode[mla {name}]: ok  kernel {ms:.4f} ms (device "
-              f"{dev_ms:.4f} ms)  plain {plain:.4f} ms  bound {bnd:.4f} ms "
-              f"({by}; full cache {bnd_full:.4f} ms)  sdpa "
-              f"{_opt_ms(lib, lib_dev)}  max_abs_err {err:.3e}", flush=True)
+        row = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=bnd,
+                   bound_by=by, bound_full_cache_ms=bnd_full,
+                   library_ms=lib, library_device_ms=lib_dev,
+                   max_abs_err=err, rows_needed=rows, route=route,
+                   kernel_us=per_kernel)
+        extra = ""
+        if name == "bf16":
+            # k_partial on the same inputs, and the split candidates
+            part_k = lambda: dk._launch_mla(qa, qr, ckv, kr, cv, scale=scale)
+            ab = [device_ms(f, reps=50) for f in (run_k, part_k, part_k,
+                                                  run_k)]
+            row.update(ab_device_ms=ab, partial_device_ms=(ab[1] + ab[2]) / 2,
+                       partial_kernel_us=kernel_us(part_k),
+                       plan=dk.mla_split_plan(b, c, h, r, sm_count(dev)))
+            row["splits_device_ms"] = {
+                s: device_ms(lambda: dk._launch_mla_split(
+                    qa, qr, ckv, kr, cv, scale=scale, splits=s), reps=50)
+                for s in (4, 8, 16, 32)}
+            extra = (f"  k_partial same inputs (A,B,B,A device ms) "
+                     f"{[round(x, 5) for x in ab]}  plan {row['plan']}  "
+                     f"by splits {row['splits_device_ms']}")
+        out[f"mla_{name}"] = row
+        print(f"{head}  kernel {ms:.4f} ms (device {dev_ms:.4f} ms)  plain "
+              f"{plain:.4f} ms  bound {bnd:.4f} ms ({by}; {rows} of {b * c} "
+              f"rows needed; full cache {bnd_full:.4f} ms)  sdpa "
+              f"{_opt_ms(lib, lib_dev)}  max_abs_err {err:.3e}{extra}",
+              flush=True)
+        _print_kernel_us(per_kernel)
         del qa, qr, ckv, kr
     return out
 
@@ -976,12 +1098,16 @@ def logits_kernel_vs_plain(engine, attr):
     return rel, agree
 
 
+# the decode kernels' names in a profiler trace
+DECODE_KERNELS = ("k_gqa_split", "k_mla", "k_partial", "k_merge")
+
+
 def decode_busy(engine, steps: int = 3):
     """Device busy share of decode steps from the engine's current cache:
-    ``steps`` steps under ``torch.profiler``; the summed time of the
-    device's kernels over the host-clock time, and the decode kernels'
-    share of the device time. A measurement only: a profiler that reports
-    no device events gives None."""
+    ``steps`` steps under ``torch.profiler``; the device time its kernels
+    cover over the host-clock time, and the decode kernels' covered time
+    and share of it. A measurement only: a profiler that reports no
+    device events gives None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1000,14 +1126,33 @@ def decode_busy(engine, steps: int = 3):
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
         return None
-    busy = sum(e.time_range.elapsed_us() for e in kern)
-    ours = sum(e.time_range.elapsed_us() for e in kern
-               if any(n in e.name
-                      for n in ("k_gqa_split", "k_partial", "k_merge")))
+    busy = _covered_us(kern)
+    ours = [e for e in kern if any(n in e.name for n in DECODE_KERNELS)]
+    per = {}
+    for e in ours:
+        n = next(n for n in DECODE_KERNELS if n in e.name)
+        per[n] = per.get(n, 0.0) + e.time_range.elapsed_us() / steps
+    span = _covered_us(ours)
     return dict(steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
                 device_ms_per_step=busy / steps / 1e3,
-                busy_share=busy / wall_us, decode_kernel_share=ours / busy,
+                busy_share=busy / wall_us,
+                decode_kernel_share=span / busy,
+                decode_kernel_us_per_step=span / steps,
+                decode_kernel_spans_us_per_step=per,
                 kernels_per_step=len(kern) / steps)
+
+
+def _covered_us(events) -> float:
+    """Microseconds of device time covered by the events' intervals, each
+    instant once: a PDL-launched kernel's trace starts while the kernel
+    before it runs, so the sum of their spans would count that twice."""
+    covered, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if b > end:
+            covered += b - max(a, end)
+            end = b
+    return covered
 
 
 def step_probe(engine, steps: int = 8):
@@ -1133,6 +1278,7 @@ def phase_serve_mla(card):
     import numpy as np
     import torch
     from repro_torch.configs.minicpm3_4b import config
+    from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import init_model
     from repro_torch.serving import Request, ServingEngine
@@ -1151,10 +1297,13 @@ def phase_serve_mla(card):
     done = engine.run(reqs)
     torch.cuda.synchronize()
     launches = ops.kernel_launches()
+    routes = dict(dk.mla_decode.route_launches)
     steps = len(engine.timings["decode"])
     check(launches["mla_decode"] == cfg.num_layers * steps,
           f"mla_decode launches {launches['mla_decode']} != "
           f"{cfg.num_layers} x {steps} decode steps")
+    check(routes == {"k_mla": launches["mla_decode"], "k_partial": 0},
+          f"serve_mla: mla_decode routes {routes}")
     check(launches["gqa_decode"] == 0, f"serve_mla launches {launches}")
     for r in done:
         check(len(r.generated) == 12 and all(
@@ -1163,14 +1312,22 @@ def phase_serve_mla(card):
     rep = serve_report("serve_mla", engine, done, card)
     rel, agree = logits_kernel_vs_plain(engine, "mla_decode_attention")
     check(rel <= 2 ** -5, f"serve_mla: kernel vs plain logits rel L2 {rel}")
-    rep.update(launches=launches, init_s=t_init, logits_rel_l2=rel,
-               argmax_agree=agree, probe=step_probe(engine),
-               profile=decode_busy(engine))
+    prof = decode_busy(engine)
+    # #6 per launch in the decode step: the device time k_mla and its
+    # merge cover, 62 launches a step
+    us = (None if prof is None else
+          prof["decode_kernel_us_per_step"] / cfg.num_layers)
+    rep.update(launches=launches, routes=routes, init_s=t_init,
+               logits_rel_l2=rel, argmax_agree=agree,
+               probe=step_probe(engine), profile=prof,
+               mla_us_per_launch=us)
     print(f"  serve_mla probe: {rep['probe']}\n  serve_mla profile: "
           f"{rep['profile']}", flush=True)
     print(f"phase serve_mla: ok  minicpm3-4b full width, bf16, init "
-          f"{t_init:.2f} s  launches {launches}  kernel vs plain logits "
-          f"rel L2 {rel:.3e} (argmax agree {agree:.2f})", flush=True)
+          f"{t_init:.2f} s  launches {launches}  routes {routes}  #6 "
+          f"{'not measured' if us is None else f'{us:.2f}'} device us a "
+          f"launch  kernel vs plain logits rel L2 {rel:.3e} (argmax agree "
+          f"{agree:.2f})", flush=True)
     return rep
 
 
@@ -1342,10 +1499,10 @@ def main() -> int:
              plain_ms=scene["plain_ms"], bound_ms=scene["bound_ms"],
              bound_by=scene["bound_by"], library_ms=None)]
 
-    def decode_row(name, replaces, prefix, n_launch, cases):
+    def decode_row(name, source, replaces, prefix, n_launch, cases):
         r = dec[f"{prefix}_bf16"]
         row = dict(name=name, route="cuda",
-                   source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                   source=f"src/repro_torch/kernels/csrc/{source}",
                    replaces=replaces, launches=n_launch,
                    max_abs_err=max(dec[f"{prefix}_{c}"]["max_abs_err"]
                                    for c in cases),
@@ -1360,14 +1517,21 @@ def main() -> int:
                    f32_bound_ms=dec[f"{prefix}_f32"]["bound_ms"])
         return row
     kernels += [
-        decode_row("gqa_decode", "src/repro/kernels/decode_attention.py:96",
+        decode_row("gqa_decode", "decode_attention.cu",
+                   "src/repro/kernels/decode_attention.py:96",
                    "gqa", serve["launches"]["gqa_decode"],
                    ("bf16", "bf16_softcap30", "bf16_mha", "f32",
                     "bf16_holes", "bf16_c2000", "bf16_g16", "bf16_serve",
                     "bf16_g32", "bf16_d72", "f32_d6", "bf16_g128_d512")),
-        decode_row("mla_decode", "src/repro/kernels/decode_attention.py:173",
-                   "mla", serve_mla["launches"]["mla_decode"],
-                   ("bf16", "f32", "bf16_r30"))]
+        dict(decode_row("mla_decode", "mla_decode.cu",
+                        "src/repro/kernels/decode_attention.py:173",
+                        "mla", serve_mla["launches"]["mla_decode"],
+                        ("bf16", "f32", "bf16_holes", "bf16_c2000",
+                         "bf16_serve", "bf16_dsv2", "bf16_dsv3",
+                         "bf16_r30")),
+             f32_source="src/repro_torch/kernels/csrc/decode_attention.cu",
+             partial_device_ms=dec["mla_bf16"]["partial_device_ms"],
+             serve_device_us_per_launch=serve_mla["mla_us_per_launch"])]
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -3,7 +3,8 @@
 // the matrix-absorbed latent MLA form.
 //
 // Replaces: src/repro/kernels/decode_attention.py::gqa_decode (_gqa_kernel)
-// and ::mla_decode (_mla_kernel), both TPU Pallas kernels. Contract: the
+// and ::mla_decode (_mla_kernel), both TPU Pallas kernels; MLA in bf16 at
+// the shapes mla_decode.cu takes runs there instead. Contract: the
 // plain versions repro_torch/kernels/ref.py::decode_attention_ref and
 // mla_decode_attention_ref. Inputs are f32 or bf16; logits, softmax and
 // the value sums are f32; the output is in the inputs' type.
@@ -52,7 +53,8 @@
 //   grid's end, so its launch does not follow the split kernel's end.
 // * GQA in f32, GQA in bf16 where k_gqa_split does not apply (more than
 //   16 query heads per kv head, or D not a multiple of 16 up to 256), and
-//   MLA — k_partial, then k_merge over chunks: one block per (chunk of
+//   MLA in f32 or where k_mla does not apply (mla_decode.cu) — k_partial,
+//   then k_merge over chunks (under PDL too): one block per (chunk of
 //   `rows` rows, kv head, sequence) — for MLA, per (chunk, sequence) with
 //   all H heads — stages the chunk's key rows (and GQA's value rows) once
 //   in shared memory as f32 with 8- or 16-byte loads (one element a load
@@ -63,10 +65,10 @@
 //   padded to a multiple of 4), so one 16-byte broadcast load feeds 4
 //   heads per key element; key rows have an odd stride, so a warp reading
 //   one column of 32 rows hits 32 banks.
-// k_merge: one block per (head, sequence) merges the partials in order
-// (M = max m, the weights e^(m - M) once into shared memory, L = sum
-// l e^(m - M), acc = sum acc e^(m - M)) and writes acc / max(L, 1e-30) —
-// the same result from run to run.
+// k_merge (decode_common.cuh, with the cp.async, ldmatrix and mma helpers
+// mla_decode.cu shares): one block per (head, sequence) merges the
+// partials in order and writes acc / max(L, 1e-30) — the same result from
+// run to run.
 // The ragged last tile or chunk is masked here; C needs no padding.
 // The C entry points return cudaGetLastError() after the launches.
 
@@ -74,13 +76,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "decode_common.cuh"
+
 namespace {
 
+using dec::kMaxSmem;
+using dec::kMergeThreads;
+using dec::kNegInf;
+using dec::store_as;
+using dec::warp_max;
+using dec::warp_sum;
+
 constexpr int kThreads = 256;
-constexpr int kMergeThreads = 128;
 constexpr int kInflight = 8;         // vector loads in flight per thread
-constexpr float kNegInf = -1e30f;
-constexpr size_t kMaxSmem = 227 * 1024;
 
 // One operand: element e of row r of sequence b, head (or kv group) g at
 // ptr[b*bs + g*gs + r*rs + e], for e < width. width 0: absent.
@@ -90,11 +98,6 @@ struct Seg {
   long long bs, gs, rs;
   int width;
 };
-
-__device__ __forceinline__ void store_as(float x, float* o) { *o = x; }
-__device__ __forceinline__ void store_as(float x, __nv_bfloat16* o) {
-  *o = __float2bfloat16(x);
-}
 
 // four consecutive elements in one load: 16 bytes of f32, 8 of bf16
 template <typename T>
@@ -217,19 +220,6 @@ bool vec4_ok(const Seg<T>& s) {
           reinterpret_cast<uintptr_t>(s.ptr) % (4 * sizeof(T)) == 0);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 struct Layout {        // shared-memory carve-up of k_partial, in floats
   int Gp, Dk, ks, Dv, q_off, k_off, v_off, p_off, total;
 };
@@ -262,6 +252,8 @@ k_partial(Seg<T> q1, Seg<T> q2, Seg<T> k1, Seg<T> k2, Seg<T> v,
           float scale, float softcap, float* __restrict__ part_m,
           float* __restrict__ part_l, float* __restrict__ part_acc) {
   extern __shared__ __align__(16) float sm[];
+  // the merge may launch once every block of this grid runs
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
   const int nsub = (G + Gb - 1) / Gb;
   const int chunk = blockIdx.x, kg = blockIdx.y / nsub, b = blockIdx.z;
   const int sub = blockIdx.y - kg * nsub;
@@ -365,57 +357,6 @@ k_partial(Seg<T> q1, Seg<T> q2, Seg<T> k1, Seg<T> k2, Seg<T> v,
   }
 }
 
-// block-wide reduction of one value per thread (fixed order: the same
-// result from run to run)
-template <bool kMax>
-__device__ float block_reduce(float x, float* red) {
-  x = kMax ? warp_max(x) : warp_sum(x);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  x = red[0];
-  for (int w = 1; w < kMergeThreads / 32; ++w)
-    x = kMax ? fmaxf(x, red[w]) : x + red[w];
-  return x;
-}
-
-// ---- pass 2: merge the chunks of each (head, sequence) in chunk order ----
-// The chunk weights e^(m - M) are computed once into shared memory, so the
-// value loop's loads are independent of each other. kDependent: launched
-// as a programmatic dependent of the kernel that writes the partials, so
-// its launch overlaps that kernel; it waits here for that grid's end.
-template <typename T, bool kDependent = false>
-__global__ void __launch_bounds__(kMergeThreads)
-k_merge(int nch, int Dv, const float* __restrict__ part_m,
-        const float* __restrict__ part_l, const float* __restrict__ part_acc,
-        T* __restrict__ out) {
-  extern __shared__ float w[];                 // [nch]
-  __shared__ float red[kMergeThreads / 32];
-  if (kDependent) asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  const size_t row = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
-  const float* pm = part_m + row * nch;
-  const float* pl = part_l + row * nch;
-  const float* pa = part_acc + row * nch * Dv;
-  float M = kNegInf;
-  for (int c = threadIdx.x; c < nch; c += kMergeThreads) M = fmaxf(M, pm[c]);
-  M = block_reduce<true>(M, red);
-  float L = 0.f;
-  for (int c = threadIdx.x; c < nch; c += kMergeThreads) {
-    w[c] = expf(pm[c] - M);
-    L += pl[c] * w[c];
-  }
-  L = block_reduce<false>(L, red);             // also orders the w[] writes
-  const float denom = fmaxf(L, 1e-30f);
-  for (int d = threadIdx.x; d < Dv; d += kMergeThreads) {
-    float a = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < nch; ++c)
-      a += pa[static_cast<size_t>(c) * Dv + d] * w[c];
-    store_as(a / denom, out + row * Dv + d);
-  }
-}
-
 template <typename T>
 int launch(Seg<T> q1, Seg<T> q2, Seg<T> k1, Seg<T> k2, Seg<T> v,
            const uint8_t* valid, int B, int groups, int G, int Gb, int C,
@@ -446,11 +387,8 @@ int launch(Seg<T> q1, Seg<T> q2, Seg<T> k1, Seg<T> k2, Seg<T> v,
                    vec4_ok(k2) && vec4_ok(v);
   cudaError_t e = vec ? run(k_partial<T, 4>) : run(k_partial<T, 1>);
   if (e != cudaSuccess) return e;
-  if (sizeof(float) * static_cast<size_t>(nch) > 48 * 1024)
-    return cudaErrorInvalidValue;
-  k_merge<T><<<dim3(groups * G, B), kMergeThreads, sizeof(float) * nch, st>>>(
-      nch, Dv, part_m, part_l, part_acc, out);
-  return cudaGetLastError();
+  return dec::launch_merge<T>(groups * G, B, nch, Dv, part_m, part_l,
+                              part_acc, out, st);
 }
 
 template <typename T>
@@ -488,75 +426,19 @@ int mla(const T* q_abs, const T* q_rope, const T* ckv, const T* krope,
 namespace split {
 
 using bf16 = __nv_bfloat16;
+using dec::cp_async16;
+using dec::cp_commit;
+using dec::cp_wait;
+using dec::ldsm_x4;
+using dec::ldsm_x4_t;
+using dec::minus_inf;
+using dec::mma;
+using dec::split_pair;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;   // cache rows per tile, 16 per warp
 constexpr int kStages = 3;           // tiles in the cp.async ring
 constexpr int kHeads = 16;           // mma's M: a kv head's query heads
-
-__device__ __forceinline__ float minus_inf() {
-  return __uint_as_float(0xff800000u);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared without waiting; zero-filled when !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix
-// i / 8, and gets (row i / 4, columns 2 (i % 4) and 2 (i % 4) + 1) of each
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// the same, each matrix transposed
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c (16x8) += a (16x16, row major) . b (16x8, column major); bf16 in, f32
-// sums. Lane (g = lane / 4, t = lane % 4) holds c at rows g, g + 8 and
-// columns 2t, 2t + 1.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x, y) as two bf16 pairs, hi + lo = (x, y) to a relative 2^-17
-__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
 
 struct Args {
   const bf16* q;              // (B, H, D)
@@ -823,23 +705,8 @@ int launch(const Args& a, int B, int splits, bf16* out, cudaStream_t st) {
     return e;
   k_gqa_split<kD><<<dim3(splits, a.Hkv, B), kThreads, smem, st>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  cudaLaunchAttribute pdl;
-  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.H, B);
-  cfg.blockDim = dim3(kMergeThreads);
-  cfg.dynamicSmemBytes = sizeof(float) * splits;
-  cfg.stream = st;
-  cfg.attrs = &pdl;
-  cfg.numAttrs = 1;
-  if ((e = cudaLaunchKernelEx(&cfg, k_merge<bf16, true>, splits, kD,
-                              static_cast<const float*>(a.part_m),
-                              static_cast<const float*>(a.part_l),
-                              static_cast<const float*>(a.part_acc), out)) !=
-      cudaSuccess)
-    return e;
-  return cudaGetLastError();
+  return dec::launch_merge<bf16>(a.H, B, splits, kD, a.part_m, a.part_l,
+                                a.part_acc, out, st);
 }
 
 int gqa(const Args& a, int B, int D, int splits, bf16* out, void* stream) {
@@ -847,8 +714,7 @@ int gqa(const Args& a, int B, int D, int splits, bf16* out, void* stream) {
   if (a.C < 1 || a.G < 1 || a.G > kHeads || a.H != a.Hkv * a.G ||
       splits < 1 || a.tiles_per_split < 1 ||
       static_cast<long long>(splits) * a.tiles_per_split < ntiles ||
-      (splits - 1) * a.tiles_per_split >= ntiles ||
-      sizeof(float) * static_cast<size_t>(splits) > 48 * 1024)
+      (splits - 1) * a.tiles_per_split >= ntiles)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {

@@ -37,7 +37,10 @@
 // lanes carry -1e30, exactly lax.top_k over the masked scores. The index
 // is read three times (passes 1, 2, 4); nothing O(S*Q*N) is stored.
 // The tile scores, the per-chunk stats and their merge come from
-// scan_tile.cuh, shared with the dense scan (similarity_scan.cu).
+// scan_tile.cuh, shared with the dense scan (similarity_scan.cu). Any d:
+// the three passes that read the index take float4/char4 loads where
+// scan::vec4_ok allows them, else one element a load, as the dense scan
+// chooses, so both give the same m and l bits.
 // The C entry points return cudaGetLastError() after the launches.
 
 #include <cuda_runtime.h>
@@ -75,31 +78,32 @@ struct Geometry {
   float tau;
 };
 
-// The tile's masked scores: scan::tile_scores over session s's rows.
-template <typename T>
+// The tile's masked scores: scan::tile_scores over session s's rows,
+// kV index elements a load.
+template <int kV, typename T>
 __device__ __forceinline__ void masked_scores(
     const float* __restrict__ qn, const T* __restrict__ index,
     const uint8_t* __restrict__ valid, const Geometry& g, float* qs,
     float* sv, int s, int q0, int c0, int len) {
   scan::load_queries(qn, qs, g.Q, g.d, s, q0);
   __syncthreads();
-  scan::tile_scores<true>(index + static_cast<size_t>(s) * g.N * g.d,
+  scan::tile_scores<true, kV>(index + static_cast<size_t>(s) * g.N * g.d,
                           valid + static_cast<size_t>(s) * g.N, qs, sv, g.d,
                           c0, len);
 }
 
 // ---- pass 1: per-chunk max / sum-exp partials ----
-template <typename T>
+template <typename T, int kV>
 __global__ void __launch_bounds__(kThreads)
 k_stats(const float* __restrict__ qn, const T* __restrict__ index,
         const uint8_t* __restrict__ valid, Geometry g,
         float* __restrict__ part_m, float* __restrict__ part_l) {
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;
-  float* sv = qs + kQG * g.d;
+  float* sv = qs + kQG * scan::padded(g.d);
   const int chunk = blockIdx.x, s = blockIdx.y, q0 = blockIdx.z * kQG;
   const int c0 = chunk * kBlk, len = min(kBlk, g.N - c0);
-  masked_scores(qn, index, valid, g, qs, sv, s, q0, c0, len);
+  masked_scores<kV>(qn, index, valid, g, qs, sv, s, q0, c0, len);
   __syncthreads();
   const int lane = threadIdx.x & 31, qi = threadIdx.x >> 5;
   float m, l;
@@ -121,7 +125,7 @@ __device__ void tile_probs(const float* sv, float* ps, int len, float M,
 }
 
 // ---- pass 2: chunk totals (in-chunk prefix) and per-chunk top-K ----
-template <typename T>
+template <typename T, int kV>
 __global__ void __launch_bounds__(kThreads)
 k_chunk(const float* __restrict__ qn, const T* __restrict__ index,
         const uint8_t* __restrict__ valid, Geometry g,
@@ -130,11 +134,11 @@ k_chunk(const float* __restrict__ qn, const T* __restrict__ index,
         int* __restrict__ pti) {
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;
-  float* sv = qs + kQG * g.d;
+  float* sv = qs + kQG * scan::padded(g.d);
   float* ps = sv + kQG * kBlk;
   const int chunk = blockIdx.x, s = blockIdx.y, q0 = blockIdx.z * kQG;
   const int c0 = chunk * kBlk, len = min(kBlk, g.N - c0);
-  masked_scores(qn, index, valid, g, qs, sv, s, q0, c0, len);
+  masked_scores<kV>(qn, index, valid, g, qs, sv, s, q0, c0, len);
   __syncthreads();
   const int lane = threadIdx.x & 31, qi = threadIdx.x >> 5;
   const size_t row = static_cast<size_t>(s) * g.Qp + q0 + qi;
@@ -223,7 +227,7 @@ __global__ void k_fold(Geometry g, const float* __restrict__ part_m,
 }
 
 // ---- pass 4: canonical CDF, draw counts, drawn_p, p_last ----
-template <typename T>
+template <typename T, int kV>
 __global__ void __launch_bounds__(kThreads)
 k_draws(const float* __restrict__ qn, const T* __restrict__ index,
         const uint8_t* __restrict__ valid, const float* __restrict__ targets,
@@ -233,7 +237,7 @@ k_draws(const float* __restrict__ qn, const T* __restrict__ index,
         float* __restrict__ plast_out) {
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;
-  float* sv = qs + kQG * g.d;      // scores, then the CDF
+  float* sv = qs + kQG * scan::padded(g.d);      // scores, then the CDF
   float* ps = sv + kQG * kBlk;
   float* ts = ps + kQG * kBlk;     // kQG * T targets
   int* cnt = reinterpret_cast<int*>(ts + kQG * g.T);
@@ -247,7 +251,7 @@ k_draws(const float* __restrict__ qn, const T* __restrict__ index,
                 : 0.f;
     cnt[i] = 0;
   }
-  masked_scores(qn, index, valid, g, qs, sv, s, q0, c0, len);
+  masked_scores<kV>(qn, index, valid, g, qs, sv, s, q0, c0, len);
   __syncthreads();
   const int tid = threadIdx.x, lane = tid & 31, qi = tid >> 5;
   const size_t row = static_cast<size_t>(s) * g.Qp + q0 + qi;
@@ -293,10 +297,39 @@ k_draws(const float* __restrict__ qn, const T* __restrict__ index,
 }
 
 size_t bytes_tile(int d, int nbuf, int T) {
-  return sizeof(float) * (static_cast<size_t>(kQG) * d +
+  return sizeof(float) * (static_cast<size_t>(kQG) * scan::padded(d) +
                           static_cast<size_t>(nbuf) * kQG * kBlk +
                           static_cast<size_t>(kQG) * T) +
          sizeof(int) * static_cast<size_t>(kQG) * T;
+}
+
+template <typename T, int kV>
+int launch_kv(const float* qn, const T* index, const uint8_t* valid,
+              const float* targets, const Geometry& g, float* part_m,
+              float* part_l, float* totals, float* offs, float* ptv,
+              int* pti, int* cnt, float* dp, float* plast, float* tv,
+              int* ti, float* m, float* l, cudaStream_t st) {
+  const dim3 grid(g.nch, g.S, g.Qp / kQG);
+  const size_t b1 = bytes_tile(g.d, 1, 0), b2 = bytes_tile(g.d, 2, 0),
+               b4 = bytes_tile(g.d, 2, g.T);
+  if (b4 > scan::kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e;
+  if ((e = scan::allow_smem(k_stats<T, kV>, b1)) != cudaSuccess) return e;
+  if ((e = scan::allow_smem(k_chunk<T, kV>, b2)) != cudaSuccess) return e;
+  if ((e = scan::allow_smem(k_draws<T, kV>, b4)) != cudaSuccess) return e;
+  k_stats<T, kV><<<grid, kThreads, b1, st>>>(qn, index, valid, g, part_m,
+                                              part_l);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  k_chunk<T, kV><<<grid, kThreads, b2, st>>>(qn, index, valid, g, part_m,
+                                              part_l, totals, ptv, pti);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  k_fold<<<dim3(g.Q, g.S), 32, 0, st>>>(g, part_m, part_l, totals, ptv, pti,
+                                         offs, tv, ti, m, l);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  k_draws<T, kV><<<grid, kThreads, b4, st>>>(qn, index, valid, targets, g,
+                                              part_m, part_l, offs, cnt, dp,
+                                              plast);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -308,27 +341,11 @@ int launch(const float* qn, const T* index, const uint8_t* valid,
            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int groups = (Q + kQG - 1) / kQG;
-  Geometry g{S, Q, N, d, nt, K, (N + kBlk - 1) / kBlk, groups * kQG, tau};
-  const dim3 grid(g.nch, S, groups);
-  const size_t b1 = bytes_tile(d, 1, 0), b2 = bytes_tile(d, 2, 0),
-               b4 = bytes_tile(d, 2, nt);
-  cudaError_t e;
-  if ((e = scan::allow_smem(k_stats<T>, b1)) != cudaSuccess) return e;
-  if ((e = scan::allow_smem(k_chunk<T>, b2)) != cudaSuccess) return e;
-  if ((e = scan::allow_smem(k_draws<T>, b4)) != cudaSuccess) return e;
-  k_stats<T><<<grid, kThreads, b1, st>>>(qn, index, valid, g, part_m,
-                                          part_l);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  k_chunk<T><<<grid, kThreads, b2, st>>>(qn, index, valid, g, part_m,
-                                          part_l, totals, ptv, pti);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  k_fold<<<dim3(Q, S), 32, 0, st>>>(g, part_m, part_l, totals, ptv, pti,
-                                     offs, tv, ti, m, l);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  k_draws<T><<<grid, kThreads, b4, st>>>(qn, index, valid, targets, g,
-                                          part_m, part_l, offs, cnt, dp,
-                                          plast);
-  return cudaGetLastError();
+  const Geometry g{S, Q, N, d, nt, K, (N + kBlk - 1) / kBlk, groups * kQG,
+                   tau};
+  auto run = scan::vec4_ok(index, d) ? &launch_kv<T, 4> : &launch_kv<T, 1>;
+  return run(qn, index, valid, targets, g, part_m, part_l, totals, offs,
+             ptv, pti, cnt, dp, plast, tv, ti, m, l, st);
 }
 
 }  // namespace

@@ -19,12 +19,47 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kQG = 8;            // queries per tile (== kWarps)
 constexpr int kRows = 4;          // rows per warp step
 constexpr float kNegInf = -1e30f;
+constexpr size_t kMaxSmem = 227 * 1024;   // a block's shared memory
 
 static_assert(kQG == kWarps, "one warp per query in the epilogues");
 
 template <typename T> struct Vec4;
 template <> struct Vec4<float> { using type = float4; };
 template <> struct Vec4<int8_t> { using type = char4; };
+
+// d rounded up to a multiple of 4: the row stride of the staged queries
+__host__ __device__ constexpr int padded(int d) { return (d + 3) & ~3; }
+
+// Whether rows of d elements from base can be read in 4-element vectors:
+// d % 4 == 0 and the base aligned to one vector (16 bytes of f32, 4 of
+// int8). Else tile_scores loads one element at a time.
+template <typename T>
+bool vec4_ok(const T* base, int d) {
+  return d % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(base) % (4 * sizeof(T)) == 0;
+}
+
+// Elements 4v .. 4v+3 of a row as floats: one vector load (kV = 4), or
+// four element loads with the columns at or past d read as 0 (kV = 1).
+// Both give the same four floats, so the sums over them have the same
+// order on both paths.
+template <int kV, typename T>
+__device__ __forceinline__ float4 load4(const T* __restrict__ row, int v,
+                                        int d) {
+  if constexpr (kV == 4) {
+    const auto e =
+        __ldg(reinterpret_cast<const typename Vec4<T>::type*>(row) + v);
+    return make_float4(static_cast<float>(e.x), static_cast<float>(e.y),
+                       static_cast<float>(e.z), static_cast<float>(e.w));
+  } else {
+    const int c = 4 * v;
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[e] = c + e < d ? static_cast<float>(__ldg(row + c + e)) : 0.f;
+    return make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -38,13 +73,14 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // Load the tile's (up to) 8 unit queries of session s into shared memory
-// (zeros for padding queries).
+// at a row stride of padded(d) (zeros for padding queries and columns).
 __device__ __forceinline__ void load_queries(const float* __restrict__ qn,
                                              float* qs, int Q, int d, int s,
                                              int q0) {
-  for (int i = threadIdx.x; i < kQG * d; i += kThreads) {
-    const int qi = i / d, c = i - qi * d;
-    qs[i] = (q0 + qi < Q)
+  const int dq = padded(d);
+  for (int i = threadIdx.x; i < kQG * dq; i += kThreads) {
+    const int qi = i / dq, c = i - qi * dq;
+    qs[i] = (q0 + qi < Q && c < d)
                 ? qn[(static_cast<size_t>(s) * Q + q0 + qi) * d + c]
                 : 0.f;
   }
@@ -53,15 +89,15 @@ __device__ __forceinline__ void load_queries(const float* __restrict__ qn,
 // Cosine scores of the tile's rows for its 8 queries, rows L2-normalised
 // in register (rsqrt(sum x^2 + 1e-12), so int8 scales cancel):
 // sv[qi * kBlk + i] = cos for i < len. With kMask, rows whose valid byte
-// is 0 get -1e30 instead.
-template <bool kMask, typename T>
+// is 0 get -1e30 instead. kV: elements per load (4 where vec4_ok, else
+// 1); each lane sums the same columns in the same order either way.
+template <bool kMask, int kV, typename T>
 __device__ void tile_scores(const T* __restrict__ xs,
                             const uint8_t* __restrict__ vs,
                             const float* qs, float* sv, int d, int c0,
                             int len) {
-  using V = typename Vec4<T>::type;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int d4 = d >> 2;
+  const int d4 = padded(d) >> 2;
   const float4* qv = reinterpret_cast<const float4*>(qs);
   for (int base = warp * kRows; base < len; base += kWarps * kRows) {
     float acc[kRows][kQG];
@@ -72,19 +108,17 @@ __device__ void tile_scores(const T* __restrict__ xs,
 #pragma unroll
       for (int qi = 0; qi < kQG; ++qi) acc[r][qi] = 0.f;
     }
-    const V* rv[kRows];
+    const T* rv[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int row = c0 + min(base + r, len - 1);   // clamp: no OOB read
-      rv[r] = reinterpret_cast<const V*>(xs + static_cast<size_t>(row) * d);
+      rv[r] = xs + static_cast<size_t>(row) * d;
     }
     for (int v = lane; v < d4; v += 32) {
       float4 x[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        V e = __ldg(rv[r] + v);
-        x[r] = make_float4(static_cast<float>(e.x), static_cast<float>(e.y),
-                           static_cast<float>(e.z), static_cast<float>(e.w));
+        x[r] = load4<kV>(rv[r], v, d);
         ss[r] += x[r].x * x[r].x + x[r].y * x[r].y + x[r].z * x[r].z +
                  x[r].w * x[r].w;
       }

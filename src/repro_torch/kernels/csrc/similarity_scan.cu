@@ -27,7 +27,11 @@
 // a second, small kernel merges the partials of each (session, query) in
 // chunk order. For a group of at most 8 queries per session (the smoke
 // shape) each row is read once; larger groups re-read a chunk's rows
-// once per 8 queries, mostly from L2. No tensor cores yet.
+// once per 8 queries, mostly from L2. No tensor cores yet. Any d: rows
+// are read in float4/char4 vectors where d % 4 == 0 and the index base is
+// aligned to a vector (scan::vec4_ok), else one element a load, with the
+// same sums in the same order (so the fused scan, which chooses alike,
+// still gives the same m and l bits).
 // The C entry points return cudaGetLastError() after the launches.
 
 #include <cuda_runtime.h>
@@ -42,7 +46,8 @@ using scan::kQG;
 using scan::kThreads;
 
 // ---- pass 1: scores of the tile, and its (m, l) partials ----
-template <typename T>
+// kV: index elements per load (4 or 1).
+template <typename T, int kV>
 __global__ void __launch_bounds__(kThreads)
 k_scan(const float* __restrict__ qn, const T* __restrict__ index,
        const uint8_t* __restrict__ valid, int Q, int N, int d, int Qp,
@@ -50,14 +55,14 @@ k_scan(const float* __restrict__ qn, const T* __restrict__ index,
        float* __restrict__ part_m, float* __restrict__ part_l) {
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;
-  float* sv = qs + kQG * d;        // raw scores, then masked scores
+  float* sv = qs + kQG * scan::padded(d);   // raw, then masked scores
   const int chunk = blockIdx.x, s = blockIdx.y, q0 = blockIdx.z * kQG;
   const int c0 = chunk * kBlk, len = min(kBlk, N - c0);
   const int nq = min(kQG, Q - q0);
   const uint8_t* vs = valid + static_cast<size_t>(s) * N;
   scan::load_queries(qn, qs, Q, d, s, q0);
   __syncthreads();
-  scan::tile_scores<false>(index + static_cast<size_t>(s) * N * d, vs, qs,
+  scan::tile_scores<false, kV>(index + static_cast<size_t>(s) * N * d, vs, qs,
                            sv, d, c0, len);
   __syncthreads();
   // the raw scores of every lane leave the block, row by row
@@ -105,11 +110,14 @@ int launch(const float* qn, const T* index, const uint8_t* valid, int S,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int groups = (Q + kQG - 1) / kQG;
   const int nch = (N + kBlk - 1) / kBlk;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(kQG) * d +
-                                       static_cast<size_t>(kQG) * kBlk);
+  const size_t smem = sizeof(float) *
+                      (static_cast<size_t>(kQG) * scan::padded(d) +
+                       static_cast<size_t>(kQG) * kBlk);
+  if (smem > scan::kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = scan::vec4_ok(index, d) ? &k_scan<T, 4> : &k_scan<T, 1>;
   cudaError_t e;
-  if ((e = scan::allow_smem(k_scan<T>, smem)) != cudaSuccess) return e;
-  k_scan<T><<<dim3(nch, S, groups), kThreads, smem, st>>>(
+  if ((e = scan::allow_smem(kernel, smem)) != cudaSuccess) return e;
+  kernel<<<dim3(nch, S, groups), kThreads, smem, st>>>(
       qn, index, valid, Q, N, d, groups * kQG, nch, tau, sims, part_m,
       part_l);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;

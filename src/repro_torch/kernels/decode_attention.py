@@ -5,19 +5,28 @@
 * ``mla_decode`` — the matrix-absorbed MLA form against the latent cache
   (ckv, krope), returning the latent context.
 
-Both kernels live in ``csrc/decode_attention.cu``. ``gqa_decode`` takes
-one of two routes, ``gqa_route(dtype, q_per_kv, D)``: bf16 with at most
-16 query heads per kv head and D a multiple of 16 up to 256 runs the
-split-KV kernel (cp.async ring of bf16 tiles, tensor-core products, tiles
-with no valid row skipped; the split count from ``split_plan``); every
-other shape, and f32, the per-chunk kernel that ``mla_decode`` runs in
-both dtypes, which takes any width (one element a load where a width is
-not a multiple of 4). Each wrapper takes the device of its tensors as the
-route: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
-the plain version in ``ref``. Each counts its own launches in
-``.launches``; ``gqa_decode.route_launches`` splits its count by route.
-The Pallas wrapper pads C to a divisor of its block; the CUDA kernels
-take any C and mask the ragged edge themselves.
+Each takes one of two routes, by dtype and shape alone:
+
+* ``gqa_route(dtype, q_per_kv, D)``: bf16 with at most 16 query heads per
+  kv head and D a multiple of 16 up to 256 runs the split-KV kernel
+  ``k_gqa_split`` (``csrc/decode_attention.cu``: cp.async ring of bf16
+  tiles, tensor-core products, tiles with no valid row skipped; the split
+  count from ``split_plan``);
+* ``mla_route(dtype, H, R, Dr)``: bf16 with R and Dr multiples of 16 (R
+  up to 512, Dr up to 64) and any H runs ``k_mla`` (``csrc/mla_decode.cu``:
+  all heads of a sequence in one block where they fit, so the latent
+  cache is read once; the same ring, mask-first tile list and
+  tensor-core products; the plan from ``mla_split_plan``);
+* every other shape, and f32, the per-chunk kernel ``k_partial``, which
+  takes any width (one element a load where a width is not a multiple of
+  4).
+
+Each wrapper takes the device of its tensors as the route: a CUDA tensor
+launches the kernel (or raises; a kernel that fails is never replaced by
+another), a CPU tensor runs the plain version in ``ref``. Each counts its
+own launches in ``.launches`` and by route in ``.route_launches``. The
+Pallas wrapper pads C to a divisor of its block; the CUDA kernels take
+any C and mask the ragged edge themselves.
 """
 
 from __future__ import annotations
@@ -40,7 +49,11 @@ _MLA_ROWS = 32
 SPLIT_TILE = 64
 SPLIT_MAX_G = 16
 SPLIT_BLOCKS_PER_SM = 2
+# bf16 MLA (k_mla): rows per tile (kRows), the widest R and Dr it takes
+MLA_TILE = 64
+MLA_MAX_R, MLA_MAX_DR = 512, 64
 _SOURCE = "decode_attention.cu"
+_MLA_SOURCE = "mla_decode.cu"
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _GQA_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5)
@@ -49,17 +62,20 @@ _SPLIT_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
                + [ctypes.c_void_p] * 5)
 _MLA_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
              + [ctypes.c_void_p] * 5)
+_MLA_SPLIT_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 9 + [ctypes.c_float]
+                   + [ctypes.c_void_p] * 5)
 
 
 _FNS = {}
 
 
-def _kernel_fn(stem: str, dtype: torch.dtype, argtypes):
+def _kernel_fn(stem: str, dtype: torch.dtype, argtypes, source=_SOURCE):
     key = (stem, dtype)
     fn = _FNS.get(key)
     if fn is None:
         from repro_torch.kernels import build
-        fn = getattr(build.load(_SOURCE), f"{stem}_{_SUFFIX[dtype]}")
+        fn = getattr(build.load(source), f"{stem}_{_SUFFIX[dtype]}")
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _FNS[key] = fn
@@ -234,7 +250,69 @@ gqa_decode.launches = 0
 gqa_decode.route_launches = {"k_gqa_split": 0, "k_partial": 0}
 
 
-def _launch_mla(q_abs, q_rope, ckv, krope, valid, *, scale):
+def mla_route(dtype: torch.dtype, h: int, r: int, dr: int) -> str:
+    """The kernel ``mla_decode`` launches on the card for a (dtype, heads,
+    latent width R, rope width Dr): ``k_mla`` where its bf16 tensor-core
+    tiles apply (R and Dr multiples of 16, R ≤ ``MLA_MAX_R``, Dr ≤
+    ``MLA_MAX_DR``; any H), else ``k_partial``, which takes any shape."""
+    if (dtype == torch.bfloat16 and r % 16 == 0 and dr % 16 == 0
+            and 16 <= r <= MLA_MAX_R and 16 <= dr <= MLA_MAX_DR):
+        return "k_mla"
+    return "k_partial"
+
+
+def mla_heads(h: int, r: int) -> int:
+    """Heads a ``k_mla`` block holds (its hg, a multiple of 16): all H,
+    padded to 16, where their f32 sums fit the registers — each of the 8
+    warps holds hg × (its R / 8 columns) floats, at most 64 a thread (hg
+    ≤ 64, and hg ≤ 32 for R > 256) — else the fewest equal groups that
+    fit."""
+    pairs = 1 if r <= 128 else 2 if r <= 256 else 4
+    mt_max = min(4, 8 // pairs)
+    mtiles = -(-h // 16)
+    groups = -(-mtiles // mt_max)
+    return 16 * -(-mtiles // groups)
+
+
+def mla_smem_bytes(hg: int, r: int, dr: int, stages: int, tiles: int
+                   ) -> int:
+    """Shared memory of a ``k_mla`` block (the source's ``layout``): the
+    queries and the ring of 64-row tiles in bf16 at a row stride of R + Dr
+    + 8, the f32 scores and p's three bf16 terms at a stride of 72, each
+    head's m, l and factor, and the tile list with its flags."""
+    ks = r + dr + 8
+    return (2 * hg * ks + 2 * stages * MLA_TILE * ks + 4 * hg * 72
+            + 3 * 2 * hg * 72 + 4 * 3 * hg + 5 * tiles)
+
+
+def mla_stages(hg: int, r: int, dr: int, tiles: int) -> int:
+    """The ring's stages: 3 where a block's shared memory fits 227 KB,
+    else 2 (raises when not even 2 fit)."""
+    for stages in (3, 2):
+        if mla_smem_bytes(hg, r, dr, stages, tiles) <= _SMEM_FLOATS * 4:
+            return stages
+    raise ValueError(f"k_mla: {hg} heads of R={r}, Dr={dr} with {tiles} "
+                     f"tiles a split do not fit a block's shared memory")
+
+
+def mla_split_plan(b: int, c: int, h: int, r: int, sms: int,
+                   splits: int | None = None) -> tuple:
+    """(splits, tiles per split) of ``k_mla``: split ``s`` of each
+    (sequence, head group) walks tiles [s * per, min((s + 1) * per,
+    tiles)) of ``MLA_TILE`` rows, none of them empty. One block of (split,
+    head group, sequence) per SM, so at MiniCPM3-4B's 4 × 2048 rows one
+    tile a split: on the card that beat 2, 4 and 8 tiles a split, though
+    a split's partial (hg × R f32) then outweighs the ckv rows it reads
+    (64 × R bf16) by up to hg / 32 ≤ 2. ``splits`` overrides the count
+    (to time candidates)."""
+    tiles = -(-c // MLA_TILE)
+    if splits is None:
+        splits = -(-sms // (b * -(-h // mla_heads(h, r))))
+    per = -(-tiles // max(1, min(tiles, splits)))
+    return -(-tiles // per), per
+
+
+def _check_mla_shapes(q_abs, q_rope, ckv, krope):
     b, one, h, r = q_abs.shape
     c, dr = ckv.shape[1], krope.shape[-1]
     if (one != 1 or tuple(q_rope.shape) != (b, 1, h, dr)
@@ -243,6 +321,36 @@ def _launch_mla(q_abs, q_rope, ckv, krope, valid, *, scale):
         raise ValueError(f"shapes q_abs {tuple(q_abs.shape)}, q_rope "
                          f"{tuple(q_rope.shape)}, ckv {tuple(ckv.shape)}, "
                          f"krope {tuple(krope.shape)}")
+    return b, h, c, r, dr
+
+
+def _launch_mla_split(q_abs, q_rope, ckv, krope, valid, *, scale,
+                      splits=None):
+    b, h, c, r, dr = _check_mla_shapes(q_abs, q_rope, ckv, krope)
+    q_abs, q_rope, ckv, krope = _operands(q_abs, q_rope, ckv, krope)
+    if any(x.data_ptr() % 16 for x in (q_abs, q_rope, ckv, krope)):
+        raise ValueError("bf16 operands must be 16-byte aligned (cp.async)")
+    dev = q_abs.device
+    mask, mask_bs = _mask_u8(valid, b, c, dev)
+    hg = mla_heads(h, r)
+    splits, per = mla_split_plan(b, c, h, r, sm_count(dev), splits)
+    stages = mla_stages(hg, r, dr, per)
+    n = b * h * splits
+    scratch = torch.empty(n * (2 + r), dtype=torch.float32, device=dev)
+    base = scratch.data_ptr()
+    out = torch.empty_like(q_abs)
+    fn = _kernel_fn("mla_split", q_abs.dtype, _MLA_SPLIT_ARGS, _MLA_SOURCE)
+    rc = on_device(dev, lambda stream: fn(
+        q_abs.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
+        krope.data_ptr(), mask.data_ptr(), mask_bs, b, c, h, r, dr, hg,
+        stages, splits, per, float(scale), base, base + 4 * n,
+        base + 8 * n, out.data_ptr(), stream))
+    _check_rc(rc, "mla_decode")
+    return out
+
+
+def _launch_mla(q_abs, q_rope, ckv, krope, valid, *, scale):
+    b, h, c, r, dr = _check_mla_shapes(q_abs, q_rope, ckv, krope)
     q_abs, q_rope, ckv, krope = _operands(q_abs, q_rope, ckv, krope)
     vmask = _mask(valid, b, c, q_abs.device)
     heads, rows = partial_plan(h, r + dr, r, False, _MLA_ROWS)
@@ -262,10 +370,15 @@ def mla_decode(q_abs: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
                ) -> torch.Tensor:
     """q_abs (B,1,H,R), q_rope (B,1,H,Dr), ckv (B,C,R), krope (B,C,Dr),
     valid (B or 1, C) → latent context (B,1,H,R) in q_abs's dtype. CUDA
-    tensors run the kernel, CPU tensors the plain version."""
+    tensors run the kernel that ``mla_route`` names, CPU tensors the plain
+    version."""
     if q_abs.device.type == "cuda":
-        out = _launch_mla(q_abs, q_rope, ckv, krope, valid, scale=scale)
+        route = mla_route(q_abs.dtype, q_abs.shape[2], q_abs.shape[-1],
+                          q_rope.shape[-1])
+        launch = _launch_mla_split if route == "k_mla" else _launch_mla
+        out = launch(q_abs, q_rope, ckv, krope, valid, scale=scale)
         mla_decode.launches += 1
+        mla_decode.route_launches[route] += 1
         return out
     if q_abs.device.type == "cpu":
         return ref.mla_decode_attention_ref(q_abs, q_rope, ckv, krope, valid,
@@ -274,3 +387,5 @@ def mla_decode(q_abs: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
 
 
 mla_decode.launches = 0
+# the launches of each route by its first kernel's name
+mla_decode.route_launches = {"k_mla": 0, "k_partial": 0}

@@ -53,8 +53,11 @@ def kernel_launches() -> dict:
 
 
 def reset_kernel_launches() -> None:
+    """Zero every launch count, and the decode wrappers' counts by route."""
     for fn in _KERNELS.values():
         fn.launches = 0
+        for route in getattr(fn, "route_launches", ()):
+            fn.route_launches[route] = 0
 
 
 def _count_scan(index: torch.Tensor) -> None:

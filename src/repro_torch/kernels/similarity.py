@@ -11,7 +11,10 @@
 
 Each takes the device of its tensors as the route: a CUDA tensor launches
 the kernel (or raises), a CPU tensor runs the plain version in ``ref``.
-Each counts its own launches in ``.launches``.
+Each counts its own launches in ``.launches``. Every form takes any width
+d and any index base: the kernels load rows in 4-element vectors where d
+is a multiple of 4 and the base is aligned to a vector, else one element
+a load.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ _SCAN2D = ("similarity_scan_2d.cu", "similarity_scan_2d",
            + [ctypes.c_void_p] * 4)
 # the 2-D kernel (kTileMax in its source): rows per full tile
 SCAN2D_TILE = 32
-_SCAN2D_SMEM = 227 * 1024           # a block's shared memory
+_SMEM = 227 * 1024                  # a block's shared memory
 _SM_SMEM = 228 * 1024               # an SM's, 1 KB of it reserved a block
 
 
@@ -67,10 +70,24 @@ def unit_queries(query: torch.Tensor) -> torch.Tensor:
     return q * torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-12)
 
 
-def _scan_operands(query, index, valid):
+def scan_smem_bytes(d: int, n_targets: int = 0) -> int:
+    """Shared memory of the largest block of the stack scan
+    (``n_targets`` 0) or of the fused scan (its draws pass, T =
+    ``n_targets``): the 8 queries at a row stride of d rounded up to 4,
+    one (two) 256-row score tiles, the targets and their counts — the
+    sources' ``smem`` and ``bytes_tile``, in bytes."""
+    dq = -(-d // 4) * 4
+    if n_targets == 0:
+        return 4 * (_QG * dq + _QG * _BLK)
+    return 4 * (_QG * dq + 2 * _QG * _BLK + 2 * _QG * n_targets)
+
+
+def _scan_operands(query, index, valid, n_targets=0):
     """Check a stacked scan's operands (query (S,Q,d), index (S,N,d) f32
-    or int8 on one CUDA device) → (unit queries, contiguous index, uint8
-    valid mask), each contiguous on the index's device."""
+    or int8 on one CUDA device; a block's shared memory, which grows with
+    d and the fused scan's T = ``n_targets``, must fit 227 KB) → (unit
+    queries, contiguous index, uint8 valid mask), each contiguous on the
+    index's device."""
     s, q, d = query.shape
     n = index.shape[1]
     dev = index.device
@@ -79,16 +96,15 @@ def _scan_operands(query, index, valid):
     if (index.shape[0], index.shape[2]) != (s, d):
         raise ValueError(f"shape mismatch: query {tuple(query.shape)}, "
                          f"index {tuple(index.shape)}")
-    if d % 4:
-        raise ValueError(f"the kernel loads rows in 4-element vectors; "
-                         f"d={d} is not a multiple of 4")
+    if scan_smem_bytes(d, n_targets) > _SMEM:
+        raise ValueError(f"d={d}, T={n_targets}: a block's 8 queries and "
+                         f"score tiles take {scan_smem_bytes(d, n_targets)} "
+                         f"bytes of shared memory, more than {_SMEM}")
     if n < 1 or q < 1:
         raise ValueError(f"need N >= 1 and Q >= 1, got N={n}, Q={q}")
     if query.device != dev:
         raise ValueError(f"query on {query.device}, index on {dev}")
     index = index.contiguous()
-    if index.data_ptr() % 16:
-        raise ValueError("index rows must be 16-byte aligned")
     qn = unit_queries(query).contiguous()
     vmask = ref.as_valid_mask(valid.to(dev), n).to(torch.uint8).contiguous()
     if vmask.shape != (s, n):
@@ -109,7 +125,7 @@ def _launch(query, index, valid, targets, *, tau: float, n_topk: int
     if not 1 <= n_topk <= n or t < 1:
         raise ValueError(f"need 1 <= n_topk <= N and T >= 1, got "
                          f"n_topk={n_topk}, N={n}, T={t}")
-    qn, index, vmask = _scan_operands(query, index, valid)
+    qn, index, vmask = _scan_operands(query, index, valid, t)
     tg = targets.to(torch.float32).contiguous()
     # scratch: per-chunk stats, totals, offsets and top-K partials —
     # O(S·Q·N/256), never O(S·Q·N)
@@ -230,12 +246,12 @@ def scan2d_plan(n: int, d: int, elt: int, q: int, sms: int) -> tuple:
     tiles)), none empty."""
     plan = next(((tile, st, q) for tile in (SCAN2D_TILE, 16, 8)
                  for st in (3, 2)
-                 if _scan2d_smem(tile, st, q, d, elt) <= _SCAN2D_SMEM), None)
+                 if _scan2d_smem(tile, st, q, d, elt) <= _SMEM), None)
     tile = SCAN2D_TILE
     while plan is None:
         ring = _scan2d_smem(tile, 2, 0, d, elt)
         per_q = _scan2d_smem(tile, 2, 8, d, elt) - ring
-        fit = (_SCAN2D_SMEM - ring) // per_q * 8
+        fit = (_SMEM - ring) // per_q * 8
         if fit >= 8:
             plan = (tile, 2, min(q, fit))
         elif tile == 1:
@@ -265,7 +281,7 @@ def _launch_scan_2d(query, index, valid, *, tau: float):
         raise ValueError(f"query on {query.device}, index on {dev}")
     if tuple(valid.shape) != (n,):
         raise ValueError(f"valid must be ({n},), got {tuple(valid.shape)}")
-    if 8 * -(-n // _BLK) > _SCAN2D_SMEM:
+    if 8 * -(-n // _BLK) > _SMEM:
         raise ValueError(f"N={n}: the statistics pass keeps two floats a "
                          f"256-row chunk in shared memory")
     query = query.to(torch.float32).contiguous()

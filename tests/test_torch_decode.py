@@ -38,6 +38,10 @@ ORACLE = dict(rtol=1e-5, atol=1e-6)
 SOFTCAP = dict(rtol=1e-5, atol=1e-5)
 PALLAS = dict(rtol=2e-5, atol=2e-5)
 LAYER = dict(rtol=1e-4, atol=1e-5)
+# DeepSeek-V2-Lite's widths: each logit sums 576 products (not 80-144),
+# so the two orders of summation differ by up to ~4x more in absolute
+# terms; outputs near 0 need the larger floor
+WIDE = dict(rtol=1e-5, atol=5e-6)
 
 
 @pytest.fixture(autouse=True)
@@ -149,6 +153,7 @@ MLA_CASES = [
     (2, 4, 32, 16, 96, 32, None),      # non-pow2 cache
     (3, 4, 64, 16, 128, 64, 2),        # an all-invalid row
     (2, 4, 30, 16, 64, 32, None),      # R = 30: not a multiple of 4
+    (2, 16, 512, 64, 96, 32, 1),       # DeepSeek-V2-Lite's widths
 ]
 
 
@@ -162,13 +167,14 @@ def test_mla_plain_matches_oracle_and_pallas(b, h, r, dr, c, blk, empty):
                                     _t(valid), scale=0.1)
     assert got.shape == (b, 1, h, r)
     want = jref.mla_decode_attention_ref(qa, qr, ckv, kr, valid, scale=0.1)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ORACLE)
+    tol = WIDE if r + dr > 512 else ORACLE
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
     pallas = pallas_mla(qa, qr, ckv, kr, valid, scale=0.1, blk_s=blk)
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **PALLAS)
     if empty is not None:
         np.testing.assert_allclose(
             got.numpy()[empty, 0],
-            np.broadcast_to(ckv[empty].mean(0), (h, r)), **ORACLE)
+            np.broadcast_to(ckv[empty].mean(0), (h, r)), **tol)
     assert tops.kernel_launches()["mla_decode"] == 0
 
 
@@ -254,6 +260,115 @@ def test_split_mask_is_viewed_without_a_copy():
     assert torch.equal(cols.bool(), valid)
     with pytest.raises(ValueError):
         tdecode._mask_u8(valid, 2, 70, valid.device)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mla_route_takes_every_shape(dtype):
+    """Every (dtype, H, R, Dr) has a route: ``k_mla`` where its bf16
+    tensor-core tiles apply (R and Dr multiples of 16, R ≤ 512, Dr ≤ 64,
+    any H), with a head grouping, plan and ring that fit a block;
+    ``k_partial`` elsewhere, with rows per chunk that fit."""
+    for h in (1, 16, 40, 128):
+        for r in (30, 256, 512):
+            for dr in (32, 64):
+                route = tdecode.mla_route(dtype, h, r, dr)
+                want = dtype == torch.bfloat16 and r % 16 == 0
+                assert route == ("k_mla" if want else "k_partial")
+                if route == "k_partial":
+                    heads, rows = tdecode.partial_plan(h, r + dr, r, False,
+                                                       32)
+                    assert 1 <= heads <= h and 1 <= rows <= 32
+                    continue
+                hg = tdecode.mla_heads(h, r)
+                assert hg % 16 == 0 and 16 <= hg <= 64
+                assert hg * r <= 16 * 1024          # 64 f32 sums a thread
+                assert -(-h // hg) * hg - h < 16 * -(-h // hg)
+                splits, per = tdecode.mla_split_plan(4, 2048, h, r, 132)
+                assert tdecode.mla_stages(hg, r, dr, per) in (2, 3)
+    # widths k_mla leaves to k_partial
+    for r, dr in ((16, 8), (24, 16), (528, 64), (512, 80), (256, 0)):
+        assert tdecode.mla_route(torch.bfloat16, 40, r, dr) == "k_partial"
+    # the serving shapes: MiniCPM3-4B's 40 heads in one block of 48;
+    # DeepSeek-V2-Lite's 16 in one; DeepSeek-V3's 128 in four of 32
+    assert tdecode.mla_heads(40, 256) == 48
+    assert tdecode.mla_heads(16, 512) == 16
+    assert tdecode.mla_heads(128, 512) == 32
+    assert tdecode.mla_heads(128, 256) == 64
+
+
+@pytest.mark.parametrize("b,c,h,r", [
+    (4, 2048, 40, 256),       # MiniCPM3-4B, the serving shapes
+    (4, 2000, 40, 256),       # a ragged last tile
+    (4, 2048, 16, 512),       # DeepSeek-V2-Lite
+    (4, 2048, 128, 512),      # DeepSeek-V3's heads: four groups
+    (1, 64, 1, 16),           # one tile
+    (3, 1, 40, 256),          # a single row
+    (1, 100_000, 40, 256),
+    (16, 8192, 40, 256),      # more blocks than SMs at one tile a split
+])
+def test_mla_split_plan_covers_every_tile_once(b, c, h, r):
+    """Each tile once, in order, no split empty; one wave of blocks (one
+    a SM, or every tile its own split); and each split's f32 partial
+    (hg × R per head group) at most twice the ckv bytes of the tiles it
+    walks."""
+    splits, per = tdecode.mla_split_plan(b, c, h, r, sms=132)
+    tiles = -(-c // tdecode.MLA_TILE)
+    walked = [t for s in range(splits)
+              for t in range(s * per, min((s + 1) * per, tiles))]
+    assert walked == list(range(tiles))
+    assert (splits - 1) * per < tiles
+    hg = tdecode.mla_heads(h, r)
+    groups = -(-h // hg)
+    assert splits * b * groups <= 132 + b * groups or per == 1
+    assert per == 1 or (splits - 1) * b * groups < 132
+    assert 4 * hg * r <= 2 * per * tdecode.MLA_TILE * r * 2
+    # a forced count (timing candidates) still covers every tile once
+    for want in (1, 4, 8, 16, 32):
+        s2, p2 = tdecode.mla_split_plan(b, c, h, r, 132, splits=want)
+        assert s2 <= max(want, 1) and (s2 - 1) * p2 < tiles <= s2 * p2
+
+
+def _mla_smem(hg, r, dr, stages, tiles):
+    """A k_mla block's shared memory in bytes, from the source's layout:
+    q and the ring (bf16, stride R + Dr + 8), the scores (f32, stride
+    72), p's three terms (bf16, stride 72), m, l, factor, the tile
+    list."""
+    ks = r + dr + 8
+    q = 2 * hg * ks
+    ring = 2 * stages * 64 * ks
+    return q + ring + 4 * hg * 72 + 3 * 2 * hg * 72 + 12 * hg + 5 * tiles
+
+
+def test_mla_smem_fits_every_routed_shape():
+    """At every shape the route sends to k_mla (H up to 160, R and Dr up
+    to 512 and 64, C up to 2^20) the block's shared memory, with the
+    ring's stages the wrapper picks, fits 227 KB; the formula is the
+    source's."""
+    for h in (1, 15, 16, 17, 40, 64, 65, 128, 160):
+        for r in range(16, 513, 16):
+            for dr in (16, 32, 48, 64):
+                assert tdecode.mla_route(torch.bfloat16, h, r, dr) == "k_mla"
+                hg = tdecode.mla_heads(h, r)
+                for c in (1, 2048, 100_000, 1 << 20):
+                    _, per = tdecode.mla_split_plan(4, c, h, r, 132)
+                    st = tdecode.mla_stages(hg, r, dr, per)
+                    smem = tdecode.mla_smem_bytes(hg, r, dr, st, per)
+                    assert smem == _mla_smem(hg, r, dr, st, per)
+                    assert smem <= 227 * 1024
+    # MiniCPM3-4B takes a 3-stage ring; DeepSeek's 576-wide rows two
+    assert tdecode.mla_stages(48, 256, 32, 5) == 3
+    assert tdecode.mla_stages(16, 512, 64, 2) == 2
+    with pytest.raises(ValueError):
+        tdecode.mla_stages(64, 2048, 64, 1)
+
+
+def test_mla_routes_are_listed_and_reset():
+    assert set(tdecode.mla_decode.route_launches) == {"k_mla", "k_partial"}
+    tdecode.mla_decode.route_launches["k_mla"] = 3
+    tdecode.gqa_decode.route_launches["k_partial"] = 2
+    tops.reset_kernel_launches()
+    assert set(tdecode.mla_decode.route_launches.values()) == {0}
+    assert set(tdecode.gqa_decode.route_launches.values()) == {0}
 
 
 def test_decode_kernels_are_listed():

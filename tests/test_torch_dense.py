@@ -112,6 +112,29 @@ def test_dense_scan_stack_matches_reference(name):
     assert tops.kernel_launches()["similarity_scan_stack"] == 0
 
 
+@pytest.mark.parametrize("d", [6, 770])
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_dense_scan_stack_any_width_matches_reference(d, dtype):
+    """The stack scan's plain version at widths that are not a multiple
+    of 4 (the kernel's one-element loads), f32 and int8 rows, one
+    session all invalid: sims and probabilities as the reference's."""
+    rng = np.random.default_rng(d)
+    s, q, n = 3, 4, 300
+    query = rng.standard_normal((s, q, d)).astype(np.float32)
+    index = rng.standard_normal((s, n, d)).astype(np.float32)
+    if dtype == "int8":
+        index = np.asarray(jquantise_rows(index)[0])
+    valid = np.asarray([300, 0, 133], np.int32)
+    want_sims, want_probs = jops.similarity_stack(
+        jnp.asarray(query), jnp.asarray(index), tau=TAU,
+        valid=jnp.asarray(valid))
+    got_sims, got_probs = tops.similarity_stack(_t(query), _t(index),
+                                                tau=TAU, valid=_t(valid))
+    _close(got_sims, want_sims)
+    _close(got_probs, want_probs)
+    assert tops.kernel_launches()["similarity_scan_stack"] == 0
+
+
 @pytest.mark.parametrize("name", ["sizes", "mask"])
 def test_dense_scan_2d_matches_reference(name):
     query, index, valid = _scan_case(name)

@@ -185,6 +185,14 @@ CASES = [
     dict(S=2, Q=1, N=100, d=8, T=4, K=2, valid_kind="mask", seed=4),
     dict(S=2, Q=2, N=512, d=32, T=8, K=4, valid_kind="mask", seed=5,
          dtype="int8"),
+    # widths that are not a multiple of 4 (the kernels' one-element loads)
+    dict(S=2, Q=3, N=300, d=6, T=6, K=3, valid_kind="mask", seed=6),
+    dict(S=2, Q=3, N=300, d=6, T=6, K=3, valid_kind="mask", seed=7,
+         dtype="int8"),
+    dict(S=2, Q=2, N=300, d=770, T=6, K=3, valid_kind="sizes", seed=8,
+         sizes=[300, 0]),
+    dict(S=2, Q=2, N=300, d=770, T=6, K=3, valid_kind="sizes", seed=9,
+         sizes=[0, 211], dtype="int8"),
 ]
 
 
@@ -238,6 +246,44 @@ def test_fused_retrieve_ref_matches_reference(case):
     launches = tops.kernel_launches()
     assert launches["fused_retrieve"] == 0
     assert set(launches.values()) == {0}
+
+
+@pytest.mark.parametrize("d", [6, 770, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_scan_operands_take_any_width_and_base(d, dtype):
+    """The stack and fused scans take any d and any index base (one
+    element a load where float4/char4 loads do not apply): the host
+    checks pass an index view one element past an aligned base, and a
+    width whose 8 staged queries overflow a block's shared memory raises
+    with the limit named."""
+    rng = np.random.default_rng(d)
+    s, q, n = 2, 3, 40
+    query = torch.from_numpy(rng.standard_normal((s, q, d)).astype(
+        np.float32))
+    flat = torch.from_numpy(rng.standard_normal(s * n * d + 1).astype(
+        np.float32)).to(dtype)
+    index = flat[1:].view(s, n, d)          # base one element off
+    qn, x, vmask = tsim._scan_operands(query, index, _t(np.asarray(
+        [n, 7], np.int32)))
+    assert x.data_ptr() == index.data_ptr()
+    assert qn.shape == (s, q, d) and vmask.shape == (s, n)
+    tsim._scan_operands(query, index, _t(np.asarray([n, 7], np.int32)), 32)
+    # the limit: 8 queries at a row stride of d rounded up to 4, and one
+    # (stack) or two (fused) 256-row score tiles and the targets
+    assert tsim.scan_smem_bytes(7008) <= 227 * 1024 < tsim.scan_smem_bytes(
+        7009)
+    assert tsim.scan_smem_bytes(d) == 4 * (8 * (-(-d // 4) * 4) + 8 * 256)
+    assert tsim.scan_smem_bytes(d, 32) == 4 * (8 * (-(-d // 4) * 4)
+                                               + 16 * 256 + 16 * 32)
+    wide = torch.zeros((1, 1, 7009))
+    with pytest.raises(ValueError, match="shared memory"):
+        tsim._scan_operands(wide, torch.zeros((1, 2, 7009), dtype=dtype),
+                            _t(np.asarray([2], np.int32)))
+    with pytest.raises(ValueError, match="shared memory"):
+        tsim._scan_operands(torch.zeros((1, 1, 6689)),
+                            torch.zeros((1, 2, 6689), dtype=dtype),
+                            _t(np.asarray([2], np.int32)), 32)
+    assert tsim.scan_smem_bytes(6688, 32) == 227 * 1024
 
 
 def test_fused_raw_contract_shapes():
