@@ -69,8 +69,9 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 only. Each case checks by the wrapper's route count that
                 its route's kernel launched, and records each kernel's
                 device µs per launch by the profiler; the bf16 MLA case
-                also times k_partial on the same inputs (A, B, B, A) and
-                k_mla at 4, 8, 16 and 32 splits. bf16 within one bf16 ulp
+                also times k_partial on the same inputs (A, B, B, A), and
+                the host's mirror of k_mla's shared memory is held to the
+                source's layout at every routed shape. bf16 within one bf16 ulp
                 (rtol 2^-7, atol 1e-6), f32 at rtol 1e-5 / atol 1e-6.
                 Alone: ``python3 -c "import torch, chip_smoke;
                 chip_smoke.phase_decode(torch.Generator('cuda')
@@ -943,6 +944,37 @@ def _print_kernel_us(per_kernel) -> None:
               f"{k} {v:.2f}" for k, v in per_kernel.items())), flush=True)
 
 
+def _check_mla_smem(dk) -> int:
+    """The host's ``mla_smem_bytes`` (which picks the ring's stages)
+    against the source's ``layout`` at every shape ``mla_route`` sends to
+    ``k_mla``: H up to 160, R and Dr up to 512 and 64, C up to 2^20.
+    Returns the number of shapes checked."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    fn = build.load("mla_decode.cu").mla_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+    n = 0
+    for h in (1, 16, 40, 64, 128, 160):
+        for r in range(16, 513, 16):
+            for dr in (16, 32, 48, 64):
+                if dk.mla_route(torch.bfloat16, h, r, dr) != "k_mla":
+                    continue
+                hg = dk.mla_heads(h, r)
+                for c in (1, 2048, 100_000, 1 << 20):
+                    _, per = dk.mla_split_plan(DEC_B, c, h, r, 132)
+                    st = dk.mla_stages(hg, r, dr, per)
+                    got = fn(hg, r, dr, st, per)
+                    check(got == dk.mla_smem_bytes(hg, r, dr, st, per),
+                          f"mla smem at hg={hg} R={r} Dr={dr} stages={st} "
+                          f"tiles={per}: source {got}, host "
+                          f"{dk.mla_smem_bytes(hg, r, dr, st, per)}")
+                    n += 1
+    print(f"phase decode[mla smem]: ok  host formula = source layout at "
+          f"{n} routed shapes", flush=True)
+    return n
+
+
 def phase_decode_mla(gen, valid, holes):
     """Kernel #6 against its plain version: MiniCPM3-4B's widths (H=40,
     R=256, Dr=32) at the table's masks (bf16 on ``k_mla``, f32 on
@@ -950,8 +982,9 @@ def phase_decode_mla(gen, valid, holes):
     written rows a slot), DeepSeek-V2-Lite's (H=16, R=512, Dr=64) and,
     checked only, DeepSeek-V3's (H=128) and R=30 (``k_partial``). Each
     case checks its route by ``mla_decode.route_launches``. The bf16 case
-    also times ``k_partial`` on the same inputs (A, B, B, A) and ``k_mla``
-    at 4, 8, 16 and 32 splits."""
+    also times ``k_partial`` on the same inputs (A, B, B, A). First the
+    host's ``mla_smem_bytes`` is held to the source's ``layout`` at every
+    shape the route sends to ``k_mla``, with the wrapper's plan."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
@@ -963,7 +996,7 @@ def phase_decode_mla(gen, valid, holes):
              < torch.tensor([9, 30, 52, 76], device=dev)[:, None])
     bf, f32 = torch.bfloat16, torch.float32
     new, part = "k_mla", "k_partial"
-    out = {}
+    out = {"mla_smem_shapes": _check_mla_smem(dk)}
     for name, dt, h, r, dr, nope, cv, route, timed in (
             ("bf16", bf, 40, 256, 32, 64, valid, new, True),
             ("f32", f32, 40, 256, 32, 64, valid, part, True),
@@ -1042,20 +1075,15 @@ def phase_decode_mla(gen, valid, holes):
                    kernel_us=per_kernel)
         extra = ""
         if name == "bf16":
-            # k_partial on the same inputs, and the split candidates
+            # k_partial on the same inputs
             part_k = lambda: dk._launch_mla(qa, qr, ckv, kr, cv, scale=scale)
             ab = [device_ms(f, reps=50) for f in (run_k, part_k, part_k,
                                                   run_k)]
             row.update(ab_device_ms=ab, partial_device_ms=(ab[1] + ab[2]) / 2,
                        partial_kernel_us=kernel_us(part_k),
                        plan=dk.mla_split_plan(b, c, h, r, sm_count(dev)))
-            row["splits_device_ms"] = {
-                s: device_ms(lambda: dk._launch_mla_split(
-                    qa, qr, ckv, kr, cv, scale=scale, splits=s), reps=50)
-                for s in (4, 8, 16, 32)}
             extra = (f"  k_partial same inputs (A,B,B,A device ms) "
-                     f"{[round(x, 5) for x in ab]}  plan {row['plan']}  "
-                     f"by splits {row['splits_device_ms']}")
+                     f"{[round(x, 5) for x in ab]}  plan {row['plan']}")
         out[f"mla_{name}"] = row
         print(f"{head}  kernel {ms:.4f} ms (device {dev_ms:.4f} ms)  plain "
               f"{plain:.4f} ms  bound {bnd:.4f} ms ({by}; {rows} of {b * c} "

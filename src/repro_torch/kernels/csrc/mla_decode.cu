@@ -459,6 +459,13 @@ int launch(const Args& a, int B, int groups, int splits, bf16* out,
 
 }  // namespace
 
+// a block's shared memory in bytes, against which the host's mirror
+// (decode_attention.mla_smem_bytes) is checked
+extern "C" long long mla_smem_bytes(int hg, int R, int Dr, int stages,
+                                    int tiles) {
+  return static_cast<long long>(layout(hg, R, Dr, stages, tiles).total);
+}
+
 // hg: heads a block (a multiple of 16, at most 64); the host's plan gives
 // it with the split count, the tiles a split walks and the ring's stages
 extern "C" int mla_split_bf16(const bf16* q_abs, const bf16* q_rope,

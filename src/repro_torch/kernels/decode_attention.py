@@ -295,19 +295,16 @@ def mla_stages(hg: int, r: int, dr: int, tiles: int) -> int:
                      f"tiles a split do not fit a block's shared memory")
 
 
-def mla_split_plan(b: int, c: int, h: int, r: int, sms: int,
-                   splits: int | None = None) -> tuple:
+def mla_split_plan(b: int, c: int, h: int, r: int, sms: int) -> tuple:
     """(splits, tiles per split) of ``k_mla``: split ``s`` of each
     (sequence, head group) walks tiles [s * per, min((s + 1) * per,
     tiles)) of ``MLA_TILE`` rows, none of them empty. One block of (split,
     head group, sequence) per SM, so at MiniCPM3-4B's 4 × 2048 rows one
     tile a split: on the card that beat 2, 4 and 8 tiles a split, though
     a split's partial (hg × R f32) then outweighs the ckv rows it reads
-    (64 × R bf16) by up to hg / 32 ≤ 2. ``splits`` overrides the count
-    (to time candidates)."""
+    (64 × R bf16) by up to hg / 32 ≤ 2."""
     tiles = -(-c // MLA_TILE)
-    if splits is None:
-        splits = -(-sms // (b * -(-h // mla_heads(h, r))))
+    splits = -(-sms // (b * -(-h // mla_heads(h, r))))
     per = -(-tiles // max(1, min(tiles, splits)))
     return -(-tiles // per), per
 
@@ -324,8 +321,7 @@ def _check_mla_shapes(q_abs, q_rope, ckv, krope):
     return b, h, c, r, dr
 
 
-def _launch_mla_split(q_abs, q_rope, ckv, krope, valid, *, scale,
-                      splits=None):
+def _launch_mla_split(q_abs, q_rope, ckv, krope, valid, *, scale):
     b, h, c, r, dr = _check_mla_shapes(q_abs, q_rope, ckv, krope)
     q_abs, q_rope, ckv, krope = _operands(q_abs, q_rope, ckv, krope)
     if any(x.data_ptr() % 16 for x in (q_abs, q_rope, ckv, krope)):
@@ -333,7 +329,7 @@ def _launch_mla_split(q_abs, q_rope, ckv, krope, valid, *, scale,
     dev = q_abs.device
     mask, mask_bs = _mask_u8(valid, b, c, dev)
     hg = mla_heads(h, r)
-    splits, per = mla_split_plan(b, c, h, r, sm_count(dev), splits)
+    splits, per = mla_split_plan(b, c, h, r, sm_count(dev))
     stages = mla_stages(hg, r, dr, per)
     n = b * h * splits
     scratch = torch.empty(n * (2 + r), dtype=torch.float32, device=dev)
