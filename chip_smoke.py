@@ -7,8 +7,7 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
 12, 7–9:
 
 1. build      — compile the CUDA kernels from ``src/repro_torch/kernels/
-                csrc`` (one nvcc per source, all started together) and the
-                Triton scene-score kernel;
+                csrc`` (one nvcc per source, all started together);
 2. fused      — the fused retrieval kernel against its plain PyTorch
                 version at S=16, N=8192, d=768, Q=8, T=32, K=8: f32, int8
                 (from ``quantise_rows``) and wrapping (S, 2) ring windows;
@@ -26,8 +25,14 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 own kernels at Q=8, N=8192 (6,000 valid rows; timed
                 beside torch.mm), int8, Q=20, N=300 and an all-invalid
                 mask (l = N), each checked to have launched;
-4. scene      — the scene-score kernel against its plain version on 65
-                frames of 224×224 (rtol 1e-5, atol 1e-7);
+4. scene      — the scene-score kernel (``csrc/scene_score.cu``) against
+                its plain version (rtol 1e-5, atol 1e-7, φ_0 == 0 exactly)
+                on 65 frames of 224×224 (timed warm and cold), random
+                frames with a grey block and two identical frames, T = 1,
+                T = 2, 37×53 and an unaligned base (4-byte copies), 65
+                frames of 448², with ``prev`` as the segmenter calls it,
+                and frames that take the exact divisions; each case
+                checked to have launched the kernel;
 5. main       — the main path through the user entry points: a
                 ``SessionManager`` embedding with ``MEMEmbedder`` at
                 venus-mem-large (bf16, random weights from a seed; d=768,
@@ -35,7 +40,10 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 frames, then answers 8 queries per session under akr,
                 sampling and topk, and 8 text queries per session through
                 the MEM text tower (one fused launch per group); every
-                kernel must have launched in this run;
+                kernel must have launched in this run; then tick 1's
+                segment stage replayed with the device synchronised
+                between upload, #2 and the φ read back, and #2's device
+                µs a launch there by the profiler;
 6. dense      — on the main manager: one group each of uniform, bolt,
                 mdf and aks, and akr, sampling and topk with fused=False
                 (one dense scan each), then ``memory.search`` once per
@@ -458,31 +466,111 @@ def make_worlds(n: int, resolution: int):
                                    seed=s)) for s in range(n)]
 
 
+def scene_cases(frames_np):
+    """The scene kernel's cases → [(name, frames, prev)]: the table's 65
+    VideoWorld frames of 224² (timed); random frames with a grey block (c
+    = 0) and two identical frames; T = 1 and T = 2; 37 × 53 (W % 4 != 0:
+    4-byte copies); 65 frames of 448²; the table's frames from a base 4
+    bytes past a 16-byte boundary (4-byte copies); the table's last 64
+    frames with its first as ``prev``, as the segmenter calls it; and
+    frames that take the kernel's exact divisions (a block of channels
+    below 1e-25 apart, a frame with values up to 2)."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    table = torch.from_numpy(frames_np).to(dev)
+    rand = torch.rand((8, 224, 224, 3), generator=gen, device=dev)
+    rand[2, :16, :16] = 0.5                        # grey block: c == 0
+    rand[3] = rand[2]                              # identical frames
+    exact = torch.rand((6, 224, 224, 3), generator=gen, device=dev)
+    exact[1, :8, :8] *= 1e-25                      # c, num below 2^-60
+    exact[4] *= 2.0                                # outside [0, 1]
+    buf = torch.empty(table.numel() + 1, device=dev)
+    unaligned = buf[1:].view(table.shape).copy_(table)
+    check(unaligned.data_ptr() % 16 == 4, "scene: unaligned view")
+    return [("table", table, None), ("random", rand, None),
+            ("t1", rand[:1], None), ("t2", rand[:2], None),
+            ("h37_w53", torch.rand((9, 37, 53, 3), generator=gen,
+                                   device=dev), None),
+            ("448", torch.rand((65, 448, 448, 3), generator=gen,
+                               device=dev), None),
+            ("unaligned", unaligned, None),
+            ("prev", table[1:], table[0]), ("exact_division", exact, None)]
+
+
 def phase_scene(frames_np):
+    """Kernel #2 against its plain version in every case of
+    ``scene_cases`` (rtol 1e-5, atol 1e-7, φ_0 == 0 exactly without
+    ``prev``), each checked to have launched the kernel, its plan's shared
+    memory held to the source's count; the table's frames timed warm (the
+    same frames every call) and cold (4 copies in turn, 156 MB, more than
+    the 50 MB L2), beside the plain version and the bound."""
     import torch
     from repro_torch.core.scene import DEFAULT_WEIGHTS
     from repro_torch.kernels import ref, scene_score
-    frames = torch.from_numpy(frames_np).cuda()
-    run_k = lambda: scene_score.scene_score(frames, DEFAULT_WEIGHTS)
-    run_p = lambda: ref.scene_score_ref(frames, DEFAULT_WEIGHTS)
-    got, want = run_k(), run_p()
-    torch.cuda.synchronize()
-    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
-          "scene: shape / finite")
-    check(float(got[0]) == 0.0, f"scene: phi_0 = {float(got[0])}")
-    check(torch.allclose(got, want, rtol=1e-5, atol=1e-7),
-          f"scene: max abs err {float((got - want).abs().max())}")
-    err = float((got - want).abs().max())
-    ms = cuda_ms(run_k, reps=20, warmup=2)
-    dev_ms = device_ms(run_k)
-    plain = cuda_ms(run_p, reps=3)
-    t, h, w, _ = frames.shape
-    b, by = bound_ms(t * h * w * 3 * 4 + t * 4, 40.0 * t * h * w)
-    print(f"phase scene: ok  kernel {ms:.4f} ms (device {dev_ms:.4f} ms)"
-          f"  plain {plain:.4f} ms  bound {b:.4f} ms ({by})  max_abs_err "
-          f"{err:.3e}", flush=True)
-    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, max_abs_err=err)
+    from repro_torch.kernels.device import sm_count
+    out, got_of = {}, {}
+    for name, frames, prev in scene_cases(frames_np):
+        run_k = lambda: scene_score.scene_score(frames, DEFAULT_WEIGHTS,
+                                                prev)
+        run_p = lambda: ref.scene_score_ref(frames, DEFAULT_WEIGHTS, prev)
+        before = scene_score.scene_score.launches
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        check(scene_score.scene_score.launches == before + 1,
+              f"scene {name}: the kernel did not launch")
+        t, h, w, _ = frames.shape
+        aligned = frames.data_ptr() % 16 == 0 and (
+            prev is None or prev.data_ptr() % 16 == 0)
+        plan = scene_score.scene_plan(t + (prev is not None), h, w,
+                                      sm_count(frames.device), aligned)
+        check(plan.smem == scene_score.kernel_smem_bytes(
+            plan.rb, w, plan.stages, plan.fc),
+            f"scene {name}: the plan's shared memory is not the source's")
+        check(got.shape == want.shape == (t,)
+              and bool(torch.isfinite(got).all()),
+              f"scene {name}: shape / finite")
+        if prev is None:
+            check(float(got[0]) == 0.0, f"scene {name}: phi_0 = "
+                                        f"{float(got[0])}")
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-7),
+              f"scene {name}: max abs err {float((got - want).abs().max())}")
+        err = float((got - want).abs().max())
+        got_of[name] = got
+        row = dict(t=t, h=h, w=w, plan=plan._asdict(), max_abs_err=err)
+        if name == "table":
+            copies = [frames] + [frames.clone() for _ in range(3)]
+            calls = [0]
+
+            def run_cold():
+                calls[0] += 1
+                return scene_score.scene_score(copies[calls[0] % 4],
+                                               DEFAULT_WEIGHTS)
+            b, by = bound_ms(t * h * w * 3 * 4 + t * 4, 40.0 * t * h * w)
+            row.update(ms=cuda_ms(run_k, reps=20, warmup=2),
+                       device_ms=device_ms(run_k),
+                       cold_device_ms=device_ms(run_cold, reps=40),
+                       plain_ms=cuda_ms(run_p, reps=3), bound_ms=b,
+                       bound_by=by, kernel_us=kernel_us(run_k))
+            del copies
+            print(f"phase scene[{name}]: ok  kernel {row['ms']:.4f} ms "
+                  f"(device {row['device_ms']:.4f} ms warm, "
+                  f"{row['cold_device_ms']:.4f} ms cold)  plain "
+                  f"{row['plain_ms']:.4f} ms  bound {b:.4f} ms ({by})  "
+                  f"max_abs_err {err:.3e}  plan {tuple(plan)}", flush=True)
+            _print_kernel_us(row["kernel_us"])
+        else:
+            print(f"phase scene[{name}]: ok  T={t} {h}x{w}"
+                  f"{' with prev' if prev is not None else ''}  max_abs_err "
+                  f"{err:.3e}  plan {tuple(plan)}", flush=True)
+        out[name] = row
+    # the same plan gives the same bits: prev against the clip's first
+    # frame, and 4-byte copies against 16-byte ones
+    check(torch.equal(got_of["prev"], got_of["table"][1:]),
+          "scene: prev is not the table's frames 1..64 bit for bit")
+    check(torch.equal(got_of["unaligned"], got_of["table"]),
+          "scene: the unaligned view differs from the table's frames")
+    return out
 
 
 def ingest_streams(worlds, cfg, embedder, dim, device, *, chunk=64):
@@ -494,7 +582,8 @@ def ingest_streams(worlds, cfg, embedder, dim, device, *, chunk=64):
     for sid in range(len(worlds)):
         mgr.create_session(sid)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    ticks, stages = [], {"segment": 0.0, "cluster": 0.0, "embed_insert": 0.0}
+    ticks, seg_ticks = [], []
+    stages = {"segment": 0.0, "cluster": 0.0, "embed_insert": 0.0}
     longest = max(w.total_frames for w in worlds)
     for i in range(0, longest, chunk):
         chunks = {sid: w.frames[i:i + chunk] for sid, w in enumerate(worlds)
@@ -506,9 +595,62 @@ def ingest_streams(worlds, cfg, embedder, dim, device, *, chunk=64):
         ticks.append(time.perf_counter() - t0)
         for k in stages:
             stages[k] += got[k]
+        seg_ticks.append(got["segment"])
     mgr.flush()
     sync()
+    stages["segment_ticks"] = seg_ticks
     return mgr, ticks, stages
+
+
+def segment_split(worlds, tick: int = 1, chunk: int = 64):
+    """Where one tick's segment stage goes: the stage's device work on the
+    main phase's tick ``tick`` (each world's chunk of 64 frames, scored
+    against the frame before it, as ``segment_stage`` does), replayed
+    session by session with the device synchronised between the steps:
+    the pageable upload (``torch.from_numpy(chunk).to('cuda')``), #2's
+    launch and run, and the φ read back (``.cpu()``), host-clock seconds
+    summed over the sessions. Then the uploads again and #2 on each under
+    the profiler: #2's device µs a launch on frames just uploaded
+    (k_scene and k_scene_sum, the union of their intervals), None where
+    the trace holds no device events."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.scene import DEFAULT_WEIGHTS
+    from repro_torch.kernels import scene_score
+    lo = tick * chunk
+    work = [(np.asarray(w.frames[lo:lo + chunk], np.float32),
+             torch.from_numpy(w.frames[lo - 1]).cuda())
+            for w in worlds if w.total_frames >= lo + chunk]
+    split = dict(sessions=len(work), upload_s=0.0, kernel_s=0.0,
+                 readback_s=0.0)
+    torch.cuda.synchronize()
+    for frames, prev in work:
+        t0 = time.perf_counter()
+        dev = torch.from_numpy(frames).to("cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        phi = scene_score.scene_score(dev, DEFAULT_WEIGHTS, prev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        phi.cpu().numpy()
+        t3 = time.perf_counter()
+        split["upload_s"] += t1 - t0
+        split["kernel_s"] += t2 - t1
+        split["readback_s"] += t3 - t2
+    uploaded = [(torch.from_numpy(f).to("cuda"), p) for f, p in work]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for dev, prev in uploaded:
+            scene_score.scene_score(dev, DEFAULT_WEIGHTS, prev)
+        torch.cuda.synchronize()
+    ours = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and "k_scene" in e.name]
+    split["device_us_per_launch"] = (_covered_us(ours) / len(uploaded)
+                                     if ours else None)
+    return split
 
 
 def unit_queries_np(n: int, dim: int, seed: int):
@@ -565,7 +707,8 @@ def run_main_path(worlds, cfg, embedder, dim, card, label):
     mgr, ticks, stages = ingest_streams(worlds, cfg, embedder, dim, "cuda")
     results, qtimes = run_queries(mgr, len(worlds), dim)
     print(f"phase {label}: ingest ticks (s) {[round(x, 6) for x in ticks]}"
-          f"  by stage (s) { {k: round(v, 6) for k, v in stages.items()} }"
+          f"  by stage (s) { {k: round(stages[k], 6) for k in
+                             ('segment', 'cluster', 'embed_insert')} }"
           f"  queries (s) { {k: round(v, 6) for k, v in qtimes.items()} }"
           f"  [{card}]", flush=True)
     return mgr, results, dict(ticks=ticks, stages=stages, queries=qtimes)
@@ -1379,8 +1522,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    # 1. build: nvcc for every CUDA source (in parallel), Triton at the
-    #    first scene-score launch
+    # 1. build: nvcc for every CUDA source, all started together
     t0 = time.perf_counter()
     build.build_all()
     t_nvcc = time.perf_counter() - t0
@@ -1392,16 +1534,8 @@ def main() -> int:
     worlds = make_worlds(S, 224)
     t_worlds = time.perf_counter() - t0
     frames65 = worlds[0].frames[:65]
-    t0 = time.perf_counter()
-    from repro_torch.core.scene import DEFAULT_WEIGHTS
-    from repro_torch.kernels import scene_score
-    scene_score.scene_score(torch.from_numpy(frames65).cuda(),
-                            DEFAULT_WEIGHTS)
-    torch.cuda.synchronize()
-    t_triton = time.perf_counter() - t0
-    print(f"phase build: ok  nvcc {t_nvcc:.2f} s  triton first launch "
-          f"{t_triton:.2f} s  (worlds generated in {t_worlds:.2f} s)",
-          flush=True)
+    print(f"phase build: ok  nvcc {t_nvcc:.2f} s  (worlds generated in "
+          f"{t_worlds:.2f} s)", flush=True)
 
     # 2-4, 10. each kernel against its plain version
     fused = phase_fused(gen)
@@ -1431,6 +1565,16 @@ def main() -> int:
     check(mgr.arena.emb.shape == (S, cfg.memory_capacity, D),
           f"arena shape {tuple(mgr.arena.emb.shape)}")
     check_results(mgr, worlds, results, "main")
+    # where the segment stage of tick 1 goes, and #2 a launch there
+    seg = segment_split(worlds)
+    seg["main_segment_s"] = times["stages"]["segment_ticks"][1]
+    times["segment_split"] = seg
+    print(f"  segment stage, tick 1 (s, host clock, {seg['sessions']} "
+          f"sessions): main phase {seg['main_segment_s']:.4f}; replayed: "
+          f"upload {seg['upload_s']:.4f}  #2 {seg['kernel_s']:.4f}  read "
+          f"back {seg['readback_s']:.4f}; #2 device us a launch "
+          + ("not measured" if seg["device_us_per_launch"] is None else
+             f"{seg['device_us_per_launch']:.2f}"), flush=True)
     n_emb = sum(mgr[s].stats["frames_embedded"] for s in range(S))
     check(embedder.frames == n_emb, f"embedded {embedder.frames} != {n_emb}")
     rows = [mgr[s].memory.size for s in range(S)]
@@ -1518,14 +1662,18 @@ def main() -> int:
              int8_ms=sim["2d_int8"]["ms"],
              int8_device_ms=sim["2d_int8"]["device_ms"],
              int8_bound_ms=sim["2d_int8"]["bound_ms"]),
-        dict(name="scene_score", route="triton",
-             source="src/repro_torch/kernels/scene_score.py",
+        dict(name="scene_score", route="cuda",
+             source="src/repro_torch/kernels/csrc/scene_score.cu",
              replaces="src/repro/kernels/scene_score.py:75",
              launches=launches["scene_score"],
-             max_abs_err=scene["max_abs_err"], ms=scene["ms"],
-             device_ms=scene["device_ms"],
-             plain_ms=scene["plain_ms"], bound_ms=scene["bound_ms"],
-             bound_by=scene["bound_by"], library_ms=None)]
+             max_abs_err=max(v["max_abs_err"] for v in scene.values()),
+             ms=scene["table"]["ms"], device_ms=scene["table"]["device_ms"],
+             cold_device_ms=scene["table"]["cold_device_ms"],
+             main_device_us_per_launch=times["segment_split"][
+                 "device_us_per_launch"],
+             plain_ms=scene["table"]["plain_ms"],
+             bound_ms=scene["table"]["bound_ms"],
+             bound_by=scene["table"]["bound_by"], library_ms=None)]
 
     def decode_row(name, source, replaces, prefix, n_launch, cases):
         r = dec[f"{prefix}_bf16"]

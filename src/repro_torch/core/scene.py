@@ -2,8 +2,8 @@
 
 The stream is cut where the frame-difference score φ exceeds a threshold,
 or where a partition reaches ``max_partition_len`` frames (static
-cameras). ``scene_scores`` computes φ (Triton kernel on the card, plain
-version on the CPU); ``segment`` makes the boundary decisions;
+cameras). ``scene_scores`` computes φ (the CUDA kernel on the card, the
+plain version on the CPU); ``segment`` makes the boundary decisions;
 ``StreamSegmenter`` is the online wrapper that carries the last frame
 and the frames-since-boundary counter across chunks.
 """
@@ -22,10 +22,11 @@ DEFAULT_WEIGHTS = (1.0, 1.0, 1.0, 2.0)       # (hue, sat, light, edge)
 
 
 def scene_scores(frames: torch.Tensor,
-                 weights: Tuple[float, float, float, float] = DEFAULT_WEIGHTS
-                 ) -> torch.Tensor:
-    """frames (T,H,W,3) float in [0,1] → φ (T,); φ[0] = 0."""
-    return kops.scene_score(frames, weights)
+                 weights: Tuple[float, float, float, float] = DEFAULT_WEIGHTS,
+                 prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """frames (T,H,W,3) float in [0,1] → φ (T,); φ[0] = 0, or with
+    ``prev`` (H,W,3) the score of frames[0] against it."""
+    return kops.scene_score(frames, weights, prev)
 
 
 def segment(phi, *, threshold: float, max_partition_len: int,
@@ -69,13 +70,10 @@ class StreamSegmenter:
 
     def ingest(self, frames: torch.Tensor) -> List[Partition]:
         """Consume a chunk (T,H,W,3); return the partitions it closed.
-        The previous chunk's last frame is prepended, so φ across the
-        chunk boundary is the same as in one long chunk."""
-        if self._last_frame is not None:
-            ext = torch.cat([self._last_frame[None], frames], dim=0)
-            phi = scene_scores(ext, self.weights).cpu().numpy()[1:]
-        else:
-            phi = scene_scores(frames, self.weights).cpu().numpy()
+        The previous chunk's last frame is scored against as ``prev``, so
+        φ across the chunk boundary is the same as in one long chunk."""
+        phi = scene_scores(frames, self.weights,
+                           self._last_frame).cpu().numpy()
         self._last_frame = frames[-1]
         closed: List[Partition] = []
         for i, p in enumerate(phi):

@@ -12,7 +12,7 @@ queries) stay at 0.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -147,6 +147,8 @@ def finalize(r, n: int) -> FusedRetrieval:
                           r.p_max)
 
 
-def scene_score(frames: torch.Tensor, weights) -> torch.Tensor:
-    """frames (T,H,W,3) in [0,1] → φ (T,)."""
-    return _scene.scene_score(frames, tuple(weights))
+def scene_score(frames: torch.Tensor, weights,
+                prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """frames (T,H,W,3) in [0,1] → φ (T,); ``prev``, the frame before
+    them, or None (φ[0] = 0)."""
+    return _scene.scene_score(frames, tuple(weights), prev)

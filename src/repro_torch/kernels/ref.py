@@ -10,7 +10,7 @@ the kernels' contract.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -216,15 +216,21 @@ def hsle(frames: torch.Tensor) -> torch.Tensor:
     return torch.stack([hue, sat, light, dx + dy], dim=-1)
 
 
-def scene_score_ref(frames: torch.Tensor, weights: Sequence[float]
-                    ) -> torch.Tensor:
-    """frames (T,H,W,3) in [0,1] → φ (T,) per Eq. 1; φ[0] = 0."""
+def scene_score_ref(frames: torch.Tensor, weights: Sequence[float],
+                    prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """frames (T,H,W,3) in [0,1] → φ (T,) per Eq. 1; φ[0] = 0, or with
+    ``prev`` (H,W,3), the frame before the clip, φ[0] scores frames[0]
+    against it."""
     w = torch.as_tensor(tuple(weights), dtype=torch.float32,
                         device=frames.device)
     feats = hsle(frames)
-    diffs = torch.abs(feats[1:] - feats[:-1])
+    before = feats[:-1] if prev is None else torch.cat(
+        [hsle(prev)[None], feats[:-1]])
+    diffs = torch.abs(feats[1 if prev is None else 0:] - before)
     num = (diffs * w).sum(dim=(1, 2, 3))
     hw = frames.shape[1] * frames.shape[2]
     phi = num / (w.sum() * hw)
+    if prev is not None:
+        return phi
     return torch.cat([torch.zeros(1, dtype=torch.float32,
                                   device=frames.device), phi])

@@ -1,160 +1,193 @@
-"""Scene score (Eq. 1) as a hand-written Triton kernel, beside its plain
-version ``ref.scene_score_ref``.
+"""Scene score (Eq. 1): the wrapper of the hand-written CUDA kernel
+(``csrc/scene_score.cu``) beside its plain version ``ref.scene_score_ref``.
 
 φ(f_t) = Σ_c w_c · Σ_px |v_t − v_{t−1}| / (Σw · H·W), v = [hue, sat,
-light, edge], φ_0 = 0.
+light, edge], φ_0 = 0; with ``prev`` (the frame before the clip) φ_t for
+every frame of the clip, frame −1 = prev, and no leading zero.
 
-Replaces: src/repro/kernels/scene_score.py::scene_score (_scene_kernel,
-the TPU Pallas kernel), which walks the frames sequentially and carries
-frame t−1's feature maps in VMEM.
-
-What bounds it on an H100: bytes. Each frame must be read once (T·H·W·3
-f32; 65 frames of 224² are 39.1 MB, ~11.7 µs at 3.35 TB/s); the
-arithmetic per pixel is a few dozen flops.
-
-Design: one program per frame t, with no state carried between programs
-— each program recomputes frame t−1's features itself (program 0 stores
-φ_0 = 0). Frame t−1 and the left/up
-neighbours come from L2 when the neighbouring program has just read
-them, so device-memory traffic stays near one read per frame. A program
-walks its frame in 1024-pixel blocks and reduces once at the end, so φ
-is deterministic (no atomics). Traps kept from the reference: the hue
-modulo takes the divisor's sign (x − 6·floor(x/6)), the edge map has a
-zero first row and column, saturation's denominator carries +1e-6.
+A CUDA tensor launches the kernel (or raises), a CPU tensor runs the plain
+version; ``scene_score.launches`` counts the launches. The kernel cuts each
+frame into bands of rows and the differences into chunks
+(``scene_plan``); the source says how.
 """
 
 from __future__ import annotations
 
-import os
-from typing import Optional, Sequence
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import BUILD_DIR
+from repro_torch.kernels.device import on_device, sm_count
 
-# triton.language, bound at first launch (this module must import where
-# Triton is absent); the kernel body below resolves ``tl`` through it
-tl = None
-_JIT: Optional[object] = None
+_SOURCE, _ENTRY = "scene_score.cu", "scene_score_f32"
+_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+             + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 3)
+_THREADS = 256            # a block's threads (kThreads in the source)
+_WARPS = _THREADS // 32
+MAX_CHUNK = 16            # differences a block, at most (kMaxChunk)
+_MAX_BAND = 64            # rows a band, at most
+_RESIDENT = 2             # blocks an SM holds (the registers k_scene takes)
+_SMEM = 227 * 1024        # a block's shared memory
 
-
-def _scene_phi_kernel(f_ptr, phi_ptr, H, W, w_h, w_s, w_l, w_e, norm):
-    t = tl.program_id(0)
-    hw = H * W
-    cur = f_ptr + t.to(tl.int64) * hw * 3
-    prv = f_ptr + tl.maximum(t - 1, 0).to(tl.int64) * hw * 3
-    acc = tl.zeros([1024], dtype=tl.float32)
-    for start in range(0, hw, 1024):
-        pix = start + tl.arange(0, 1024)
-        inb = pix < hw
-        left = inb & ((pix % W) > 0)
-        up = inb & (pix >= W)
-        # ---- frame t ----
-        r = tl.load(cur + pix * 3, mask=inb, other=0.0)
-        g = tl.load(cur + pix * 3 + 1, mask=inb, other=0.0)
-        b = tl.load(cur + pix * 3 + 2, mask=inb, other=0.0)
-        mx = tl.maximum(tl.maximum(r, g), b)
-        mn = tl.minimum(tl.minimum(r, g), b)
-        c = mx - mn
-        lc = 0.5 * (mx + mn)
-        sc = c / (1.0 - tl.abs(2.0 * lc - 1.0) + 1e-6)
-        safe = tl.where(c > 0, c, 1.0)
-        hr = (g - b) / safe
-        hr = hr - 6.0 * tl.floor(hr / 6.0)
-        hc = tl.where(mx == r, hr,
-                      tl.where(mx == g, (b - r) / safe + 2.0,
-                               (r - g) / safe + 4.0)) / 6.0
-        hc = tl.where(c > 0, hc, 0.0)
-        r = tl.load(cur + (pix - 1) * 3, mask=left, other=0.0)
-        g = tl.load(cur + (pix - 1) * 3 + 1, mask=left, other=0.0)
-        b = tl.load(cur + (pix - 1) * 3 + 2, mask=left, other=0.0)
-        ll = 0.5 * (tl.maximum(tl.maximum(r, g), b)
-                    + tl.minimum(tl.minimum(r, g), b))
-        r = tl.load(cur + (pix - W) * 3, mask=up, other=0.0)
-        g = tl.load(cur + (pix - W) * 3 + 1, mask=up, other=0.0)
-        b = tl.load(cur + (pix - W) * 3 + 2, mask=up, other=0.0)
-        lu = 0.5 * (tl.maximum(tl.maximum(r, g), b)
-                    + tl.minimum(tl.minimum(r, g), b))
-        ec = (tl.where(left, tl.abs(lc - ll), 0.0)
-              + tl.where(up, tl.abs(lc - lu), 0.0))
-        # ---- frame t-1 ----
-        r = tl.load(prv + pix * 3, mask=inb, other=0.0)
-        g = tl.load(prv + pix * 3 + 1, mask=inb, other=0.0)
-        b = tl.load(prv + pix * 3 + 2, mask=inb, other=0.0)
-        mx = tl.maximum(tl.maximum(r, g), b)
-        mn = tl.minimum(tl.minimum(r, g), b)
-        c = mx - mn
-        lp = 0.5 * (mx + mn)
-        sp = c / (1.0 - tl.abs(2.0 * lp - 1.0) + 1e-6)
-        safe = tl.where(c > 0, c, 1.0)
-        hr = (g - b) / safe
-        hr = hr - 6.0 * tl.floor(hr / 6.0)
-        hp = tl.where(mx == r, hr,
-                      tl.where(mx == g, (b - r) / safe + 2.0,
-                               (r - g) / safe + 4.0)) / 6.0
-        hp = tl.where(c > 0, hp, 0.0)
-        r = tl.load(prv + (pix - 1) * 3, mask=left, other=0.0)
-        g = tl.load(prv + (pix - 1) * 3 + 1, mask=left, other=0.0)
-        b = tl.load(prv + (pix - 1) * 3 + 2, mask=left, other=0.0)
-        ll = 0.5 * (tl.maximum(tl.maximum(r, g), b)
-                    + tl.minimum(tl.minimum(r, g), b))
-        r = tl.load(prv + (pix - W) * 3, mask=up, other=0.0)
-        g = tl.load(prv + (pix - W) * 3 + 1, mask=up, other=0.0)
-        b = tl.load(prv + (pix - W) * 3 + 2, mask=up, other=0.0)
-        lu = 0.5 * (tl.maximum(tl.maximum(r, g), b)
-                    + tl.minimum(tl.minimum(r, g), b))
-        ep = (tl.where(left, tl.abs(lp - ll), 0.0)
-              + tl.where(up, tl.abs(lp - lu), 0.0))
-        acc += (w_h * tl.abs(hc - hp) + w_s * tl.abs(sc - sp)
-                + w_l * tl.abs(lc - lp) + w_e * tl.abs(ec - ep))
-    # φ_0 is 0 by definition (the reference prepends it), whatever
-    # rounding the compiler gives the two copies of frame 0's features
-    tl.store(phi_ptr + t, tl.where(t > 0, tl.sum(acc, axis=0) / norm, 0.0))
+_FN = []
 
 
-def _jit():
-    global tl, _JIT
-    if _JIT is None:
-        # keep Triton's compile cache inside the checkout
-        os.environ.setdefault("TRITON_CACHE_DIR",
-                              os.path.join(BUILD_DIR, "triton"))
-        import triton
-        import triton.language
+def _kernel_fn():
+    if not _FN:
+        from repro_torch.kernels import build
+        lib = build.load(_SOURCE)
+        fn = getattr(lib, _ENTRY)
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        smem = lib.scene_smem_bytes
+        smem.argtypes = [ctypes.c_int] * 4
+        smem.restype = ctypes.c_longlong
+        _FN.extend((fn, smem))
+    return _FN[0]
 
-        tl = triton.language
-        _JIT = triton.jit(_scene_phi_kernel)
-    return _JIT
+
+def kernel_smem_bytes(rb: int, w: int, stages: int, fc: int) -> int:
+    """The source's own count of a block's shared memory (built on first
+    use), against which ``scene_smem_bytes`` is checked on the card."""
+    _kernel_fn()
+    return int(_FN[1](rb, w, stages, fc))
 
 
-def _launch(frames: torch.Tensor, weights: Sequence[float]) -> torch.Tensor:
-    if frames.dim() != 4 or frames.shape[-1] != 3:
-        raise ValueError(f"frames must be (T,H,W,3), got "
+def scene_smem_bytes(rb: int, w: int, stages: int, fc: int) -> int:
+    """A block's shared memory (the source's ``smem_bytes``): ``stages``
+    ring stages of a band of ``rb`` rows and its halo, in quads of 4
+    pixels (12 floats), the band's lightness with its halo (4 floats a
+    quad), and each warp's sum of each of ``fc`` differences."""
+    quads = -(-((rb + 1) * w) // 4)
+    return 4 * ((12 * stages + 4) * quads + _WARPS * fc)
+
+
+def _band_fits(rb: int, w: int, pix: int) -> bool:
+    """A band's quads, one more where the halo ends inside one, are at
+    most the threads' (``pix`` pixels, pix / 4 quads, a thread)."""
+    return (rb * w + 6) // 4 <= _THREADS * pix // 4
+
+
+class ScenePlan(NamedTuple):
+    rb: int        # rows a band (the last band may be shorter)
+    fc: int        # differences a chunk (the last chunk may be shorter)
+    bands: int     # the grid's first axis
+    chunks: int    # its second
+    stages: int    # ring stages, 3 or 2
+    copy: int      # bytes a cp.async: 16, or 4
+    pix: int       # pixels a thread (8, or 32 for rows wider than 2,042)
+    smem: int      # a block's shared memory in bytes
+
+
+@functools.lru_cache(maxsize=256)
+def scene_plan(n_frames: int, h: int, w: int, sms: int,
+               aligned: bool = True) -> ScenePlan:
+    """The kernel's grid for a sequence of ``n_frames`` frames of h × w
+    (the clip's, with ``prev`` in front when it is given: n_frames − 1
+    differences) on ``sms`` SMs. Block (b, c) takes rows [b·rb,
+    min((b+1)·rb, h)) with row b·rb − 1 as its halo (none for b = 0), and
+    differences [c·fc, min((c+1)·fc, n_frames − 1)), featurising frames
+    c·fc .. c·fc + fc of the sequence (odd chunks walk them backwards),
+    the first walked only to diff against.
+
+    Every thread computes ``pix`` pixels a frame (4-pixel quads; 8, or 32
+    where a row does not fit 8), whatever the band holds, so a band is as
+    tall as the threads hold (at most 64 rows), and halved where 2 ring
+    stages do not fit in 227 KB. The chunks then give about
+    ``_RESIDENT`` blocks an SM: ⌊_RESIDENT·sms / bands⌋ chunks of at most
+    16 differences (fewer where shared memory runs out), in 3 ring stages
+    where they fit, else 2. Copies are 16 bytes where w % 4 == 0 and the
+    frames' bases are 16-byte ``aligned``, else 4. Raises, naming the
+    limit, where one row with its halo does not fit in 2 stages."""
+    if n_frames < 1 or h < 1 or w < 1 or sms < 1:
+        raise ValueError(f"scene_plan({n_frames}, {h}, {w}, {sms}): every "
+                         f"size must be >= 1")
+    pix = 8 if _band_fits(1, w, 8) else 32
+    rb = min(h, _MAX_BAND)
+    while rb > 1 and not _band_fits(rb, w, pix):
+        rb -= 1
+    while rb > 1 and scene_smem_bytes(rb, w, 2, 1) > _SMEM:
+        rb //= 2
+    if scene_smem_bytes(rb, w, 2, 1) > _SMEM:
+        raise ValueError(
+            f"a row of {w} pixels with its halo row does not fit a block's "
+            f"{_SMEM} bytes of shared memory in 2 ring stages "
+            f"({scene_smem_bytes(1, w, 2, 1)} bytes)")
+    bands = -(-h // rb)
+    n_diff = n_frames - 1
+    chunks = max(1, min(n_diff, _RESIDENT * sms // bands))
+    fc = min(MAX_CHUNK, max(1, -(-n_diff // chunks)))
+    while fc > 1 and scene_smem_bytes(rb, w, 2, fc) > _SMEM:
+        fc -= 1
+    chunks = max(1, -(-n_diff // fc))
+    stages = 3 if scene_smem_bytes(rb, w, 3, fc) <= _SMEM else 2
+    return ScenePlan(rb, fc, bands, chunks, stages,
+                     16 if aligned and w % 4 == 0 else 4, pix,
+                     scene_smem_bytes(rb, w, stages, fc))
+
+
+def _check(frames: torch.Tensor, prev: Optional[torch.Tensor]) -> None:
+    if frames.dim() != 4 or frames.shape[-1] != 3 or frames.shape[0] < 1:
+        raise ValueError(f"frames must be (T,H,W,3) with T >= 1, got "
                          f"{tuple(frames.shape)}")
     if frames.dtype != torch.float32:
         raise TypeError(f"frames must be float32, got {frames.dtype}")
+    if prev is not None:
+        if tuple(prev.shape) != tuple(frames.shape[1:]):
+            raise ValueError(f"prev must be {tuple(frames.shape[1:])}, got "
+                             f"{tuple(prev.shape)}")
+        if prev.dtype != torch.float32 or prev.device != frames.device:
+            raise ValueError(f"prev is {prev.dtype} on {prev.device}, "
+                             f"frames float32 on {frames.device}")
+
+
+def _launch(frames: torch.Tensor, weights: Sequence[float],
+            prev: Optional[torch.Tensor] = None,
+            plan: Optional[ScenePlan] = None) -> torch.Tensor:
+    """Launch the kernel on the frames' device; ``plan`` defaults to
+    ``scene_plan``'s."""
+    _check(frames, prev)
     frames = frames.contiguous()
+    prev = None if prev is None else prev.contiguous()
     t, h, w, _ = frames.shape
-    wts = [float(x) for x in weights]
+    dev = frames.device
+    n = t + (prev is not None)
+    aligned = (frames.data_ptr() % 16 == 0
+               and (prev is None or prev.data_ptr() % 16 == 0))
+    if plan is None:
+        plan = scene_plan(n, h, w, sm_count(dev), aligned)
+    wts = np.asarray([float(x) for x in weights], np.float32)
     # Σw·H·W in fp32, as the reference forms it
-    norm = float(torch.tensor(wts, dtype=torch.float32).sum()
-                 * torch.tensor(float(h * w), dtype=torch.float32))
-    phi = torch.empty((t,), dtype=torch.float32, device=frames.device)
-    kern = _jit()
-    with torch.cuda.device(frames.device):
-        kern[(t,)](frames, phi, h, w, *wts, norm, num_warps=8)
+    norm = np.float32(wts.sum(dtype=np.float32) * np.float32(h * w))
+    # one allocation: φ (t floats), then the (n − 1, bands) partials
+    buf = torch.empty(t + (n - 1) * plan.bands, dtype=torch.float32,
+                      device=dev)
+    base = buf.data_ptr()
+    fn = _kernel_fn()
+    rc = on_device(dev, lambda stream: fn(
+        frames.data_ptr(), 0 if prev is None else prev.data_ptr(), t, h, w,
+        plan.rb, plan.fc, plan.stages, plan.copy, plan.pix, *map(float, wts),
+        float(norm), base + 4 * t, base, stream))
+    if rc != 0:
+        raise RuntimeError(f"scene_score kernel launch failed: cudaError "
+                           f"{rc} (plan {plan})")
     scene_score.launches += 1
-    return phi
+    return buf[:t]
 
 
-def scene_score(frames: torch.Tensor, weights: Sequence[float]
-                ) -> torch.Tensor:
-    """frames (T,H,W,3) f32 in [0,1] → φ (T,) f32, φ[0] = 0. CUDA
-    tensors run the Triton kernel, CPU tensors the plain version."""
+def scene_score(frames: torch.Tensor, weights: Sequence[float],
+                prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """frames (T,H,W,3) f32 in [0,1] → φ (T,) f32: φ[0] = 0, or with
+    ``prev`` (H,W,3) the score of frames[0] against it. CUDA tensors run
+    the kernel, CPU tensors the plain version."""
     if frames.device.type == "cuda":
-        return _launch(frames, weights)
+        return _launch(frames, weights, prev)
     if frames.device.type == "cpu":
-        return ref.scene_score_ref(frames, weights)
+        return ref.scene_score_ref(frames, weights, prev)
     raise ValueError(f"no scene-score route for device {frames.device}")
 
 

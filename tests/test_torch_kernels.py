@@ -336,12 +336,21 @@ def test_quantise_rows_identical():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("shape", [(6, 16, 16), (5, 12, 20)])
-def test_scene_score_ref_matches_reference(shape):
+def _scene_frames(shape):
+    """Random frames of ``shape`` + (3,) from a seed; from T = 4 on, frame
+    2 has a grey block (c == 0) and frame 3 repeats it."""
     rng = np.random.default_rng(sum(shape))
     frames = rng.random(shape + (3,)).astype(np.float32)
-    frames[2, :4, :4] = 0.5                      # grey block: c == 0
-    frames[3] = frames[2]                        # identical frames
+    if shape[0] >= 4:
+        frames[2, :4, :4] = 0.5                  # grey block: c == 0
+        frames[3] = frames[2]                    # identical frames
+    return frames
+
+
+@pytest.mark.parametrize("shape", [(6, 16, 16), (5, 12, 20), (1, 16, 16),
+                                   (2, 16, 16), (5, 37, 53), (4, 1, 24)])
+def test_scene_score_ref_matches_reference(shape):
+    frames = _scene_frames(shape)
     w = (1.0, 1.0, 1.0, 2.0)
     got = tscene.scene_score(_t(frames), w).numpy()
     want = np.asarray(jax.jit(lambda f: jref.scene_score_ref(f, w))(
@@ -353,3 +362,82 @@ def test_scene_score_ref_matches_reference(shape):
         np.asarray(jax.jit(jax.vmap(jref._hsle))(jnp.asarray(frames))),
         rtol=1e-5, atol=1e-6)
     assert tops.kernel_launches()["scene_score"] == 0
+
+
+@pytest.mark.parametrize("shape", [(6, 16, 16), (2, 12, 20), (4, 37, 53)])
+def test_scene_score_prev_matches_reference_on_the_whole_clip(shape):
+    """φ with ``prev`` (the segmenter's call) is the reference's φ of prev
+    and the clip together, without its leading zero."""
+    frames = _scene_frames(shape)
+    w = (1.0, 1.0, 1.0, 2.0)
+    got = tscene.scene_score(_t(frames[1:]), w, _t(frames[0])).numpy()
+    want = np.asarray(jax.jit(lambda f: jref.scene_score_ref(f, w))(
+        jnp.asarray(frames)))[1:]
+    assert got.shape == (shape[0] - 1,)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+    assert tops.kernel_launches()["scene_score"] == 0
+
+
+SCENE_SHAPES = [(65, 224, 224), (65, 448, 448), (65, 37, 53), (65, 37, 1),
+                (65, 1, 224), (1, 224, 224), (2, 224, 224), (65, 1, 1),
+                (65, 8, 4150)]
+
+
+@pytest.mark.parametrize("n,h,w", SCENE_SHAPES)
+def test_scene_plan_covers_every_pair_once(n, h, w):
+    """The scene kernel's grid: the blocks' (difference, row) pairs cover
+    every frame t >= 1 of the sequence and every row exactly once; a
+    band's halo is the row above it (none for row 0, whose edge map is
+    zero); a chunk's first frame, featurised only to diff against, is the
+    frame before its first difference, the previous chunk's last; shared
+    memory and the threads' pixels fit."""
+    for sms in (1, 7, 132):
+        plan = tscene.scene_plan(n, h, w, sms)
+        assert plan.smem == tscene.scene_smem_bytes(plan.rb, w, plan.stages,
+                                                    plan.fc) <= 227 * 1024
+        assert plan.stages in (2, 3) and 1 <= plan.fc <= tscene.MAX_CHUNK
+        assert 1 <= plan.rb <= h
+        assert (plan.rb * w + 6) // 4 <= 256 * plan.pix // 4   # quads
+        assert plan.copy == (16 if w % 4 == 0 else 4)
+        # the blocks fill the SMs as far as the work goes
+        assert plan.bands * plan.chunks >= min(sms, plan.bands * max(n - 1,
+                                                                     1))
+        assert tscene.scene_plan(n, h, w, sms, aligned=False).copy == 4
+        assert plan.bands == -(-h // plan.rb)
+        n_diff = n - 1
+        assert plan.chunks == max(1, -(-n_diff // plan.fc))
+        seen = []
+        for b in range(plan.bands):
+            r0, r1 = b * plan.rb, min((b + 1) * plan.rb, h)
+            assert r1 > r0                               # no empty band
+            halo = r0 - 1 if r0 > 0 else None
+            assert halo is None if b == 0 else halo == (b - 1) * plan.rb \
+                + min(plan.rb, h - (b - 1) * plan.rb) - 1
+            # the band and its halo fit one ring stage
+            assert (r1 - r0 + (halo is not None)) * w * 3 * 4 * plan.stages \
+                <= plan.smem
+            last = 0                     # the frame the walk has reached
+            for c in range(plan.chunks):
+                d0, d1 = c * plan.fc, min((c + 1) * plan.fc, n_diff)
+                if n_diff == 0:
+                    continue                             # phi_0 alone
+                assert d1 > d0                           # no empty chunk
+                # frames d0 .. d1 of the sequence (odd chunks walk them
+                # backwards): the chunk starts at the frame before its
+                # first difference, where the previous chunk ended
+                assert d0 == last
+                last = d1
+                seen += [(d + 1, r) for d in range(d0, d1)
+                         for r in range(r0, r1)]
+        assert sorted(seen) == [(t, r) for t in range(1, n)
+                                for r in range(h)]
+
+
+def test_scene_plan_raises_for_a_row_too_wide():
+    """One row and its halo in two ring stages: 4,150 pixels fit a block's
+    227 KB (threads holding 32 pixels each), 4,151 do not, and the error
+    names the limit."""
+    plan = tscene.scene_plan(65, 8, 4150, 132)
+    assert plan.rb == 1 and plan.stages == 2 and plan.pix == 32
+    with pytest.raises(ValueError, match="232448 bytes of shared memory"):
+        tscene.scene_plan(65, 8, 4151, 132)
