@@ -31,8 +31,10 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 frames with a grey block and two identical frames, T = 1,
                 T = 2, 37×53 and an unaligned base (4-byte copies), 65
                 frames of 448², with ``prev`` as the segmenter calls it,
-                and frames that take the exact divisions; each case
-                checked to have launched the kernel;
+                frames that take the exact divisions, and rows of 2,100
+                to 4,150 pixels (32 pixels a thread, 3 and 2 ring
+                stages, 16- and 4-byte copies); each case checked to
+                have launched the kernel on the plan it names;
 5. main       — the main path through the user entry points: a
                 ``SessionManager`` embedding with ``MEMEmbedder`` at
                 venus-mem-large (bf16, random weights from a seed; d=768,
@@ -40,10 +42,12 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 frames, then answers 8 queries per session under akr,
                 sampling and topk, and 8 text queries per session through
                 the MEM text tower (one fused launch per group); every
-                kernel must have launched in this run; then tick 1's
-                segment stage replayed with the device synchronised
-                between upload, #2 and the φ read back, and #2's device
-                µs a launch there by the profiler;
+                kernel must have launched in this run; the ingest runs
+                under the profiler (device activity only), which gives
+                #2's device time over its launches there (each must show
+                in the trace); then tick 1's segment stage replayed with
+                the device synchronised between upload, #2 and the φ
+                read back;
 6. dense      — on the main manager: one group each of uniform, bolt,
                 mdf and aks, and akr, sampling and topk with fused=False
                 (one dense scan each), then ``memory.search`` once per
@@ -467,14 +471,18 @@ def make_worlds(n: int, resolution: int):
 
 
 def scene_cases(frames_np):
-    """The scene kernel's cases → [(name, frames, prev)]: the table's 65
-    VideoWorld frames of 224² (timed); random frames with a grey block (c
-    = 0) and two identical frames; T = 1 and T = 2; 37 × 53 (W % 4 != 0:
-    4-byte copies); 65 frames of 448²; the table's frames from a base 4
-    bytes past a 16-byte boundary (4-byte copies); the table's last 64
-    frames with its first as ``prev``, as the segmenter calls it; and
-    frames that take the kernel's exact divisions (a block of channels
-    below 1e-25 apart, a frame with values up to 2)."""
+    """The scene kernel's cases → [(name, frames, prev, (pix, stages,
+    copy) of its plan)]: the table's 65 VideoWorld frames of 224² (timed);
+    random frames with a grey block (c = 0) and two identical frames; T =
+    1 and T = 2; 37 × 53 (W % 4 != 0: 4-byte copies); 65 frames of 448²;
+    the table's frames from a base 4 bytes past a 16-byte boundary (4-byte
+    copies); the table's last 64 frames with its first as ``prev``, as the
+    segmenter calls it; frames that take the kernel's exact divisions (a
+    block of channels below 1e-25 apart, a frame with values up to 2); and
+    rows wider than 2,045 pixels, which take 32 pixels a thread: 33 frames
+    of 40 rows of 2,100 and 2,102 (3 ring stages), of 2,732 and 2,734
+    (bands of 2 rows in 2 stages), each with 16- and 4-byte copies, and
+    the widest row a plan takes, 4,150."""
     import torch
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(18)
@@ -488,14 +496,24 @@ def scene_cases(frames_np):
     buf = torch.empty(table.numel() + 1, device=dev)
     unaligned = buf[1:].view(table.shape).copy_(table)
     check(unaligned.data_ptr() % 16 == 4, "scene: unaligned view")
-    return [("table", table, None), ("random", rand, None),
-            ("t1", rand[:1], None), ("t2", rand[:2], None),
-            ("h37_w53", torch.rand((9, 37, 53, 3), generator=gen,
-                                   device=dev), None),
-            ("448", torch.rand((65, 448, 448, 3), generator=gen,
-                               device=dev), None),
-            ("unaligned", unaligned, None),
-            ("prev", table[1:], table[0]), ("exact_division", exact, None)]
+    eight = (8, 3, 16)
+    cases = [("table", table, None, eight), ("random", rand, None, eight),
+             ("t1", rand[:1], None, eight), ("t2", rand[:2], None, eight),
+             ("h37_w53", torch.rand((9, 37, 53, 3), generator=gen,
+                                    device=dev), None, (8, 3, 4)),
+             ("448", torch.rand((65, 448, 448, 3), generator=gen,
+                                device=dev), None, eight),
+             ("unaligned", unaligned, None, (8, 3, 4)),
+             ("prev", table[1:], table[0], eight),
+             ("exact_division", exact, None, eight)]
+    for t, h, w, route in ((33, 40, 2100, (32, 3, 16)),
+                           (33, 40, 2102, (32, 3, 4)),
+                           (33, 40, 2732, (32, 2, 16)),
+                           (33, 40, 2734, (32, 2, 4)),
+                           (3, 4, 4150, (32, 2, 4))):
+        cases.append((f"w{w}", torch.rand((t, h, w, 3), generator=gen,
+                                          device=dev), None, route))
+    return cases
 
 
 def phase_scene(frames_np):
@@ -510,7 +528,7 @@ def phase_scene(frames_np):
     from repro_torch.kernels import ref, scene_score
     from repro_torch.kernels.device import sm_count
     out, got_of = {}, {}
-    for name, frames, prev in scene_cases(frames_np):
+    for name, frames, prev, route in scene_cases(frames_np):
         run_k = lambda: scene_score.scene_score(frames, DEFAULT_WEIGHTS,
                                                 prev)
         run_p = lambda: ref.scene_score_ref(frames, DEFAULT_WEIGHTS, prev)
@@ -527,6 +545,8 @@ def phase_scene(frames_np):
         check(plan.smem == scene_score.kernel_smem_bytes(
             plan.rb, w, plan.stages, plan.fc),
             f"scene {name}: the plan's shared memory is not the source's")
+        check((plan.pix, plan.stages, plan.copy) == route,
+              f"scene {name}: plan {plan}, not (pix, stages, copy) {route}")
         check(got.shape == want.shape == (t,)
               and bool(torch.isfinite(got).all()),
               f"scene {name}: shape / finite")
@@ -609,14 +629,9 @@ def segment_split(worlds, tick: int = 1, chunk: int = 64):
     session by session with the device synchronised between the steps:
     the pageable upload (``torch.from_numpy(chunk).to('cuda')``), #2's
     launch and run, and the φ read back (``.cpu()``), host-clock seconds
-    summed over the sessions. Then the uploads again and #2 on each under
-    the profiler: #2's device µs a launch on frames just uploaded
-    (k_scene and k_scene_sum, the union of their intervals), None where
-    the trace holds no device events."""
+    summed over the sessions."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.scene import DEFAULT_WEIGHTS
     from repro_torch.kernels import scene_score
     lo = tick * chunk
@@ -639,18 +654,31 @@ def segment_split(worlds, tick: int = 1, chunk: int = 64):
         split["upload_s"] += t1 - t0
         split["kernel_s"] += t2 - t1
         split["readback_s"] += t3 - t2
-    uploaded = [(torch.from_numpy(f).to("cuda"), p) for f, p in work]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for dev, prev in uploaded:
-            scene_score.scene_score(dev, DEFAULT_WEIGHTS, prev)
-        torch.cuda.synchronize()
-    ours = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and "k_scene" in e.name]
-    split["device_us_per_launch"] = (_covered_us(ours) / len(uploaded)
-                                     if ours else None)
     return split
+
+
+def scene_in_trace(prof, launches: int):
+    """#2 in a traced ingest: the device time its kernels cover (k_scene
+    and k_scene_sum, the union of their intervals, so a PDL'd sum that
+    starts early counts once) over its ``launches`` launches, and the
+    device time of every kernel of the ingest. None where the trace holds
+    no device event at all (the profiler now and then returns such a
+    trace); else fails unless it holds one k_scene and one k_scene_sum
+    for each launch."""
+    from torch.autograd import DeviceType
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return None
+    sums = [e for e in kern if "k_scene_sum" in e.name]
+    bands = [e for e in kern if "k_scene<" in e.name]
+    check(launches > 0 and len(sums) == len(bands) == launches,
+          f"main trace: {len(bands)} k_scene and {len(sums)} k_scene_sum "
+          f"for {launches} scene_score launches")
+    us = _covered_us(sums + bands)
+    busy = _covered_us(kern)
+    return dict(launches=launches, device_us=us,
+                device_us_per_launch=us / launches, ingest_device_us=busy,
+                share_of_ingest_device=us / busy)
 
 
 def unit_queries_np(n: int, dim: int, seed: int):
@@ -703,15 +731,34 @@ class TimedEmbedder:
         return self.inner.embed_queries(texts)
 
 
-def run_main_path(worlds, cfg, embedder, dim, card, label):
-    mgr, ticks, stages = ingest_streams(worlds, cfg, embedder, dim, "cuda")
+def run_main_path(worlds, cfg, embedder, dim, card, label, trace=False):
+    """Ingest, then the queries. ``trace``: the ingest runs under the
+    profiler (device activity only), which reads #2 there
+    (``scene_in_trace``, None for an empty trace); its host clocks then
+    carry the tracing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import scene_score
+    before = scene_score.scene_score.launches
+    times = {}
+    if trace:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mgr, ticks, stages = ingest_streams(worlds, cfg, embedder, dim,
+                                                "cuda")
+            torch.cuda.synchronize()
+        times["scene_trace"] = scene_in_trace(
+            prof, scene_score.scene_score.launches - before)
+    else:
+        mgr, ticks, stages = ingest_streams(worlds, cfg, embedder, dim,
+                                            "cuda")
     results, qtimes = run_queries(mgr, len(worlds), dim)
     print(f"phase {label}: ingest ticks (s) {[round(x, 6) for x in ticks]}"
           f"  by stage (s) { {k: round(stages[k], 6) for k in
                              ('segment', 'cluster', 'embed_insert')} }"
           f"  queries (s) { {k: round(v, 6) for k, v in qtimes.items()} }"
           f"  [{card}]", flush=True)
-    return mgr, results, dict(ticks=ticks, stages=stages, queries=qtimes)
+    times.update(ticks=ticks, stages=stages, queries=qtimes)
+    return mgr, results, times
 
 
 def phase_parity():
@@ -1550,10 +1597,17 @@ def main() -> int:
     embedder = TimedEmbedder(MEMEmbedder(mem))
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
-    ops.reset_kernel_launches()
-    ops.reset_scan_counts()
-    mgr, results, times = run_main_path(worlds, cfg, embedder, D, card,
-                                        "main")
+    for _ in range(3):     # again, from nothing, where the trace is empty
+        ops.reset_kernel_launches()
+        ops.reset_scan_counts()
+        embedder.seconds, embedder.frames = 0.0, 0
+        mgr, results, times = run_main_path(worlds, cfg, embedder, D, card,
+                                            "main", trace=True)
+        if times["scene_trace"] is not None:
+            break
+        del mgr, results
+    check(times["scene_trace"] is not None,
+          "main: 3 traces of the ingest held no device event")
     torch.cuda.synchronize()
     launches = ops.kernel_launches()
     counts = ops.scan_counts()
@@ -1565,16 +1619,23 @@ def main() -> int:
     check(mgr.arena.emb.shape == (S, cfg.memory_capacity, D),
           f"arena shape {tuple(mgr.arena.emb.shape)}")
     check_results(mgr, worlds, results, "main")
-    # where the segment stage of tick 1 goes, and #2 a launch there
+    st = times["scene_trace"]
+    check(st["launches"] == launches["scene_score"],
+          f"main trace: {st['launches']} scene launches in the ingest, "
+          f"{launches['scene_score']} in the phase")
+    print(f"  #2 in the main phase (profiler): {st['launches']} launches, "
+          f"{st['device_us']:.2f} device us = "
+          f"{st['device_us_per_launch']:.2f} a launch, "
+          f"{100 * st['share_of_ingest_device']:.2f} % of the ingest's "
+          f"{st['ingest_device_us'] / 1e3:.2f} device ms", flush=True)
+    # where the segment stage of tick 1 goes
     seg = segment_split(worlds)
     seg["main_segment_s"] = times["stages"]["segment_ticks"][1]
     times["segment_split"] = seg
     print(f"  segment stage, tick 1 (s, host clock, {seg['sessions']} "
           f"sessions): main phase {seg['main_segment_s']:.4f}; replayed: "
           f"upload {seg['upload_s']:.4f}  #2 {seg['kernel_s']:.4f}  read "
-          f"back {seg['readback_s']:.4f}; #2 device us a launch "
-          + ("not measured" if seg["device_us_per_launch"] is None else
-             f"{seg['device_us_per_launch']:.2f}"), flush=True)
+          f"back {seg['readback_s']:.4f}", flush=True)
     n_emb = sum(mgr[s].stats["frames_embedded"] for s in range(S))
     check(embedder.frames == n_emb, f"embedded {embedder.frames} != {n_emb}")
     rows = [mgr[s].memory.size for s in range(S)]
@@ -1669,8 +1730,8 @@ def main() -> int:
              max_abs_err=max(v["max_abs_err"] for v in scene.values()),
              ms=scene["table"]["ms"], device_ms=scene["table"]["device_ms"],
              cold_device_ms=scene["table"]["cold_device_ms"],
-             main_device_us_per_launch=times["segment_split"][
-                 "device_us_per_launch"],
+             main_device_us_per_launch=st["device_us_per_launch"],
+             main_device_us=st["device_us"],
              plain_ms=scene["table"]["plain_ms"],
              bound_ms=scene["table"]["bound_ms"],
              bound_by=scene["table"]["bound_by"], library_ms=None)]

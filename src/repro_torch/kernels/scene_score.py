@@ -79,7 +79,7 @@ class ScenePlan(NamedTuple):
     chunks: int    # its second
     stages: int    # ring stages, 3 or 2
     copy: int      # bytes a cp.async: 16, or 4
-    pix: int       # pixels a thread (8, or 32 for rows wider than 2,042)
+    pix: int       # pixels a thread (8, or 32 for rows wider than 2,045)
     smem: int      # a block's shared memory in bytes
 
 
@@ -146,10 +146,8 @@ def _check(frames: torch.Tensor, prev: Optional[torch.Tensor]) -> None:
 
 
 def _launch(frames: torch.Tensor, weights: Sequence[float],
-            prev: Optional[torch.Tensor] = None,
-            plan: Optional[ScenePlan] = None) -> torch.Tensor:
-    """Launch the kernel on the frames' device; ``plan`` defaults to
-    ``scene_plan``'s."""
+            prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the kernel on the frames' device, on ``scene_plan``'s grid."""
     _check(frames, prev)
     frames = frames.contiguous()
     prev = None if prev is None else prev.contiguous()
@@ -158,8 +156,7 @@ def _launch(frames: torch.Tensor, weights: Sequence[float],
     n = t + (prev is not None)
     aligned = (frames.data_ptr() % 16 == 0
                and (prev is None or prev.data_ptr() % 16 == 0))
-    if plan is None:
-        plan = scene_plan(n, h, w, sm_count(dev), aligned)
+    plan = scene_plan(n, h, w, sm_count(dev), aligned)
     wts = np.asarray([float(x) for x in weights], np.float32)
     # Σw·H·W in fp32, as the reference forms it
     norm = np.float32(wts.sum(dtype=np.float32) * np.float32(h * w))

@@ -380,7 +380,8 @@ def test_scene_score_prev_matches_reference_on_the_whole_clip(shape):
 
 SCENE_SHAPES = [(65, 224, 224), (65, 448, 448), (65, 37, 53), (65, 37, 1),
                 (65, 1, 224), (1, 224, 224), (2, 224, 224), (65, 1, 1),
-                (65, 8, 4150)]
+                (65, 8, 4150), (33, 40, 2100), (33, 40, 2732),
+                (33, 40, 2734)]
 
 
 @pytest.mark.parametrize("n,h,w", SCENE_SHAPES)
@@ -396,6 +397,7 @@ def test_scene_plan_covers_every_pair_once(n, h, w):
         assert plan.smem == tscene.scene_smem_bytes(plan.rb, w, plan.stages,
                                                     plan.fc) <= 227 * 1024
         assert plan.stages in (2, 3) and 1 <= plan.fc <= tscene.MAX_CHUNK
+        assert plan.pix == 32 or plan.stages == 3   # the builds there are
         assert 1 <= plan.rb <= h
         assert (plan.rb * w + 6) // 4 <= 256 * plan.pix // 4   # quads
         assert plan.copy == (16 if w % 4 == 0 else 4)
@@ -431,6 +433,31 @@ def test_scene_plan_covers_every_pair_once(n, h, w):
                          for r in range(r0, r1)]
         assert sorted(seen) == [(t, r) for t in range(1, n)
                                 for r in range(h)]
+
+
+# (n, h, w) → (pix, stages, copy) of the plan on 132 SMs: every build of
+# k_scene a plan reaches, as chip_smoke.py's scene cases name them
+SCENE_ROUTES = [((65, 224, 224), (8, 3, 16)), ((9, 37, 53), (8, 3, 4)),
+                ((33, 40, 2100), (32, 3, 16)), ((33, 40, 2102), (32, 3, 4)),
+                ((33, 40, 2732), (32, 2, 16)), ((33, 40, 2734), (32, 2, 4)),
+                ((3, 4, 4150), (32, 2, 4))]
+
+
+@pytest.mark.parametrize("shape,route", SCENE_ROUTES)
+def test_scene_plan_routes(shape, route):
+    plan = tscene.scene_plan(*shape, 132)
+    assert (plan.pix, plan.stages, plan.copy) == route
+
+
+def test_scene_plan_eight_pixels_take_three_stages():
+    """Rows of at most 2,045 pixels take 8 pixels a thread, and then a
+    band with its halo always fits 3 ring stages: the kernel has no
+    2-stage build for them."""
+    for w in range(1, 2046):
+        for h in (1, 2, 64):
+            plan = tscene.scene_plan(65, h, w, 132)
+            assert plan.pix == 8 and plan.stages == 3, (h, w, plan)
+    assert tscene.scene_plan(65, 1, 2046, 132).pix == 32
 
 
 def test_scene_plan_raises_for_a_row_too_wide():

@@ -1,36 +1,24 @@
-"""Where the scene-score kernel (#2) spends its device time, before and after
-its CUDA redesign.
+"""The scene-score kernel (#2, ``csrc/scene_score.cu``): what its division
+gains, and the order of ``k_scene_sum``'s loads.
 
-1. The earlier Triton kernel (one program a frame, each recomputing frame
-   t−1's features; kept here as it was, with two switches) at 65 frames
-   of 224²: as it was; with its grid raised to ``SPLIT`` programs a frame
-   (partial sums, more programs in flight on the 132 SMs); with its
-   arithmetic removed (the same 18 loads a pixel, summed); and both. So
-   the cost of too few programs, of the features and of loads that do not
-   overlap the arithmetic are read apart. Warm (the same frames every call)
-   and cold (4 copies in turn, 156 MB).
-2. ``csrc/scene_score.cu`` at the same frames, warm and cold, with the
-   plan ``scene_plan`` gives, then with other (rows a band, differences a
-   chunk), each checked against the plain version.
-3. ``k_scene`` with one part left out at a time (``VARIANTS``: textual
-   edits of ``csrc/scene_score.cu``, built with the port's nvcc flags into
-   ``_build/scene_variants/``, one nvcc each, all at once; a variant's
-   output is wrong on purpose, only its time is read), each timed twice
-   (A..Z, Z..A) at the plan's grid.
-4. ``div_fast`` (the kernel's division without the compiler's range
-   check and branch) against IEEE division: every float y in [0, 6]
-   divided by 6, and 2^30 random pairs with exponents within +-60.
-5. ``k_scene_sum``'s SASS: no global load ahead of its
+1. ``divide``: ``k_scene`` as it is (``div_fast``: the compiler's IEEE
+   fast path without its range check and branch) against the same source
+   with IEEE ``/`` for every pixel (``hsl<true>``), at 65 frames of 224²,
+   warm (the same frames every call) and cold (4 copies in turn, 156 MB),
+   in turns (A, B, B, A, A, B), each checked against the plain version.
+   Then ``div_fast`` against ``/`` bit for bit: every float in [0, 6]
+   divided by 6, and 2^30 random pairs with exponents within ±60.
+2. ``k_scene_sum``'s SASS (always): no global load ahead of its
    ``griddepcontrol.wait`` (ACQBULK), or it could read partials that
-   ``k_scene`` is still writing. The library's whole SASS goes to
+   ``k_scene`` is still writing. The library's SASS goes to
    ``chiprun_out/scene_sass.txt``.
 
-Needs an H100, Triton and the CUDA toolkit. From the repo root:
+Needs an H100 and the CUDA toolkit. From the repo root:
 
-    python3 tools/scene_times.py [triton] [plans] [variants] [divide]
+    python3 tools/scene_times.py [divide]
 
-(all of them without arguments; the SASS check always). Prints one
-line a variant and writes ``chiprun_out/scene_times.json``.
+Prints one line a reading and writes ``chiprun_out/scene_times.json``;
+exits 1 where a load precedes the wait.
 """
 
 from __future__ import annotations
@@ -44,188 +32,12 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 
-tl = None          # triton.language, bound in main() before the first jit
-
-# name -> (what is left out, [(anchor in scene_score.cu, its replacement)])
-_HSL = ("        hsl<false>(rgb[3 * k], rgb[3 * k + 1], rgb[3 * k + 2], "
-        "fh[4 * i + k],\n                   fs[4 * i + k], fl[4 * i + k], "
-        "plo, phi, ptiny);\n",
-        "        fh[4 * i + k] = fs[4 * i + k] = fl[4 * i + k] = plo = phi = "
-        "ptiny = rgb[3 * k];\n")
-_DIFF = ("        const float v = a.wh * fabsf(fh[b] - ph[b]) +\n"
-         "                        a.ws * fabsf(fs[b] - ps[b]) +\n"
-         "                        a.wl * fabsf(l - pl[b]) + a.we * "
-         "fabsf(e - pe[b]);\n",
-         "        const float v = e;\n")
-_HALO = ("    for (int m = tid; m < mlo; m += kThreads) {\n",
-         "    for (int m = tid; m < 0; m += kThreads) {\n")
-VARIANTS = {
-    "full": ("nothing", []),
-    "no_div": ("the three divisions (multiplications instead)", [
-        ("    s = div_fast(c, den, rcp_approx(den));", "    s = c * den;"),
-        ("    x = div_fast(num, safe, rcp_approx(safe));",
-         "    x = num * safe;"),
-        ("    h = div_fast(y, 6.0f, 0x1.555556p-3f);", "    h = y * 6.0f;")]),
-    "no_hsl": ("hue, saturation and lightness (the red channel instead)",
-               [_HSL]),
-    "no_diff": ("the four weighted differences (the edge instead)", [_DIFF]),
-    "one_barrier": ("the barrier between the lightness and the edges "
-                    "(the edges race)", [
-                        ("    __syncthreads();   // every lightness of the "
-                         "band and its halo is in\n", "")]),
-    "min_blocks_3": ("nothing: 3 blocks an SM asked of the register "
-                     "allocator", [
-                         ("__global__ void __launch_bounds__(kThreads) "
-                          "k_scene(", "__global__ void __launch_bounds__("
-                          "kThreads, 3) k_scene(")]),
-    "no_sum": ("k_scene_sum (k_scene alone)", [
-        ("  return launch_dependent(k_scene_sum,",
-         "  if (D >= 0) return cudaSuccess;\n"
-         "  return launch_dependent(k_scene_sum,")]),
-    "empty": ("all of k_scene's work: its launch and k_scene_sum stay", [
-        ("  constexpr int kPix = 4 * kQuads;\n",
-         "  constexpr int kPix = 4 * kQuads;\n  if (a.T > 0) return;\n")]),
-    "ring_only": ("the features, the halo's lightness and the differences: "
-                  "the ring's copies, the shared lightness and the barriers "
-                  "stay", [_HSL, _DIFF, _HALO]),
-}
-
-
-def _triton_phi(f_ptr, out_ptr, H, W, w_h, w_s, w_l, w_e, norm,
-                SPLIT: "tl.constexpr", LOADS_ONLY: "tl.constexpr"):
-    t = tl.program_id(0)
-    sp = tl.program_id(1)
-    hw = H * W
-    cur = f_ptr + t.to(tl.int64) * hw * 3
-    prv = f_ptr + tl.maximum(t - 1, 0).to(tl.int64) * hw * 3
-    acc = tl.zeros([1024], dtype=tl.float32)
-    for start in range(sp * 1024, hw, SPLIT * 1024):
-        pix = start + tl.arange(0, 1024)
-        inb = pix < hw
-        left = inb & ((pix % W) > 0)
-        up = inb & (pix >= W)
-        r = tl.load(cur + pix * 3, mask=inb, other=0.0)
-        g = tl.load(cur + pix * 3 + 1, mask=inb, other=0.0)
-        b = tl.load(cur + pix * 3 + 2, mask=inb, other=0.0)
-        r1 = tl.load(cur + (pix - 1) * 3, mask=left, other=0.0)
-        g1 = tl.load(cur + (pix - 1) * 3 + 1, mask=left, other=0.0)
-        b1 = tl.load(cur + (pix - 1) * 3 + 2, mask=left, other=0.0)
-        r2 = tl.load(cur + (pix - W) * 3, mask=up, other=0.0)
-        g2 = tl.load(cur + (pix - W) * 3 + 1, mask=up, other=0.0)
-        b2 = tl.load(cur + (pix - W) * 3 + 2, mask=up, other=0.0)
-        pr = tl.load(prv + pix * 3, mask=inb, other=0.0)
-        pg = tl.load(prv + pix * 3 + 1, mask=inb, other=0.0)
-        pb = tl.load(prv + pix * 3 + 2, mask=inb, other=0.0)
-        pr1 = tl.load(prv + (pix - 1) * 3, mask=left, other=0.0)
-        pg1 = tl.load(prv + (pix - 1) * 3 + 1, mask=left, other=0.0)
-        pb1 = tl.load(prv + (pix - 1) * 3 + 2, mask=left, other=0.0)
-        pr2 = tl.load(prv + (pix - W) * 3, mask=up, other=0.0)
-        pg2 = tl.load(prv + (pix - W) * 3 + 1, mask=up, other=0.0)
-        pb2 = tl.load(prv + (pix - W) * 3 + 2, mask=up, other=0.0)
-        if LOADS_ONLY:
-            acc += (r + g + b + r1 + g1 + b1 + r2 + g2 + b2 + pr + pg + pb
-                    + pr1 + pg1 + pb1 + pr2 + pg2 + pb2)
-        else:
-            mx = tl.maximum(tl.maximum(r, g), b)
-            mn = tl.minimum(tl.minimum(r, g), b)
-            c = mx - mn
-            lc = 0.5 * (mx + mn)
-            sc = c / (1.0 - tl.abs(2.0 * lc - 1.0) + 1e-6)
-            safe = tl.where(c > 0, c, 1.0)
-            hr = (g - b) / safe
-            hr = hr - 6.0 * tl.floor(hr / 6.0)
-            hc = tl.where(mx == r, hr,
-                          tl.where(mx == g, (b - r) / safe + 2.0,
-                                   (r - g) / safe + 4.0)) / 6.0
-            hc = tl.where(c > 0, hc, 0.0)
-            ll = 0.5 * (tl.maximum(tl.maximum(r1, g1), b1)
-                        + tl.minimum(tl.minimum(r1, g1), b1))
-            lu = 0.5 * (tl.maximum(tl.maximum(r2, g2), b2)
-                        + tl.minimum(tl.minimum(r2, g2), b2))
-            ec = (tl.where(left, tl.abs(lc - ll), 0.0)
-                  + tl.where(up, tl.abs(lc - lu), 0.0))
-            mx = tl.maximum(tl.maximum(pr, pg), pb)
-            mn = tl.minimum(tl.minimum(pr, pg), pb)
-            c = mx - mn
-            lp = 0.5 * (mx + mn)
-            sp_ = c / (1.0 - tl.abs(2.0 * lp - 1.0) + 1e-6)
-            safe = tl.where(c > 0, c, 1.0)
-            hr = (pg - pb) / safe
-            hr = hr - 6.0 * tl.floor(hr / 6.0)
-            hp = tl.where(mx == pr, hr,
-                          tl.where(mx == pg, (pb - pr) / safe + 2.0,
-                                   (pr - pg) / safe + 4.0)) / 6.0
-            hp = tl.where(c > 0, hp, 0.0)
-            ll = 0.5 * (tl.maximum(tl.maximum(pr1, pg1), pb1)
-                        + tl.minimum(tl.minimum(pr1, pg1), pb1))
-            lu = 0.5 * (tl.maximum(tl.maximum(pr2, pg2), pb2)
-                        + tl.minimum(tl.minimum(pr2, pg2), pb2))
-            ep = (tl.where(left, tl.abs(lp - ll), 0.0)
-                  + tl.where(up, tl.abs(lp - lu), 0.0))
-            acc += (w_h * tl.abs(hc - hp) + w_s * tl.abs(sc - sp_)
-                    + w_l * tl.abs(lc - lp) + w_e * tl.abs(ec - ep))
-    tl.store(out_ptr + t * SPLIT + sp,
-             tl.where(t > 0, tl.sum(acc, axis=0) / norm, 0.0))
-
-
-def device_ms(fn, reps: int = 40) -> float:
-    """Device ms a call: the calls queued behind a sleep kernel, CUDA
-    events around them."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def warm_cold(make_call, copies):
-    """(warm ms, cold ms) of ``make_call(frames)``: the same copy every
-    call, then the copies in turn."""
-    warm = device_ms(lambda: make_call(copies[0]))
-    turn = [0]
-
-    def cold():
-        turn[0] += 1
-        return make_call(copies[turn[0] % len(copies)])
-    return warm, device_ms(cold)
-
-
-def build_variants(out_dir: str) -> dict:
-    """Write and compile every variant in parallel → name: library path."""
-    from repro_torch.kernels import build
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(build.CSRC, "scene_score.cu")) as f:
-        src = f.read()
-    procs = {}
-    for name, (_, edits) in VARIANTS.items():
-        text = src
-        for anchor, repl in edits:
-            if text.count(anchor) != 1:
-                raise RuntimeError(f"{name}: anchor found "
-                                   f"{text.count(anchor)} times")
-            text = text.replace(anchor, repl)
-        cu = os.path.join(out_dir, f"scene_{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
-        lib = os.path.join(out_dir, f"libscene_{name}.so")
-        procs[name] = (lib, subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-o", lib, cu],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{out}")
-        libs[name] = lib
-    return libs
-
+# the source with IEEE division for every pixel: (anchor, replacement)
+IEEE = [("        hsl<false>(rgb[3 * k], rgb[3 * k + 1], rgb[3 * k + 2], "
+         "fh[4 * i + k],", "        hsl<true>(rgb[3 * k], rgb[3 * k + 1], "
+         "rgb[3 * k + 2], fh[4 * i + k],"),
+        ("    if (!(lo >= 0.f && hi <= 1.0f && tiny >= 0x1p-60f)) {",
+         "    if (false) {")]
 
 _DIV_CHECK = r"""
 __global__ void k_div6_check(unsigned hi, unsigned long long* bad) {
@@ -259,20 +71,40 @@ namespace {
 """
 
 
-def build_div_check(out_dir: str) -> str:
-    """scene_score.cu with the checks above appended inside its namespace
-    → the library's path."""
+def device_ms(fn, reps: int = 40) -> float:
+    """Device ms a call: the calls queued behind a sleep kernel, CUDA
+    events around them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def build_edited(name: str, edits) -> str:
+    """``scene_score.cu`` with each anchor (found exactly once) replaced,
+    built with the port's nvcc flags → the library's path."""
     from repro_torch.kernels import build
+    out_dir = os.path.join(build.BUILD_DIR, "scene_variants")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(build.CSRC, "scene_score.cu")) as f:
-        src = f.read()
-    anchor = "}  // namespace\n"
-    if src.count(anchor) != 1:
-        raise RuntimeError("scene_score.cu: namespace end not found once")
-    cu = os.path.join(out_dir, "scene_div_check.cu")
+        text = f.read()
+    for anchor, repl in edits:
+        if text.count(anchor) != 1:
+            raise RuntimeError(f"{name}: anchor found {text.count(anchor)} "
+                               f"times")
+        text = text.replace(anchor, repl)
+    cu = os.path.join(out_dir, f"scene_{name}.cu")
     with open(cu, "w") as f:
-        f.write(src.replace(anchor, _DIV_CHECK + anchor))
-    lib = os.path.join(out_dir, "libscene_div_check.so")
+        f.write(text)
+    lib = os.path.join(out_dir, f"libscene_{name}.so")
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", lib, cu],
                    check=True, capture_output=True, text=True)
     return lib
@@ -300,154 +132,98 @@ def sass_order(lib_path: str) -> dict:
                 load_lines=[body[i].strip() for i in loads])
 
 
-def main(parts) -> int:
-    global tl
+def divide(out: dict) -> None:
     import numpy as np
     import torch
     from repro_torch.core.scene import DEFAULT_WEIGHTS
     from repro_torch.data.video import VideoWorld, WorldConfig
-    from repro_torch.kernels import build, ref, scene_score
-    from repro_torch.kernels.device import sm_count
+    from repro_torch.kernels import ref, scene_score
 
+    frames = torch.from_numpy(np.ascontiguousarray(VideoWorld(WorldConfig(
+        n_scenes=3, resolution=224, seed=0)).frames[:65])).cuda()
+    copies = [frames] + [frames.clone() for _ in range(3)]
+    want = ref.scene_score_ref(frames, DEFAULT_WEIGHTS)
+    scene_score._kernel_fn()
+    fns = {"div_fast": scene_score._FN[0]}
+    fn = ctypes.CDLL(build_edited("ieee", IEEE)).scene_score_f32
+    fn.argtypes, fn.restype = scene_score._ARGTYPES, ctypes.c_int
+    fns["ieee"] = fn
+    turn = [0]
+
+    def cold():
+        turn[0] += 1
+        return scene_score.scene_score(copies[turn[0] % 4], DEFAULT_WEIGHTS)
+    rows = {name: dict(warm_us=[], cold_us=[]) for name in fns}
+    try:
+        for name in ("div_fast", "ieee", "ieee", "div_fast", "div_fast",
+                     "ieee"):
+            scene_score._FN[0] = fns[name]
+            got = scene_score.scene_score(frames, DEFAULT_WEIGHTS)
+            torch.cuda.synchronize()
+            assert torch.allclose(got, want, rtol=1e-5, atol=1e-7), name
+            # div_fast gives the same bits as /, so both give the same phi
+            first = rows[name].setdefault("phi", got)
+            assert torch.equal(got, first) and torch.equal(
+                got, rows.get("div_fast", {}).get("phi", got)), name
+            rows[name]["warm_us"].append(1e3 * device_ms(
+                lambda: scene_score.scene_score(frames, DEFAULT_WEIGHTS)))
+            rows[name]["cold_us"].append(1e3 * device_ms(cold))
+    finally:
+        scene_score._FN[0] = fns["div_fast"]
+    for row in rows.values():
+        del row["phi"]
+    out["divide_times"] = rows
+    for name, row in rows.items():
+        print(f"k_scene with {name}: warm {row['warm_us']} us  cold "
+              f"{row['cold_us']} us", flush=True)
+
+    # the same bits as IEEE division, where the kernel keeps div_fast
+    check = ctypes.CDLL(build_edited("div_check", [(
+        "}  // namespace\n", _DIV_CHECK + "}  // namespace\n")]))
+    check = check.scene_div_check
+    check.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_uint,
+                                              ctypes.c_void_p]
+    bad = torch.zeros(3, dtype=torch.int64, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n, batches = 1 << 26, 16
+
+    def operands():
+        # sign, an exponent within +-60, a random mantissa
+        e = torch.randint(127 - 60, 127 + 61, (n,), generator=gen,
+                          device="cuda")
+        m = torch.randint(0, 1 << 23, (n,), generator=gen, device="cuda")
+        sg = torch.randint(0, 2, (n,), generator=gen, device="cuda")
+        v = (sg << 31) | (e << 23) | m
+        return (v - ((v >> 31) << 32)).to(torch.int32)   # the same bits
+    for k in range(batches):
+        x, y = operands(), operands()
+        six = 0x40C00000 if k == 0 else 0                 # the bits of 6.0
+        rc = check(x.data_ptr(), y.data_ptr(), n, six, bad.data_ptr())
+        assert rc == 0, rc
+    torch.cuda.synchronize()
+    out["divide_bits"] = dict(random_pairs=n * batches,
+                              random_mismatches=int(bad[0]),
+                              six_values=0x40C00000 + 1,
+                              six_mismatches_below_2_60=int(bad[1]),
+                              six_mismatches_in_range=int(bad[2]))
+    print(f"div_fast: {int(bad[0])} of {n * batches} random pairs differ "
+          f"from IEEE division; floats in [0, 6] divided by 6: "
+          f"{int(bad[2])} differ at 0 or >= 2^-60, {int(bad[1])} below "
+          f"2^-60 (where the kernel divides with /)", flush=True)
+
+
+def main(parts) -> int:
+    from repro_torch.kernels import build
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    frames_np = VideoWorld(WorldConfig(n_scenes=3, resolution=224,
-                                       seed=0)).frames[:65]
-    frames = torch.from_numpy(np.ascontiguousarray(frames_np)).cuda()
-    copies = [frames] + [frames.clone() for _ in range(3)]
-    t, h, w, _ = frames.shape
-    wts = [float(x) for x in DEFAULT_WEIGHTS]
-    norm = float(np.float32(sum(wts)) * np.float32(h * w))
-    want = ref.scene_score_ref(frames, DEFAULT_WEIGHTS)
-    out = dict(card=card, triton={}, plans={}, variants={})
-
-    if "triton" in parts:
-        import triton
-        import triton.language
-        os.environ.setdefault("TRITON_CACHE_DIR",
-                              os.path.join(build.BUILD_DIR, "triton"))
-        tl = triton.language
-        jit = triton.jit(_triton_phi)
-
-        def triton_call(split, loads_only):
-            part = torch.empty((t, split), device="cuda")
-
-            def call(f):
-                jit[(t, split)](f, part, h, w, *wts, norm, SPLIT=split,
-                                LOADS_ONLY=loads_only, num_warps=8)
-                return part
-            return call
-
-        for name, split, loads_only in (("as_was", 1, False),
-                                        ("grid_x2", 2, False),
-                                        ("grid_x4", 4, False),
-                                        ("loads_only", 1, True),
-                                        ("loads_only_grid_x4", 4, True)):
-            call = triton_call(split, loads_only)
-            if not loads_only:
-                phi = call(frames).sum(1)
-                torch.cuda.synchronize()
-                assert torch.allclose(phi, want, rtol=1e-5, atol=1e-7), name
-            wm, cm = warm_cold(call, copies)
-            out["triton"][name] = dict(programs=t * split, warm_ms=wm,
-                                       cold_ms=cm)
-            print(f"triton {name}: {t * split} programs  warm "
-                  f"{wm * 1e3:.2f} us  cold {cm * 1e3:.2f} us", flush=True)
-
-    sms = sm_count(frames.device)
-    base = scene_score.scene_plan(t, h, w, sms)
-
-    def make_plan(rb, fc, stages=3):
-        pix = 8 if (rb * w + 6) // 4 <= 512 else 32
-        return scene_score.ScenePlan(
-            rb, fc, -(-h // rb), -(-(t - 1) // fc), stages, 16, pix,
-            scene_score.scene_smem_bytes(rb, w, stages, fc))
-
-    def timed(plan):
-        call = lambda f: scene_score._launch(f, DEFAULT_WEIGHTS, plan=plan)
-        return warm_cold(call, copies)
-
-    if "plans" in parts:
-        plans = {"plan": base}
-        for rb in (4, 8, 9):
-            for fc in (5, 6, 7, 8, 11, 16):
-                plans[f"rb{rb}_fc{fc}"] = make_plan(rb, fc)
-        plans["rb9_fc7_s2"] = make_plan(9, 7, stages=2)
-        for name, plan in plans.items():
-            got = scene_score._launch(frames, DEFAULT_WEIGHTS, plan=plan)
-            torch.cuda.synchronize()
-            assert torch.allclose(got, want, rtol=1e-5, atol=1e-7), name
-            assert float(got[0]) == 0.0, name
-            wm, cm = timed(plan)
-            out["plans"][name] = dict(plan=plan._asdict(), warm_ms=wm,
-                                      cold_ms=cm,
-                                      blocks=plan.bands * plan.chunks)
-            print(f"cuda {name}: rb {plan.rb} fc {plan.fc} stages "
-                  f"{plan.stages} pix {plan.pix} blocks "
-                  f"{plan.bands * plan.chunks}  warm {wm * 1e3:.2f} us  "
-                  f"cold {cm * 1e3:.2f} us", flush=True)
-
-    if "variants" in parts:
-        libs = build_variants(os.path.join(build.BUILD_DIR,
-                                           "scene_variants"))
-        scene_score._kernel_fn()
-        # each variant twice, A..Z then Z..A, so a drift of the card's
-        # clock falls on every variant alike
-        for name in list(VARIANTS) + list(reversed(VARIANTS)):
-            fn = ctypes.CDLL(libs[name]).scene_score_f32
-            fn.argtypes, fn.restype = scene_score._ARGTYPES, ctypes.c_int
-            scene_score._FN[0] = fn
-            row = out["variants"].setdefault(
-                name, dict(leaves_out=VARIANTS[name][0]))
-            wm, cm = timed(base)
-            row.setdefault("warm_us", []).append(wm * 1e3)
-            row.setdefault("cold_us", []).append(cm * 1e3)
-        scene_score._FN.clear()
-        for name, row in out["variants"].items():
-            print(f"variant {name:14s} warm {row['warm_us']} us  cold "
-                  f"{row['cold_us']} us  leaves out: {row['leaves_out']}",
-                  flush=True)
-
+    out = dict(card=card)
     if "divide" in parts:
-        fn = ctypes.CDLL(build_div_check(os.path.join(
-            build.BUILD_DIR, "scene_variants"))).scene_div_check
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_uint,
-                                               ctypes.c_void_p]
-        bad = torch.zeros(3, dtype=torch.int64, device="cuda")
-        gen = torch.Generator(device="cuda").manual_seed(6)
-        n, batches = 1 << 26, 16
-
-        def operands():
-            # sign, an exponent within +-60, a random mantissa
-            e = torch.randint(127 - 60, 127 + 61, (n,), generator=gen,
-                              device="cuda")
-            m = torch.randint(0, 1 << 23, (n,), generator=gen,
-                              device="cuda")
-            sg = torch.randint(0, 2, (n,), generator=gen, device="cuda")
-            v = (sg << 31) | (e << 23) | m
-            return (v - ((v >> 31) << 32)).to(torch.int32)  # the same bits
-        for k in range(batches):
-            x, y = operands(), operands()
-            six = 0x40C00000 if k == 0 else 0       # the bits of 6.0
-            rc = fn(x.data_ptr(), y.data_ptr(), n, six, bad.data_ptr())
-            assert rc == 0, rc
-        torch.cuda.synchronize()
-        out["divide"] = dict(random_pairs=n * batches,
-                             random_mismatches=int(bad[0]),
-                             six_values=0x40C00000 + 1,
-                             six_mismatches_below_2_60=int(bad[1]),
-                             six_mismatches_in_range=int(bad[2]))
-        print(f"div_fast: {int(bad[0])} of {n * batches} random pairs "
-              f"differ from IEEE division; floats in [0, 6] divided by 6: "
-              f"{int(bad[2])} differ at 0 or >= 2^-60, {int(bad[1])} "
-              f"below 2^-60 (where the kernel divides with /)", flush=True)
-
-    lib = build.build_all()["scene_score.cu"]
-    out["sass"] = sass_order(lib)
+        divide(out)
+    out["sass"] = sass_order(build.build_all()["scene_score.cu"])
     print(f"k_scene_sum SASS: ACQBULK at {out['sass']['acqbulk']}, global "
           f"loads at {out['sass']['loads']}: "
           f"{'ok' if out['sass']['ok'] else 'A LOAD PRECEDES THE WAIT'}",
@@ -459,5 +235,4 @@ def main(parts) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(set(sys.argv[1:])
-                  or {"triton", "plans", "variants", "divide"}))
+    sys.exit(main(set(sys.argv[1:])))
