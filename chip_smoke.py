@@ -10,11 +10,19 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 csrc`` (one nvcc per source, all started together);
 2. fused      — the fused retrieval kernel against its plain PyTorch
                 version at S=16, N=8192, d=768, Q=8, T=32, K=8: f32, int8
-                (from ``quantise_rows``) and wrapping (S, 2) ring windows;
-                then the edge cases of ``scan_edge_cases`` (S=4, N=1000:
-                d=6 and d=770, and d=768 from an unaligned index view, f32
-                and int8). Integers equal; floats allclose (rtol 1e-5,
-                atol 1e-6); draw targets kept ≥ 1e-6 from every CDF value;
+                (from ``quantise_rows``) and wrapping (S, 2) ring windows
+                (timed; the bound counts the rows the mask keeps, every
+                row beside it); then the edge cases of
+                ``scan_edge_cases`` (S=4, N=1000: d=6 and d=770, and d=768
+                from an unaligned index view, f32 and int8) and of
+                ``fused_cases`` (sessions with fewer valid rows than K,
+                windows that wrap with whole chunks masked inside, targets
+                past the total mass, N=8400). Raw counts, draws and top-K
+                lanes equal; floats allclose (rtol 1e-5, atol 1e-6); a
+                count of N has drawn_p 0; draw targets kept ≥ 1e-6 from
+                every CDF value; each case checked to have launched the
+                kernel; the host's plan of the score pass (ring stages,
+                shared memory) held to the source's;
 3. similarity — the dense scan kernel (stack form) against its plain
                 version at the same shapes, f32, int8 and windows, and the
                 fused phase's edge cases, each
@@ -42,10 +50,11 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 frames, then answers 8 queries per session under akr,
                 sampling and topk, and 8 text queries per session through
                 the MEM text tower (one fused launch per group); every
-                kernel must have launched in this run; the ingest runs
-                under the profiler (device activity only), which gives
-                #2's device time over its launches there (each must show
-                in the trace); then tick 1's segment stage replayed with
+                kernel must have launched in this run; the ingest and then
+                the queries run under the profiler (device activity only),
+                which gives #2's device time over its launches in the
+                ingest and #1's over its 4 in the queries (each launch
+                must show in the trace); then tick 1's segment stage replayed with
                 the device synchronised between upload, #2 and the φ
                 read back;
 6. dense      — on the main manager: one group each of uniform, bolt,
@@ -238,11 +247,84 @@ def scan_edge_cases(gen):
     return out
 
 
+def fused_cases(gen):
+    """The fused scan's cases beyond the table's shape, at d = 768 (f32
+    rows staged through the CUDA cores' ring, int8 rows on the tensor
+    cores), each with a ragged last chunk: ``few_rows`` (S=4, N=1000:
+    sessions of 1000, 3 and 0 valid rows and 613, so top-K carries -1e30
+    lanes, lowest lane first), ``wrap_holes`` (S=4, N=2048: windows that
+    wrap around the ring with whole 256-row chunks masked inside them,
+    and one that does not wrap; f32 and int8), ``ring_int8`` (the
+    few_rows sessions over int8 rows of d = 800, which take the ring),
+    ``beyond_mass`` (the few_rows inputs with targets at and past the
+    total mass: count N, drawn_p 0) and ``n8400`` (S=16, N=8400,
+    wrapping windows: a row of two slabs; f32 and int8) → [(name, query,
+    index, valid, extra targets)]."""
+    import torch
+    from repro_torch.core.memory import quantise_rows
+    dev = torch.device("cuda")
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def rows(s, n):
+        return (torch.randn((s, Q, D), generator=gen, device=dev),
+                torch.randn((s, n, D), generator=gen, device=dev))
+    q4, x4 = rows(4, 1000)
+    few = torch.tensor([1000, 3, 0, 613], **i32)
+    qw, xw = rows(4, 2048)
+    holes = torch.tensor([[1900, 400], [2047, 2], [100, 50], [1000, 2000]],
+                         **i32)
+    q16, x16 = rows(S, 8400)
+    wins = torch.stack([torch.randint(0, 8400, (S,), generator=gen, **i32),
+                        torch.randint(1, 8401, (S,), generator=gen, **i32)],
+                       dim=1)
+    check(bool((wins.sum(1) > 8400).any()), "n8400: a window wraps")
+    x16_8 = torch.from_numpy(quantise_rows(x16.cpu().numpy())[0]).to(dev)
+    xw8 = torch.from_numpy(quantise_rows(xw.cpu().numpy())[0]).to(dev)
+    q800 = torch.randn((4, Q, 800), generator=gen, device=dev)
+    x800 = torch.from_numpy(quantise_rows(torch.randn(
+        (4, 1000, 800), generator=gen, device=dev).cpu().numpy())[0]).to(dev)
+    beyond = torch.tensor([1.0 + 2 ** -10, 1.5, 2.0], device=dev)
+    return [("few_rows", q4, x4, few, None),
+            ("wrap_holes", qw, xw, holes, None),
+            ("wrap_holes_int8", qw, xw8, holes, None),
+            ("ring_int8", q800, x800, few, None),
+            ("beyond_mass", q4, x4, few, beyond),
+            ("n8400", q16, x16, wins, None),
+            ("n8400_int8", q16, x16_8, wins, None)]
+
+
+def check_scan_plan():
+    """The host's mirror of the score pass's plan (``similarity.
+    scan_plan``) against the source's own (``scan::mma_ok``,
+    ``scan::scan_stages`` and the shared memory of each, exported by the
+    fused library), at every width the cases take and at the limits."""
+    import ctypes
+    from repro_torch.kernels import build, similarity
+    lib = build.load("fused_retrieve.cu")
+    lib.fused_retrieve_smem.restype = ctypes.c_longlong
+    n = 0
+    for d in (6, 8, 768, 770, 784, 792, 800, 804, 808, 1024, 1808, 1824,
+              2416, 2432, 7264):
+        for elt in (4, 1):
+            for aligned in (0, 1):
+                path, st, smem = similarity.scan_plan(d, elt, bool(aligned))
+                got = (bool(lib.fused_retrieve_mma(d, elt, aligned)),
+                       lib.fused_retrieve_stages(d, elt, aligned),
+                       lib.fused_retrieve_smem(d, elt, aligned))
+                check(got[0] == (path == "mma")
+                      and (got[0] or got[1] == st) and got[2] == smem,
+                      f"scan plan d={d} elt={elt} aligned={aligned}: "
+                      f"source {got}, host {(path, st, smem)}")
+                n += 1
+    return n
+
+
 def phase_fused(gen):
     import torch
     from repro_torch.core.memory import quantise_rows
     from repro_torch.kernels import ops, ref, similarity
     dev = torch.device("cuda")
+    n_plans = check_scan_plan()
     query = torch.randn((S, Q, D), generator=gen, device=dev)
     index32 = torch.randn((S, N, D), generator=gen, device=dev)
     index8 = torch.from_numpy(quantise_rows(index32.cpu().numpy())[0]).to(dev)
@@ -253,24 +335,43 @@ def phase_fused(gen):
                            dtype=torch.int32)
     wins = torch.stack([starts, sizes], dim=1)
     check(bool(((starts + sizes) > N).any()), "a window wraps")
-    cases = [("f32", query, index32, sizes), ("int8", query, index8, sizes),
-             ("f32_windows", query, index32, wins)] + scan_edge_cases(gen)
+    cases = ([("f32", query, index32, sizes, None),
+              ("int8", query, index8, sizes, None),
+              ("f32_windows", query, index32, wins, None)]
+             + [c + (None,) for c in scan_edge_cases(gen)]
+             + fused_cases(gen))
     out = {}
-    for name, query, index, valid in cases:
+    for name, query, index, valid, extra in cases:
         n = index.shape[1]
+        vmask = ref.as_valid_mask(valid, n)
         sims, m, l = ref.similarity_scan_stack_ref(query, index, valid,
                                                    tau=TAU)
-        probs = ref.scan_probs(sims, m, l,
-                               ref.as_valid_mask(valid, n)[:, None, :], TAU)
+        probs = ref.scan_probs(sims, m, l, vmask[:, None, :], TAU)
         del sims
         targets, margin = margin_targets(probs, gen, T)
         del probs
+        if extra is not None:       # targets at and past the total mass
+            targets[..., -len(extra):] = extra
         run_k = lambda: similarity.fused_retrieve_scan_stack(
             query, index, valid, targets, tau=TAU, n_topk=K)
         run_p = lambda: ref.fused_retrieve_stack_ref(
             query, index, valid, targets, tau=TAU, n_topk=K)
-        got, want = ops.finalize(run_k(), n), ops.finalize(run_p(), n)
+        before = similarity.fused_retrieve_scan_stack.launches
+        raw = run_k()
+        check(similarity.fused_retrieve_scan_stack.launches == before + 1,
+              f"fused {name}: the kernel did not launch")
+        raw_p = run_p()
+        got, want = ops.finalize(raw, n), ops.finalize(raw_p, n)
         torch.cuda.synchronize()
+        check(torch.equal(raw.counts, raw_p.counts),
+              f"fused {name}: raw counts differ in "
+              f"{int((raw.counts != raw_p.counts).sum())} places")
+        past = raw.counts == n
+        check(bool((raw.drawn_p[past] == 0).all()),
+              f"fused {name}: drawn_p of a count of N is not 0")
+        if extra is not None:
+            check(bool(past[..., -len(extra):].all()),
+                  f"fused {name}: targets past the mass did not count N")
         for f in ("draws", "topk_i"):
             check(torch.equal(getattr(got, f), getattr(want, f)),
                   f"fused {name}: {f} differ in "
@@ -284,9 +385,9 @@ def phase_fused(gen):
                   f"{float((a - b).abs().max())}")
             if f != "l":     # l sums N terms: judged relative, above
                 err = max(err, float((a - b).abs().max()))
-        if n != N:           # an edge case: checked only
+        if name not in ("f32", "int8", "f32_windows"):   # checked only
             out[name] = dict(max_abs_err=err, margin=margin,
-                             d=index.shape[2])
+                             d=index.shape[2], n=n)
             print(f"phase fused[{name}]: ok  d={index.shape[2]} N={n}  "
                   f"max_abs_err {err:.3e}  target margin {margin:.2e}",
                   flush=True)
@@ -295,17 +396,25 @@ def phase_fused(gen):
         dev_ms = device_ms(run_k)
         plain = cuda_ms(run_p, reps=2)
         elt = index.element_size()
-        nbytes = (S * N * D * elt + S * Q * D * 4 + valid.numel() * 4
-                  + S * Q * T * 4 + S * Q * (2 * T + 2 * K + 3) * 4)
-        flops = 2.0 * S * Q * N * D + 3.0 * S * N * D
-        b, by = bound_ms(nbytes, flops)
+        # the bound reads the rows the mask keeps (and, beside it, every
+        # row), the queries, the mask and the targets once, and writes the
+        # outputs once
+        small = (S * Q * D * 4 + valid.numel() * valid.element_size()
+                 + S * Q * T * 4 + S * Q * (2 * T + 2 * K + 4) * 4)
+        flops = 2.0 * Q + 3.0
+        n_valid = int(vmask.sum())
+        b, by = bound_ms(n_valid * D * elt + small, flops * n_valid * D)
+        b_all, _ = bound_ms(S * N * D * elt + small, flops * S * N * D)
         out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
-                         bound_ms=b, bound_by=by, max_abs_err=err,
-                         margin=margin)
+                         bound_ms=b, bound_by=by, all_rows_bound_ms=b_all,
+                         valid_rows=n_valid, max_abs_err=err, margin=margin)
         print(f"phase fused[{name}]: ok  kernel {ms:.4f} ms (device "
               f"{dev_ms:.4f} ms)  plain "
-              f"{plain:.4f} ms  bound {b:.4f} ms ({by})  max_abs_err "
+              f"{plain:.4f} ms  bound {b:.4f} ms ({by}; {n_valid} valid "
+              f"rows; all rows {b_all:.4f})  max_abs_err "
               f"{err:.3e}  target margin {margin:.2e}", flush=True)
+    print(f"  fused: the host's plan of the score pass equals the source's "
+          f"at {n_plans} widths", flush=True)
     return out
 
 
@@ -657,28 +766,27 @@ def segment_split(worlds, tick: int = 1, chunk: int = 64):
     return split
 
 
-def scene_in_trace(prof, launches: int):
-    """#2 in a traced ingest: the device time its kernels cover (k_scene
-    and k_scene_sum, the union of their intervals, so a PDL'd sum that
-    starts early counts once) over its ``launches`` launches, and the
-    device time of every kernel of the ingest. None where the trace holds
-    no device event at all (the profiler now and then returns such a
-    trace); else fails unless it holds one k_scene and one k_scene_sum
-    for each launch."""
+def kernel_in_trace(prof, launches: int, parts, what: str):
+    """A kernel's device time in a traced phase: the time its parts (the
+    kernels whose names hold each of ``parts``) cover, the union of their
+    intervals, so a PDL'd part that starts early counts once, over its
+    ``launches`` launches, and the device time of every kernel in the
+    trace. None where the trace holds no device event at all (the
+    profiler now and then returns such a trace); else fails unless it
+    holds one of each part for each launch."""
     from torch.autograd import DeviceType
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kern:
         return None
-    sums = [e for e in kern if "k_scene_sum" in e.name]
-    bands = [e for e in kern if "k_scene<" in e.name]
-    check(launches > 0 and len(sums) == len(bands) == launches,
-          f"main trace: {len(bands)} k_scene and {len(sums)} k_scene_sum "
-          f"for {launches} scene_score launches")
-    us = _covered_us(sums + bands)
+    found = {p: [e for e in kern if p in e.name] for p in parts}
+    check(launches > 0 and all(len(v) == launches for v in found.values()),
+          f"{what} trace: { {p: len(v) for p, v in found.items()} } for "
+          f"{launches} launches")
+    us = _covered_us([e for v in found.values() for e in v])
     busy = _covered_us(kern)
     return dict(launches=launches, device_us=us,
-                device_us_per_launch=us / launches, ingest_device_us=busy,
-                share_of_ingest_device=us / busy)
+                device_us_per_launch=us / launches, traced_device_us=busy,
+                share_of_traced_device=us / busy)
 
 
 def unit_queries_np(n: int, dim: int, seed: int):
@@ -732,26 +840,34 @@ class TimedEmbedder:
 
 
 def run_main_path(worlds, cfg, embedder, dim, card, label, trace=False):
-    """Ingest, then the queries. ``trace``: the ingest runs under the
-    profiler (device activity only), which reads #2 there
-    (``scene_in_trace``, None for an empty trace); its host clocks then
-    carry the tracing."""
+    """Ingest, then the queries. ``trace``: the ingest and then the
+    queries each run under the profiler (device activity only), which
+    reads #2 in the ingest and #1 in the queries (``kernel_in_trace``,
+    None for an empty trace); their host clocks then carry the tracing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import scene_score
-    before = scene_score.scene_score.launches
+    from repro_torch.kernels import scene_score, similarity
     times = {}
     if trace:
+        before = scene_score.scene_score.launches
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             mgr, ticks, stages = ingest_streams(worlds, cfg, embedder, dim,
                                                 "cuda")
             torch.cuda.synchronize()
-        times["scene_trace"] = scene_in_trace(
-            prof, scene_score.scene_score.launches - before)
+        times["scene_trace"] = kernel_in_trace(
+            prof, scene_score.scene_score.launches - before,
+            ("k_scene<", "k_scene_sum"), "main ingest")
+        before = similarity.fused_retrieve_scan_stack.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            results, qtimes = run_queries(mgr, len(worlds), dim)
+            torch.cuda.synchronize()
+        times["fused_trace"] = kernel_in_trace(
+            prof, similarity.fused_retrieve_scan_stack.launches - before,
+            ("k_scores<", "k_finish"), "main queries")
     else:
         mgr, ticks, stages = ingest_streams(worlds, cfg, embedder, dim,
                                             "cuda")
-    results, qtimes = run_queries(mgr, len(worlds), dim)
+        results, qtimes = run_queries(mgr, len(worlds), dim)
     print(f"phase {label}: ingest ticks (s) {[round(x, 6) for x in ticks]}"
           f"  by stage (s) { {k: round(stages[k], 6) for k in
                              ('segment', 'cluster', 'embed_insert')} }"
@@ -1603,11 +1719,11 @@ def main() -> int:
         embedder.seconds, embedder.frames = 0.0, 0
         mgr, results, times = run_main_path(worlds, cfg, embedder, D, card,
                                             "main", trace=True)
-        if times["scene_trace"] is not None:
+        if None not in (times["scene_trace"], times["fused_trace"]):
             break
         del mgr, results
-    check(times["scene_trace"] is not None,
-          "main: 3 traces of the ingest held no device event")
+    check(None not in (times["scene_trace"], times["fused_trace"]),
+          "main: 3 traces of the ingest or the queries held no device event")
     torch.cuda.synchronize()
     launches = ops.kernel_launches()
     counts = ops.scan_counts()
@@ -1623,11 +1739,16 @@ def main() -> int:
     check(st["launches"] == launches["scene_score"],
           f"main trace: {st['launches']} scene launches in the ingest, "
           f"{launches['scene_score']} in the phase")
-    print(f"  #2 in the main phase (profiler): {st['launches']} launches, "
-          f"{st['device_us']:.2f} device us = "
-          f"{st['device_us_per_launch']:.2f} a launch, "
-          f"{100 * st['share_of_ingest_device']:.2f} % of the ingest's "
-          f"{st['ingest_device_us'] / 1e3:.2f} device ms", flush=True)
+    ft = times["fused_trace"]
+    check(ft["launches"] == launches["fused_retrieve"],
+          f"main trace: {ft['launches']} fused launches in the queries, "
+          f"{launches['fused_retrieve']} in the phase")
+    for tag, tr, where in (("#2", st, "ingest's"), ("#1", ft, "queries'")):
+        print(f"  {tag} in the main phase (profiler): {tr['launches']} "
+              f"launches, {tr['device_us']:.2f} device us = "
+              f"{tr['device_us_per_launch']:.2f} a launch, "
+              f"{100 * tr['share_of_traced_device']:.2f} % of the {where} "
+              f"{tr['traced_device_us'] / 1e3:.2f} device ms", flush=True)
     # where the segment stage of tick 1 goes
     seg = segment_split(worlds)
     seg["main_segment_s"] = times["stages"]["segment_ticks"][1]
@@ -1710,10 +1831,14 @@ def main() -> int:
         ms=fused["f32"]["ms"], device_ms=fused["f32"]["device_ms"],
         plain_ms=fused["f32"]["plain_ms"],
         bound_ms=fused["f32"]["bound_ms"], bound_by=fused["f32"]["bound_by"],
+        all_rows_bound_ms=fused["f32"]["all_rows_bound_ms"],
         library_ms=None, int8_ms=fused["int8"]["ms"],
         int8_device_ms=fused["int8"]["device_ms"],
         int8_bound_ms=fused["int8"]["bound_ms"],
-        windows_ms=fused["f32_windows"]["ms"]),
+        int8_all_rows_bound_ms=fused["int8"]["all_rows_bound_ms"],
+        windows_ms=fused["f32_windows"]["ms"],
+        main_device_us_per_launch=ft["device_us_per_launch"],
+        main_device_us=ft["device_us"]),
         stack_row,
         dict(scan_row("similarity_scan", "similarity_scan_2d.cu",
                       "src/repro/kernels/similarity.py:148", sim["2d"],

@@ -1,46 +1,51 @@
 // Fused retrieval scan for Hopper (sm_90a): one launch answers a whole
 // execution group — softmax statistics, inverse-CDF draw counts, the
-// crossing-lane probability of every draw, the top-K and p_last — with no
-// (S, Q, N) score tensor ever written to device memory.
+// crossing-lane probability of every draw, the top-K, p_last and p_max.
 //
 // Replaces: src/repro/kernels/similarity.py::fused_retrieve_scan_stack
 // (_fused_stack_kernel, the TPU Pallas kernel). Contract: the plain
 // version repro_torch/kernels/ref.py::fused_retrieve_stack_ref.
 //
-// What bounds it on an H100: bytes. Each session's N x d index rows (f32
-// or int8) must be read; at S=16, N=8192, d=768 that is 402.7 MB in f32
-// (100.7 MB in int8) against 3.35 TB/s, ~0.12 ms (~0.03 ms). The
-// arithmetic, 2*S*Q*N*d ~ 1.6 GFLOP, is far below the fp32 line.
+// What bounds it on an H100: bytes. The valid index rows must be read
+// (f32 or int8); at S=16, N=8192, d=768 with every row valid that is
+// 402.7 MB in f32 (100.7 MB in int8) against 3.35 TB/s, ~0.12 ms (~0.03
+// ms), and a masked row need not be read at all. The arithmetic,
+// 2*S*Q*N*d ~ 1.6 GFLOP, is far below the fp32 line.
 //
-// Design. The TPU kernel walks one session's blocks in order and carries
-// the softmax stats, the CDF carry and the top-K in scratch; on a GPU the
-// blocks of one session run in parallel, so the walk becomes four short
-// kernels over (chunk, session, query-group) tiles of DRAW_BLK = 256 rows
-// x 8 queries. A tile reads its rows once for all 8 queries (the index
-// is the only large operand), 4 rows per warp step so each query vector
-// loaded from shared memory serves 4 rows:
-//   1. stats:  per tile and query, the max logit and sum-exp (partials);
-//   2. chunk:  p = exp(logit - M) / max(L, 1e-30) with M, L merged from
-//              the partials in a fixed order; the chunk's in-chunk
-//              prefix sum (total) and its top-K;
-//   3. fold:   per (session, query), the chunk offsets (a sequential
-//              left fold of the totals), the merged top-K, m and l;
-//   4. draws:  p and the in-chunk prefix again (bit-identical to pass 2),
-//              cdf = prefix + offset, then #{cdf <= t} per target (warp
-//              ballots, shared then global integer atomics: exact sums
-//              in any order), drawn_p at the unique crossing lane
-//              (prev <= t < cdf) and p_last.
-// The CDF order is the port's canonical one (draws.py): inside a chunk
-// ONE thread walks the lanes sequentially in fp32, and the chunk offsets
-// are a sequential fp32 fold, so the plain version reproduces it. Top-K
-// order is (value desc, lane asc): ties go to the lowest lane and masked
-// lanes carry -1e30, exactly lax.top_k over the masked scores. The index
-// is read three times (passes 1, 2, 4); nothing O(S*Q*N) is stored.
-// The tile scores, the per-chunk stats and their merge come from
-// scan_tile.cuh, shared with the dense scan (similarity_scan.cu). Any d:
-// the three passes that read the index take float4/char4 loads where
-// scan::vec4_ok allows them, else one element a load, as the dense scan
-// chooses, so both give the same m and l bits.
+// Design. Two kernels, the second a programmatic dependent (PDL) of the
+// first, each waiting on griddepcontrol.wait before it reads anything:
+//   1. k_scores, one block per (256-row chunk, session, group of 8
+//      queries; scan::score_chunk): each valid row is read once for all 8
+//      queries and a masked one never (a chunk with no valid row reads
+//      only its mask); each warp streams its own rows through its own
+//      cp.async ring and scores 4 rows x 8 queries at a time
+//      (scan::group_scores). The valid rows' scores leave straight from
+//      registers for a workspace of S*Q*N f32 (4.2 MB at the shape above:
+//      L2-sized, never returned).
+//   2. k_finish, one block per (session, query), reads only the workspace
+//      and the mask, never the index, a slab of up to 32 chunks at a time
+//      (a row of one slab keeps its scores in registers throughout): each
+//      chunk's (m, l) in the dense scan's order, M and L merged in chunk
+//      order; p of every lane in shared memory; the slab's top-K by K
+//      rounds of a block arg-best; one thread per chunk walks its lanes
+//      sequentially (the in-chunk prefix, in place of p); one thread folds
+//      the chunk totals left to right; then each target finds its count
+//      by search: the CDF is non-decreasing across the row (p >= 0, fp32
+//      rounding is monotone, and a chunk's last value offset + total is
+//      the fold's next offset bit for bit), so #{cdf <= t} is the first
+//      chunk whose end exceeds t, then the first lane in it whose value
+//      does (a binary search). drawn_p is p at that lane; a target at or
+//      beyond the total mass counts N with drawn_p 0. A row of several
+//      slabs merges their top-K last.
+// The CDF order is the port's canonical one (draws.py): a sequential fp32
+// walk inside each chunk, a sequential fp32 fold of the chunk totals, so
+// the plain version reproduces it. Top-K order is (value desc, lane asc):
+// ties go to the lowest lane and masked lanes carry -1e30, exactly
+// lax.top_k over the masked scores. Rows are scored, and (m, l) taken, by
+// the same functions as the dense scan (similarity_scan.cu), so both give
+// the same m and l bits; any d and any index base (scan::scan_stages:
+// staged where rows start on 16 bytes, else float4/char4 loads where
+// scan::vec4_ok, else one element a load).
 // The C entry points return cudaGetLastError() after the launches.
 
 #include <cuda_runtime.h>
@@ -51,11 +56,21 @@
 namespace {
 
 using scan::kBlk;
+using scan::kLanes;
 using scan::kNegInf;
+using scan::kPer;
 using scan::kQG;
+using scan::kSlab;
 using scan::kThreads;
-using scan::logit_of;
-using scan::merged_stats;
+using scan::kWarps;
+
+constexpr int kPad = kBlk + 1;     // a chunk's stride in P: no bank clash
+// k_finish's shared memory: the slab's p, its offsets and totals, and
+// each warp's best of a top-K round
+constexpr size_t kFinishSmem =
+    sizeof(float) * (kSlab * kPad + 2 * kSlab + 1 + 2 * kWarps);
+static_assert(kFinishSmem <= scan::kStatsReserve, "k_finish's slab");
+static_assert(kPer * kLanes == 32, "a thread's slab lanes fit a bit mask");
 
 // (value desc, lane asc): is (v, i) ahead of (w, j)?
 __device__ __forceinline__ bool ahead(float v, int i, float w, int j) {
@@ -73,136 +88,227 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
   }
 }
 
-struct Geometry {
-  int S, Q, N, d, T, K, nch, Qp;
+// The best (value desc, lane asc) of v[0 .. 2 W) into v[0], l[0]: a tree
+// of depth log2(2 W), every index a constant (the arrays stay in
+// registers).
+template <int W>
+__device__ __forceinline__ void tree_best(float* v, int* l) {
+  if constexpr (W > 0) {
+#pragma unroll
+    for (int b = 0; b < W; ++b)
+      if (ahead(v[b + W], l[b + W], v[b], l[b])) {
+        v[b] = v[b + W];
+        l[b] = l[b + W];
+      }
+    tree_best<W / 2>(v, l);
+  }
+}
+
+// p of a lane from its masked score, M and max(L, 1e-30)
+__device__ __forceinline__ float prob_of(float sv, float M, float Ls,
+                                         float tau) {
+  return expf(scan::logit_of(sv, tau) - M) / Ls;
+}
+
+// ---- 1. the valid rows' scores ----
+template <typename T, int kV, int kStages>
+__global__ void __launch_bounds__(kThreads, 2) k_scores(const scan::Scan a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  scan::pdl_wait();
+  scan::pdl_launch_dependents();
+  if constexpr (kV == 16) {         // int8 rows on the tensor cores
+    scan::score_chunk_mma<true>(a, smem);
+  } else {
+    float* qs = reinterpret_cast<float*>(smem);
+    scan::score_chunk<T, kV, kStages, true>(
+        a, qs, reinterpret_cast<unsigned char*>(qs + kQG * scan::padded(a.d)));
+  }
+}
+
+// k_finish's operands. Plain pointers: it runs under PDL, and read-only
+// (const __restrict__) operands may be loaded ahead of its wait.
+struct Finish {
+  float* ws;               // (S, Q, N) the valid rows' scores
+  uint8_t* valid;          // (S, N)
+  float* part_m;           // (S, Q, nch) each chunk's (m, l)
+  float* part_l;
+  float* targets;          // (S, Q, T)
+  float* ptv;              // (S, Q, nslab, K) each slab's top-K
+  int* pti;
+  int* cnt;                // (S, Q, T)
+  float* dp;
+  float* plast;            // (S, Q)
+  float* tv;               // (S, Q, K)
+  int* ti;
+  float* m;                // (S, Q)
+  float* l;
+  float* pmax;
+  int Q, N, T, K, nch;
   float tau;
 };
 
-// The tile's masked scores: scan::tile_scores over session s's rows,
-// kV index elements a load.
-template <int kV, typename T>
-__device__ __forceinline__ void masked_scores(
-    const float* __restrict__ qn, const T* __restrict__ index,
-    const uint8_t* __restrict__ valid, const Geometry& g, float* qs,
-    float* sv, int s, int q0, int c0, int len) {
-  scan::load_queries(qn, qs, g.Q, g.d, s, q0);
-  __syncthreads();
-  scan::tile_scores<true, kV>(index + static_cast<size_t>(s) * g.N * g.d,
-                          valid + static_cast<size_t>(s) * g.N, qs, sv, g.d,
-                          c0, len);
-}
-
-// ---- pass 1: per-chunk max / sum-exp partials ----
-template <typename T, int kV>
-__global__ void __launch_bounds__(kThreads)
-k_stats(const float* __restrict__ qn, const T* __restrict__ index,
-        const uint8_t* __restrict__ valid, Geometry g,
-        float* __restrict__ part_m, float* __restrict__ part_l) {
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;
-  float* sv = qs + kQG * scan::padded(g.d);
-  const int chunk = blockIdx.x, s = blockIdx.y, q0 = blockIdx.z * kQG;
-  const int c0 = chunk * kBlk, len = min(kBlk, g.N - c0);
-  masked_scores<kV>(qn, index, valid, g, qs, sv, s, q0, c0, len);
-  __syncthreads();
-  const int lane = threadIdx.x & 31, qi = threadIdx.x >> 5;
-  float m, l;
-  scan::tile_stats(sv, len, g.tau, m, l);
-  if (lane == 0) {
-    const size_t row = static_cast<size_t>(s) * g.Qp + q0 + qi;
-    part_m[row * g.nch + chunk] = m;
-    part_l[row * g.nch + chunk] = l;
+// ---- 2. from the workspace: m, l, p_max, counts, drawn_p, p_last, top-K
+__global__ void __launch_bounds__(kThreads) k_finish(const Finish a) {
+  extern __shared__ float P[];        // [kSlab][kPad]: p, then the prefix
+  float* offs = P + kSlab * kPad;     // the slab's chunk offsets, its end
+  float* tot = offs + kSlab + 1;
+  float* wv = tot + kSlab;            // each warp's best of a round
+  int* wi = reinterpret_cast<int*>(wv + kWarps);
+  scan::pdl_wait();
+  scan::pdl_launch_dependents();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nslab = (a.nch + kSlab - 1) / kSlab;
+  const size_t row = static_cast<size_t>(blockIdx.y) * a.Q + blockIdx.x;
+  const float* sc = a.ws + row * a.N;
+  const uint8_t* vs = a.valid + static_cast<size_t>(blockIdx.y) * a.N;
+  const float* tg = a.targets + row * a.T;
+  auto score = [&](int i) { return vs[i] ? sc[i] : kNegInf; };
+  // each chunk's (m, l), then M and L merged in chunk order; a row of one
+  // slab keeps its scores in registers for what follows
+  float x[kPer][kLanes];
+  for (int k0 = 0; k0 < a.nch; k0 += kSlab) {
+    scan::slab_scores(sc, vs, a.N, k0, x);
+    scan::slab_partials(x, a.N, k0, a.tau, a.part_m + row * a.nch,
+                        a.part_l + row * a.nch);
   }
-}
-
-// p of the tile for query qi (warp qi), into ps; returns nothing.
-__device__ void tile_probs(const float* sv, float* ps, int len, float M,
-                           float L, float tau) {
-  const int lane = threadIdx.x & 31, qi = threadIdx.x >> 5;
-  const float Ls = fmaxf(L, 1e-30f);
-  for (int i = lane; i < len; i += 32)
-    ps[qi * kBlk + i] = expf(logit_of(sv[qi * kBlk + i], tau) - M) / Ls;
-}
-
-// ---- pass 2: chunk totals (in-chunk prefix) and per-chunk top-K ----
-template <typename T, int kV>
-__global__ void __launch_bounds__(kThreads)
-k_chunk(const float* __restrict__ qn, const T* __restrict__ index,
-        const uint8_t* __restrict__ valid, Geometry g,
-        const float* __restrict__ part_m, const float* __restrict__ part_l,
-        float* __restrict__ totals, float* __restrict__ ptv,
-        int* __restrict__ pti) {
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;
-  float* sv = qs + kQG * scan::padded(g.d);
-  float* ps = sv + kQG * kBlk;
-  const int chunk = blockIdx.x, s = blockIdx.y, q0 = blockIdx.z * kQG;
-  const int c0 = chunk * kBlk, len = min(kBlk, g.N - c0);
-  masked_scores<kV>(qn, index, valid, g, qs, sv, s, q0, c0, len);
   __syncthreads();
-  const int lane = threadIdx.x & 31, qi = threadIdx.x >> 5;
-  const size_t row = static_cast<size_t>(s) * g.Qp + q0 + qi;
   float M, L;
-  merged_stats(part_m, part_l, row, g.nch, M, L);
-  tile_probs(sv, ps, len, M, L, g.tau);
-  __syncwarp();
-  if (lane == 0) {                 // the canonical in-chunk walk
-    float cc = 0.f;
-    for (int i = 0; i < len; ++i) cc += ps[qi * kBlk + i];
-    totals[row * g.nch + chunk] = cc;
+  scan::merged_stats(a.part_m, a.part_l, row, a.nch, M, L);
+  const float Ls = fmaxf(L, 1e-30f);
+  if (tid == 0) {
+    a.m[row] = M;
+    a.l[row] = L;
+    a.pmax[row] = 1.f / Ls;        // the max-probability lane: exp(0) / L
+    a.plast[row] = prob_of(score(a.N - 1), M, Ls, a.tau);
   }
-  // the chunk's top-K: K rounds of a warp arg-best; lane owns i = lane+32j
-  unsigned taken = 0;
-  for (int k = 0; k < g.K; ++k) {
-    float v = -INFINITY;
-    int idx = 0x7fffffff;
-    int own = -1;
-    for (int j = 0; j < kBlk / 32; ++j) {
-      const int i = lane + 32 * j;
-      if (i < len && !(taken >> j & 1u) &&
-          ahead(sv[qi * kBlk + i], c0 + i, v, idx)) {
-        v = sv[qi * kBlk + i];
-        idx = c0 + i;
-        own = j;
+  float carry = 0.f;                 // thread 0's fold, slab to slab
+  for (int k0 = 0; k0 < a.nch; k0 += kSlab) {
+    const int nk = min(kSlab, a.nch - k0);
+    if (nslab > 1) scan::slab_scores(sc, vs, a.N, k0, x);
+    // p of every lane of the slab
+    unsigned done = 0;               // lanes taken by the top-K, or absent
+#pragma unroll
+    for (int c = 0; c < kPer; ++c)
+#pragma unroll
+      for (int u = 0; u < kLanes; ++u) {
+        const int j = warp + kWarps * c, i = lane + 32 * u;
+        if (x[c][u] == -INFINITY)
+          done |= 1u << (c * kLanes + u);
+        else
+          P[j * kPad + i] = prob_of(x[c][u], M, Ls, a.tau);
       }
+    // the slab's top-K: K rounds of a block arg-best over each thread's
+    // best untaken lane, which only the thread whose lane was taken finds
+    // anew (a tree of depth 5 over its 32, not a chain)
+    auto lane_of = [&](int b) {
+      return (k0 + warp + kWarps * (b / kLanes)) * kBlk + lane +
+             32 * (b % kLanes);
+    };
+    auto own_best = [&](float& v, int& idx) {
+      float tv[kPer * kLanes];
+      int tl[kPer * kLanes];
+#pragma unroll
+      for (int b = 0; b < kPer * kLanes; ++b) {
+        const bool off = done >> b & 1u;
+        tv[b] = off ? -INFINITY : x[b / kLanes][b % kLanes];
+        tl[b] = off ? 0x7fffffff : lane_of(b);
+      }
+      tree_best<kPer * kLanes / 2>(tv, tl);
+      v = tv[0];
+      idx = tl[0];
+    };
+    float bv;
+    int bl;
+    own_best(bv, bl);
+    for (int k = 0; k < a.K; ++k) {
+      float v = bv;
+      int idx = bl;
+      warp_best(v, idx);
+      if (lane == 0) {
+        wv[warp] = v;
+        wi[warp] = idx;
+      }
+      __syncthreads();
+      v = wv[0];
+      idx = wi[0];
+      for (int w = 1; w < kWarps; ++w)
+        if (ahead(wv[w], wi[w], v, idx)) {
+          v = wv[w];
+          idx = wi[w];
+        }
+      if (bl == idx) {                 // the owner takes it, finds anew
+#pragma unroll
+        for (int b = 0; b < kPer * kLanes; ++b)
+          if (lane_of(b) == idx) done |= 1u << b;
+        own_best(bv, bl);
+      }
+      if (tid == 0) {
+        const size_t o = nslab > 1
+                             ? (row * nslab + k0 / kSlab) * a.K + k
+                             : row * a.K + k;
+        (nslab > 1 ? a.ptv : a.tv)[o] = v;
+        (nslab > 1 ? a.pti : a.ti)[o] = idx;
+      }
+      __syncthreads();               // wv, wi are the next round's
     }
-    const int mine = idx;
-    warp_best(v, idx);
-    if (own >= 0 && mine == idx) taken |= 1u << own;
-    if (lane == 0) {
-      const size_t o = (row * g.nch + chunk) * g.K + k;
-      ptv[o] = v;
-      pti[o] = idx;
+    if (tid < nk) {                  // the canonical in-chunk walk
+      const int len = min(kBlk, a.N - (k0 + tid) * kBlk);
+      float* pc = P + tid * kPad;
+      float cc = 0.f;
+#pragma unroll 8
+      for (int i = 0; i < len; ++i) {
+        cc += pc[i];
+        pc[i] = cc;
+      }
+      tot[tid] = cc;
     }
+    __syncthreads();
+    if (tid == 0) {                  // the sequential left fold
+      for (int j = 0; j < nk; ++j) {
+        offs[j] = carry;
+        carry = carry + tot[j];
+      }
+      offs[nk] = carry;
+    }
+    __syncthreads();
+    // the targets whose crossing lies in this slab: at or past its start
+    // (any, in the first slab) and not at or past its end
+    const float lo = offs[0], hi = offs[nk];
+    for (int t = tid; t < a.T; t += kThreads) {
+      const float y = tg[t];
+      if ((k0 > 0 && !(y >= lo)) || y >= hi) continue;
+      int j = 0;                     // the first chunk whose end exceeds y
+      while (j + 1 < nk && offs[j + 1] <= y) ++j;
+      const int len = min(kBlk, a.N - (k0 + j) * kBlk);
+      const float off = offs[j];
+      const float* pc = P + j * kPad;
+      int b = 0, e = len;            // the first lane whose cdf exceeds y
+      while (b < e) {
+        const int mid = (b + e) >> 1;
+        if (pc[mid] + off <= y)
+          b = mid + 1;
+        else
+          e = mid;
+      }
+      const int c = (k0 + j) * kBlk + b;
+      a.cnt[row * a.T + t] = c;
+      a.dp[row * a.T + t] = c < a.N ? prob_of(score(c), M, Ls, a.tau) : 0.f;
+    }
+    __syncthreads();                 // P and offs are the next slab's
   }
-}
-
-// ---- pass 3: chunk offsets, merged top-K, m and l per (s, q) ----
-__global__ void k_fold(Geometry g, const float* __restrict__ part_m,
-                       const float* __restrict__ part_l,
-                       const float* __restrict__ totals,
-                       const float* __restrict__ ptv,
-                       int* __restrict__ pti, float* __restrict__ offs,
-                       float* __restrict__ tv_out, int* __restrict__ ti_out,
-                       float* __restrict__ m_out, float* __restrict__ l_out) {
-  const int q = blockIdx.x, s = blockIdx.y, lane = threadIdx.x;
-  const size_t row = static_cast<size_t>(s) * g.Qp + q;
-  const size_t out = static_cast<size_t>(s) * g.Q + q;
-  if (lane == 0) {
-    float M, L;
-    merged_stats(part_m, part_l, row, g.nch, M, L);
-    m_out[out] = M;
-    l_out[out] = L;
-    float acc = 0.f;               // sequential left fold of the totals
-    for (int k = 0; k < g.nch; ++k) {
-      offs[row * g.nch + k] = acc;
-      acc = acc + totals[row * g.nch + k];
+  // targets at or beyond the total mass: every lane counts
+  const float total = offs[a.nch - (nslab - 1) * kSlab];
+  for (int t = tid; t < a.T; t += kThreads)
+    if (tg[t] >= total) {
+      a.cnt[row * a.T + t] = a.N;
+      a.dp[row * a.T + t] = 0.f;
     }
-  }
-  const int nc = g.nch * g.K;
-  const float* cv = ptv + row * nc;
-  int* ci = pti + row * nc;        // consumed candidates are set to -1
-  for (int k = 0; k < g.K; ++k) {
+  if (nslab == 1 || warp != 0) return;
+  // the row's top-K from the slabs' (consumed candidates set to -1)
+  const int nc = nslab * a.K;
+  const float* cv = a.ptv + row * nc;
+  int* ci = a.pti + row * nc;
+  for (int k = 0; k < a.K; ++k) {
     float v = -INFINITY;
     int idx = 0x7fffffff;
     int slot = -1;
@@ -216,151 +322,80 @@ __global__ void k_fold(Geometry g, const float* __restrict__ part_m,
     const int mine = idx;
     warp_best(v, idx);
     __syncwarp();
-    // consume the winner (its owner marks it, only the owner writes)
     if (slot >= 0 && mine == idx) ci[slot] = -1;
     __syncwarp();
     if (lane == 0) {
-      tv_out[out * g.K + k] = v;
-      ti_out[out * g.K + k] = idx;
+      a.tv[row * a.K + k] = v;
+      a.ti[row * a.K + k] = idx;
     }
   }
-}
-
-// ---- pass 4: canonical CDF, draw counts, drawn_p, p_last ----
-template <typename T, int kV>
-__global__ void __launch_bounds__(kThreads)
-k_draws(const float* __restrict__ qn, const T* __restrict__ index,
-        const uint8_t* __restrict__ valid, const float* __restrict__ targets,
-        Geometry g, const float* __restrict__ part_m,
-        const float* __restrict__ part_l, const float* __restrict__ offs,
-        int* __restrict__ cnt_out, float* __restrict__ dp_out,
-        float* __restrict__ plast_out) {
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;
-  float* sv = qs + kQG * scan::padded(g.d);      // scores, then the CDF
-  float* ps = sv + kQG * kBlk;
-  float* ts = ps + kQG * kBlk;     // kQG * T targets
-  int* cnt = reinterpret_cast<int*>(ts + kQG * g.T);
-  const int chunk = blockIdx.x, s = blockIdx.y, q0 = blockIdx.z * kQG;
-  const int c0 = chunk * kBlk, len = min(kBlk, g.N - c0);
-  const int nq = min(kQG, g.Q - q0);
-  for (int i = threadIdx.x; i < kQG * g.T; i += kThreads) {
-    const int qi = i / g.T, t = i - qi * g.T;
-    ts[i] = qi < nq
-                ? targets[(static_cast<size_t>(s) * g.Q + q0 + qi) * g.T + t]
-                : 0.f;
-    cnt[i] = 0;
-  }
-  masked_scores<kV>(qn, index, valid, g, qs, sv, s, q0, c0, len);
-  __syncthreads();
-  const int tid = threadIdx.x, lane = tid & 31, qi = tid >> 5;
-  const size_t row = static_cast<size_t>(s) * g.Qp + q0 + qi;
-  float M, L;
-  merged_stats(part_m, part_l, row, g.nch, M, L);
-  tile_probs(sv, ps, len, M, L, g.tau);
-  __syncwarp();
-  const float off = offs[row * g.nch + chunk];
-  if (lane == 0) {                 // bit-identical to pass 2's walk
-    float cc = 0.f;
-    for (int i = 0; i < len; ++i) {
-      cc += ps[qi * kBlk + i];
-      sv[qi * kBlk + i] = cc + off;
-    }
-  }
-  if (qi < nq && c0 <= g.N - 1 && g.N - 1 < c0 + len && lane == 0)
-    plast_out[static_cast<size_t>(s) * g.Q + q0 + qi] =
-        ps[qi * kBlk + (g.N - 1 - c0)];
-  __syncthreads();
-  const bool in = tid < len;
-  for (int q = 0; q < nq; ++q) {
-    const size_t qrow = static_cast<size_t>(s) * g.Qp + q0 + q;
-    const float carry = offs[qrow * g.nch + chunk];
-    const float cdf_i = in ? sv[q * kBlk + tid] : 0.f;
-    const float prev = tid == 0 ? carry : (in ? sv[q * kBlk + tid - 1] : 0.f);
-    const size_t orow = static_cast<size_t>(s) * g.Q + q0 + q;
-    for (int t = 0; t < g.T; ++t) {
-      const float tv = ts[q * g.T + t];
-      const bool le = in && cdf_i <= tv;
-      const unsigned b = __ballot_sync(0xffffffffu, le);
-      if (lane == 0 && b) atomicAdd(&cnt[q * g.T + t], __popc(b));
-      if (in && !le && prev <= tv)          // the unique crossing lane
-        dp_out[orow * g.T + t] = ps[q * kBlk + tid];
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < nq * g.T; i += kThreads) {
-    const int q = i / g.T, t = i - q * g.T;
-    if (cnt[i])
-      atomicAdd(&cnt_out[(static_cast<size_t>(s) * g.Q + q0 + q) * g.T + t],
-                cnt[i]);
-  }
-}
-
-size_t bytes_tile(int d, int nbuf, int T) {
-  return sizeof(float) * (static_cast<size_t>(kQG) * scan::padded(d) +
-                          static_cast<size_t>(nbuf) * kQG * kBlk +
-                          static_cast<size_t>(kQG) * T) +
-         sizeof(int) * static_cast<size_t>(kQG) * T;
-}
-
-template <typename T, int kV>
-int launch_kv(const float* qn, const T* index, const uint8_t* valid,
-              const float* targets, const Geometry& g, float* part_m,
-              float* part_l, float* totals, float* offs, float* ptv,
-              int* pti, int* cnt, float* dp, float* plast, float* tv,
-              int* ti, float* m, float* l, cudaStream_t st) {
-  const dim3 grid(g.nch, g.S, g.Qp / kQG);
-  const size_t b1 = bytes_tile(g.d, 1, 0), b2 = bytes_tile(g.d, 2, 0),
-               b4 = bytes_tile(g.d, 2, g.T);
-  if (b4 > scan::kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t e;
-  if ((e = scan::allow_smem(k_stats<T, kV>, b1)) != cudaSuccess) return e;
-  if ((e = scan::allow_smem(k_chunk<T, kV>, b2)) != cudaSuccess) return e;
-  if ((e = scan::allow_smem(k_draws<T, kV>, b4)) != cudaSuccess) return e;
-  k_stats<T, kV><<<grid, kThreads, b1, st>>>(qn, index, valid, g, part_m,
-                                              part_l);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  k_chunk<T, kV><<<grid, kThreads, b2, st>>>(qn, index, valid, g, part_m,
-                                              part_l, totals, ptv, pti);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  k_fold<<<dim3(g.Q, g.S), 32, 0, st>>>(g, part_m, part_l, totals, ptv, pti,
-                                         offs, tv, ti, m, l);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  k_draws<T, kV><<<grid, kThreads, b4, st>>>(qn, index, valid, targets, g,
-                                              part_m, part_l, offs, cnt, dp,
-                                              plast);
-  return cudaGetLastError();
 }
 
 template <typename T>
-int launch(const float* qn, const T* index, const uint8_t* valid,
+int launch(const float* query, const T* index, const uint8_t* valid,
            const float* targets, int S, int Q, int N, int d, int nt, int K,
-           float tau, float* part_m, float* part_l, float* totals,
-           float* offs, float* ptv, int* pti, int* cnt, float* dp,
-           float* plast, float* tv, int* ti, float* m, float* l,
-           void* stream) {
+           float tau, float* ws, float* part_m, float* part_l, float* ptv,
+           int* pti, int* cnt, float* dp, float* plast, float* tv, int* ti,
+           float* m, float* l, float* pmax, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int groups = (Q + kQG - 1) / kQG;
-  const Geometry g{S, Q, N, d, nt, K, (N + kBlk - 1) / kBlk, groups * kQG,
-                   tau};
-  auto run = scan::vec4_ok(index, d) ? &launch_kv<T, 4> : &launch_kv<T, 1>;
-  return run(qn, index, valid, targets, g, part_m, part_l, totals, offs,
-             ptv, pti, cnt, dp, plast, tv, ti, m, l, st);
+  const scan::Scan a{query, index, valid, ws, S, Q, N, d};
+  const bool aligned = reinterpret_cast<uintptr_t>(index) % 16 == 0;
+  const bool mma = scan::mma_ok(d, sizeof(T), aligned);
+  const int stages = scan::scan_stages(d, sizeof(T), aligned);
+  const size_t smem =
+      mma ? scan::mma_smem(d) : scan::scan_smem(d, sizeof(T), stages);
+  if (smem > scan::kMaxSmem || S < 1 || Q < 1 || N < 1 || nt < 1 || K < 1 ||
+      K > N)
+    return cudaErrorInvalidValue;
+  const dim3 grid((N + kBlk - 1) / kBlk, S, (Q + kQG - 1) / kQG);
+  cudaError_t e = cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 1)
+    if (mma) e = scan::launch_pdl(k_scores<T, 16, 0>, grid, smem, st, a);
+  if (!mma)
+    e = stages == 3 ? scan::launch_pdl(k_scores<T, 4, 3>, grid, smem, st, a)
+      : stages == 2 ? scan::launch_pdl(k_scores<T, 4, 2>, grid, smem, st, a)
+      : scan::vec4_ok(index, d)
+          ? scan::launch_pdl(k_scores<T, 4, 0>, grid, smem, st, a)
+          : scan::launch_pdl(k_scores<T, 1, 0>, grid, smem, st, a);
+  if (e != cudaSuccess) return e;
+  const Finish f{ws, const_cast<uint8_t*>(valid), part_m, part_l,
+                 const_cast<float*>(targets), ptv, pti, cnt, dp, plast, tv,
+                 ti, m, l, pmax, Q, N, nt, K, (N + kBlk - 1) / kBlk, tau};
+  return scan::launch_pdl(k_finish, dim3(Q, S), scan::kStatsReserve, st, f);
 }
 
 }  // namespace
 
 #define FUSED_ENTRY(NAME, T)                                                  \
-  extern "C" int NAME(const float* qn, const T* index, const uint8_t* valid, \
+  extern "C" int NAME(const float* query, const T* index, const uint8_t* valid, \
                       const float* targets, int S, int Q, int N, int d,       \
-                      int nt, int K, float tau, float* part_m,               \
-                      float* part_l, float* totals, float* offs, float* ptv,  \
-                      int* pti, int* cnt, float* dp, float* plast, float* tv, \
-                      int* ti, float* m, float* l, void* stream) {            \
-    return launch<T>(qn, index, valid, targets, S, Q, N, d, nt, K, tau,      \
-                     part_m, part_l, totals, offs, ptv, pti, cnt, dp, plast,  \
-                     tv, ti, m, l, stream);                                   \
+                      int nt, int K, float tau, float* ws, float* part_m,    \
+                      float* part_l, float* ptv, int* pti, int* cnt,          \
+                      float* dp, float* plast, float* tv, int* ti, float* m,  \
+                      float* l, float* pmax, void* stream) {                  \
+    return launch<T>(query, index, valid, targets, S, Q, N, d, nt, K, tau, ws,  \
+                     part_m, part_l, ptv, pti, cnt, dp, plast, tv, ti, m, l,  \
+                     pmax, stream);                                           \
   }
 
 FUSED_ENTRY(fused_retrieve_f32, float)
 FUSED_ENTRY(fused_retrieve_i8, int8_t)
+
+// The score pass's plan, for the host's mirror (similarity.scan_plan):
+// for rows of d elements of elt bytes from an index base aligned (or not)
+// to 16 bytes, whether they take the tensor cores, else the ring stages,
+// and a block's shared memory in bytes.
+extern "C" int fused_retrieve_mma(int d, int elt, int aligned) {
+  return scan::mma_ok(d, elt, aligned != 0);
+}
+
+extern "C" int fused_retrieve_stages(int d, int elt, int aligned) {
+  return scan::scan_stages(d, elt, aligned != 0);
+}
+
+extern "C" long long fused_retrieve_smem(int d, int elt, int aligned) {
+  return static_cast<long long>(
+      scan::mma_ok(d, elt, aligned != 0)
+          ? scan::mma_smem(d)
+          : scan::scan_smem(d, elt, scan::scan_stages(d, elt, aligned != 0)));
+}

@@ -37,7 +37,7 @@
 // coalesced stores while the next tile is computed.
 // k_stats2d: one block per query reads back its written scores and the
 // mask, a warp per 256-row chunk, takes each chunk's (m, l) in
-// scan::tile_stats' lane order (scan::row_stats) and merges them in chunk
+// scan::row_stats' lane order and merges them in chunk
 // order (scan::merged_stats): the same bits from run to run. Its blocks
 // reserve enough shared memory to take an SM each.
 // Both kernels are programmatic dependents (Hopper's PDL): each is placed
@@ -67,36 +67,11 @@ constexpr int kStatThreads = 1024;   // k_stats2d: a warp per 256-row chunk
 constexpr size_t kStatSmem = 120 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global → shared without waiting; bytes < 16 zero-fill the rest
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float4 as_f4(float4 v) { return v; }
-__device__ __forceinline__ float4 as_f4(char4 v) {
-  return make_float4(v.x, v.y, v.z, v.w);
-}
-
-// acc + a . b as four chained fused multiply-adds
-__device__ __forceinline__ float fma4(float4 a, float4 b, float acc) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
-}
+using scan::as_f4;
+using scan::cp_async16;
+using scan::cp_commit;
+using scan::cp_wait;
+using scan::fma4;
 
 // shared memory of a block: the queries [qp][dq], the staged scores
 // [2][qp][kTileMax] and the second half's partials [kRowGroups][3][32] in
@@ -114,31 +89,6 @@ __host__ __device__ inline size_t smem_bytes(int tile, int stages, int qg,
   const size_t qp = padded_queries(qg), dq = (d + 3) / 4 * 4;
   return 4 * (qp * dq + 2 * qp * kTileMax + kRowGroups * 3 * 32) +
          stages * stage_bytes(tile, d, elt);
-}
-
-// Sums each of N values (a power of two) over the warp and spreads the
-// totals over the lanes: lane L ends with values L * N/32 .. (L+1) * N/32
-// - 1 in v[0 .. N/32) where N >= 32, else with value L / (32/N) in v[0].
-// Every value takes warp_sum's tree (xor 16, 8, 4, 2, 1, own value first),
-// so the same bits, in N - 1 shuffles (N >= 32) instead of 5 N.
-template <int N, int kOff = 16>
-__device__ __forceinline__ void warp_sum_spread(float (&v)[N]) {
-  if constexpr (kOff > 0) {
-    if constexpr (N > 1) {
-      constexpr int H = N / 2;
-      const bool hi = (threadIdx.x & kOff) != 0;
-#pragma unroll
-      for (int j = 0; j < H; ++j) {
-        const float send = hi ? v[j] : v[j + H];
-        const float keep = hi ? v[j + H] : v[j];
-        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
-      }
-      warp_sum_spread<H, kOff / 2>(reinterpret_cast<float(&)[H]>(v));
-    } else {
-      v[0] += __shfl_xor_sync(0xffffffffu, v[0], kOff);
-      warp_sum_spread<1, kOff / 2>(v);
-    }
-  }
 }
 
 struct Scan {
@@ -298,8 +248,8 @@ __global__ void __launch_bounds__(kThreads) k_scan2d(const Scan a) {
           }
         }
       }
-      if (g0 == 0) warp_sum_spread(ss);  // lane L: row L / 4
-      warp_sum_spread(acc);              // lane L: values 2L, 2L + 1
+      if (g0 == 0) scan::warp_sum_spread(ss);  // lane L: row L / 4
+      scan::warp_sum_spread(acc);        // lane L: values 2L, 2L + 1
       if (h == 1) {
         mine[lane] = acc[0];
         mine[32 + lane] = acc[1];
@@ -360,26 +310,6 @@ __global__ void __launch_bounds__(kStatThreads) k_stats2d(const Scan a) {
   }
 }
 
-// `kernel` on `grid` as a programmatic dependent of the kernel before it
-template <typename K>
-cudaError_t launch_dependent(K kernel, dim3 grid, int threads, size_t smem,
-                             cudaStream_t st, const Scan& a) {
-  cudaError_t e;
-  if ((e = scan::allow_smem(kernel, smem)) != cudaSuccess) return e;
-  cudaLaunchAttribute pdl;
-  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = &pdl;
-  cfg.numAttrs = 1;
-  if ((e = cudaLaunchKernelEx(&cfg, kernel, a)) != cudaSuccess) return e;
-  return cudaGetLastError();
-}
-
 template <typename T>
 int launch(const Scan& a, cudaStream_t st) {
   const int ntiles = (a.N + a.tile - 1) / a.tile;
@@ -394,7 +324,7 @@ int launch(const Scan& a, cudaStream_t st) {
   const bool vec = a.d % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(a.index) % (4 * sizeof(T)) == 0;
   auto run = [&](auto kernel) {
-    return launch_dependent(kernel, grid, kThreads, smem, st, a);
+    return scan::launch_pdl(kernel, grid, smem, st, a, kThreads);
   };
   const cudaError_t e = a.stages == 3
                             ? (vec ? run(k_scan2d<T, true, 3>)
@@ -402,9 +332,9 @@ int launch(const Scan& a, cudaStream_t st) {
                             : (vec ? run(k_scan2d<T, true, 2>)
                                    : run(k_scan2d<T, false, 2>));
   if (e != cudaSuccess) return e;
-  return launch_dependent(k_stats2d, dim3(a.Q), kStatThreads,
-                          stat_smem > kStatSmem ? stat_smem : kStatSmem, st,
-                          a);
+  return scan::launch_pdl(k_stats2d, dim3(a.Q),
+                         stat_smem > kStatSmem ? stat_smem : kStatSmem, st,
+                         a, kStatThreads);
 }
 
 }  // namespace

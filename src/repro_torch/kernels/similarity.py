@@ -12,9 +12,11 @@
 Each takes the device of its tensors as the route: a CUDA tensor launches
 the kernel (or raises), a CPU tensor runs the plain version in ``ref``.
 Each counts its own launches in ``.launches``. Every form takes any width
-d and any index base: the kernels load rows in 4-element vectors where d
-is a multiple of 4 and the base is aligned to a vector, else one element
-a load.
+d and any index base. The stack and fused scans share one score pass
+(``csrc/scan_tile.cuh``): rows that start on 16 bytes stream through a
+``cp.async`` ring where it fits (``scan_stages``), else they are read in
+4-element vectors where d is a multiple of 4 and the base is aligned to a
+vector, else one element a load.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from repro_torch.kernels.device import bool_bytes, on_device, sm_count
 
 _BLK = 256          # rows per kernel tile (DRAW_BLK)
 _QG = 8             # queries per kernel tile
+_SLAB = 32          # chunks the statistics kernels hold at once (kSlab)
 # C entry points: source, name stem, argument types
 _FUSED = ("fused_retrieve.cu", "fused_retrieve",
           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
@@ -65,29 +68,57 @@ def _kernel_fn(entry, index_dtype: torch.dtype):
 
 def unit_queries(query: torch.Tensor) -> torch.Tensor:
     """L2-normalised f32 queries (rsqrt(Σq² + 1e-12)), as the reference
-    wrapper hands them to its kernel."""
+    wrapper hands them to its kernel (the port's kernels normalise their
+    own)."""
     q = query.to(torch.float32)
     return q * torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-12)
 
 
-def scan_smem_bytes(d: int, n_targets: int = 0) -> int:
-    """Shared memory of the largest block of the stack scan
-    (``n_targets`` 0) or of the fused scan (its draws pass, T =
-    ``n_targets``): the 8 queries at a row stride of d rounded up to 4,
-    one (two) 256-row score tiles, the targets and their counts — the
-    sources' ``smem`` and ``bytes_tile``, in bytes."""
-    dq = -(-d // 4) * 4
-    if n_targets == 0:
-        return 4 * (_QG * dq + _QG * _BLK)
-    return 4 * (_QG * dq + 2 * _QG * _BLK + 2 * _QG * n_targets)
+def scan_smem_bytes(d: int, elt: int = 4, stages: int = 0) -> int:
+    """Shared memory of a block of the stack and fused scans' score pass
+    on the CUDA cores (``scan::scan_smem`` in ``csrc/scan_tile.cuh``), in
+    bytes: the 8 queries at a row stride of d rounded up to 4 in f32, then
+    each of the 8 warps' rings of ``stages`` groups of 4 rows of d
+    elements of ``elt`` bytes."""
+    return 4 * _QG * (-(-d // 4) * 4) + stages * 8 * 4 * d * elt
 
 
-def _scan_operands(query, index, valid, n_targets=0):
+def scan_stages(d: int, elt: int, aligned: bool) -> int:
+    """Ring stages of the score pass (``scan::scan_stages``): 3 where
+    they fit a block's shared memory, else 2, else 0 (rows read straight
+    into registers). Staging needs rows that start on 16 bytes: an index
+    base so aligned and d × elt a multiple of 16."""
+    if not aligned or d * elt % 16:
+        return 0
+    return next((st for st in (3, 2)
+                 if scan_smem_bytes(d, elt, st) <= _SMEM), 0)
+
+
+def mma_smem_bytes(d: int) -> int:
+    """Shared memory of the tensor-core pass over int8 rows
+    (``scan::mma_smem``): the queries' f16 fragments (two terms, d/16
+    column blocks, 8 bytes a lane) and their 8 scales."""
+    return 2 * (d // 16) * 32 * 8 + 4 * _QG
+
+
+def scan_plan(d: int, elt: int, aligned: bool) -> Tuple[str, int, int]:
+    """How the score pass takes rows of d elements of ``elt`` bytes from
+    an index base aligned (or not) to 16 bytes (``scan::mma_ok``,
+    ``scan::scan_stages``): ("mma", 0, smem) for int8 rows on the tensor
+    cores (d a multiple of 64, the base aligned, ``mma_smem_bytes``
+    within 227 KB), else ("ring", stages, smem) or ("direct", 0, smem)."""
+    if elt == 1 and aligned and d % 64 == 0 and mma_smem_bytes(d) <= _SMEM:
+        return "mma", 0, mma_smem_bytes(d)
+    st = scan_stages(d, elt, aligned)
+    return ("ring" if st else "direct"), st, scan_smem_bytes(d, elt, st)
+
+
+def _scan_operands(query, index, valid):
     """Check a stacked scan's operands (query (S,Q,d), index (S,N,d) f32
-    or int8 on one CUDA device; a block's shared memory, which grows with
-    d and the fused scan's T = ``n_targets``, must fit 227 KB) → (unit
-    queries, contiguous index, uint8 valid mask), each contiguous on the
-    index's device."""
+    or int8 on one CUDA device; a block's 8 queries, which grow with d,
+    must fit 227 KB of shared memory) → (f32 queries, which the kernels
+    normalise, contiguous index, uint8 valid mask), each contiguous on
+    the index's device."""
     s, q, d = query.shape
     n = index.shape[1]
     dev = index.device
@@ -96,21 +127,21 @@ def _scan_operands(query, index, valid, n_targets=0):
     if (index.shape[0], index.shape[2]) != (s, d):
         raise ValueError(f"shape mismatch: query {tuple(query.shape)}, "
                          f"index {tuple(index.shape)}")
-    if scan_smem_bytes(d, n_targets) > _SMEM:
-        raise ValueError(f"d={d}, T={n_targets}: a block's 8 queries and "
-                         f"score tiles take {scan_smem_bytes(d, n_targets)} "
-                         f"bytes of shared memory, more than {_SMEM}")
+    if scan_smem_bytes(d) > _SMEM:
+        raise ValueError(f"d={d}: a block's 8 queries take "
+                         f"{scan_smem_bytes(d)} bytes of shared memory, "
+                         f"more than {_SMEM}")
     if n < 1 or q < 1:
         raise ValueError(f"need N >= 1 and Q >= 1, got N={n}, Q={q}")
     if query.device != dev:
         raise ValueError(f"query on {query.device}, index on {dev}")
     index = index.contiguous()
-    qn = unit_queries(query).contiguous()
-    vmask = ref.as_valid_mask(valid.to(dev), n).to(torch.uint8).contiguous()
+    q32 = query.to(torch.float32).contiguous()
+    vmask = bool_bytes(ref.as_valid_mask(valid.to(dev), n), dev)
     if vmask.shape != (s, n):
         raise ValueError(f"valid gives a mask of {tuple(vmask.shape)}, "
                          f"need {(s, n)}")
-    return qn, index, vmask
+    return q32, index, vmask
 
 
 def _launch(query, index, valid, targets, *, tau: float, n_topk: int
@@ -125,39 +156,35 @@ def _launch(query, index, valid, targets, *, tau: float, n_topk: int
     if not 1 <= n_topk <= n or t < 1:
         raise ValueError(f"need 1 <= n_topk <= N and T >= 1, got "
                          f"n_topk={n_topk}, N={n}, T={t}")
-    qn, index, vmask = _scan_operands(query, index, valid, t)
+    q32, index, vmask = _scan_operands(query, index, valid)
     tg = targets.to(torch.float32).contiguous()
-    # scratch: per-chunk stats, totals, offsets and top-K partials —
-    # O(S·Q·N/256), never O(S·Q·N)
+    # scratch: the valid rows' scores (S·Q·N f32: the only O(S·Q·N)
+    # buffer, L2-sized at the smoke shape and never returned), each 256-row
+    # chunk's stats and each slab's (32 chunks') top-K
     nch = -(-n // _BLK)
-    qp = -(-q // _QG) * _QG
+    nslab = -(-nch // _SLAB)
     f32 = dict(dtype=torch.float32, device=dev)
-    part_m, part_l, totals, offs = (torch.empty((s, qp, nch), **f32)
-                                    for _ in range(4))
-    ptv = torch.empty((s, qp, nch, n_topk), **f32)
-    pti = torch.empty((s, qp, nch, n_topk), dtype=torch.int32, device=dev)
-    # counts are integer atomics and drawn_p is written only at a
-    # crossing lane: both start at zero
-    cnt = torch.zeros((s, q, t), dtype=torch.int32, device=dev)
-    dp = torch.zeros((s, q, t), dtype=torch.float32, device=dev)
-    p_last = torch.empty((s, q, 1), dtype=torch.float32, device=dev)
-    tv = torch.empty((s, q, n_topk), dtype=torch.float32, device=dev)
+    ws = torch.empty((s, q, n), **f32)
+    part_m, part_l = (torch.empty((s, q, nch), **f32) for _ in range(2))
+    ptv = torch.empty((s, q, nslab, n_topk), **f32)
+    pti = torch.empty((s, q, nslab, n_topk), dtype=torch.int32, device=dev)
+    # every output is written by the kernel
+    cnt = torch.empty((s, q, t), dtype=torch.int32, device=dev)
+    dp = torch.empty((s, q, t), **f32)
+    p_last, m, l, p_max = (torch.empty((s, q, 1), **f32) for _ in range(4))
+    tv = torch.empty((s, q, n_topk), **f32)
     ti = torch.empty((s, q, n_topk), dtype=torch.int32, device=dev)
-    m = torch.empty((s, q, 1), dtype=torch.float32, device=dev)
-    l = torch.empty((s, q, 1), dtype=torch.float32, device=dev)
     fn = _kernel_fn(_FUSED, index.dtype)
     rc = on_device(dev, lambda stream: fn(
-        qn.data_ptr(), index.data_ptr(), vmask.data_ptr(), tg.data_ptr(), s,
-        q, n, d, t, n_topk, float(tau), part_m.data_ptr(), part_l.data_ptr(),
-        totals.data_ptr(), offs.data_ptr(), ptv.data_ptr(), pti.data_ptr(),
-        cnt.data_ptr(), dp.data_ptr(), p_last.data_ptr(), tv.data_ptr(),
-        ti.data_ptr(), m.data_ptr(), l.data_ptr(), stream))
+        q32.data_ptr(), index.data_ptr(), vmask.data_ptr(), tg.data_ptr(), s,
+        q, n, d, t, n_topk, float(tau), ws.data_ptr(), part_m.data_ptr(),
+        part_l.data_ptr(), ptv.data_ptr(), pti.data_ptr(), cnt.data_ptr(),
+        dp.data_ptr(), p_last.data_ptr(), tv.data_ptr(), ti.data_ptr(),
+        m.data_ptr(), l.data_ptr(), p_max.data_ptr(), stream))
     if rc != 0:
         raise RuntimeError(f"fused_retrieve kernel launch failed: "
                            f"cudaError {rc}")
     fused_retrieve_scan_stack.launches += 1
-    # the max-probability lane is exp(m - m) / l
-    p_max = 1.0 / torch.clamp(l, min=1e-30)
     return ref.FusedRetrieveResult(cnt, dp, p_last, tv, ti, m, l, p_max)
 
 
@@ -184,17 +211,16 @@ def _launch_scan(query, index, valid, *, tau: float):
     s, q, _ = query.shape
     n = index.shape[1]
     dev = index.device
-    qn, index, vmask = _scan_operands(query, index, valid)
+    q32, index, vmask = _scan_operands(query, index, valid)
     nch = -(-n // _BLK)
-    qp = -(-q // _QG) * _QG
     f32 = dict(dtype=torch.float32, device=dev)
-    part_m, part_l = (torch.empty((s, qp, nch), **f32) for _ in range(2))
+    part_m, part_l = (torch.empty((s, q, nch), **f32) for _ in range(2))
     sims = torch.empty((s, q, n), **f32)
     m = torch.empty((s, q, 1), **f32)
     l = torch.empty((s, q, 1), **f32)
     fn = _kernel_fn(_SCAN, index.dtype)
     rc = on_device(dev, lambda stream: fn(
-        qn.data_ptr(), index.data_ptr(), vmask.data_ptr(), s, q, n,
+        q32.data_ptr(), index.data_ptr(), vmask.data_ptr(), s, q, n,
         index.shape[2], float(tau), part_m.data_ptr(), part_l.data_ptr(),
         sims.data_ptr(), m.data_ptr(), l.data_ptr(), stream))
     if rc != 0:

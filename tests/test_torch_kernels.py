@@ -148,6 +148,49 @@ def test_draws_clip_beyond_total_mass():
     np.testing.assert_array_equal(got, [0, 9, 9])
 
 
+@pytest.mark.parametrize("cap", [100, 256, 700, 1024, 1500])
+def test_blockwise_cdf_is_monotone_and_counts_by_search(cap):
+    """The invariant the fused kernel's draws rest on: the canonical
+    chunked CDF never decreases across the row — chunk boundaries, masked
+    (zero-p) lanes and ties included — each chunk's last value equals the
+    next chunk's offset bit for bit (offset + total, the fold's own sum),
+    so #{cdf <= t} is a search: ``searchsorted(cdf, t, right=True)``
+    equals ``draws.raw_counts``, for targets past the total mass too."""
+    rng = np.random.default_rng(cap)
+    logits = rng.standard_normal((3, cap)).astype(np.float32) / 0.1
+    logits[rng.random((3, cap)) < 0.3] = -1e30        # masked lanes: p 0
+    logits[:, 5:40] = logits[:, 4:5]                   # ties
+    logits[2, 300:] = -1e30                            # a masked tail
+    p = torch.softmax(_t(logits), dim=-1)
+    assert bool((p == 0).any())
+    cdf = tdraws.blockwise_cdf(p)
+    assert bool((cdf[..., 1:] >= cdf[..., :-1]).all())
+    # the chunks' offsets: the sequential fold of the chunk totals
+    pad = (-cap) % tdraws.DRAW_BLK
+    chunks = torch.nn.functional.pad(p, (0, pad)).reshape(
+        3, -1, tdraws.DRAW_BLK)
+    tot = tdraws.seq_cumsum(chunks)[..., -1]
+    off = torch.zeros_like(tot[..., :1])
+    offs = [off]
+    for k in range(tot.shape[-1]):
+        off = off + tot[..., k:k + 1]
+        offs.append(off)
+    offs = torch.cat(offs, dim=-1)
+    for k in range(tot.shape[-1]):
+        last = min(cap, (k + 1) * tdraws.DRAW_BLK) - 1
+        assert torch.equal(cdf[..., last], offs[..., k + 1]), k
+        assert torch.equal(cdf[..., last], tot[..., k] + offs[..., k]), k
+    u = rng.integers(0, 1 << 20, size=(3, 200))
+    t = tdraws.draw_targets(_t(u))
+    past = torch.stack([cdf[:, -1], cdf[:, -1] + 1e-3,
+                        torch.full((3,), 1.5)], dim=-1)
+    t = torch.cat([t, cdf[:, ::37], past], dim=-1)    # CDF values too
+    got = torch.searchsorted(cdf.contiguous(), t.contiguous(), right=True)
+    want = tdraws.raw_counts(p, t)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert bool((want[:, -2:] == cap).all())
+
+
 # ---------------------------------------------------------------------------
 # valid masks
 # ---------------------------------------------------------------------------
@@ -263,27 +306,68 @@ def test_scan_operands_take_any_width_and_base(d, dtype):
     flat = torch.from_numpy(rng.standard_normal(s * n * d + 1).astype(
         np.float32)).to(dtype)
     index = flat[1:].view(s, n, d)          # base one element off
-    qn, x, vmask = tsim._scan_operands(query, index, _t(np.asarray(
-        [n, 7], np.int32)))
+    sizes = _t(np.asarray([n, 7], np.int32))
+    q32, x, vmask = tsim._scan_operands(query, index, sizes)
     assert x.data_ptr() == index.data_ptr()
-    assert qn.shape == (s, q, d) and vmask.shape == (s, n)
-    tsim._scan_operands(query, index, _t(np.asarray([n, 7], np.int32)), 32)
-    # the limit: 8 queries at a row stride of d rounded up to 4, and one
-    # (stack) or two (fused) 256-row score tiles and the targets
-    assert tsim.scan_smem_bytes(7008) <= 227 * 1024 < tsim.scan_smem_bytes(
-        7009)
-    assert tsim.scan_smem_bytes(d) == 4 * (8 * (-(-d // 4) * 4) + 8 * 256)
-    assert tsim.scan_smem_bytes(d, 32) == 4 * (8 * (-(-d // 4) * 4)
-                                               + 16 * 256 + 16 * 32)
-    wide = torch.zeros((1, 1, 7009))
+    assert q32.shape == (s, q, d) and vmask.shape == (s, n)
+    # the limit: 8 queries at a row stride of d rounded up to 4, for the
+    # stack and the fused scan alike (neither keeps a score tile or the
+    # targets in shared memory any more, so the limit is wider than the
+    # 7008 and 6688 - 2 T it was, and no longer narrows with T); a staged
+    # ring adds 32 rows a stage
+    assert tsim.scan_smem_bytes(7264) <= 227 * 1024 < tsim.scan_smem_bytes(
+        7265)
+    assert tsim.scan_smem_bytes(d) == 4 * 8 * (-(-d // 4) * 4)
+    elt = index.element_size()
+    assert tsim.scan_smem_bytes(d, elt, 2) == (tsim.scan_smem_bytes(d)
+                                               + 2 * 32 * d * elt)
+    wide = torch.zeros((1, 1, 7265))
     with pytest.raises(ValueError, match="shared memory"):
-        tsim._scan_operands(wide, torch.zeros((1, 2, 7009), dtype=dtype),
+        tsim._scan_operands(wide, torch.zeros((1, 2, 7265), dtype=dtype),
                             _t(np.asarray([2], np.int32)))
-    with pytest.raises(ValueError, match="shared memory"):
-        tsim._scan_operands(torch.zeros((1, 1, 6689)),
-                            torch.zeros((1, 2, 6689), dtype=dtype),
-                            _t(np.asarray([2], np.int32)), 32)
-    assert tsim.scan_smem_bytes(6688, 32) == 227 * 1024
+    tsim._scan_operands(torch.zeros((1, 1, 7264)),
+                        torch.zeros((1, 2, 7264), dtype=dtype),
+                        _t(np.asarray([2], np.int32)))
+
+
+# (d, element bytes, 16-byte aligned base, ring stages of the chunk pass)
+SCAN_STAGES = [(768, 4, True, 2), (768, 1, True, 3), (768, 4, False, 0),
+               (770, 4, True, 0), (6, 4, True, 0), (8, 4, True, 3),
+               (804, 4, True, 2), (808, 4, True, 0), (1024, 4, True, 0),
+               (1808, 1, True, 3), (1824, 1, True, 2), (2416, 1, True, 2),
+               (2432, 1, True, 0), (772, 1, True, 0)]
+
+
+@pytest.mark.parametrize("d,elt,aligned,stages", SCAN_STAGES)
+def test_scan_stages_fit_shared_memory(d, elt, aligned, stages):
+    """The score pass stages rows through its ring only where each row
+    starts on 16 bytes, with 3 stages where they fit 227 KB, else 2, else
+    none (rows read straight into registers)."""
+    assert tsim.scan_stages(d, elt, aligned) == stages
+    if stages:
+        assert tsim.scan_smem_bytes(d, elt, stages) <= 227 * 1024
+    if aligned and d * elt % 16 == 0 and stages < 3:
+        assert tsim.scan_smem_bytes(d, elt, max(stages, 1) + 1) > 227 * 1024
+
+
+# (d, element bytes, 16-byte aligned base) → the score pass's route
+SCAN_PLANS = [((768, 1, True), "mma"), ((7232, 1, True), "mma"),
+              ((784, 1, True), "ring"), ((800, 1, True), "ring"),
+              ((768, 1, False), "direct"), ((776, 1, True), "direct"),
+              ((768, 4, True), "ring"), ((770, 4, True), "direct"),
+              ((7264, 1, True), "direct")]
+
+
+@pytest.mark.parametrize("args,route", SCAN_PLANS)
+def test_scan_plan_routes(args, route):
+    """int8 rows take the tensor cores where d is a multiple of 64, the
+    base is aligned and the query fragments fit 227 KB; else the ring,
+    else straight loads."""
+    path, stages, smem = tsim.scan_plan(*args)
+    assert path == route and smem <= 227 * 1024
+    assert (stages > 0) == (path == "ring")
+    if path == "mma":
+        assert smem == tsim.mma_smem_bytes(args[0])
 
 
 def test_fused_raw_contract_shapes():
