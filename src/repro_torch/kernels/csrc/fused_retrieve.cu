@@ -194,8 +194,10 @@ __global__ void __launch_bounds__(kThreads) k_finish(const Finish a) {
         const int j = warp + kWarps * c, i = lane + 32 * u;
         if (x[c][u] == -INFINITY)
           done |= 1u << (c * kLanes + u);
-        else
-          P[j * kPad + i] = prob_of(x[c][u], M, Ls, a.tau);
+        else      // a masked lane's p is exp(-1e30 - M) / Ls = 0 exactly
+          P[j * kPad + i] = x[c][u] == kNegInf && M > kNegInf
+                                ? 0.f
+                                : prob_of(x[c][u], M, Ls, a.tau);
       }
     // the slab's top-K: K rounds of a block arg-best over each thread's
     // best untaken lane, which only the thread whose lane was taken finds

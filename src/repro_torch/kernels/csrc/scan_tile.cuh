@@ -538,9 +538,15 @@ __device__ __forceinline__ void slab_partials(const float (&x)[kPer][kLanes],
   for (int c = 0; c < kPer; ++c) {   // unrolled: the chunks interleave
     const int j = k0 + warp + kWarps * c;
     if (j * kBlk < N) {
-      float m, l;
-      row_stats([&](int u) { return x[c][u]; }, min(kBlk, N - j * kBlk),
-                tau, m, l);
+      const int len = min(kBlk, N - j * kBlk);
+      bool off = true;
+#pragma unroll
+      for (int u = 0; u < kLanes; ++u) off = off && !(x[c][u] > kNegInf);
+      float m = kNegInf, l = static_cast<float>(len);
+      // a chunk with no valid lane: row_stats' own bits (every logit
+      // -1e30, each exp(0) = 1), without its arithmetic
+      if (!__all_sync(0xffffffffu, off))
+        row_stats([&](int u) { return x[c][u]; }, len, tau, m, l);
       if ((threadIdx.x & 31) == 0) {
         pm[j] = m;
         pl[j] = l;

@@ -162,118 +162,6 @@ def table(out: dict) -> None:
         torch.cuda.synchronize()
 
 
-# Variants of the fused scan, each with one part left out (textual edits
-# of its sources: (file, anchor found exactly once, replacement)); their
-# results are wrong on purpose, only their times are read.
-VARIANTS = {
-    "empty_finish": [("fused_retrieve.cu",
-                      "  scan::pdl_launch_dependents();\n  const int tid = "
-                      "threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
-                      "  const int nslab",
-                      "  scan::pdl_launch_dependents();\n  return;\n  const "
-                      "int tid = threadIdx.x, lane = tid & 31, warp = tid >> "
-                      "5;\n  const int nslab")],
-    "no_partials": [("fused_retrieve.cu",
-                     "    scan::slab_partials(x, a.N, k0,",
-                     "    if (false) scan::slab_partials(x, a.N, k0,")],
-    "no_topk": [("fused_retrieve.cu",
-                 "    for (int k = 0; k < a.K; ++k) {\n      float v = bv;",
-                 "    for (int k = 0; k < 0; ++k) {\n      float v = bv;")],
-    "no_draws": [("fused_retrieve.cu",
-                  "    if (tid < nk) {                  // the canonical",
-                  "    if (false) {                  // the canonical"),
-                 ("fused_retrieve.cu",
-                  "    for (int t = tid; t < a.T; t += kThreads) {\n      "
-                  "const float y",
-                  "    for (int t = tid; t < 0; t += kThreads) {\n      "
-                  "const float y")],
-    "two_stages": [("scan_tile.cuh", "  for (int st = 3; st >= 2; --st)",
-                    "  for (int st = 2; st >= 2; --st)")],
-    "no_compute": [("scan_tile.cuh",
-                    "    const float sc = group_scores<kV>(rows, qs, a.d);",
-                    "    const float sc = 0.f;")],
-    "no_loads": [("scan_tile.cuh",
-                  "      if (mask >> (kRows * g + r) & 1u) {",
-                  "      if (false) {")],
-}
-
-
-def build_variants(names) -> dict:
-    """Each variant's library (one nvcc each, all started together)."""
-    import shutil
-    from repro_torch.kernels import build
-    procs = {}
-    for name in names:
-        vdir = os.path.join(build.BUILD_DIR, "fused_variants", name)
-        os.makedirs(vdir, exist_ok=True)
-        for f in ("fused_retrieve.cu", "scan_tile.cuh"):
-            shutil.copy(os.path.join(build.CSRC, f), vdir)
-        for f, anchor, repl in VARIANTS[name]:
-            path = os.path.join(vdir, f)
-            text = open(path).read()
-            if text.count(anchor) != 1:
-                raise RuntimeError(f"{name}: anchor found "
-                                   f"{text.count(anchor)} times in {f}")
-            with open(path, "w") as fh:
-                fh.write(text.replace(anchor, repl))
-        lib = os.path.join(vdir, "libfused.so")
-        procs[name] = (lib, subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-o", lib,
-             os.path.join(vdir, "fused_retrieve.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"variant {name}: nvcc failed\n{log}")
-        libs[name] = lib
-    return libs
-
-
-def variants(out: dict) -> None:
-    """The fused scan as it is and with one part left out at a time,
-    each timed at the table's inputs, f32 and int8, in turns."""
-    import ctypes
-    import torch
-    from repro_torch.kernels import similarity
-    query, index32, index8, sizes, targets = table_inputs()
-    libs = build_variants(VARIANTS)
-    fns = {}
-    for name, lib in libs.items():
-        cdll = ctypes.CDLL(lib)
-        for dt, sym in ((torch.float32, "fused_retrieve_f32"),
-                        (torch.int8, "fused_retrieve_i8")):
-            fn = getattr(cdll, sym)
-            fn.argtypes, fn.restype = similarity._FUSED[2], ctypes.c_int
-            fns[name, dt] = fn
-    rows = {}
-    for dt, index in ((torch.float32, index32), (torch.int8, index8)):
-        key = ("fused_retrieve", dt)
-        similarity._kernel_fn(similarity._FUSED, dt)
-        full = similarity._FNS[key]
-        run = lambda: similarity.fused_retrieve_scan_stack(
-            query, index, sizes, targets, tau=TAU, n_topk=K)
-        try:
-            for name in ["full", *libs, "full"]:
-                similarity._FNS[key] = full if name == "full" else fns[name, dt]
-                ev = traced(run, 20, FUSED_KERNELS)
-                row = rows.setdefault(f"{name}_{dt}".replace("torch.", ""),
-                                      dict(device_ms=[], kernels=[]))
-                row["device_ms"].append(device_ms(run))
-                row["kernels"].append(None if ev is None
-                                      else per_kernel(ev, 20))
-                k = row["kernels"][-1]
-                print(f"variant {name} {dt}: device "
-                      f"{row['device_ms'][-1]:.4f} ms; "
-                      + ("no trace" if k is None else "  ".join(
-                          f"{n} {u:.2f} us" for n, u in k["us"].items())
-                         + f"  (covered {k['covered_us']:.2f} us)"),
-                      flush=True)
-        finally:
-            similarity._FNS[key] = full
-    out["variants"] = rows
-
-
 def main_phase(out: dict) -> None:
     """The main phase's ingest, then its query groups under the profiler
     (first pass, as chip_smoke.py's main phase runs them, then again)."""
@@ -342,7 +230,6 @@ def main() -> int:
     ap.add_argument("--tree", default=ROOT)
     ap.add_argument("--label", default="tree")
     ap.add_argument("--main", action="store_true")
-    ap.add_argument("--variants", action="store_true")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path[:0] = [os.path.join(tree, "src"), tree]
@@ -358,8 +245,6 @@ def main() -> int:
     table(out)
     if args.main:
         main_phase(out)
-    if args.variants:
-        variants(out)
     open(os.path.join(OUT, f"fused_sass_{args.label}.txt"), "w").close()
     sass = {}
     for src in ("fused_retrieve.cu", "similarity_scan.cu"):
