@@ -21,8 +21,8 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 lanes equal; floats allclose (rtol 1e-5, atol 1e-6); a
                 count of N has drawn_p 0; draw targets kept ≥ 1e-6 from
                 every CDF value; each case checked to have launched the
-                kernel; the host's plan of the score pass (ring stages,
-                shared memory) held to the source's;
+                kernel; the host's plan of the score pass (tensor cores
+                or ring stages, shared memory) held to the source's;
 3. similarity — the dense scan kernel (stack form) against its plain
                 version at the same shapes, f32, int8 and windows, and the
                 fused phase's edge cases, each
@@ -54,8 +54,9 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 the queries run under the profiler (device activity only),
                 which gives #2's device time over its launches in the
                 ingest and #1's over its 4 in the queries (each launch
-                must show in the trace); then tick 1's segment stage replayed with
-                the device synchronised between upload, #2 and the φ
+                must show in the trace); then tick 1's segment stage
+                replayed with the device synchronised between upload, #2
+                and the φ
                 read back;
 6. dense      — on the main manager: one group each of uniform, bolt,
                 mdf and aks, and akr, sampling and topk with fused=False

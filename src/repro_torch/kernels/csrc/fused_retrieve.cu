@@ -369,13 +369,14 @@ int launch(const float* query, const T* index, const uint8_t* valid,
 }  // namespace
 
 #define FUSED_ENTRY(NAME, T)                                                  \
-  extern "C" int NAME(const float* query, const T* index, const uint8_t* valid, \
+  extern "C" int NAME(const float* query, const T* index,                     \
+                      const uint8_t* valid,                                   \
                       const float* targets, int S, int Q, int N, int d,       \
                       int nt, int K, float tau, float* ws, float* part_m,    \
                       float* part_l, float* ptv, int* pti, int* cnt,          \
                       float* dp, float* plast, float* tv, int* ti, float* m,  \
                       float* l, float* pmax, void* stream) {                  \
-    return launch<T>(query, index, valid, targets, S, Q, N, d, nt, K, tau, ws,  \
+    return launch<T>(query, index, valid, targets, S, Q, N, d, nt, K, tau, ws,\
                      part_m, part_l, ptv, pti, cnt, dp, plast, tv, ti, m, l,  \
                      pmax, stream);                                           \
   }

@@ -120,11 +120,12 @@ int launch(const float* query, const T* index, const uint8_t* valid, int S,
 }  // namespace
 
 #define SCAN_ENTRY(NAME, T)                                                   \
-  extern "C" int NAME(const float* query, const T* index, const uint8_t* valid, \
+  extern "C" int NAME(const float* query, const T* index,                     \
+                      const uint8_t* valid,                                   \
                       int S, int Q, int N, int d, float tau, float* part_m,  \
                       float* part_l, float* sims, float* m, float* l,         \
                       void* stream) {                                         \
-    return launch<T>(query, index, valid, S, Q, N, d, tau, part_m, part_l,      \
+    return launch<T>(query, index, valid, S, Q, N, d, tau, part_m, part_l,    \
                      sims, m, l, stream);                                     \
   }
 
