@@ -556,7 +556,8 @@ __device__ __forceinline__ void slab_partials(const float (&x)[kPer][kLanes],
 }
 
 // M and L of one (session, query) lane, merged from the per-chunk
-// partials in chunk order — every caller gets the same bits. Plain
+// partials in chunk order — every caller gets the same bits: M the max,
+// L the chain L = fma(l_k, exp(m_k - M), L) over k = 0, 1, .... Plain
 // pointers: PDL dependents call it.
 __device__ __forceinline__ void merged_stats(const float* part_m,
                                              const float* part_l, size_t row,
@@ -567,7 +568,33 @@ __device__ __forceinline__ void merged_stats(const float* part_m,
   L = 0.f;
 #pragma unroll 8
   for (int k = 0; k < nch; ++k)
-    L += part_l[row * nch + k] * expf(part_m[row * nch + k] - M);
+    L = fmaf(part_l[row * nch + k], expf(part_m[row * nch + k] - M), L);
+}
+
+// merged_stats by a whole warp, its bits: the loads and exponentials
+// spread over the lanes, the chain in chunk order on every lane from
+// shuffled terms; every lane returns M and L.
+__device__ __forceinline__ void merged_stats_warp(const float* part_m,
+                                                  const float* part_l,
+                                                  size_t row, int nch,
+                                                  float& M, float& L) {
+  const int lane = threadIdx.x & 31;
+  const float* pm = part_m + row * nch;
+  const float* pl = part_l + row * nch;
+  M = kNegInf;
+  for (int k = lane; k < nch; k += 32) M = fmaxf(M, pm[k]);
+  M = warp_max(M);
+  L = 0.f;
+  for (int k0 = 0; k0 < nch; k0 += 32) {
+    const int k = k0 + lane;
+    const float w = k < nch ? pl[k] : 0.f;
+    const float e = k < nch ? expf(pm[k] - M) : 0.f;
+    const int n = min(32, nch - k0);
+#pragma unroll 8
+    for (int j = 0; j < n; ++j)
+      L = fmaf(__shfl_sync(0xffffffffu, w, j),
+               __shfl_sync(0xffffffffu, e, j), L);
+  }
 }
 
 template <typename K>

@@ -26,8 +26,8 @@
 // the scores leaving straight from registers. k_stats, under PDL, one
 // block per (session, query): each chunk's (m, l) over the masked scores,
 // read back from L2, then their merge in chunk order (scan::slab_partials,
-// scan::merged_stats, as the fused scan takes them). For a group of at
-// most 8 queries per session (the smoke shape) each row is read once;
+// scan::merged_stats_warp, as the fused scan takes them). For a group of
+// at most 8 queries per session (the smoke shape) each row is read once;
 // larger groups re-read a chunk's rows once per 8 queries, mostly from
 // L2. Any d and any index base, as the fused scan (scan::scan_stages).
 // The C entry points return cudaGetLastError() after the launches.
@@ -84,8 +84,14 @@ __global__ void __launch_bounds__(kThreads) k_stats(const Stats a) {
                         a.part_l + row * a.nch);
   }
   __syncthreads();
-  if (threadIdx.x == 0)
-    scan::merged_stats(a.part_m, a.part_l, row, a.nch, a.m[row], a.l[row]);
+  if (threadIdx.x < 32) {
+    float M, L;
+    scan::merged_stats_warp(a.part_m, a.part_l, row, a.nch, M, L);
+    if (threadIdx.x == 0) {
+      a.m[row] = M;
+      a.l[row] = L;
+    }
+  }
 }
 
 template <typename T>
