@@ -65,7 +65,6 @@ using scan::kThreads;
 using scan::kWarps;
 
 constexpr int kPad = kBlk + 1;     // a chunk's stride in P: no bank clash
-constexpr int kKeep = 4;           // a thread's best lanes held for top-K
 // k_finish's shared memory: the slab's p, its offsets and totals, and
 // each warp's best of a top-K round
 constexpr size_t kFinishSmem =
@@ -86,6 +85,22 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
       v = w;
       i = j;
     }
+  }
+}
+
+// The best (value desc, lane asc) of v[0 .. 2 W) into v[0], l[0]: a tree
+// of depth log2(2 W), every index a constant (the arrays stay in
+// registers).
+template <int W>
+__device__ __forceinline__ void tree_best(float* v, int* l) {
+  if constexpr (W > 0) {
+#pragma unroll
+    for (int b = 0; b < W; ++b)
+      if (ahead(v[b + W], l[b + W], v[b], l[b])) {
+        v[b] = v[b + W];
+        l[b] = l[b + W];
+      }
+    tree_best<W / 2>(v, l);
   }
 }
 
@@ -193,46 +208,32 @@ __global__ void __launch_bounds__(kThreads) k_finish(const Finish a) {
                                 ? 0.f
                                 : prob_of(x[c][u], M, Ls, a.tau);
       }
-    // the slab's top-K: K rounds of a block arg-best over the front of
-    // each thread's list of its kKeep best untaken lanes (best first),
-    // which it finds anew only when all of them are taken
+    // the slab's top-K: K rounds of a block arg-best over each thread's
+    // best untaken lane, which only the thread whose lane was taken finds
+    // anew (a tree of depth 5 over its 32, not a chain)
     auto lane_of = [&](int b) {
       return (k0 + warp + kWarps * (b / kLanes)) * kBlk + lane +
              32 * (b % kLanes);
     };
-    float hv[kKeep];
-    int hl[kKeep], kept = 0;
-    auto refill = [&]() {
-#pragma unroll
-      for (int h = 0; h < kKeep; ++h) {
-        hv[h] = -INFINITY;
-        hl[h] = 0x7fffffff;
-      }
+    auto own_best = [&](float& v, int& idx) {
+      float tv[kPer * kLanes];
+      int tl[kPer * kLanes];
 #pragma unroll
       for (int b = 0; b < kPer * kLanes; ++b) {
-        const float v = x[b / kLanes][b % kLanes];
-        const int l = lane_of(b);
-        if (!(done >> b & 1u) && ahead(v, l, hv[kKeep - 1], hl[kKeep - 1])) {
-          hv[kKeep - 1] = v;
-          hl[kKeep - 1] = l;
-#pragma unroll
-          for (int h = kKeep - 1; h > 0; --h)
-            if (ahead(hv[h], hl[h], hv[h - 1], hl[h - 1])) {
-              const float tv = hv[h];
-              const int tl = hl[h];
-              hv[h] = hv[h - 1];
-              hl[h] = hl[h - 1];
-              hv[h - 1] = tv;
-              hl[h - 1] = tl;
-            }
-        }
+        const bool off = done >> b & 1u;
+        tv[b] = off ? -INFINITY : x[b / kLanes][b % kLanes];
+        tl[b] = off ? 0x7fffffff : lane_of(b);
       }
-      kept = kKeep;
+      tree_best<kPer * kLanes / 2>(tv, tl);
+      v = tv[0];
+      idx = tl[0];
     };
-    refill();
+    float bv;
+    int bl;
+    own_best(bv, bl);
     for (int k = 0; k < a.K; ++k) {
-      float v = hv[0];
-      int idx = hl[0];
+      float v = bv;
+      int idx = bl;
       warp_best(v, idx);
       if (lane == 0) {
         wv[warp] = v;
@@ -246,17 +247,11 @@ __global__ void __launch_bounds__(kThreads) k_finish(const Finish a) {
           v = wv[w];
           idx = wi[w];
         }
-      if (hl[0] == idx && idx != 0x7fffffff) {   // the owner takes it
-        const int lr = idx % kBlk - lane;
-        done |= 1u << ((idx / kBlk - k0 - warp) / kWarps * kLanes + lr / 32);
+      if (bl == idx) {                 // the owner takes it, finds anew
 #pragma unroll
-        for (int h = 0; h + 1 < kKeep; ++h) {
-          hv[h] = hv[h + 1];
-          hl[h] = hl[h + 1];
-        }
-        hv[kKeep - 1] = -INFINITY;
-        hl[kKeep - 1] = 0x7fffffff;
-        if (--kept == 0) refill();
+        for (int b = 0; b < kPer * kLanes; ++b)
+          if (lane_of(b) == idx) done |= 1u << b;
+        own_best(bv, bl);
       }
       if (tid == 0) {
         const size_t o = nslab > 1
