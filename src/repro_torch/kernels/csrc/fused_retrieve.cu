@@ -68,7 +68,7 @@ constexpr int kPad = kBlk + 1;     // a chunk's stride in P: no bank clash
 // k_finish's shared memory: the slab's p, its offsets and totals, and
 // each warp's best of a top-K round
 constexpr size_t kFinishSmem =
-    sizeof(float) * (kSlab * kPad + 2 * kSlab + 1 + 2 * kWarps + 2);
+    sizeof(float) * (kSlab * kPad + 2 * kSlab + 1 + 2 * kWarps);
 static_assert(kFinishSmem <= scan::kStatsReserve, "k_finish's slab");
 static_assert(kPer * kLanes == 32, "a thread's slab lanes fit a bit mask");
 
@@ -154,7 +154,6 @@ __global__ void __launch_bounds__(kThreads) k_finish(const Finish a) {
   float* tot = offs + kSlab + 1;
   float* wv = tot + kSlab;            // each warp's best of a round
   int* wi = reinterpret_cast<int*>(wv + kWarps);
-  float* ml = reinterpret_cast<float*>(wi + kWarps);   // M and L
   scan::pdl_wait();
   scan::pdl_launch_dependents();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -173,16 +172,8 @@ __global__ void __launch_bounds__(kThreads) k_finish(const Finish a) {
                         a.part_l + row * a.nch);
   }
   __syncthreads();
-  if (warp == 0) {
-    float m, l;
-    scan::merged_stats_warp(a.part_m, a.part_l, row, a.nch, m, l);
-    if (lane == 0) {
-      ml[0] = m;
-      ml[1] = l;
-    }
-  }
-  __syncthreads();
-  const float M = ml[0], L = ml[1];
+  float M, L;
+  scan::merged_stats(a.part_m, a.part_l, row, a.nch, M, L);
   const float Ls = fmaxf(L, 1e-30f);
   if (tid == 0) {
     a.m[row] = M;
