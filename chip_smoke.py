@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
-12, 7–9:
+12, 7, 13, 8, 9:
 
 1. build      — compile the CUDA kernels from ``src/repro_torch/kernels/
                 csrc`` (one nvcc per source, all started together);
@@ -73,7 +73,12 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
 9. parity     — a small input through the card and through the plain
                 versions on the CPU: the same partitions, clusters and
                 reservoirs, and identical frame ids when both query the
-                same memory;
+                same memory; then a consolidating manager and a
+                cluster_merge one (capacity 8, MEM at smoke width with
+                OCR and detector prompts) carried to CPU twins by
+                ``arena_from_numpy``: identical frame ids for akr,
+                sampling and topk, two-stage where the tier holds
+                history;
 10. decode    — the two decode-attention kernels against their plain
                 versions at the serving shapes (B=4 slots, C=2048 cache
                 rows, bf16 and f32; per-slot ragged masks with one slot of
@@ -110,13 +115,24 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 mla_decode launches == 62 × decode steps, every one on
                 k_mla (``mla_decode.route_launches``); #6's device µs a
                 launch in the step by the profiler; the same logits
-                check.
+                check;
+13. tier      — the hierarchical tier through the entry points: the main
+                phase's MEM embedder, 16 streams of 224² worlds of 16
+                scenes into ``VenusConfig(memory_capacity=128,
+                eviction="consolidate", coarse_capacity=32,
+                coarse_block=16, coarse_topb=4)``; every session
+                consolidates; the main phase's four query groups each run
+                two-stage (two #1 launches, S·Q·B·block gathered rows,
+                the coarse tier's bytes counted, no restack); the same
+                specs with ``coarse=False`` (one flat launch each), then
+                two-stage again; ingest stage times and each group's
+                similarity and sample_expand seconds printed.
 
 Prints the card's name and power limit, one line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Every kernel's launch count is read around the phase that drives its path
 (main: fused retrieval and scene score; dense: the dense scans; serve and
-serve_mla: the decode kernels).
+serve_mla: the decode kernels; tier: fused retrieval, two a group).
 """
 
 from __future__ import annotations
@@ -419,6 +435,153 @@ def phase_fused(gen):
     return out
 
 
+# the hierarchical tier at the production geometry: capacity N = 8192,
+# coarse_block 64 (n_blocks 128), coarse_capacity 256 (n_coarse 384),
+# top-B 4, so stage 2 scans B·block = 256 candidates a query
+TIER_BLOCK, TIER_NB, TIER_NC, TIER_B = 64, 128, 384, 4
+
+
+def stage_cases(gen):
+    """The two launches of a two-stage group at the production geometry
+    → [(name, query, index, valid, K)]. ``stage1``: S=16, Q=8 over the
+    coarse tier (N=384), every block summary valid and 100 of the 256
+    consolidated rows, K=B=4. ``stage2``: the S·Q = 128 lanes of the
+    candidate operand, Q=1, N=256: per lane two winners are whole live
+    blocks and two consolidated rows (one valid row out of 64, the rest
+    zero rows, as ``tiering._gather_candidates`` builds them), K=8."""
+    import torch
+    dev = torch.device("cuda")
+    q1 = torch.randn((S, Q, D), generator=gen, device=dev)
+    x1 = torch.randn((S, TIER_NC, D), generator=gen, device=dev)
+    v1 = torch.zeros((S, TIER_NC), dtype=torch.bool, device=dev)
+    v1[:, :TIER_NB] = True
+    for s in range(S):
+        pick = torch.randperm(TIER_NC - TIER_NB, generator=gen,
+                              device=dev)[:100]
+        v1[s, TIER_NB + pick] = True
+    lanes, c = S * Q, TIER_B * TIER_BLOCK
+    q2 = torch.randn((lanes, 1, D), generator=gen, device=dev)
+    x2 = torch.randn((lanes, c, D), generator=gen, device=dev)
+    v2 = torch.zeros((lanes, TIER_B, TIER_BLOCK), dtype=torch.bool,
+                     device=dev)
+    blocks = torch.rand((lanes, TIER_B), generator=gen,
+                        device=dev).argsort(-1) < 2      # two block winners
+    v2[blocks] = True
+    v2[..., 0] = True
+    x2 = x2.view(lanes, TIER_B, TIER_BLOCK, D)
+    x2[..., 1:, :] *= blocks[..., None, None]
+    check(int(v2.sum()) == lanes * (2 * TIER_BLOCK + 2),
+          "stage2: two whole blocks and two single rows a lane")
+    return [("stage1", q1, x1, v1, TIER_B),
+            ("stage2", q2, x2.view(lanes, c, D), v2.view(lanes, c), K)]
+
+
+def phase_fused_stages(gen, card):
+    """Kernel #1 at the two stage shapes of the hierarchical tier, held to
+    its plain version: stage 1 with the executor's dummy zero target
+    (its draws are not used, so only top-K lanes and values, m, l and
+    p_max are held), stage 2 with ``margin_targets``; integers equal,
+    floats at rtol 1e-5 / atol 1e-6. Each timed by ``device_ms``, the
+    bound over the rows the mask keeps. Then the stage-2 candidate gather
+    (``tiering._gather_candidates``) over a 16-slot arena of 8192 rows,
+    timed the same way."""
+    import torch
+    from repro_torch.core import tiering
+    from repro_torch.core.memory import MemoryArena
+    from repro_torch.kernels import ops, ref, similarity
+    out = {}
+    for name, query, index, valid, k in stage_cases(gen):
+        s, q, _ = query.shape
+        n = index.shape[1]
+        if name == "stage1":
+            targets, margin = torch.zeros((s, q, 1), device=query.device), None
+        else:
+            sims, m, l = ref.similarity_scan_stack_ref(query, index, valid,
+                                                       tau=TAU)
+            probs = ref.scan_probs(sims, m, l, valid[:, None, :], TAU)
+            targets, margin = margin_targets(probs, gen, T)
+            del sims, probs
+        run_k = lambda: similarity.fused_retrieve_scan_stack(
+            query, index, valid, targets, tau=TAU, n_topk=k)
+        run_p = lambda: ref.fused_retrieve_stack_ref(
+            query, index, valid, targets, tau=TAU, n_topk=k)
+        before = similarity.fused_retrieve_scan_stack.launches
+        raw = run_k()
+        check(similarity.fused_retrieve_scan_stack.launches == before + 1,
+              f"fused {name}: the kernel did not launch")
+        raw_p = run_p()
+        got, want = ops.finalize(raw, n), ops.finalize(raw_p, n)
+        ints = ("topk_i",) if name == "stage1" else ("draws", "topk_i")
+        floats = (("topk_v", "m", "l", "p_max") if name == "stage1"
+                  else ("drawn_p", "topk_v", "m", "l", "p_max"))
+        if name == "stage2":
+            check(torch.equal(raw.counts, raw_p.counts),
+                  f"fused {name}: raw counts differ")
+        for f in ints:
+            check(torch.equal(getattr(got, f), getattr(want, f)),
+                  f"fused {name}: {f} differ in "
+                  f"{int((getattr(got, f) != getattr(want, f)).sum())} "
+                  f"places")
+        err = 0.0
+        for f in floats:
+            a, b = getattr(got, f), getattr(want, f)
+            check(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
+                  f"fused {name}: {f} max abs err "
+                  f"{float((a - b).abs().max())}")
+            if f != "l":
+                err = max(err, float((a - b).abs().max()))
+        dev_ms = device_ms(run_k)
+        ms = cuda_ms(run_k, reps=10, warmup=2)
+        plain = cuda_ms(run_p, reps=2)
+        t = targets.shape[-1]
+        small = (s * q * D * 4 + valid.numel() + s * q * t * 4
+                 + s * q * (2 * t + 2 * k + 4) * 4)
+        n_valid = int(valid.sum())
+        b, by = bound_ms(n_valid * D * 4 + small, (2.0 * q + 3.0) * n_valid
+                         * D)
+        out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain,
+                         bound_ms=b, bound_by=by, valid_rows=n_valid,
+                         max_abs_err=err, margin=margin, s=s, q=q, n=n,
+                         k=k, t=t)
+        print(f"phase fused[{name}]: ok  S={s} Q={q} N={n} T={t} K={k}  "
+              f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms)  plain "
+              f"{plain:.4f} ms  bound {b:.4f} ms ({by}; {n_valid} valid "
+              f"rows)  max_abs_err {err:.3e}"
+              + (f"  target margin {margin:.2e}" if margin else "")
+              + f"  [{card}]", flush=True)
+    # the stage-2 operand's gather over a production-size arena
+    arena = MemoryArena(N, D, coarse_capacity=TIER_NC - TIER_NB,
+                        coarse_block=TIER_BLOCK, device="cuda")
+    for _ in range(S):
+        arena.add_session()
+    arena.emb.copy_(torch.randn(arena.emb.shape, generator=gen,
+                                device="cuda"))
+    arena.coarse_emb.copy_(torch.randn(arena.coarse_emb.shape,
+                                       generator=gen, device="cuda"))
+    arena.coarse_valid[:] = True
+    arena.version += 1
+    winners = torch.stack([torch.randperm(TIER_NC, generator=gen,
+                                          device="cuda")[:TIER_B * Q]
+                           for _ in range(S)]).view(S, Q, TIER_B).int()
+    gather = lambda: tiering._gather_candidates(arena, winners)
+    emb = gather()[0]
+    check(emb.shape == (S, Q, TIER_B * TIER_BLOCK, D), "gather shape")
+    nbytes = emb.numel() * 4
+    n_blk = int((winners < TIER_NB).sum())
+    read = (n_blk * TIER_BLOCK + winners.numel() - n_blk) * D * 4
+    g_ms = device_ms(gather)
+    gb, _ = bound_ms(read + nbytes, 0.0)
+    out["gather"] = dict(device_ms=g_ms, operand_bytes=nbytes,
+                         read_bytes=read, bound_ms=gb)
+    print(f"phase fused[gather]: ok  candidate operand {nbytes / 1e6:.1f} MB "
+          f"({S}x{Q} lanes x {TIER_B * TIER_BLOCK} rows x {D}; "
+          f"{n_blk} of {winners.numel()} winners blocks), device "
+          f"{g_ms:.4f} ms (bound: {read / 1e6:.1f} MB read, the operand "
+          f"written: {gb:.4f} ms)  [{card}]", flush=True)
+    del arena, emb
+    return out
+
+
 def _scan_check(name, got, want, valid, sessions_empty=()):
     """Kernel triple vs plain triple (+ the epilogue's probs of each):
     allclose at rtol 1e-5 / atol 1e-6; empty sessions give l = N and
@@ -574,10 +737,15 @@ def phase_similarity_2d(gen, q2, x32, x8):
     return out
 
 
-def make_worlds(n: int, resolution: int):
+def make_worlds(n: int, resolution: int, n_scenes: int = 3, seed0: int = 0):
+    """n ``VideoWorld``s of seeds seed0.. , rendered by 8 threads (numpy's
+    random fills and array ops release the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.data.video import VideoWorld, WorldConfig
-    return [VideoWorld(WorldConfig(n_scenes=3, resolution=resolution,
-                                   seed=s)) for s in range(n)]
+    with ThreadPoolExecutor(8) as ex:
+        return list(ex.map(lambda s: VideoWorld(WorldConfig(
+            n_scenes=n_scenes, resolution=resolution, seed=s)),
+            range(seed0, seed0 + n)))
 
 
 def scene_cases(frames_np):
@@ -726,6 +894,8 @@ def ingest_streams(worlds, cfg, embedder, dim, device, *, chunk=64):
         for k in stages:
             stages[k] += got[k]
         seg_ticks.append(got["segment"])
+    # a TimedEmbedder's seconds in the ticks, before the flush embeds more
+    stages["embed_ticks_s"] = getattr(embedder, "seconds", 0.0)
     mgr.flush()
     sync()
     stages["segment_ticks"] = seg_ticks
@@ -797,24 +967,38 @@ def unit_queries_np(n: int, dim: int, seed: int):
     return qe / np.linalg.norm(qe, axis=-1, keepdims=True)
 
 
-def run_queries(mgr, n_sessions: int, dim: int):
+def run_queries(mgr, n_sessions: int, dim: int, coarse: bool = True,
+                text: bool = True):
     """8 queries per session under akr, sampling and topk, and 8 text
     queries per session (akr, embedded by the manager's embedder): four
-    ``query_batch_cross`` calls, one execution group (one fused launch)
-    each. Returns (per-group results, host-clock seconds of each)."""
+    ``query_batch_cross`` calls, one execution group (one fused launch,
+    two where the group is two-stage) each. ``coarse=False``: the same
+    specs through ``execute(plan, coarse=False)``, the flat scan.
+    Returns (per-group results, host-clock seconds of each)."""
+    from repro_torch.core.queryplan import QuerySpec
     sids = [s for s in range(n_sessions) for _ in range(8)]
     qe = unit_queries_np(len(sids), dim, 5)
     texts = [f"what happens on camera {s} around event {j % 8}"
              for j, s in enumerate(sids)]
+    groups = [("akr", dict(query_embs=qe)),
+              ("sampling", dict(query_embs=qe, budget=16, use_akr=False)),
+              ("topk", dict(query_embs=qe, budget=8, strategy="topk"))]
+    if text:
+        groups.append(("text", dict(texts=texts)))
     results, qtimes = {}, {}
-    for strat, kw in (("akr", dict(query_embs=qe)),
-                      ("sampling", dict(query_embs=qe, budget=16,
-                                        use_akr=False)),
-                      ("topk", dict(query_embs=qe, budget=8,
-                                    strategy="topk")),
-                      ("text", dict(texts=texts))):
+    for strat, kw in groups:
         t0 = time.perf_counter()
-        results[strat] = mgr.query_batch_cross(sids, **kw)
+        if coarse:
+            results[strat] = mgr.query_batch_cross(sids, **kw)
+        else:
+            name = kw.get("strategy") or (
+                "sampling" if kw.get("use_akr") is False else "akr")
+            specs = [QuerySpec(
+                sid=s, strategy=name, budget=kw.get("budget"),
+                text=kw["texts"][j] if "texts" in kw else None,
+                embedding=kw["query_embs"][j] if "query_embs" in kw
+                else None) for j, s in enumerate(sids)]
+            results[strat] = mgr.execute(mgr.plan(specs), coarse=False)
         qtimes[strat] = time.perf_counter() - t0
     return results, qtimes
 
@@ -878,6 +1062,147 @@ def run_main_path(worlds, cfg, embedder, dim, card, label, trace=False):
     return mgr, results, times
 
 
+TIER_SCENES = 16        # ≈ 160 index rows a session: every one overflows
+
+
+def phase_tier(embedder, card):
+    """The hierarchical tier through the entry points at d = 768: 16
+    streams of 224² worlds of 16 scenes into a consolidating manager with
+    the reference's ``TIER_CFG`` geometry (capacity 128, coarse_block 16,
+    coarse_capacity 32, top-B 4) and the main phase's MEM embedder, then
+    the main phase's four query groups. Every session consolidates; every
+    group runs two-stage (two #1 launches, the gather counted), with no
+    restack. The same specs then run with ``coarse=False`` (the flat
+    scan), and two-stage again, for the groups' timings."""
+    import torch
+    from repro_torch.core.session import VenusConfig
+    from repro_torch.kernels import ops
+    cfg = VenusConfig(memory_capacity=128, eviction="consolidate",
+                      coarse_capacity=32, coarse_block=16, coarse_topb=4)
+    t0 = time.perf_counter()
+    worlds = make_worlds(S, 224, n_scenes=TIER_SCENES, seed0=100)
+    t_worlds = time.perf_counter() - t0
+    embedder.seconds, embedder.frames = 0.0, 0
+    mgr, ticks, stages = ingest_streams(worlds, cfg, embedder, D, "cuda")
+    consolidated = [mgr[s].memory.io_stats["consolidated_rows"]
+                    for s in range(S)]
+    check(all(c > 0 for c in consolidated),
+          f"tier: every session consolidates: {consolidated}")
+    check(mgr.arena.has_consolidated(), "tier: the arena holds history")
+    a = mgr.arena
+    n_groups, topb, blk = 4, cfg.coarse_topb, cfg.coarse_block
+    runs, launches = {}, {}
+    for label, coarse in (("two_stage", True), ("flat", False),
+                          ("two_stage_again", True)):
+        mgr.reset_io_stats(include_memories=False)
+        torch.cuda.synchronize()
+        ops.reset_kernel_launches()
+        ops.reset_scan_counts()
+        results, qtimes = run_queries(mgr, S, D, coarse=coarse)
+        torch.cuda.synchronize()
+        launches[label] = ops.kernel_launches()["fused_retrieve"]
+        counts = ops.scan_counts()
+        check(mgr.io_stats["stack_rebuilds"] == 0, "tier: stack_rebuilds")
+        check_results(mgr, worlds, results, f"tier {label}")
+        if coarse:
+            check(mgr.io_stats["two_stage_groups"] == n_groups
+                  == mgr.io_stats["group_scans"],
+                  f"tier: every group two-stage: {mgr.io_stats}")
+            check(launches[label] == 2 * n_groups
+                  and counts["two_stage_scans"] == n_groups,
+                  f"tier: two #1 launches a group: {launches[label]}, "
+                  f"{counts}")
+            check(counts["fine_gather_rows"]
+                  == n_groups * S * 8 * topb * blk
+                  and counts["coarse_scan_bytes"] == n_groups * S
+                  * a.n_coarse * D * 4, f"tier: counts {counts}")
+        else:
+            check(mgr.io_stats["two_stage_groups"] == 0
+                  and launches[label] == n_groups
+                  and counts["two_stage_scans"] == 0,
+                  f"tier: coarse=False is flat: {counts}")
+        runs[label] = dict(seconds=qtimes, timings={
+            g: {k: res[0].timings[k] for k in ("similarity",
+                                                "sample_expand")}
+            for g, res in results.items()})
+    rows = [mgr[s].memory.size for s in range(S)]
+    n_emb = sum(mgr[s].stats["frames_embedded"] for s in range(S))
+    frames = sum(w.total_frames for w in worlds)
+    insert_s = stages["embed_insert"] - stages["embed_ticks_s"]
+    out = dict(worlds_s=t_worlds, frames=frames, ticks=ticks,
+               stages={k: stages[k] for k in ("segment", "cluster",
+                                              "embed_insert")},
+               embed_s=embedder.seconds, embedded=n_emb,
+               insert_s=insert_s, consolidated_rows=consolidated,
+               rows=rows, launches=launches["two_stage"], runs=runs)
+    print(f"phase tier: ok  {S} streams of {TIER_SCENES} scenes, {frames} "
+          f"frames (worlds {t_worlds:.2f} s)  ingest ticks (s) "
+          f"{[round(x, 4) for x in ticks]}  by stage (s) "
+          f"{ {k: round(v, 4) for k, v in out['stages'].items()} }  MEM "
+          f"{embedder.seconds:.3f} s for {n_emb} frames, insert and "
+          f"consolidate {insert_s:.3f} s  consolidated rows "
+          f"{consolidated}  [{card}]", flush=True)
+    for label, r in runs.items():
+        split = {g: (round(v["similarity"], 6), round(v["sample_expand"], 6))
+                 for g, v in r["timings"].items()}
+        print(f"  tier {label}: fused launches {launches[label]}  seconds "
+              f"{ {k: round(v, 6) for k, v in r['seconds'].items()} }  "
+              f"similarity, sample_expand (s) {split}", flush=True)
+    del mgr, worlds
+    return out
+
+
+def card_state(mgr, sids):
+    """A card manager's state as ``arena_from_numpy``'s arguments: the
+    arena's arrays, each session's PRNG key and, with a coarse tier, its
+    buffers and the memories' consolidated rows."""
+    import numpy as np
+    a = mgr.arena
+    mems = [mgr[s].memory for s in sids]
+    out = dict(emb=a.emb.cpu().numpy(), members=a.members.cpu().numpy(),
+               member_count=a.member_count.cpu().numpy(),
+               index_frame=a.index_frame.cpu().numpy(), sizes=a.sizes.copy(),
+               heads=a.heads.copy(),
+               keys=np.stack([np.array(mgr[s].key) for s in sids]))
+    if a.n_coarse:
+        out["coarse"] = dict(
+            emb=a.coarse_emb.cpu().numpy(),
+            members=a.coarse_members.cpu().numpy(),
+            member_count=a.coarse_member_count.cpu().numpy(),
+            index_frame=a.coarse_index_frame.cpu().numpy(),
+            valid=a.coarse_valid.copy(),
+            weight=np.stack([m._coarse_weight for m in mems]),
+            fid_lo=np.stack([m._coarse_fid_lo for m in mems]),
+            fid_hi=np.stack([m._coarse_fid_hi for m in mems]),
+            csize=np.asarray([m._coarse_csize for m in mems]))
+    return out
+
+
+def check_twin(card_mgr, cfg, label, dim):
+    """Card and CPU answer alike over the same memory: the card manager's
+    state into a CPU twin (``arena_from_numpy``), then akr, sampling and
+    topk queries through both; frame ids and n_drawn equal. Returns the
+    card's io_stats of the queries."""
+    from repro_torch.core.convert import arena_from_numpy
+    sids = sorted(card_mgr.sessions)
+    twin = arena_from_numpy(cfg, None, device="cpu",
+                            **card_state(card_mgr, sids))
+    card_mgr.reset_io_stats(include_memories=False)
+    on_card, _ = run_queries(card_mgr, len(sids), dim, text=False)
+    on_cpu, _ = run_queries(twin, len(sids), dim, text=False)
+    for strat in on_card:
+        for x, y in zip(on_card[strat], on_cpu[strat]):
+            check(x.frame_ids.tolist() == y.frame_ids.tolist()
+                  and x.n_drawn == y.n_drawn,
+                  f"parity {label} {strat}: card {x.frame_ids} vs cpu "
+                  f"{y.frame_ids}")
+    check(card_mgr.io_stats["two_stage_groups"]
+          == twin.io_stats["two_stage_groups"],
+          f"parity {label}: two-stage groups card {card_mgr.io_stats} vs "
+          f"cpu {twin.io_stats}")
+    return dict(card_mgr.io_stats)
+
+
 def phase_parity():
     """The same small input through the card and through the plain
     versions on the CPU. Ingest: identical partitions, clusters and
@@ -885,13 +1210,23 @@ def phase_parity():
     cluster's members are equidistant from its centroid (an exact tie
     that rounding breaks, differently on each device); embeddings of the
     same frame allclose. Query: both routes over the card's memory give
-    identical frame ids."""
+    identical frame ids. Then the tier: one world streamed by two
+    sessions (the second a tick behind) on the card, embedded by MEM at
+    smoke width (f32) with OCR and detector prompts from the world's
+    annotations, into a consolidating manager and a ``cluster_merge``
+    one of capacity 8; each one's state into a CPU twin, and identical
+    frame ids for akr, sampling and topk, through the two-stage path
+    where the tier holds history."""
     import numpy as np
     import torch
+    from repro_torch.configs.venus_mem import smoke_config
+    from repro_torch.core.aux_models import DetectorStub, OCRStub
     from repro_torch.core.convert import arena_from_numpy
-    from repro_torch.core.session import VenusConfig
+    from repro_torch.core.pipeline import MEMEmbedder
+    from repro_torch.core.session import SessionManager, VenusConfig
     from repro_torch.data.video import PixelEmbedder
     from repro_torch.kernels import prng
+    from repro_torch.models.mem import MEM
     small = make_worlds(2, 64)
     cfg = VenusConfig(memory_capacity=512)
     card_mgr, _, _ = ingest_streams(small, cfg, PixelEmbedder(dim=64), 64,
@@ -922,9 +1257,49 @@ def phase_parity():
                   and x.n_drawn == y.n_drawn,
                   f"parity {strat}: card {x.frame_ids} vs cpu {y.frame_ids}")
     ties = int((~same).sum())
+    # the tier and cluster_merge, with the aux models' prompts
+    world = small[0]
+    mem = MEM.init(_mem_with_dtype(smoke_config(), "float32"), seed=2,
+                   device="cuda")
+    tier = {}
+    for label, tcfg in (
+            ("consolidate", VenusConfig(memory_capacity=8,
+                                        eviction="consolidate",
+                                        coarse_capacity=8, coarse_block=4,
+                                        coarse_topb=2)),
+            ("cluster_merge", VenusConfig(memory_capacity=8,
+                                          eviction="cluster_merge"))):
+        mgr = SessionManager(tcfg, MEMEmbedder(mem), 64,
+                             aux_models=[OCRStub(), DetectorStub()],
+                             annotation_fn=world.annotations, device="cuda")
+        for sid in (0, 1):
+            mgr.create_session(sid)
+        for tick in range(world.total_frames // 64 + 2):
+            mgr.ingest_tick({sid: world.frames[64 * (tick - sid):
+                                               64 * (tick - sid + 1)]
+                             for sid in (0, 1)
+                             if 0 <= 64 * (tick - sid) < world.total_frames})
+        mgr.flush()
+        mems = [mgr[s].memory for s in (0, 1)]
+        prompts = sum(bool(world.annotations(int(f))["text"])
+                      for m in mems for f in m._index_frame[:m.size])
+        check(prompts > 0, f"parity {label}: no index frame has a prompt")
+        evicted = [m.io_stats["evicted_rows"] for m in mems]
+        check(all(e > 0 for e in evicted), f"parity {label}: evictions")
+        stats = check_twin(mgr, tcfg, label, 64)
+        if label == "consolidate":
+            check(all(m.io_stats["consolidated_rows"] > 0 for m in mems)
+                  and stats["two_stage_groups"] == 3,
+                  f"parity {label}: two-stage groups {stats}")
+        tier[label] = dict(evicted=evicted, prompts=prompts,
+                           two_stage_groups=stats["two_stage_groups"],
+                           merges=[m.io_stats["reservoir_merges"]
+                                   for m in mems])
     print(f"phase parity: ok  ingest equal ({ties} two-member index-frame "
           f"ties broken differently)  card == cpu frame ids for akr, "
-          f"sampling, topk", flush=True)
+          f"sampling, topk; tier (MEM smoke f32, OCR + detector prompts) "
+          f"{tier}: card == cpu twin frame ids", flush=True)
+    return tier
 
 
 def check_results(mgr, worlds, results, label):
@@ -1703,6 +2078,7 @@ def main() -> int:
 
     # 2-4, 10. each kernel against its plain version
     fused = phase_fused(gen)
+    stages = phase_fused_stages(gen, card)
     sim = phase_similarity(gen)
     scene = phase_scene(frames65)
     dec = phase_decode(gen)
@@ -1793,12 +2169,15 @@ def main() -> int:
     print(f"phase main_int8: ok  launches {l8}", flush=True)
     del mgr8
 
+    # 13. the hierarchical tier through the entry points
+    tier = phase_tier(embedder, card)
+
     # 8. MEM card vs CPU, and bf16 vs f32
     mem_out = phase_mem(mem, worlds[1].frames[:4])
     del mem, embedder
 
     # 9. a small input through the card and through the plain versions
-    phase_parity()
+    parity = phase_parity()
 
     dl = dense["launches"]
 
@@ -1828,7 +2207,8 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/fused_retrieve.cu",
         replaces="src/repro/kernels/similarity.py:422",
         launches=launches["fused_retrieve"],
-        max_abs_err=max(v["max_abs_err"] for v in fused.values()),
+        max_abs_err=max(v["max_abs_err"] for v in list(fused.values())
+                        + [stages["stage1"], stages["stage2"]]),
         ms=fused["f32"]["ms"], device_ms=fused["f32"]["device_ms"],
         plain_ms=fused["f32"]["plain_ms"],
         bound_ms=fused["f32"]["bound_ms"], bound_by=fused["f32"]["bound_by"],
@@ -1839,7 +2219,12 @@ def main() -> int:
         int8_all_rows_bound_ms=fused["int8"]["all_rows_bound_ms"],
         windows_ms=fused["f32_windows"]["ms"],
         main_device_us_per_launch=ft["device_us_per_launch"],
-        main_device_us=ft["device_us"]),
+        main_device_us=ft["device_us"],
+        tier_launches=tier["launches"],
+        **{f"{st}_{k}": stages[st][k] for st in ("stage1", "stage2")
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                     "max_abs_err")},
+        stage2_gather_device_ms=stages["gather"]["device_ms"]),
         stack_row,
         dict(scan_row("similarity_scan", "similarity_scan_2d.cu",
                       "src/repro/kernels/similarity.py:148", sim["2d"],
@@ -1899,9 +2284,10 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=kernels, fused=fused,
-                       similarity=sim, scene=scene, decode=dec, main=times,
-                       dense=dense, serve=serve, serve_mla=serve_mla,
-                       mem=mem_out), f, indent=1)
+                       fused_stages=stages, similarity=sim, scene=scene,
+                       decode=dec, main=times, dense=dense, serve=serve,
+                       serve_mla=serve_mla, mem=mem_out, tier=tier,
+                       parity_tier=parity), f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -74,20 +74,33 @@ def mem_params_from_numpy(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+# the coarse tier's arrays ``arena_from_numpy`` takes: the device buffers
+# (S, n_coarse, ·) and mask, then the consolidated rows' host state
+# (S, coarse_capacity) and the rows in use (S,)
+COARSE_KEYS = ("emb", "members", "member_count", "index_frame", "valid",
+               "weight", "fid_lo", "fid_hi", "csize")
+
+
 def arena_from_numpy(cfg: VenusConfig, embedder, *, emb: np.ndarray,
                      members: np.ndarray, member_count: np.ndarray,
                      index_frame: np.ndarray, sizes: np.ndarray,
                      heads: np.ndarray, keys: np.ndarray,
                      emb_scale: Optional[np.ndarray] = None,
+                     coarse: Optional[Mapping[str, np.ndarray]] = None,
                      sids: Optional[Sequence[int]] = None,
                      device=None) -> SessionManager:
     """emb (S, cap, d) f32 — or int8 with ``emb_scale`` (S, cap) — plus
     members (S, cap, K), member_count / index_frame (S, cap), the ring
     windows' ``sizes`` / ``heads`` (S,) and each session's PRNG key data
     ``keys`` (S, 2) → a manager whose slot s holds session ``sids[s]``
-    (default s). The host mirrors are rebuilt from the same arrays (int8
-    rows dequantised with their scales), so later inserts continue the
-    same memory."""
+    (default s). With ``cfg.coarse_capacity > 0``, ``coarse`` holds the
+    coarse tier under ``COARSE_KEYS``: the arena's ``coarse_emb``,
+    ``coarse_members``, ``coarse_member_count``, ``coarse_index_frame``
+    and ``coarse_valid``, then each memory's consolidated rows'
+    ``weight``, ``fid_lo``, ``fid_hi`` (S, coarse_capacity) and
+    ``csize`` (S,). The host mirrors are rebuilt from the same arrays
+    (int8 rows dequantised with their scales), so later inserts and
+    consolidations continue the same memory."""
     emb = np.asarray(emb)
     s, cap, d = emb.shape
     int8 = emb.dtype == np.int8
@@ -98,6 +111,12 @@ def arena_from_numpy(cfg: VenusConfig, embedder, *, emb: np.ndarray,
         raise ValueError("an int8 arena needs its emb_scale")
     if cap != cfg.memory_capacity or members.shape[2] != cfg.member_cap:
         raise ValueError("arena shape does not match cfg")
+    if (coarse is not None) != (cfg.coarse_capacity > 0):
+        raise ValueError("coarse arrays are needed exactly when "
+                         "cfg.coarse_capacity > 0")
+    missing = sorted(set(COARSE_KEYS) - set(coarse or COARSE_KEYS))
+    if missing:
+        raise ValueError(f"coarse lacks {missing}")
     mgr = SessionManager(cfg, embedder, d, device=device)
     sids = list(range(s)) if sids is None else [int(x) for x in sids]
     for sid in sids:
@@ -116,6 +135,14 @@ def arena_from_numpy(cfg: VenusConfig, embedder, *, emb: np.ndarray,
     put(a.index_frame, index_frame, np.int32)
     a.sizes[:] = np.asarray(sizes, np.int32)
     a.heads[:] = np.asarray(heads, np.int32)
+    if coarse is not None:
+        if a.coarse_emb.shape != np.shape(coarse["emb"]):
+            raise ValueError("coarse tier shape does not match cfg")
+        put(a.coarse_emb, coarse["emb"], np.float32)
+        put(a.coarse_members, coarse["members"], np.int32)
+        put(a.coarse_member_count, coarse["member_count"], np.int32)
+        put(a.coarse_index_frame, coarse["index_frame"], np.int32)
+        a.coarse_valid[:] = np.asarray(coarse["valid"], bool)
     a.version += 1
     for slot, sid in enumerate(sids):
         st = mgr.sessions[sid]
@@ -129,6 +156,17 @@ def arena_from_numpy(cfg: VenusConfig, embedder, *, emb: np.ndarray,
         mem._index_frame[:] = index_frame[slot]
         mem._size = int(sizes[slot])
         mem._head = int(heads[slot])
+        if coarse is not None:
+            nb = mem.n_blocks
+            mem._coarse_emb[:] = coarse["emb"][slot, nb:]
+            mem._coarse_members[:] = coarse["members"][slot, nb:]
+            mem._coarse_count[:] = coarse["member_count"][slot, nb:]
+            mem._coarse_ifr[:] = coarse["index_frame"][slot, nb:]
+            mem._coarse_weight[:] = coarse["weight"][slot]
+            mem._coarse_fid_lo[:] = coarse["fid_lo"][slot]
+            mem._coarse_fid_hi[:] = coarse["fid_hi"][slot]
+            mem._coarse_csize = int(coarse["csize"][slot])
         mem.version += 1
         st.key = np.asarray(keys[slot], np.uint32).copy()
     return mgr
+

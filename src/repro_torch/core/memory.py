@@ -1,5 +1,5 @@
-"""Hierarchical memory, fine tier (paper §IV-C): an index layer over a
-raw data layer.
+"""Hierarchical memory (paper §IV-C): an index layer over a raw data
+layer, with a coarse summary tier.
 
 * ``FrameStore`` — the raw data layer: every captured frame, on the host,
   by absolute id (trimmable from the back).
@@ -16,7 +16,12 @@ raw data layer.
 
 Validity is a ``(head, size)`` ring window per session; the scans take
 ``(S, 2)`` windows and derive masks on the device. Eviction ``none``
-raises on overflow; ``sliding_window`` advances the head (O(1)).
+raises on overflow; ``sliding_window`` advances the head (O(1));
+``cluster_merge`` first folds each evictee's reservoir into its most
+similar survivor; ``consolidate`` folds it into the coarse tier
+(``coarse_capacity > 0``): block summaries of the fine rows plus
+consolidated rows of evicted history, which ``tiering``'s two-stage
+retrieval scans first.
 """
 
 from __future__ import annotations
@@ -131,24 +136,71 @@ class SlidingWindowEviction(EvictionPolicy):
         mem._advance_head(need)
 
 
+class ClusterMergeEviction(SlidingWindowEviction):
+    """Sliding window that first folds each evictee's member reservoir
+    into its most similar surviving index row (cosine ≥ ``threshold``),
+    so an evicted cluster's raw frames stay reachable through it."""
+
+    name = "cluster_merge"
+
+    def __init__(self, threshold: float = 0.8):
+        self.threshold = threshold
+
+    def evict(self, mem: "VenusMemory", need: int) -> None:
+        mem._merge_into_survivors(need, self.threshold)
+        mem._advance_head(need)
+
+
+class ConsolidationEviction(ClusterMergeEviction):
+    """Hierarchical-tier eviction (paper §IV-C): each evictee folds into
+    the session's coarse tier (a running count-weighted centroid, a merged
+    reservoir, a frame window) before the head advances, so evicted
+    history stays reachable through the two-stage scan. Needs
+    ``coarse_capacity > 0``."""
+
+    name = "consolidate"
+
+    def evict(self, mem: "VenusMemory", need: int) -> None:
+        mem._consolidate(need, self.threshold)
+        mem._advance_head(need)
+
+
 _EVICTION_POLICIES = {"none": EvictionPolicy,
-                      "sliding_window": SlidingWindowEviction}
-_LATER_POLICIES = ("cluster_merge", "consolidate")
+                      "sliding_window": SlidingWindowEviction,
+                      "cluster_merge": ClusterMergeEviction,
+                      "consolidate": ConsolidationEviction}
 
 
-def get_eviction_policy(policy) -> EvictionPolicy:
+def get_eviction_policy(policy,
+                        threshold: Optional[float] = None) -> EvictionPolicy:
+    """A policy by name (an ``EvictionPolicy`` instance passes through).
+    ``threshold``, the merging policies' cosine cut, must lie in (0, 1]."""
+    if threshold is not None and not (0.0 < float(threshold) <= 1.0):
+        raise ValueError(
+            f"merge threshold must be in (0, 1], got {threshold!r}")
     if isinstance(policy, EvictionPolicy):
         return policy
-    if policy in _LATER_POLICIES:
-        raise NotImplementedError(
-            f"eviction={policy!r} belongs to a later slice of the port "
-            f"(ROADMAP.md, Queue 1: memory eviction policies and the "
-            f"hierarchical tier)")
     try:
-        return _EVICTION_POLICIES[policy]()
+        cls = _EVICTION_POLICIES[policy]
     except KeyError:
         raise KeyError(f"unknown eviction policy {policy!r}; known: "
                        f"{sorted(_EVICTION_POLICIES)}") from None
+    if threshold is not None and issubclass(cls, ClusterMergeEviction):
+        return cls(float(threshold))
+    return cls()
+
+
+def coarse_rows_for(capacity: int, coarse_capacity: int,
+                    coarse_block: int) -> Tuple[int, int]:
+    """The coarse tier's ``(n_blocks, n_coarse)``: rows ``[0, n_blocks)``
+    summarise ``coarse_block`` physical fine rows each, rows ``[n_blocks,
+    n_coarse)`` hold consolidated history. ``coarse_capacity`` 0 turns
+    the tier off."""
+    if coarse_capacity <= 0:
+        return 0, 0
+    assert coarse_block > 0, coarse_block
+    n_blocks = -(-capacity // coarse_block)
+    return n_blocks, n_blocks + coarse_capacity
 
 
 def _index_dtype(index_dtype: str) -> torch.dtype:
@@ -167,6 +219,9 @@ class MemoryArena:
     """Shared device-resident super-buffers for S sessions' memories:
     ``emb`` (S, cap, d) f32 or int8 (+ ``emb_scale`` (S, cap) for int8),
     ``members`` (S, cap, K), ``member_count`` and ``index_frame`` (S, cap).
+    ``emb`` is the head of a buffer with one more row, always zero:
+    ``emb_rows`` (S·cap + 1, d) lets one gather take a zero row
+    (``tiering``).
 
     Slots: ``add_session`` reuses the last released slot (its rows are
     zeroed in place, ``slot_reuses``) or grows every buffer by one slot
@@ -174,12 +229,20 @@ class MemoryArena:
     host mirrors ``heads``/``sizes``; free slots read ``(0, 0)`` and scan
     as masked-out padding.
 
+    Coarse tier (``coarse_capacity > 0``): ``coarse_emb`` (S, n_coarse, d),
+    always f32, ``coarse_members`` (S, n_coarse, K), ``coarse_member_count``
+    and ``coarse_index_frame`` (S, n_coarse), and the host mask
+    ``coarse_valid``; rows ``[0, n_blocks)`` summarise fine blocks, the
+    rest hold consolidated history (``coarse_rows_for``).
+
     Appends: the reference's donated XLA scatters become in-place
     ``index_put_`` writes into the preallocated buffers — one per
-    super-buffer per tick inside ``deferred_appends``."""
+    super-buffer per tick inside ``deferred_appends``, coarse rows after
+    fine ones."""
 
     def __init__(self, capacity: int, dim: int, member_cap: int = 128,
-                 index_dtype: str = "float32", *, device=None):
+                 index_dtype: str = "float32", *, coarse_capacity: int = 0,
+                 coarse_block: int = 64, device=None):
         self.capacity = capacity
         self.dim = dim
         self.member_cap = member_cap
@@ -188,20 +251,33 @@ class MemoryArena:
         self.device = resolve_device(device)
         self.n_sessions = 0
         self.emb: Optional[torch.Tensor] = None
+        self.emb_rows: Optional[torch.Tensor] = None
         self.emb_scale: Optional[torch.Tensor] = None
         self.members: Optional[torch.Tensor] = None
         self.member_count: Optional[torch.Tensor] = None
         self.index_frame: Optional[torch.Tensor] = None
         self.sizes = np.zeros((0,), np.int32)
         self.heads = np.zeros((0,), np.int32)
+        self.coarse_capacity = coarse_capacity
+        self.coarse_block = coarse_block
+        self.n_blocks, self.n_coarse = coarse_rows_for(
+            capacity, coarse_capacity, coarse_block)
+        self.coarse_emb: Optional[torch.Tensor] = None
+        self.coarse_members: Optional[torch.Tensor] = None
+        self.coarse_member_count: Optional[torch.Tensor] = None
+        self.coarse_index_frame: Optional[torch.Tensor] = None
+        self.coarse_valid = np.zeros((0, self.n_coarse), bool)
+        self._coarse_valid_dev: Optional[torch.Tensor] = None
+        self._coarse_valid_ver = -1
         self.free_slots: List[int] = []
         self.version = 0
         self._windows_dev: Optional[torch.Tensor] = None
         self._valid_dev: Optional[torch.Tensor] = None
         self._valid_version = -1
         self._deferred: Optional[list] = None
-        # the reference's keys; double buffering (its carry) and the
-        # coarse tier are not ported yet, so their counters stay 0
+        self._coarse_deferred: Optional[list] = None
+        # the reference's keys; double buffering (its carry) is not
+        # ported yet, so its counters stay 0
         self.io_stats = {"grows": 0, "appends": 0, "appended_rows": 0,
                          "slot_releases": 0, "slot_reuses": 0,
                          "double_flushes": 0, "carry_rows": 0,
@@ -214,21 +290,37 @@ class MemoryArena:
     def _buffers(self):
         return {"emb": self.emb, "emb_scale": self.emb_scale,
                 "members": self.members, "member_count": self.member_count,
-                "index_frame": self.index_frame}
+                "index_frame": self.index_frame,
+                "coarse_emb": self.coarse_emb,
+                "coarse_members": self.coarse_members,
+                "coarse_member_count": self.coarse_member_count,
+                "coarse_index_frame": self.coarse_index_frame}
 
     # ------------------------------------------------------------- lifecycle
     def _grow_block(self) -> int:
         slot = self.n_sessions
         s = slot + 1
-        cap, d, k = self.capacity, self.dim, self.member_cap
+        cap, d, k, nc = self.capacity, self.dim, self.member_cap, \
+            self.n_coarse
         shapes = {"emb": ((s, cap, d), self._emb_dtype),
                   "members": ((s, cap, k), torch.int32),
                   "member_count": ((s, cap), torch.int32),
                   "index_frame": ((s, cap), torch.int32)}
         if self.index_dtype == "int8":
             shapes["emb_scale"] = ((s, cap), torch.float32)
+        if nc:
+            shapes.update(coarse_emb=((s, nc, d), torch.float32),
+                          coarse_members=((s, nc, k), torch.int32),
+                          coarse_member_count=((s, nc), torch.int32),
+                          coarse_index_frame=((s, nc), torch.int32))
         for name, (shape, dtype) in shapes.items():
-            new = torch.zeros(shape, dtype=dtype, device=self.device)
+            if name == "emb":
+                rows = torch.zeros((s * cap + 1, d), dtype=dtype,
+                                   device=self.device)
+                new = rows[:s * cap].view(shape)
+                self.emb_rows = rows
+            else:
+                new = torch.zeros(shape, dtype=dtype, device=self.device)
             old = getattr(self, name)
             if old is not None:
                 new[:slot] = old
@@ -236,6 +328,8 @@ class MemoryArena:
         self.n_sessions = s
         self.sizes = np.append(self.sizes, np.int32(0))
         self.heads = np.append(self.heads, np.int32(0))
+        self.coarse_valid = np.concatenate(
+            [self.coarse_valid, np.zeros((1, nc), bool)])
         self.version += 1
         self.io_stats["grows"] += 1
         return slot
@@ -244,6 +338,7 @@ class MemoryArena:
         for buf in self._buffers().values():
             if buf is not None:
                 buf[slot].zero_()
+        self.coarse_valid[slot] = False
         self.sizes[slot] = 0
         self.heads[slot] = 0
         self.version += 1
@@ -262,24 +357,28 @@ class MemoryArena:
         self.free_slots.append(slot)
         self.sizes[slot] = 0
         self.heads[slot] = 0
+        self.coarse_valid[slot] = False
         self.version += 1
         self.io_stats["slot_releases"] += 1
 
     # ------------------------------------------------------------ ingestion
     @contextlib.contextmanager
     def deferred_appends(self):
-        """Batch every ``append`` inside the context into ONE in-place
-        write per super-buffer. Re-entrant: the outermost context
-        flushes."""
+        """Batch every ``append`` and ``append_coarse`` inside the context
+        into ONE in-place write per super-buffer. Re-entrant: the
+        outermost context flushes, fine rows first (block summaries are
+        computed from the post-tick host mirrors)."""
         if self._deferred is not None:
             yield
             return
-        self._deferred = []
+        self._deferred, self._coarse_deferred = [], []
         try:
             yield
         finally:
             pending, self._deferred = self._deferred, None
+            coarse, self._coarse_deferred = self._coarse_deferred, None
             self._flush(pending)
+            self._flush_coarse(coarse)
 
     def append(self, slot: int, pos: int, emb_rows: np.ndarray,
                member_rows: np.ndarray, member_cnts: np.ndarray,
@@ -299,48 +398,91 @@ class MemoryArena:
             return len(emb_rows)
         return self._flush([block])
 
-    def _flush(self, blocks: list) -> int:
-        """One in-place write per super-buffer for all queued blocks. A
-        session that wraps inside one tick can hit a (slot, pos) twice;
-        only the LAST write per position is kept (index_put_ leaves the
-        order of duplicate writes unspecified)."""
-        if not blocks:
-            return 0
+    def append_coarse(self, slot: int, pos: int, emb_rows: np.ndarray,
+                      member_rows: np.ndarray, member_cnts: np.ndarray,
+                      if_rows: np.ndarray, valid_rows: np.ndarray) -> int:
+        """Write one session's coarse row run at ``[slot, pos:pos+n]`` —
+        block summaries (``pos < n_blocks``) or consolidated rows — with
+        each row's stage-1 visibility ``valid_rows``; queued inside a
+        ``deferred_appends`` window, else written now. Copied, as in
+        ``append``."""
+        assert self.n_coarse, "arena has no coarse tier"
+        block = (slot, pos, np.array(emb_rows, np.float32),
+                 np.array(member_rows, np.int32),
+                 np.array(member_cnts, np.int32),
+                 np.array(if_rows, np.int32),
+                 np.array(valid_rows, bool))
+        if self._coarse_deferred is not None:
+            self._coarse_deferred.append(block)
+            return len(emb_rows)
+        return self._flush_coarse([block])
+
+    @staticmethod
+    def _last_writes(blocks: list, width: int, ncols: int):
+        """Concatenate queued blocks → (slots, poss, and the ``ncols``
+        row columns after each block's (slot, pos)), keeping
+        only the LAST write per (slot, pos): a session that wraps inside
+        one tick can hit a position twice, and ``index_put_`` leaves the
+        order of duplicate writes unspecified."""
         slots = np.concatenate([np.full(len(b[2]), b[0], np.int64)
                                 for b in blocks])
         poss = np.concatenate([np.arange(b[1], b[1] + len(b[2]),
                                          dtype=np.int64) for b in blocks])
-        emb_rows = np.concatenate([b[2] for b in blocks])
-        mem_rows = np.concatenate([b[3] for b in blocks])
-        cnt_rows = np.concatenate([b[4] for b in blocks])
-        if_rows = np.concatenate([b[5] for b in blocks])
-        lin = slots * self.capacity + poss
+        cols = [np.concatenate([b[i] for b in blocks])
+                for i in range(2, 2 + ncols)]
+        lin = slots * width + poss
         if len(np.unique(lin)) != len(lin):
             last = {v: i for i, v in enumerate(lin)}
             keep = np.sort(np.fromiter(last.values(), np.int64))
             slots, poss = slots[keep], poss[keep]
-            emb_rows, mem_rows = emb_rows[keep], mem_rows[keep]
-            cnt_rows, if_rows = cnt_rows[keep], if_rows[keep]
-        dev = self.device
-        sl = torch.from_numpy(slots).to(dev)
-        po = torch.from_numpy(poss).to(dev)
+            cols = [c[keep] for c in cols]
+        return (slots, poss, *cols)
 
-        def put(buf, rows):
-            buf.index_put_((sl, po), torch.from_numpy(rows).to(dev))
+    def _put(self, sl: torch.Tensor, po: torch.Tensor, buf: torch.Tensor,
+             rows: np.ndarray) -> None:
+        buf.index_put_((sl, po), torch.from_numpy(rows).to(self.device))
 
+    def _flush(self, blocks: list) -> int:
+        """One in-place write per super-buffer for all queued blocks."""
+        if not blocks:
+            return 0
+        slots, poss, emb_rows, mem_rows, cnt_rows, if_rows = \
+            self._last_writes(blocks, self.capacity, 4)
+        sl = torch.from_numpy(slots).to(self.device)
+        po = torch.from_numpy(poss).to(self.device)
         if self.index_dtype == "int8":
             # quantise ONCE, at the append; scans stream the int8 rows
             emb_rows, scale_rows = quantise_rows(emb_rows)
-            put(self.emb_scale, scale_rows)
-        put(self.emb, emb_rows)
-        put(self.members, mem_rows)
-        put(self.member_count, cnt_rows)
-        put(self.index_frame, if_rows)
+            self._put(sl, po, self.emb_scale, scale_rows)
+        self._put(sl, po, self.emb, emb_rows)
+        self._put(sl, po, self.members, mem_rows)
+        self._put(sl, po, self.member_count, cnt_rows)
+        self._put(sl, po, self.index_frame, if_rows)
         for slot, _pos, _e, _m, _c, _f, window in blocks:
             self.heads[slot], self.sizes[slot] = window
         self.version += 1
         self.io_stats["appends"] += 1
         self.io_stats["appended_rows"] += len(slots)
+        return len(slots)
+
+    def _flush_coarse(self, blocks: list) -> int:
+        """One in-place write per coarse super-buffer for the queued
+        summary rows; bumps ``version`` so every cached view and mask
+        refreshes."""
+        if not blocks:
+            return 0
+        slots, poss, emb_rows, mem_rows, cnt_rows, if_rows, val_rows = \
+            self._last_writes(blocks, self.n_coarse, 5)
+        self.coarse_valid[slots, poss] = val_rows
+        sl = torch.from_numpy(slots).to(self.device)
+        po = torch.from_numpy(poss).to(self.device)
+        self._put(sl, po, self.coarse_emb, emb_rows)
+        self._put(sl, po, self.coarse_members, mem_rows)
+        self._put(sl, po, self.coarse_member_count, cnt_rows)
+        self._put(sl, po, self.coarse_index_frame, if_rows)
+        self.version += 1
+        self.io_stats["coarse_appends"] += 1
+        self.io_stats["coarse_appended_rows"] += len(slots)
         return len(slots)
 
     # ----------------------------------------------------------------- views
@@ -363,6 +505,24 @@ class MemoryArena:
             self._refresh_valid()
         return self._valid_dev
 
+    def device_coarse_valid(self) -> torch.Tensor:
+        """(S, n_coarse) bool stage-1 mask of the coarse tier, cached per
+        version: coarse validity is sparse and written on the host, so
+        the explicit mask is its valid operand."""
+        assert self.n_coarse, "arena has no coarse tier"
+        if (self._coarse_valid_dev is None
+                or self._coarse_valid_ver != self.version):
+            self._coarse_valid_dev = torch.from_numpy(
+                self.coarse_valid.copy()).to(self.device)
+            self._coarse_valid_ver = self.version
+        return self._coarse_valid_dev
+
+    def has_consolidated(self) -> bool:
+        """True iff a slot holds a consolidated row: until the first
+        consolidation every query takes the flat scan unchanged."""
+        return bool(self.n_coarse
+                    and self.coarse_valid[:, self.n_blocks:].any())
+
 
 # ---------------------------------------------------------------------------
 # One session's memory
@@ -376,18 +536,22 @@ _APPEND_COUNTERS = {"emb": "appended_rows", "members": "appended_member_rows",
 
 
 class VenusMemory:
-    """Index layer: packed vector store + cluster member reservoirs."""
+    """Index layer: packed vector store + cluster member reservoirs, and
+    with ``coarse_capacity > 0`` the host state of the coarse tier."""
 
     def __init__(self, capacity: int, dim: int, member_cap: int = 128,
                  seed: int = 0, *, arena: Optional[MemoryArena] = None,
                  slot: Optional[int] = None, eviction="none",
-                 index_dtype: str = "float32", device=None):
+                 index_dtype: str = "float32",
+                 merge_threshold: Optional[float] = None,
+                 coarse_capacity: int = 0, coarse_block: int = 64,
+                 device=None):
         # the exact integer pick (u * cnt) >> U_BITS must fit in int32
         assert member_cap <= (1 << (31 - U_BITS)), member_cap
         self.capacity = capacity
         self.dim = dim
         self.member_cap = member_cap
-        self.eviction = get_eviction_policy(eviction)
+        self.eviction = get_eviction_policy(eviction, merge_threshold)
         self.index_dtype = index_dtype
         _index_dtype(index_dtype)
         self.arena = arena
@@ -397,9 +561,30 @@ class VenusMemory:
             assert arena.index_dtype == index_dtype
             assert (arena.capacity, arena.dim, arena.member_cap) == \
                 (capacity, dim, member_cap)
+            assert (arena.coarse_capacity, arena.coarse_block) == \
+                (coarse_capacity, coarse_block), \
+                "memory and arena disagree on coarse-tier geometry"
             self.device = arena.device
         else:
             self.device = resolve_device(device)
+        # coarse tier, host-authoritative: block summaries are computed
+        # from the fine mirrors on demand; only consolidated rows keep
+        # state of their own (centroid, reservoir, weight, frame window)
+        self.coarse_capacity = coarse_capacity
+        self.coarse_block = coarse_block
+        self.n_blocks, self.n_coarse = coarse_rows_for(
+            capacity, coarse_capacity, coarse_block)
+        if self.n_coarse:
+            cc = coarse_capacity
+            self._coarse_emb = np.zeros((cc, dim), np.float32)
+            self._coarse_members = np.zeros((cc, member_cap), np.int32)
+            self._coarse_count = np.zeros((cc,), np.int32)
+            self._coarse_ifr = np.zeros((cc,), np.int32)
+            self._coarse_weight = np.zeros((cc,), np.int64)
+            self._coarse_fid_lo = np.zeros((cc,), np.int64)
+            self._coarse_fid_hi = np.zeros((cc,), np.int64)
+        self._coarse_csize = 0              # consolidated rows in use
+        self._dirty_blocks: set = set()     # fine blocks to re-summarise
         self._emb = np.zeros((capacity, dim), np.float32)
         self._members = np.zeros((capacity, member_cap), np.int32)
         self._member_count = np.zeros((capacity,), np.int32)
@@ -411,8 +596,6 @@ class VenusMemory:
         self._window_key = None          # (head, size) of the cached mask
         self._valid_dev: Optional[torch.Tensor] = None
         self.version = 0
-        # the reference's keys; the expansion API, reservoir merges and
-        # the coarse tier are not ported yet, so their counters stay 0
         self.io_stats = {"full_uploads": 0, "appended_rows": 0,
                          "member_uploads": 0, "appended_member_rows": 0,
                          "index_frame_uploads": 0,
@@ -483,6 +666,10 @@ class VenusMemory:
         self.version += 1
         for pos, _off, cnt in runs:
             self._sync_device(pos, cnt)
+        if self.n_coarse:
+            for pos, _off, cnt in runs:
+                self._mark_blocks_dirty(pos, cnt)
+            self._refresh_block_summaries()
         return (tail + np.arange(n)) % self.capacity
 
     def _sync_device(self, pos: int, cnt: int) -> None:
@@ -505,9 +692,183 @@ class VenusMemory:
 
     def _advance_head(self, need: int) -> None:
         assert 0 <= need <= self._size, (need, self._size)
+        if self.n_coarse and need:
+            run1 = min(need, self.capacity - self._head)
+            self._mark_blocks_dirty(self._head, run1)
+            if run1 < need:
+                self._mark_blocks_dirty(0, need - run1)
         self._head = (self._head + need) % self.capacity
         self._size -= need
         self.io_stats["evicted_rows"] += need
+
+    # ------------------------------------------------- coarse consolidation
+    # host numpy, in the reference's order and precision (float64 where it
+    # takes float64), so the mirrors come out bit-equal to its own
+    def _mark_blocks_dirty(self, pos: int, cnt: int) -> None:
+        """Fine rows ``[pos, pos+cnt)`` changed validity or contents:
+        their block summaries must be recomputed."""
+        if cnt <= 0:
+            return
+        lo = pos // self.coarse_block
+        hi = (pos + cnt - 1) // self.coarse_block
+        self._dirty_blocks.update(range(lo, hi + 1))
+
+    def _refresh_block_summaries(self) -> None:
+        """Recompute each dirty block's summary (the mean of its live
+        fine rows, no reservoir: a stage-1 win on a block expands into
+        the block's own fine rows) and write it to the arena's coarse
+        tier, riding the tick's deferred write."""
+        if self.arena is None or not self._dirty_blocks:
+            self._dirty_blocks.clear()
+            return
+        cap, blk = self.capacity, self.coarse_block
+        idx = np.arange(cap)
+        live = ((idx - self._head) % cap) < self._size
+        k = self.member_cap
+        for b in sorted(self._dirty_blocks):
+            rows = slice(b * blk, min((b + 1) * blk, cap))
+            v = live[rows]
+            any_v = bool(v.any())
+            if any_v:
+                cen = self._emb[rows][v].mean(0, dtype=np.float64)
+                ifr = int(self._index_frame[rows][v][0])
+            else:
+                cen = np.zeros((self.dim,), np.float64)
+                ifr = 0
+            self.arena.append_coarse(
+                self.slot, b, cen.astype(np.float32)[None],
+                np.zeros((1, k), np.int32), np.zeros((1,), np.int32),
+                np.asarray([ifr], np.int32), np.asarray([any_v]))
+        self._dirty_blocks.clear()
+
+    def _consolidate(self, need: int, threshold: float) -> None:
+        """Fold the ``need`` oldest rows into the consolidated region
+        before they leave the fine window: running count-weighted
+        centroid, merged reservoir (the evictee's index frame, then its
+        members, up to ``member_cap``), widened frame window. Target: the
+        most similar row when its cosine clears ``threshold``, a fresh row
+        while the region has space, else the most similar row anyway (a
+        full tier degrades to coarser summaries, never to data loss)."""
+        if self.n_coarse == 0:
+            raise RuntimeError(
+                "eviction='consolidate' needs coarse_capacity > 0 "
+                "(VenusConfig(coarse_capacity=...))")
+        need = min(need, self._size)
+        if need <= 0:
+            return
+        phys = (self._head + np.arange(need)) % self.capacity
+        touched = set()
+        for pe in phys:
+            e = self._emb[pe].astype(np.float64)
+            cs = self._coarse_csize
+            best, best_sim = -1, -np.inf
+            if cs:
+                en = e / (np.linalg.norm(e) + 1e-12)
+                c = self._coarse_emb[:cs].astype(np.float64)
+                cn = c / (np.linalg.norm(c, axis=-1, keepdims=True)
+                          + 1e-12)
+                best = int(np.argmax(cn @ en))
+                best_sim = float(cn[best] @ en)
+            cnt_e = int(self._member_count[pe])
+            fids = np.concatenate(
+                [[int(self._index_frame[pe])],
+                 self._members[pe, :cnt_e].astype(np.int64)])
+            if best >= 0 and (best_sim >= threshold
+                              or cs >= self.coarse_capacity):
+                r, w = best, int(self._coarse_weight[best])
+                self._coarse_emb[r] = (
+                    (self._coarse_emb[r].astype(np.float64) * w + e)
+                    / (w + 1)).astype(np.float32)
+                self._coarse_weight[r] = w + 1
+                ct = int(self._coarse_count[r])
+                take = min(len(fids), self.member_cap - ct)
+                if take > 0:
+                    self._coarse_members[r, ct:ct + take] = fids[:take]
+                    self._coarse_count[r] = ct + take
+                self._coarse_fid_lo[r] = min(int(self._coarse_fid_lo[r]),
+                                             int(fids.min()))
+                self._coarse_fid_hi[r] = max(int(self._coarse_fid_hi[r]),
+                                             int(fids.max()))
+            else:
+                r = cs
+                self._coarse_csize = cs + 1
+                self._coarse_emb[r] = e.astype(np.float32)
+                self._coarse_weight[r] = 1
+                m = min(len(fids), self.member_cap)
+                self._coarse_members[r, :m] = fids[:m]
+                self._coarse_members[r, m:] = 0
+                self._coarse_count[r] = m
+                self._coarse_ifr[r] = int(self._index_frame[pe])
+                self._coarse_fid_lo[r] = int(fids.min())
+                self._coarse_fid_hi[r] = int(fids.max())
+            touched.add(r)
+        self.io_stats["consolidated_rows"] += int(need)
+        for r in sorted(touched):
+            self._resync_coarse(r)
+
+    def _resync_coarse(self, row: int) -> None:
+        """Write one consolidated row to the arena's coarse tier (past
+        the block summaries)."""
+        if self.arena is None:
+            return
+        self.arena.append_coarse(
+            self.slot, self.n_blocks + row,
+            self._coarse_emb[row:row + 1],
+            self._coarse_members[row:row + 1],
+            self._coarse_count[row:row + 1],
+            self._coarse_ifr[row:row + 1], np.asarray([True]))
+
+    def _merge_into_survivors(self, need: int, threshold: float) -> None:
+        """Before the ``need`` oldest rows leave the window, fold each
+        one's reservoir into its most similar SURVIVING row (cosine ≥
+        threshold) while that row has reservoir space; each modified
+        survivor is written to the device once."""
+        if need >= self._size:
+            return
+        cap = self.capacity
+        phys = (self._head + np.arange(self._size)) % cap
+        ev_phys, sv_phys = phys[:need], phys[need:]
+
+        def _norm(rows):
+            return rows / (np.linalg.norm(rows, axis=-1, keepdims=True)
+                           + 1e-12)
+
+        sims = _norm(self._emb[ev_phys]) @ _norm(self._emb[sv_phys]).T
+        touched = set()
+        for i, pe in enumerate(ev_phys):
+            j = int(np.argmax(sims[i]))
+            if sims[i, j] < threshold:
+                continue
+            pt = int(sv_phys[j])
+            cnt_e = int(self._member_count[pe])
+            take = min(cnt_e, self.member_cap
+                       - int(self._member_count[pt]))
+            if take <= 0:
+                continue
+            ct = int(self._member_count[pt])
+            self._members[pt, ct:ct + take] = self._members[pe, :take]
+            self._member_count[pt] = ct + take
+            self.io_stats["reservoir_merges"] += 1
+            touched.add(pt)
+        for pt in sorted(touched):
+            self._resync_row(pt)
+
+    def _resync_row(self, pos: int) -> None:
+        """Write one resident row whose reservoir grew to the device copy:
+        through the arena's append, or in place into a detached members
+        buffer already uploaded."""
+        if self.arena is not None:
+            self.arena.append(
+                self.slot, pos, self._emb[pos:pos + 1],
+                self._members[pos:pos + 1],
+                self._member_count[pos:pos + 1],
+                self._index_frame[pos:pos + 1], self.window)
+            return
+        bufs = self._dev.get("members")
+        if bufs is not None:
+            for buf, rows in zip(bufs, self._host_rows("members", pos, 1)):
+                buf[pos:pos + 1] = torch.from_numpy(rows).to(self.device)
+            self.io_stats["appended_member_rows"] += 1
 
     # ----------------------------------------------------------------- state
     @property
@@ -524,7 +885,8 @@ class VenusMemory:
 
     def min_live_frame(self) -> int:
         """Smallest absolute frame id any live row references (index
-        frame or count-masked reservoir member); int64-max when empty."""
+        frame or count-masked reservoir member, or a consolidated row's
+        frame window); int64-max when empty."""
         lo = int(np.iinfo(np.int64).max)
         if self._size:
             phys = (self._head + np.arange(self._size)) % self.capacity
@@ -533,6 +895,8 @@ class VenusMemory:
             live = np.arange(self.member_cap)[None, :] < cnt[:, None]
             if live.any():
                 lo = min(lo, int(self._members[phys][live].min()))
+        if self.n_coarse and self._coarse_csize:
+            lo = min(lo, int(self._coarse_fid_lo[:self._coarse_csize].min()))
         return lo
 
     def detach_from_arena(self) -> None:
@@ -607,6 +971,83 @@ class VenusMemory:
         if self.arena is not None:
             return self.arena.index_frame[self.slot]
         return self._detached("index_frame")[0]
+
+    # -------------------------------------------------- per-memory expansion
+    def members_table(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The host reservoirs copied to the memory's device: (members
+        (cap, K), counts (cap,))."""
+        return (torch.from_numpy(self._members.copy()).to(self.device),
+                torch.from_numpy(self._member_count.copy()).to(self.device))
+
+    def expand_draws(self, draws: np.ndarray, valid: np.ndarray,
+                     seed: int = 0) -> np.ndarray:
+        """Index draws → frame ids: each draw of row i picks one member of
+        its reservoir uniformly (paper §IV-D1), one variate per slot
+        (valid or not). Deduplicated, time-ordered frame ids."""
+        draws = np.atleast_1d(np.asarray(draws))
+        valid = np.atleast_1d(np.asarray(valid, bool))
+        u = self.expand_u(seed, draws.shape)
+        return self._expand_u(draws, valid, u)
+
+    def expand_draws_batch(self, draws: np.ndarray, valid: np.ndarray,
+                           seed: int = 0) -> List[np.ndarray]:
+        """draws/valid (Q, n): each row takes the same variates as one
+        ``expand_draws`` call with the same seed."""
+        draws = np.asarray(draws)
+        valid = np.asarray(valid, bool)
+        q, n = draws.shape
+        u = np.broadcast_to(self.expand_u(seed, n), (q, n))
+        fids, ok = self._expand_u(draws, valid, u, dedup=False)
+        return [np.unique(fids[i][ok[i]]) for i in range(q)]
+
+    def expand_draws_device(self, draws: np.ndarray, valid: np.ndarray,
+                            seed: int = 0) -> np.ndarray:
+        """``expand_draws`` with the reservoir gather on the memory's
+        device (``expand_gather`` over ``device_members()``); only the
+        frame ids come back."""
+        draws = np.atleast_1d(np.asarray(draws, np.int32))
+        valid = np.atleast_1d(np.asarray(valid, bool))
+        members, counts = self.device_members()
+        u = self.expand_u(seed, draws.shape)
+        dev = members.device
+        fids, ok = expand_gather(
+            members[None], counts[None],
+            torch.from_numpy(draws).to(dev)[None, None],
+            torch.from_numpy(valid).to(dev)[None, None],
+            torch.from_numpy(u).to(dev))
+        self.io_stats["device_expand_gathers"] += 1
+        fids, ok = fids[0, 0].cpu().numpy(), ok[0, 0].cpu().numpy()
+        return np.unique(fids[ok].astype(np.int64))
+
+    def _expand_u(self, draws, valid, u, dedup: bool = True):
+        self.io_stats["host_expand_gathers"] += 1
+        safe = np.clip(draws, 0, self.capacity - 1)
+        cnt = self._member_count[safe].astype(np.int64)
+        pick = (np.asarray(u, np.int64) * cnt) >> U_BITS
+        fids = self._members[safe, pick].astype(np.int64)
+        ok = valid & (cnt > 0) & (draws >= 0)
+        if dedup:
+            return np.unique(fids[ok])
+        return fids, ok
+
+    def _expand_draws_loop(self, draws: np.ndarray, valid: np.ndarray,
+                           seed: int = 0) -> np.ndarray:
+        """A per-draw loop over the same scheme: the reference for the
+        vectorised paths."""
+        rng = np.random.default_rng(seed)
+        out = []
+        for i, ok in zip(np.asarray(draws), np.asarray(valid)):
+            u = int(rng.integers(0, _U_CARD, dtype=np.int64))
+            if not ok or i < 0:
+                continue
+            cnt = int(self._member_count[int(i)])
+            if cnt == 0:
+                continue
+            out.append(int(self._members[int(i), (u * cnt) >> U_BITS]))
+        return np.unique(np.asarray(out, np.int64))
+
+    def index_frames(self, idx: Sequence[int]) -> np.ndarray:
+        return self._index_frame[np.asarray(idx, np.int64)]
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.aux_models import AuxModel
 from repro_torch.core.queryplan import QueryPlan, QuerySpec
 from repro_torch.core.session import (QueryResult, SessionManager,
                                       SessionState, VenusConfig)
@@ -116,11 +117,14 @@ class MEMEmbedder:
 
 
 class VenusSystem:
-    def __init__(self, cfg: VenusConfig, embedder, embed_dim: int, *,
-                 device=None):
+    def __init__(self, cfg: VenusConfig, embedder, embed_dim: int,
+                 aux_models: Sequence[AuxModel] = (), annotation_fn=None,
+                 *, device=None):
         self.cfg = cfg
         self.embedder = embedder
         self.manager = SessionManager(cfg, embedder, embed_dim,
+                                      aux_models=aux_models,
+                                      annotation_fn=annotation_fn,
                                       device=device)
         self.sid = self.manager.create_session()
 

@@ -14,7 +14,10 @@
   the dense ``stack.search`` launch (``kops.similarity_stack``);
   ``fused=False`` sends every group there. Both give the same frame
   ids: the dense path draws with the same canonical CDF over the same
-  probabilities.
+  probabilities. Once the arena's coarse tier holds a consolidated row, a
+  fused group runs the two-stage retrieval instead (``tiering``: a coarse
+  scan, then a scan of the winners' gathered candidates); ``coarse=False``
+  keeps the flat scan.
 
 Strategies live in a registry (``register_strategy`` / ``get_strategy``)
 behind one batched interface over ``(S, Q, cap)`` scan outputs. Each
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import retrieval as rt
+from repro_torch.core import tiering
 from repro_torch.core.memory import VenusMemory, expand_gather
 from repro_torch.kernels import prng
 
@@ -317,11 +321,14 @@ class QueryResult:
 # ---------------------------------------------------------------------------
 
 
-def execute_plan(manager, plan: QueryPlan, *, fused: bool = True
-                 ) -> List[QueryResult]:
+def execute_plan(manager, plan: QueryPlan, *, fused: bool = True,
+                 coarse: bool = True) -> List[QueryResult]:
     """Run every group: ONE scan launch each — the fused retrieval scan
     for sampling/AKR/top-k groups when ``fused``, the dense scan
-    otherwise. Results come back in the plan's spec order."""
+    otherwise. With ``coarse`` (the default), a fused group over an arena
+    whose coarse tier holds a consolidated row takes the two-stage
+    retrieval (two launches); ``coarse=False`` keeps the flat scan.
+    Results come back in the plan's spec order."""
     specs = plan.specs
     results: List[Optional[QueryResult]] = [None] * len(specs)
     t0 = time.perf_counter()
@@ -335,7 +342,7 @@ def execute_plan(manager, plan: QueryPlan, *, fused: bool = True
     t_embed = time.perf_counter() - t0
     for group in plan.groups:
         _execute_group(manager, group, specs, embedded, results, t_embed,
-                       fused=fused)
+                       fused=fused, coarse=coarse)
     return results
 
 
@@ -372,11 +379,18 @@ def _group_keys(manager, group: ExecutionGroup, specs, qmax, lanes
 _FUSED_STRATEGIES = ("sampling", "akr", "topk")
 
 
-def _fused_output(strat, k, fr, sq) -> StrategyOutput:
+def _fused_output(strat, k, fr, sq, two_stage: bool) -> StrategyOutput:
     """The fused launch's draws as a strategy's output: top-k lanes,
-    sampling draws, or AKR's stop rule over the in-launch draw state."""
+    sampling draws, or AKR's stop rule over the in-launch draw state.
+    Over two-stage candidates a lane can hold fewer valid candidates than
+    k (a consolidated winner is one candidate): top-k drops the masked
+    slots, which carry the running top-k's -1e30."""
     if strat.name == "topk":
         draws = fr.topk_i
+        if two_stage:
+            ok = fr.topk_v > -1e29
+            return StrategyOutput(draws, ok, ok.sum(-1).cpu().numpy(),
+                                  np.full(sq, np.nan))
         return StrategyOutput(draws, torch.ones_like(draws, dtype=torch.bool),
                               *_fill(sq, draws.shape[-1]))
     if strat.name == "sampling":
@@ -398,7 +412,8 @@ def _gather_index_frames(table: torch.Tensor, draws: torch.Tensor
 
 
 def _execute_group(manager, group: ExecutionGroup, specs, embedded,
-                   results, t_embed: float, *, fused: bool = True) -> None:
+                   results, t_embed: float, *, fused: bool = True,
+                   coarse: bool = True) -> None:
     cfg = manager.cfg
     dev = manager.device
     strat = group.strategy
@@ -421,9 +436,11 @@ def _execute_group(manager, group: ExecutionGroup, specs, embedded,
                 if spec.embedding is not None else embedded[j])
     keys = _group_keys(manager, group, specs, qmax, lanes)
 
-    # --- the ONE scan launch of this group -------------------------------
+    # --- the group's scan: ONE launch, or the two of a two-stage group ---
     t0 = time.perf_counter()
     stack = manager.memory_stack(lanes)
+    arena = stack.arena_view()
+    ts = None
     q_dev = torch.from_numpy(q_stack).to(dev)
     if use_fused:
         if keys is not None:
@@ -432,7 +449,17 @@ def _execute_group(manager, group: ExecutionGroup, specs, embedded,
             targets = torch.zeros((ln, qmax, 1), dtype=torch.float32,
                                   device=dev)
         n_topk = k.budget if strat.name == "topk" else 1
-        fr = stack.fused_retrieve(q_dev, targets, tau=k.tau, n_topk=n_topk)
+        # two-stage once the tier holds history: the same targets as the
+        # flat path, so the session chains advance alike
+        if coarse and arena is not None and arena.has_consolidated():
+            ts = tiering.two_stage_retrieve(arena, q_dev, targets,
+                                            tau=k.tau, n_topk=n_topk,
+                                            topb=cfg.coarse_topb)
+            fr = ts.fr
+            manager.io_stats["two_stage_groups"] += 1
+        else:
+            fr = stack.fused_retrieve(q_dev, targets, tau=k.tau,
+                                      n_topk=n_topk)
     else:
         sims, probs = stack.search(q_dev, tau=k.tau)
     if len(sids) == 1:   # single-session group: per-session accounting
@@ -446,7 +473,7 @@ def _execute_group(manager, group: ExecutionGroup, specs, embedded,
     # --- strategy post-processing + expansion ----------------------------
     t0 = time.perf_counter()
     if use_fused:
-        out = _fused_output(strat, k, fr, (ln, qmax))
+        out = _fused_output(strat, k, fr, (ln, qmax), ts is not None)
     else:
         emb_stack, valid = stack.device_stack()
         out = strat.run(StrategyContext(
@@ -457,11 +484,18 @@ def _execute_group(manager, group: ExecutionGroup, specs, embedded,
             key=k, qcount=qcount))
     ok = out.valid
     if strat.expand == "members":
-        members, counts = stack.device_members()
         u = torch.from_numpy(VenusMemory.expand_u(cfg.seed, k.budget)
                              ).to(dev)
-        fids, ok = expand_gather(members, counts, out.draws, out.valid, u)
+        if ts is not None:      # draws index the candidate tables
+            fids, ok = tiering.expand_candidates(
+                ts.cand_members, ts.cand_counts, out.draws, out.valid, u)
+        else:
+            members, counts = stack.device_members()
+            fids, ok = expand_gather(members, counts, out.draws, out.valid,
+                                     u)
         manager.io_stats["device_expands"] += 1
+    elif ts is not None:                    # top-k over the candidates
+        fids = tiering.gather_candidate_ifr(ts.cand_ifr, out.draws)
     elif strat.expand == "index":
         fids = _gather_index_frames(stack.device_index_frames(), out.draws)
     else:                                   # raw: draws ARE frame ids

@@ -5,7 +5,8 @@ Per-stream stages over a ``SessionState``:
 * ``segment_stage`` — chunk → closed scene partitions (①, scene-score
   kernel on the card);
 * ``cluster_stage`` — one closed partition → an ``EmbedJob`` with its
-  index frames and cluster membership (②–③);
+  index frames, cluster membership and, given aux models, one Eq. 2
+  prompt per index frame (②–③);
 * ``commit_jobs`` — every job closed in a tick, across all sessions, in
   ONE embed call, then inserted with one in-place write per arena
   super-buffer (④).
@@ -15,7 +16,9 @@ Per-stream stages over a ``SessionState``:
 (``execute``) with ONE scan launch per execution group over the arena
 buffers — the fused retrieval scan, or the dense scan for the
 baselines and ``fused=False`` — so ``io_stats["stack_rebuilds"]``
-stays 0.
+stays 0. With ``coarse_capacity > 0`` each slot also has a coarse tier:
+``eviction="consolidate"`` folds evicted rows into it, and fused groups
+then run the two-stage retrieval (``tiering``).
 
 Entry points take ``device=``: CUDA by default, raising when there is no
 card; ``device="cpu"`` runs the plain versions of the kernels.
@@ -32,6 +35,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.aux_models import AuxModel, build_aux_prompt
 from repro_torch.core.clustering import cluster_partition, frame_vectors
 from repro_torch.core.memory import (ArenaStackView, FrameStore, MemoryArena,
                                      MemoryStack, VenusMemory)
@@ -53,8 +57,10 @@ def reset_all_io_stats() -> None:
 
 @dataclass(frozen=True)
 class VenusConfig:
-    """The reference's fields and defaults. The spill tier, the coarse
-    tier and the merging eviction policies are later slices: their fields
+    """The reference's fields and defaults. ``eviction`` is "none",
+    "sliding_window", "cluster_merge" or "consolidate" (which needs
+    ``coarse_capacity > 0``); ``merge_threshold`` is the merging policies'
+    cosine cut (None: 0.8). The spill tier is a later slice: its fields
     are accepted and rejected when set."""
     # ingestion
     scene_threshold: float = 0.075
@@ -84,17 +90,12 @@ class VenusConfig:
 
     def __post_init__(self):
         later = {"spill_dir": self.spill_dir is not None,
-                 "host_retain": self.host_retain is not None,
-                 "coarse_capacity": self.coarse_capacity != 0,
-                 "merge_threshold": self.merge_threshold is not None,
-                 "eviction": self.eviction not in ("none",
-                                                   "sliding_window")}
+                 "host_retain": self.host_retain is not None}
         set_later = [k for k, v in later.items() if v]
         if set_later:
             raise NotImplementedError(
-                f"VenusConfig fields {set_later} belong to later slices of "
-                f"the port (ROADMAP.md, Queue 1: hierarchical tier, spill "
-                f"tier, eviction policies)")
+                f"VenusConfig fields {set_later} belong to a later slice of "
+                f"the port (ROADMAP.md, Queue 1: spill tier)")
         if self.index_dtype not in ("float32", "int8"):
             raise ValueError(f"index_dtype must be 'float32' or 'int8', "
                              f"got {self.index_dtype!r}")
@@ -108,6 +109,7 @@ class EmbedJob:
     frames: torch.Tensor                     # (n, H, W, 3) index frames
     frame_ids: np.ndarray                    # (n,) absolute frame ids
     member_lists: List[np.ndarray]           # per-cluster member frame ids
+    aux_texts: Optional[List[str]] = None    # Eq. 2 prompts, one a frame
 
 
 class SessionState:
@@ -130,6 +132,9 @@ class SessionState:
                                   eviction=(cfg.eviction if eviction
                                             is None else eviction),
                                   index_dtype=cfg.index_dtype,
+                                  merge_threshold=cfg.merge_threshold,
+                                  coarse_capacity=cfg.coarse_capacity,
+                                  coarse_block=cfg.coarse_block,
                                   device=self.device)
         self.frames = FrameStore()
         # frames not yet clustered, on the device (views of the chunks)
@@ -166,8 +171,12 @@ def segment_stage(state: SessionState, chunk: np.ndarray) -> List[Partition]:
     return closed
 
 
-def cluster_stage(state: SessionState, part: Partition) -> EmbedJob:
-    """②–③ incremental clustering of one closed partition → embed job."""
+def cluster_stage(state: SessionState, part: Partition,
+                  aux_models: Sequence[AuxModel] = (),
+                  annotation_fn=None) -> EmbedJob:
+    """②–③ incremental clustering of one closed partition → embed job;
+    with aux models and ``annotation_fn`` (absolute frame id → the
+    frame's annotations), one Eq. 2 prompt per index frame."""
     cfg = state.cfg
     lo = part.start - state.pending_base
     hi = part.end - state.pending_base
@@ -180,13 +189,19 @@ def cluster_stage(state: SessionState, part: Partition) -> EmbedJob:
     index_local = res.index_frames[:n].cpu().numpy()
     scene_id = state.stats["partitions"]
     members = [part.start + np.nonzero(assign == c)[0] for c in range(n)]
+    aux_texts = None
+    if aux_models and annotation_fn is not None:
+        aux_texts = [build_aux_prompt(
+            aux_models, pframes[int(index_local[j])],
+            annotation_fn(part.start + int(index_local[j])))
+            for j in range(n)]
     state.stats["partitions"] += 1
     state.stats["clusters"] += n
     return EmbedJob(sid=state.sid, scene_id=scene_id,
                     frames=pframes[torch.from_numpy(index_local).long()
                                    .to(pframes.device)],
                     frame_ids=part.start + index_local,
-                    member_lists=members)
+                    member_lists=members, aux_texts=aux_texts)
 
 
 def release_pending(state: SessionState, closed: List[Partition]) -> None:
@@ -212,10 +227,16 @@ def commit_jobs(sessions: Mapping[int, SessionState], embedder,
             raise RuntimeError(
                 f"session {sid}: memory full ({mem.size} rows + {n_new} "
                 f"incoming > capacity {mem.capacity}) — enable eviction "
-                f"(VenusConfig(eviction='sliding_window'))")
+                f"or consolidation (VenusConfig(eviction='sliding_window'"
+                f" | 'cluster_merge' | 'consolidate'))")
     frames = torch.cat([j.frames for j in jobs])
     ids = np.concatenate([j.frame_ids for j in jobs])
-    embs = np.asarray(embedder.embed_frames(frames, None, frame_ids=ids),
+    aux = None
+    if any(j.aux_texts for j in jobs):
+        aux = []
+        for j in jobs:
+            aux.extend(j.aux_texts or [""] * len(j.frame_ids))
+    embs = np.asarray(embedder.embed_frames(frames, aux, frame_ids=ids),
                       np.float32)
     arenas = {id(a): a for a in
               (sessions[j.sid].memory.arena for j in jobs) if a is not None}
@@ -240,13 +261,18 @@ def commit_jobs(sessions: Mapping[int, SessionState], embedder,
 
 
 class SessionManager:
-    """N concurrent streams sharing one embedder and one memory arena."""
+    """N concurrent streams sharing one embedder and one memory arena.
+    ``aux_models`` with ``annotation_fn`` add an Eq. 2 prompt to every
+    index frame's embedding."""
 
-    def __init__(self, cfg: VenusConfig, embedder, embed_dim: int, *,
-                 use_arena: bool = True, device=None):
+    def __init__(self, cfg: VenusConfig, embedder, embed_dim: int,
+                 aux_models: Sequence[AuxModel] = (), annotation_fn=None,
+                 *, use_arena: bool = True, device=None):
         self.cfg = cfg
         self.embedder = embedder
         self.embed_dim = embed_dim
+        self.aux_models = list(aux_models)
+        self.annotation_fn = annotation_fn
         self.device = resolve_device(device)
         self.sessions: Dict[int, SessionState] = {}
         self._next_sid = 0
@@ -254,8 +280,8 @@ class SessionManager:
         self.use_arena = use_arena
         self.arena: Optional[MemoryArena] = None
         self._arena_stack: Optional[ArenaStackView] = None
-        # the reference's keys; sharding, the coarse tier and standing
-        # queries are not ported yet, so their counters stay 0
+        # the reference's keys; sharding and standing queries are not
+        # ported yet, so their counters stay 0
         self.io_stats = {"scans": 0, "fused_scans": 0,
                          "device_expands": 0, "group_scans": 0,
                          "stack_rebuilds": 0, "sessions_closed": 0,
@@ -293,7 +319,8 @@ class SessionManager:
                 self.arena = MemoryArena(
                     self.cfg.memory_capacity, self.embed_dim,
                     self.cfg.member_cap, index_dtype=self.cfg.index_dtype,
-                    device=self.device)
+                    coarse_capacity=self.cfg.coarse_capacity,
+                    coarse_block=self.cfg.coarse_block, device=self.device)
             arena, slot = self.arena, self.arena.add_session()
         self.sessions[sid] = SessionState(sid, self.cfg, self.embed_dim,
                                           arena=arena, slot=slot,
@@ -339,7 +366,8 @@ class SessionManager:
         for sid, closed in closed_by_sid.items():
             st = self.sessions[sid]
             for part in closed:
-                jobs.append(cluster_stage(st, part))
+                jobs.append(cluster_stage(st, part, self.aux_models,
+                                          self.annotation_fn))
             release_pending(st, closed)
         t_clu = time.perf_counter()
         n_emb = commit_jobs(self.sessions, self.embedder, jobs)
@@ -356,7 +384,8 @@ class SessionManager:
         for sid in sids:
             st = self.sessions[sid]
             for part in st.segmenter.flush():
-                jobs.append(cluster_stage(st, part))
+                jobs.append(cluster_stage(st, part, self.aux_models,
+                                          self.annotation_fn))
             st.pending = []
             st.pending_base = st.stats["frames_seen"]
         commit_jobs(self.sessions, self.embedder, jobs)
@@ -386,11 +415,13 @@ class SessionManager:
         here (``uniform`` against a window-evicting session raises)."""
         return build_plan(specs, self.cfg, self.sessions)
 
-    def execute(self, plan: QueryPlan, *, fused: bool = True
-                ) -> List[QueryResult]:
+    def execute(self, plan: QueryPlan, *, fused: bool = True,
+                coarse: bool = True) -> List[QueryResult]:
         """Run a plan: ONE scan launch per group (``fused=False`` sends
-        sampling/AKR/top-k groups through the dense scan too)."""
-        return execute_plan(self, plan, fused=fused)
+        sampling/AKR/top-k groups through the dense scan too); once the
+        coarse tier holds consolidated rows a fused group takes the
+        two-stage retrieval, unless ``coarse=False``."""
+        return execute_plan(self, plan, fused=fused, coarse=coarse)
 
     def query_specs(self, specs: Sequence[QuerySpec]) -> List[QueryResult]:
         return self.execute(self.plan(specs))

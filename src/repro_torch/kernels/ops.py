@@ -6,8 +6,11 @@ PyTorch version. There is no backend switch and no fallback.
 
 The scan counters keep the reference's 11 names (``repro.kernels.ops``)
 so the same invariants read the same way in both packages; the ones of
-paths outside the port so far (sharding, the coarse tier, standing
-queries) stay at 0.
+paths outside the port so far (sharding, standing queries) stay at 0.
+Two-stage accounting: ``coarse_scan_bytes`` is the part of ``scan_bytes``
+that stage-1 scans over the coarse tier stream, ``fine_gather_rows`` the
+candidate rows stage 2 gathers (padding slots included) and
+``two_stage_scans`` the coarse→fine retrievals.
 """
 
 from __future__ import annotations
@@ -62,6 +65,13 @@ def reset_kernel_launches() -> None:
 
 def _count_scan(index: torch.Tensor) -> None:
     _scan_counts["scan_bytes"] += index.numel() * index.element_size()
+
+
+def count_fine_gather(n_rows: int) -> None:
+    """Stage 2 of one two-stage retrieval gathered ``n_rows`` candidate
+    rows out of the fine arena."""
+    _scan_counts["fine_gather_rows"] += int(n_rows)
+    _scan_counts["two_stage_scans"] += 1
 
 
 def decode_attention(q, k, v, valid, *, scale: float, softcap: float = 0.0,
@@ -123,16 +133,21 @@ def fused_retrieve_stack(query, index, *, tau: float, valid, targets,
     int8 + valid (any canonical mask form) + targets (S,Q,T) → draws,
     drawn probabilities, top-k and softmax stats. Targets beyond the
     accumulated mass clip to lane N-1 and take ``p_last`` as their drawn
-    probability, identically for both routes."""
-    if tier in ("coarse", "standing"):
+    probability, identically for both routes. ``tier="coarse"`` is the
+    same launch over the coarse tier (stage 1 of a two-stage retrieval):
+    its bytes also count into ``coarse_scan_bytes``."""
+    if tier == "standing":
         raise NotImplementedError(
-            f"tier={tier!r} belongs to a later slice of the port "
-            f"(ROADMAP.md, Queue 1: hierarchical tier / standing queries)")
-    if tier != "fine":
+            "tier='standing' belongs to a later slice of the port "
+            "(ROADMAP.md, Queue 1: standing queries)")
+    if tier not in ("fine", "coarse"):
         raise ValueError(f"unknown tier {tier!r}")
     _scan_counts["similarity_stack"] += 1
     _scan_counts["fused_draw_launches"] += 1
     _count_scan(index)
+    if tier == "coarse":
+        _scan_counts["coarse_scan_bytes"] += (index.numel()
+                                              * index.element_size())
     return finalize(_sim.fused_retrieve_scan_stack(
         query, index, valid, targets, tau=tau, n_topk=n_topk),
         index.shape[1])

@@ -315,9 +315,16 @@ def test_capacity_guard_and_later_policies():
     with pytest.raises(RuntimeError):
         m.insert_cluster(np.ones(4, np.float32), scene_id=0, index_frame=1,
                          member_frames=[1])
+    # the merging policies run now (held against the reference in
+    # test_torch_lifecycle.py and test_torch_tier.py)
     for policy in ("cluster_merge", "consolidate"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmem.VenusMemory(4, 4, eviction=policy, device="cpu")
+        m = tmem.VenusMemory(2, 4, eviction=policy, coarse_capacity=2,
+                             coarse_block=2, device="cpu")
+        for f in range(3):
+            m.insert_cluster(np.ones(4, np.float32), scene_id=0,
+                             index_frame=f, member_frames=[f])
+        assert m.eviction.name == policy and m.size == 2
+        assert m.io_stats["evicted_rows"] == 1
 
 
 def test_slot_reuse_and_zero_restacks():

@@ -200,14 +200,18 @@ def test_arena_from_numpy_round_trip(twin_managers):
 
 def test_later_slices_raise_clearly(twin_managers):
     """The dense strategies and ``fused=False`` run now (held against the
-    reference in test_torch_dense.py); the tiers, spill and the merging
-    eviction policies still raise, naming ROADMAP."""
+    reference in test_torch_dense.py), and so do the coarse tier and the
+    merging eviction policies (test_torch_tier.py,
+    test_torch_lifecycle.py); the spill tier still raises, naming
+    ROADMAP."""
     _, tmgr, *_ = twin_managers
     for strategy in ("bolt", "mdf", "aks", "uniform"):
         plan = tmgr.plan([QuerySpec(sid=0, embedding=np.ones(32),
                                     strategy=strategy, budget=4)])
         assert plan.n_scans == 1
-    for kw in (dict(spill_dir="/nonexistent"), dict(coarse_capacity=8),
-               dict(eviction="consolidate"), dict(merge_threshold=0.5)):
+    for kw in (dict(coarse_capacity=8, eviction="consolidate"),
+               dict(eviction="cluster_merge", merge_threshold=0.5)):
+        assert VenusConfig(**kw).eviction == kw["eviction"]
+    for kw in (dict(spill_dir="/nonexistent"), dict(host_retain=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             VenusConfig(**kw)
