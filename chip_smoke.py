@@ -476,6 +476,46 @@ def stage_cases(gen):
             ("stage2", q2, x2.view(lanes, c, D), v2.view(lanes, c), K)]
 
 
+def hold_fused(what, query, index, valid, targets, k, *, draws=True,
+               tau=TAU):
+    """One #1 launch held to its plain version on the same inputs: top-K
+    lanes equal, and with ``draws`` the draws and raw counts too; top-K
+    values, m, l, p_max (and the drawn probabilities) at rtol 1e-5 / atol
+    1e-6. ``draws=False`` for a stage-1 launch, whose dummy zero target
+    is not used. Returns (max abs error but l's, the kernel's call, the
+    plain version's call)."""
+    import torch
+    from repro_torch.kernels import ops, ref, similarity
+    run_k = lambda: similarity.fused_retrieve_scan_stack(
+        query, index, valid, targets, tau=tau, n_topk=k)
+    run_p = lambda: ref.fused_retrieve_stack_ref(
+        query, index, valid, targets, tau=tau, n_topk=k)
+    before = similarity.fused_retrieve_scan_stack.launches
+    raw = run_k()
+    check(similarity.fused_retrieve_scan_stack.launches == before + 1,
+          f"{what}: the kernel did not launch")
+    raw_p = run_p()
+    n = index.shape[1]
+    got, want = ops.finalize(raw, n), ops.finalize(raw_p, n)
+    ints = ("draws", "topk_i") if draws else ("topk_i",)
+    floats = (("drawn_p",) if draws else ()) + ("topk_v", "m", "l", "p_max")
+    if draws:
+        check(torch.equal(raw.counts, raw_p.counts),
+              f"{what}: raw counts differ")
+    for f in ints:
+        check(torch.equal(getattr(got, f), getattr(want, f)),
+              f"{what}: {f} differ in "
+              f"{int((getattr(got, f) != getattr(want, f)).sum())} places")
+    err = 0.0
+    for f in floats:
+        a, b = getattr(got, f), getattr(want, f)
+        check(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
+              f"{what}: {f} max abs err {float((a - b).abs().max())}")
+        if f != "l":
+            err = max(err, float((a - b).abs().max()))
+    return err, run_k, run_p
+
+
 def phase_fused_stages(gen, card):
     """Kernel #1 at the two stage shapes of the hierarchical tier, held to
     its plain version: stage 1 with the executor's dummy zero target
@@ -488,7 +528,7 @@ def phase_fused_stages(gen, card):
     import torch
     from repro_torch.core import tiering
     from repro_torch.core.memory import MemoryArena
-    from repro_torch.kernels import ops, ref, similarity
+    from repro_torch.kernels import ref
     out = {}
     for name, query, index, valid, k in stage_cases(gen):
         s, q, _ = query.shape
@@ -501,35 +541,8 @@ def phase_fused_stages(gen, card):
             probs = ref.scan_probs(sims, m, l, valid[:, None, :], TAU)
             targets, margin = margin_targets(probs, gen, T)
             del sims, probs
-        run_k = lambda: similarity.fused_retrieve_scan_stack(
-            query, index, valid, targets, tau=TAU, n_topk=k)
-        run_p = lambda: ref.fused_retrieve_stack_ref(
-            query, index, valid, targets, tau=TAU, n_topk=k)
-        before = similarity.fused_retrieve_scan_stack.launches
-        raw = run_k()
-        check(similarity.fused_retrieve_scan_stack.launches == before + 1,
-              f"fused {name}: the kernel did not launch")
-        raw_p = run_p()
-        got, want = ops.finalize(raw, n), ops.finalize(raw_p, n)
-        ints = ("topk_i",) if name == "stage1" else ("draws", "topk_i")
-        floats = (("topk_v", "m", "l", "p_max") if name == "stage1"
-                  else ("drawn_p", "topk_v", "m", "l", "p_max"))
-        if name == "stage2":
-            check(torch.equal(raw.counts, raw_p.counts),
-                  f"fused {name}: raw counts differ")
-        for f in ints:
-            check(torch.equal(getattr(got, f), getattr(want, f)),
-                  f"fused {name}: {f} differ in "
-                  f"{int((getattr(got, f) != getattr(want, f)).sum())} "
-                  f"places")
-        err = 0.0
-        for f in floats:
-            a, b = getattr(got, f), getattr(want, f)
-            check(torch.allclose(a, b, rtol=1e-5, atol=1e-6),
-                  f"fused {name}: {f} max abs err "
-                  f"{float((a - b).abs().max())}")
-            if f != "l":
-                err = max(err, float((a - b).abs().max()))
+        err, run_k, run_p = hold_fused(f"fused {name}", query, index, valid,
+                                       targets, k, draws=name == "stage2")
         dev_ms = device_ms(run_k)
         ms = cuda_ms(run_k, reps=10, warmup=2)
         plain = cuda_ms(run_p, reps=2)
@@ -571,15 +584,44 @@ def phase_fused_stages(gen, card):
     read = (n_blk * TIER_BLOCK + winners.numel() - n_blk) * D * 4
     g_ms = device_ms(gather)
     gb, _ = bound_ms(read + nbytes, 0.0)
+    split = kernels_by_name(gather)
     out["gather"] = dict(device_ms=g_ms, operand_bytes=nbytes,
-                         read_bytes=read, bound_ms=gb)
+                         read_bytes=read, bound_ms=gb, by_kernel_us=split)
     print(f"phase fused[gather]: ok  candidate operand {nbytes / 1e6:.1f} MB "
           f"({S}x{Q} lanes x {TIER_B * TIER_BLOCK} rows x {D}; "
           f"{n_blk} of {winners.numel()} winners blocks), device "
           f"{g_ms:.4f} ms (bound: {read / 1e6:.1f} MB read, the operand "
           f"written: {gb:.4f} ms)  [{card}]", flush=True)
+    if split is not None:
+        print(f"  gather by kernel (profiler; launches, device us a call): "
+              f"{ {k: (n, round(us, 2)) for k, (n, us) in split.items()} }",
+              flush=True)
     del arena, emb
     return out
+
+
+def kernels_by_name(fn, reps: int = 5):
+    """``fn``'s device time by kernel, from one profiler trace of ``reps``
+    calls: {name without its template arguments: (launches a call,
+    device us a call)}, dearest first; None for an empty trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.removeprefix("void ").split("<")[0].split("(")[0]
+        n, us = by.get(name, (0, 0.0))
+        by[name] = (n + 1, us + e.time_range.end - e.time_range.start)
+    return {k: (n / reps, us / reps) for k, (n, us) in
+            sorted(by.items(), key=lambda kv: -kv[1][1])} or None
 
 
 def _scan_check(name, got, want, valid, sessions_empty=()):
@@ -967,39 +1009,43 @@ def unit_queries_np(n: int, dim: int, seed: int):
     return qe / np.linalg.norm(qe, axis=-1, keepdims=True)
 
 
-def run_queries(mgr, n_sessions: int, dim: int, coarse: bool = True,
+# (group, strategy, budget, text?): the query groups of every phase
+QUERY_GROUPS = (("akr", "akr", None, False),
+                ("sampling", "sampling", 16, False),
+                ("topk", "topk", 8, False),
+                ("text", "akr", None, True))
+
+
+def run_queries(mgr, n_sessions: int, dim: int, coarse=None,
                 text: bool = True):
     """8 queries per session under akr, sampling and topk, and 8 text
-    queries per session (akr, embedded by the manager's embedder): four
-    ``query_batch_cross`` calls, one execution group (one fused launch,
-    two where the group is two-stage) each. ``coarse=False``: the same
-    specs through ``execute(plan, coarse=False)``, the flat scan.
-    Returns (per-group results, host-clock seconds of each)."""
+    queries per session (akr, embedded by the manager's embedder): one
+    execution group (one fused launch, two where the group is two-stage)
+    each, from ``QUERY_GROUPS``. ``coarse=None``: through
+    ``query_batch_cross``; True or False: the same specs through
+    ``execute(plan(specs), coarse=coarse)``. Returns (per-group results,
+    host-clock seconds of each)."""
     from repro_torch.core.queryplan import QuerySpec
     sids = [s for s in range(n_sessions) for _ in range(8)]
     qe = unit_queries_np(len(sids), dim, 5)
     texts = [f"what happens on camera {s} around event {j % 8}"
              for j, s in enumerate(sids)]
-    groups = [("akr", dict(query_embs=qe)),
-              ("sampling", dict(query_embs=qe, budget=16, use_akr=False)),
-              ("topk", dict(query_embs=qe, budget=8, strategy="topk"))]
-    if text:
-        groups.append(("text", dict(texts=texts)))
     results, qtimes = {}, {}
-    for strat, kw in groups:
+    for group, strategy, budget, is_text in QUERY_GROUPS:
+        if is_text and not text:
+            continue
         t0 = time.perf_counter()
-        if coarse:
-            results[strat] = mgr.query_batch_cross(sids, **kw)
+        if coarse is None:
+            inputs = dict(texts=texts) if is_text else dict(query_embs=qe)
+            results[group] = mgr.query_batch_cross(
+                sids, strategy=strategy, budget=budget, **inputs)
         else:
-            name = kw.get("strategy") or (
-                "sampling" if kw.get("use_akr") is False else "akr")
-            specs = [QuerySpec(
-                sid=s, strategy=name, budget=kw.get("budget"),
-                text=kw["texts"][j] if "texts" in kw else None,
-                embedding=kw["query_embs"][j] if "query_embs" in kw
-                else None) for j, s in enumerate(sids)]
-            results[strat] = mgr.execute(mgr.plan(specs), coarse=False)
-        qtimes[strat] = time.perf_counter() - t0
+            specs = [QuerySpec(sid=s, strategy=strategy, budget=budget,
+                               text=texts[j] if is_text else None,
+                               embedding=None if is_text else qe[j])
+                     for j, s in enumerate(sids)]
+            results[group] = mgr.execute(mgr.plan(specs), coarse=coarse)
+        qtimes[group] = time.perf_counter() - t0
     return results, qtimes
 
 
@@ -1063,6 +1109,95 @@ def run_main_path(worlds, cfg, embedder, dim, card, label, trace=False):
 
 
 TIER_SCENES = 16        # ≈ 160 index rows a session: every one overflows
+STAGES = ("segment", "cluster", "embed_insert")
+
+
+def hold_tier_launches(mgr, label, text=True):
+    """One more round of the query groups, two-stage, with every #1
+    launch's operands captured at ``ops.fused_retrieve_stack``, then each
+    launch held to the plain version on those inputs (``hold_fused``;
+    stage 1 without its dummy draws): the kernel at the shapes the tier
+    gives it. Returns the launches held, their shapes and the max abs
+    error."""
+    from repro_torch.kernels import ops
+    orig, calls = ops.fused_retrieve_stack, []
+
+    def capture(query, index, *, tau, valid, targets, n_topk, tier="fine"):
+        calls.append((tier, query, index, valid, targets, n_topk, tau))
+        return orig(query, index, tau=tau, valid=valid, targets=targets,
+                    n_topk=n_topk, tier=tier)
+    ops.fused_retrieve_stack = capture
+    try:
+        run_queries(mgr, S, D, coarse=True, text=text)
+    finally:
+        ops.fused_retrieve_stack = orig
+    tiers = [c[0] for c in calls]
+    check(tiers and tiers == ["coarse", "fine"] * (len(tiers) // 2),
+          f"{label}: launches {tiers}, not coarse then fine a group")
+    err, shapes = 0.0, []
+    for j, (tier, q, x, v, t, k, tau) in enumerate(calls):
+        shape = (tier, *q.shape, x.shape[1], t.shape[-1], k)
+        e, _, _ = hold_fused(f"{label} launch {j} {shape}", q, x, v, t, k,
+                             draws=tier == "fine", tau=tau)
+        err = max(err, e)
+        shapes.append(shape)
+    return dict(held=len(calls), shapes=sorted(set(shapes)),
+                max_abs_err=err)
+
+
+def tier_query_runs(mgr, label, text=True):
+    """The query groups on a manager whose every session consolidated:
+    two-stage, then the same specs with ``coarse=False`` (the flat scan),
+    then two-stage again. Checks each group two-stage with two #1
+    launches, the rows gathered and the coarse bytes counted, and no
+    restack. Returns the groups' seconds and their ``similarity`` and
+    ``sample_expand`` timings, and the fused launches, by run."""
+    import torch
+    from repro_torch.kernels import ops
+    a, cfg = mgr.arena, mgr.cfg
+    n_groups = 4 if text else 3
+    runs, launches = {}, {}
+    for run, coarse in (("two_stage", True), ("flat", False),
+                        ("two_stage_again", True)):
+        mgr.reset_io_stats(include_memories=False)
+        torch.cuda.synchronize()
+        ops.reset_kernel_launches()
+        ops.reset_scan_counts()
+        results, qtimes = run_queries(mgr, S, D, coarse=coarse, text=text)
+        torch.cuda.synchronize()
+        launches[run] = ops.kernel_launches()["fused_retrieve"]
+        counts = ops.scan_counts()
+        check(mgr.io_stats["stack_rebuilds"] == 0,
+              f"{label}: stack_rebuilds")
+        check_results(mgr, S, results, f"{label} {run}")
+        if coarse:
+            check(mgr.io_stats["two_stage_groups"] == n_groups
+                  == mgr.io_stats["group_scans"],
+                  f"{label}: every group two-stage: {mgr.io_stats}")
+            check(launches[run] == 2 * n_groups
+                  and counts["two_stage_scans"] == n_groups,
+                  f"{label}: two #1 launches a group: {launches[run]}, "
+                  f"{counts}")
+            check(counts["fine_gather_rows"] == n_groups * S * 8
+                  * cfg.coarse_topb * cfg.coarse_block
+                  and counts["coarse_scan_bytes"] == n_groups * S
+                  * a.n_coarse * D * 4, f"{label}: counts {counts}")
+        else:
+            check(mgr.io_stats["two_stage_groups"] == 0
+                  and launches[run] == n_groups
+                  and counts["two_stage_scans"] == 0,
+                  f"{label}: coarse=False is flat: {counts}")
+        runs[run] = dict(seconds=qtimes, timings={
+            g: {k: res[0].timings[k] for k in ("similarity",
+                                                "sample_expand")}
+            for g, res in results.items()})
+    for run, r in runs.items():
+        split = {g: (round(v["similarity"], 6), round(v["sample_expand"], 6))
+                 for g, v in r["timings"].items()}
+        print(f"  {label} {run}: fused launches {launches[run]}  seconds "
+              f"{ {k: round(v, 6) for k, v in r['seconds'].items()} }  "
+              f"similarity, sample_expand (s) {split}", flush=True)
+    return runs, launches
 
 
 def phase_tier(embedder, card):
@@ -1070,13 +1205,11 @@ def phase_tier(embedder, card):
     streams of 224² worlds of 16 scenes into a consolidating manager with
     the reference's ``TIER_CFG`` geometry (capacity 128, coarse_block 16,
     coarse_capacity 32, top-B 4) and the main phase's MEM embedder, then
-    the main phase's four query groups. Every session consolidates; every
-    group runs two-stage (two #1 launches, the gather counted), with no
-    restack. The same specs then run with ``coarse=False`` (the flat
-    scan), and two-stage again, for the groups' timings."""
-    import torch
+    the main phase's four query groups (``tier_query_runs``). Every #1
+    launch of one more round is held to the plain version at the shapes
+    the tier gives it, and the manager's state to a CPU twin
+    (``check_twin``: equal frame ids through the two-stage path)."""
     from repro_torch.core.session import VenusConfig
-    from repro_torch.kernels import ops
     cfg = VenusConfig(memory_capacity=128, eviction="consolidate",
                       coarse_capacity=32, coarse_block=16, coarse_topb=4)
     t0 = time.perf_counter()
@@ -1089,67 +1222,111 @@ def phase_tier(embedder, card):
     check(all(c > 0 for c in consolidated),
           f"tier: every session consolidates: {consolidated}")
     check(mgr.arena.has_consolidated(), "tier: the arena holds history")
-    a = mgr.arena
-    n_groups, topb, blk = 4, cfg.coarse_topb, cfg.coarse_block
-    runs, launches = {}, {}
-    for label, coarse in (("two_stage", True), ("flat", False),
-                          ("two_stage_again", True)):
-        mgr.reset_io_stats(include_memories=False)
-        torch.cuda.synchronize()
-        ops.reset_kernel_launches()
-        ops.reset_scan_counts()
-        results, qtimes = run_queries(mgr, S, D, coarse=coarse)
-        torch.cuda.synchronize()
-        launches[label] = ops.kernel_launches()["fused_retrieve"]
-        counts = ops.scan_counts()
-        check(mgr.io_stats["stack_rebuilds"] == 0, "tier: stack_rebuilds")
-        check_results(mgr, worlds, results, f"tier {label}")
-        if coarse:
-            check(mgr.io_stats["two_stage_groups"] == n_groups
-                  == mgr.io_stats["group_scans"],
-                  f"tier: every group two-stage: {mgr.io_stats}")
-            check(launches[label] == 2 * n_groups
-                  and counts["two_stage_scans"] == n_groups,
-                  f"tier: two #1 launches a group: {launches[label]}, "
-                  f"{counts}")
-            check(counts["fine_gather_rows"]
-                  == n_groups * S * 8 * topb * blk
-                  and counts["coarse_scan_bytes"] == n_groups * S
-                  * a.n_coarse * D * 4, f"tier: counts {counts}")
-        else:
-            check(mgr.io_stats["two_stage_groups"] == 0
-                  and launches[label] == n_groups
-                  and counts["two_stage_scans"] == 0,
-                  f"tier: coarse=False is flat: {counts}")
-        runs[label] = dict(seconds=qtimes, timings={
-            g: {k: res[0].timings[k] for k in ("similarity",
-                                                "sample_expand")}
-            for g, res in results.items()})
     rows = [mgr[s].memory.size for s in range(S)]
     n_emb = sum(mgr[s].stats["frames_embedded"] for s in range(S))
     frames = sum(w.total_frames for w in worlds)
     insert_s = stages["embed_insert"] - stages["embed_ticks_s"]
-    out = dict(worlds_s=t_worlds, frames=frames, ticks=ticks,
-               stages={k: stages[k] for k in ("segment", "cluster",
-                                              "embed_insert")},
-               embed_s=embedder.seconds, embedded=n_emb,
-               insert_s=insert_s, consolidated_rows=consolidated,
-               rows=rows, launches=launches["two_stage"], runs=runs)
-    print(f"phase tier: ok  {S} streams of {TIER_SCENES} scenes, {frames} "
-          f"frames (worlds {t_worlds:.2f} s)  ingest ticks (s) "
+    print(f"phase tier: ingest  {S} streams of {TIER_SCENES} scenes, "
+          f"{frames} frames (worlds {t_worlds:.2f} s)  ingest ticks (s) "
           f"{[round(x, 4) for x in ticks]}  by stage (s) "
-          f"{ {k: round(v, 4) for k, v in out['stages'].items()} }  MEM "
-          f"{embedder.seconds:.3f} s for {n_emb} frames, insert and "
+          f"{ {k: round(stages[k], 4) for k in STAGES} }"
+          f"  MEM {embedder.seconds:.3f} s for {n_emb} frames, insert and "
           f"consolidate {insert_s:.3f} s  consolidated rows "
           f"{consolidated}  [{card}]", flush=True)
-    for label, r in runs.items():
-        split = {g: (round(v["similarity"], 6), round(v["sample_expand"], 6))
-                 for g, v in r["timings"].items()}
-        print(f"  tier {label}: fused launches {launches[label]}  seconds "
-              f"{ {k: round(v, 6) for k, v in r['seconds'].items()} }  "
-              f"similarity, sample_expand (s) {split}", flush=True)
+    runs, launches = tier_query_runs(mgr, "tier")
+    held = hold_tier_launches(mgr, "tier")
+    twin = check_twin(mgr, cfg, "tier", D)
+    check(twin["two_stage_groups"] == 3, f"tier twin: {twin}")
+    out = dict(worlds_s=t_worlds, frames=frames, ticks=ticks,
+               stages={k: stages[k] for k in STAGES},
+               embed_s=embedder.seconds, embedded=n_emb,
+               insert_s=insert_s, consolidated_rows=consolidated,
+               rows=rows, launches=launches["two_stage"], runs=runs,
+               held=held, twin_two_stage_groups=twin["two_stage_groups"])
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase tier: ok  {held['held']} #1 launches held to the plain "
+          f"version at {held['shapes']} (max abs err "
+          f"{held['max_abs_err']:.3e}); CPU twin: equal frame ids over "
+          f"{twin['two_stage_groups']} two-stage groups; phase "
+          f"{out['phase_s']:.1f} s", flush=True)
     del mgr, worlds
     return out
+
+
+# rows past the capacity, rows a scene, rows a session a tick
+TIER_EXTRA, TIER_SCENE_ROWS, TIER_TICK = 512, 2, 512
+
+
+def tier_rows_np(sid: int, n_rows: int, dim: int):
+    """A session's index rows: scenes of ``TIER_SCENE_ROWS`` rows around a
+    random unit centroid (cosine ≈ 0.8 between two rows of a scene, the
+    merge threshold), unit length."""
+    import numpy as np
+    rng = np.random.default_rng(1000 + sid)
+    c = rng.standard_normal((-(-n_rows // TIER_SCENE_ROWS), dim))
+    c /= np.linalg.norm(c, axis=-1, keepdims=True)
+    x = (np.repeat(c, TIER_SCENE_ROWS, 0)[:n_rows] + 0.5
+         * rng.standard_normal((n_rows, dim)) / np.sqrt(dim))
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def phase_tier_full(card):
+    """The two-stage query path at the production geometry the fused
+    phase's stage cases hold #1 at: ``VenusConfig(memory_capacity=8192,
+    eviction="consolidate", coarse_capacity=256, coarse_block=64,
+    coarse_topb=4)``, 16 sessions at d = 768, each filled by
+    ``insert_batch`` (ticks of 512 rows into the arena's deferred appends)
+    with 8192 + 512 rows, so 512 rows a session consolidate. Then the
+    akr, sampling and topk groups through ``tier_query_runs``, one more
+    round's #1 launches held to the plain version, and a CPU twin."""
+    import numpy as np
+    import torch
+    from repro_torch.core.session import SessionManager, VenusConfig
+    cfg = VenusConfig(memory_capacity=N, eviction="consolidate",
+                      coarse_capacity=TIER_NC - TIER_NB,
+                      coarse_block=TIER_BLOCK, coarse_topb=TIER_B)
+    t_phase = time.perf_counter()
+    mgr = SessionManager(cfg, None, D, device="cuda")
+    for sid in range(S):
+        mgr.create_session(sid)
+    n_rows = N + TIER_EXTRA
+    data = [tier_rows_np(sid, n_rows, D) for sid in range(S)]
+    t0 = time.perf_counter()
+    for lo in range(0, n_rows, TIER_TICK):
+        r = np.arange(lo, min(lo + TIER_TICK, n_rows))
+        with mgr.arena.deferred_appends():
+            for sid in range(S):
+                mgr[sid].memory.insert_batch(
+                    data[sid][r], scene_ids=list(r // TIER_SCENE_ROWS),
+                    index_frames=4 * r + 1,
+                    member_lists=[range(4 * i, 4 * i + 4) for i in r])
+    torch.cuda.synchronize()
+    insert_s = time.perf_counter() - t0
+    for sid in range(S):
+        mgr[sid].stats["frames_seen"] = 4 * n_rows
+    mems = [mgr[s].memory for s in range(S)]
+    consolidated = [m.io_stats["consolidated_rows"] for m in mems]
+    csize = [m._coarse_csize for m in mems]
+    check(all(c == TIER_EXTRA for c in consolidated)
+          and all(m.size == N for m in mems),
+          f"tier_8192: {consolidated} consolidated")
+    print(f"phase tier_8192: ingest  {S} x {n_rows} rows by insert_batch in "
+          f"{insert_s:.3f} s (host; {S * TIER_EXTRA} consolidated), "
+          f"consolidated rows a session {min(csize)}-{max(csize)} of "
+          f"{cfg.coarse_capacity}  [{card}]", flush=True)
+    runs, launches = tier_query_runs(mgr, "tier_8192", text=False)
+    held = hold_tier_launches(mgr, "tier_8192", text=False)
+    twin = check_twin(mgr, cfg, "tier_8192", D)
+    check(twin["two_stage_groups"] == 3, f"tier_8192 twin: {twin}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase tier_8192: ok  {held['held']} #1 launches held to the "
+          f"plain version at {held['shapes']} (max abs err "
+          f"{held['max_abs_err']:.3e}); CPU twin: equal frame ids over 3 "
+          f"two-stage groups; phase {phase_s:.1f} s", flush=True)
+    del mgr, data
+    return dict(insert_s=insert_s, consolidated_rows=consolidated,
+                coarse_rows=csize, runs=runs, phase_s=phase_s,
+                launches=launches["two_stage"], held=held)
 
 
 def card_state(mgr, sids):
@@ -1302,9 +1479,9 @@ def phase_parity():
     return tier
 
 
-def check_results(mgr, worlds, results, label):
+def check_results(mgr, n_sessions, results, label):
     for strat, res in results.items():
-        check(len(res) == 8 * len(worlds), f"{label}: {strat} result count")
+        check(len(res) == 8 * n_sessions, f"{label}: {strat} result count")
         for j, r in enumerate(res):
             sid = j // 8
             seen = mgr[sid].stats["frames_seen"]
@@ -1360,7 +1537,7 @@ def phase_dense(mgr, worlds, card):
     check(counts["dense_score_launches"] == n_groups + n_sess
           and counts["fused_draw_launches"] == 0, f"scan counts {counts}")
     check(mgr.io_stats["stack_rebuilds"] == 0, "dense stack_rebuilds == 0")
-    check_results(mgr, worlds, results, "dense")
+    check_results(mgr, len(worlds), results, "dense")
     cap = mgr.cfg.memory_capacity
     for sid, (sims, probs) in enumerate(searched):
         check(sims.shape == probs.shape == (8, cap)
@@ -2111,7 +2288,7 @@ def main() -> int:
     check(mgr.io_stats["stack_rebuilds"] == 0, "stack_rebuilds == 0")
     check(mgr.arena.emb.shape == (S, cfg.memory_capacity, D),
           f"arena shape {tuple(mgr.arena.emb.shape)}")
-    check_results(mgr, worlds, results, "main")
+    check_results(mgr, len(worlds), results, "main")
     st = times["scene_trace"]
     check(st["launches"] == launches["scene_score"],
           f"main trace: {st['launches']} scene launches in the ingest, "
@@ -2165,12 +2342,14 @@ def main() -> int:
     check(l8["fused_retrieve"] == 4 and l8["scene_score"] > 0,
           f"int8 launches {l8}")
     check(mgr8.io_stats["stack_rebuilds"] == 0, "int8 stack_rebuilds")
-    check_results(mgr8, worlds, res8, "main_int8")
+    check_results(mgr8, len(worlds), res8, "main_int8")
     print(f"phase main_int8: ok  launches {l8}", flush=True)
     del mgr8
 
     # 13. the hierarchical tier through the entry points
     tier = phase_tier(embedder, card)
+    tier_full = phase_tier_full(card)
+    torch.cuda.empty_cache()
 
     # 8. MEM card vs CPU, and bf16 vs f32
     mem_out = phase_mem(mem, worlds[1].frames[:4])
@@ -2221,6 +2400,7 @@ def main() -> int:
         main_device_us_per_launch=ft["device_us_per_launch"],
         main_device_us=ft["device_us"],
         tier_launches=tier["launches"],
+        tier_8192_launches=tier_full["launches"],
         **{f"{st}_{k}": stages[st][k] for st in ("stage1", "stage2")
            for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                      "max_abs_err")},
@@ -2287,6 +2467,7 @@ def main() -> int:
                        fused_stages=stages, similarity=sim, scene=scene,
                        decode=dec, main=times, dense=dense, serve=serve,
                        serve_mla=serve_mla, mem=mem_out, tier=tier,
+                       tier_8192=tier_full,
                        parity_tier=parity), f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
