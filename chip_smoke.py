@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
-12, 7, 13, 8, 9:
+12, 7, 13, 14, 8, 9:
 
 1. build      — compile the CUDA kernels from ``src/repro_torch/kernels/
                 csrc`` (one nvcc per source, all started together);
@@ -126,13 +126,39 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 the coarse tier's bytes counted, no restack); the same
                 specs with ``coarse=False`` (one flat launch each), then
                 two-stage again; ingest stage times and each group's
-                similarity and sample_expand seconds printed.
+                similarity and sample_expand seconds printed; then
+                ``tier_8192`` (capacity 8192, filled by ``insert_batch``);
+14. standing  — standing queries and the spill tier through the entry
+                points: the main phase's MEM embedder and 16 worlds into
+                ``VenusConfig(spill_dir=<a temporary directory>,
+                host_retain=128)``; each session registers a text topk
+                spec and an embedding spec (one of its index rows from
+                the main phase, which must fire) before the ingest, which
+                runs under the profiler (#1's device µs a standing
+                launch): one #1 launch with ``tier="standing"`` a
+                committing tick over the (G, pow2(n), d) slab,
+                ``standing_scan_bytes`` its bytes, no restack; each launch
+                held to the plain version on its operands (two top-K
+                lanes may trade places only where the plain scores of
+                their rows tie within the float tolerance; each swap is
+                printed), every spec's top-K bit for bit an ad-hoc topk
+                plan's over the same rows on the card; frames demoted, host windows within 128, a
+                uniform group and every alert's frame ids read back equal
+                to the worlds' frames, and after the closes no spill byte
+                and no directory; the evaluation's host ms a tick by
+                stage, ``_trim_archives``' seconds a tick and the spill
+                directory's file system printed; then the edge slabs
+                (``phase_standing_edges``: N = 1, 2, 4, G = 1 to 16, Q =
+                1 or 2, K = 1 or 2, f32 and int8 at d = 768, and
+                ``quantise_rows`` of the mirrors against the arena's int8
+                rows).
 
 Prints the card's name and power limit, one line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Every kernel's launch count is read around the phase that drives its path
 (main: fused retrieval and scene score; dense: the dense scans; serve and
-serve_mla: the decode kernels; tier: fused retrieval, two a group).
+serve_mla: the decode kernels; tier: fused retrieval, two a group;
+standing: fused retrieval, one a committing tick).
 """
 
 from __future__ import annotations
@@ -477,13 +503,17 @@ def stage_cases(gen):
 
 
 def hold_fused(what, query, index, valid, targets, k, *, draws=True,
-               tau=TAU):
+               tau=TAU, ties=None):
     """One #1 launch held to its plain version on the same inputs: top-K
     lanes equal, and with ``draws`` the draws and raw counts too; top-K
     values, m, l, p_max (and the drawn probabilities) at rtol 1e-5 / atol
     1e-6. ``draws=False`` for a stage-1 launch, whose dummy zero target
-    is not used. Returns (max abs error but l's, the kernel's call, the
-    plain version's call)."""
+    is not used. ``ties`` (a list) lets two top-K lanes trade places only
+    where the plain version's own scores of the two rows agree within
+    that tolerance (rows of near-equal embeddings, whose order the two
+    summation orders may break either way); each such swap is appended
+    to it. Returns (max abs error but l's, the kernel's call, the plain
+    version's call)."""
     import torch
     from repro_torch.kernels import ops, ref, similarity
     run_k = lambda: similarity.fused_retrieve_scan_stack(
@@ -503,9 +533,25 @@ def hold_fused(what, query, index, valid, targets, k, *, draws=True,
         check(torch.equal(raw.counts, raw_p.counts),
               f"{what}: raw counts differ")
     for f in ints:
-        check(torch.equal(getattr(got, f), getattr(want, f)),
-              f"{what}: {f} differ in "
-              f"{int((getattr(got, f) != getattr(want, f)).sum())} places")
+        a, b = getattr(got, f), getattr(want, f)
+        if f == "topk_i" and ties is not None and not torch.equal(a, b):
+            sims = ref.similarity_scan_stack_ref(query, index, valid,
+                                                 tau=tau)[0]
+            vm = ref.as_valid_mask(valid, n)[:, None, :].expand_as(sims)
+            sa, sb = (torch.gather(sims, -1, x.long()) for x in (a, b))
+            ok_a = torch.gather(vm, -1, a.long())
+            diff = a != b
+            tied = (sa - sb).abs() <= 1e-6 + 1e-5 * sb.abs()
+            where = diff.nonzero().tolist()
+            check(bool((tied & ok_a)[diff].all()),
+                  f"{what}: topk_i differ at {where}: kernel lanes "
+                  f"{a[diff].tolist()} (plain scores {sa[diff].tolist()}), "
+                  f"plain lanes {b[diff].tolist()} ({sb[diff].tolist()})")
+            ties.extend((tuple(w), float((sa - sb)[tuple(w)]))
+                        for w in where)
+            continue
+        check(torch.equal(a, b),
+              f"{what}: {f} differ in {int((a != b).sum())} places")
     err = 0.0
     for f in floats:
         a, b = getattr(got, f), getattr(want, f)
@@ -1327,6 +1373,396 @@ def phase_tier_full(card):
     return dict(insert_s=insert_s, consolidated_rows=consolidated,
                 coarse_rows=csize, runs=runs, phase_s=phase_s,
                 launches=launches["two_stage"], held=held)
+
+
+# the standing phase's host window (frames a session keeps on the host);
+# the edge slabs: (rows a session a tick, sessions a tick), n_pad 1, 2, 4, 4
+STANDING_RETAIN = 128
+EDGE_TICKS = ((1, 1), (2, 16), (3, 5), (4, 16))
+
+
+def capture_standing(mgr):
+    """Record each standing launch (``ops.fused_retrieve_stack`` with
+    ``tier="standing"``: operands, result, the registry's tick) and each
+    evaluation's new rows by session (``mgr.standing.evaluate``) until
+    ``undo()`` → (launches, evaluations, undo)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    orig, evaluate = ops.fused_retrieve_stack, mgr.standing.evaluate
+    launches, evals = [], []
+
+    def capture(query, index, *, tau, valid, targets, n_topk, tier="fine"):
+        fr = orig(query, index, tau=tau, valid=valid, targets=targets,
+                  n_topk=n_topk, tier=tier)
+        if tier == "standing":
+            launches.append(dict(query=query, index=index, valid=valid,
+                                 targets=targets, k=n_topk, tau=tau, fr=fr,
+                                 tick=mgr.standing.tick))
+        return fr
+
+    def logged(sessions, new_by_sid, io_stats=None):
+        rows = {sid: np.concatenate([np.asarray(p, np.int64) for p in ps])
+                for sid, ps in new_by_sid.items()}
+        live = sorted(s for s, p in rows.items()
+                      if len(p) and mgr.standing.by_sid.get(s))
+        evals.append(dict(tick=mgr.standing.tick + 1, rows=rows, live=live))
+        return evaluate(sessions, new_by_sid, io_stats)
+
+    ops.fused_retrieve_stack = capture
+    mgr.standing.evaluate = logged
+
+    def undo():
+        ops.fused_retrieve_stack = orig
+        del mgr.standing.evaluate
+    return launches, evals, undo
+
+
+def adhoc_topk(rows, ifr, emb, budget: int, index_dtype: str, dev="cuda"):
+    """An ad-hoc ``topk`` plan over exactly ``rows`` (index frames
+    ``ifr``) in a fresh manager on ``dev`` → (frame ids, its launch's
+    top-K scores and lanes of the one query)."""
+    import numpy as np
+    from repro_torch.core.queryplan import QuerySpec
+    from repro_torch.core.session import SessionManager, VenusConfig
+    from repro_torch.kernels import ops
+    mgr = SessionManager(VenusConfig(memory_capacity=128,
+                                     index_dtype=index_dtype), None,
+                         rows.shape[1], device=dev)
+    sid = mgr.create_session()
+    with mgr.arena.deferred_appends():
+        mgr[sid].memory.insert_batch(
+            rows, scene_ids=[0] * len(rows), index_frames=ifr,
+            member_lists=[[int(f)] for f in ifr])
+    orig, got = ops.fused_retrieve_stack, []
+
+    def capture(*a, **kw):
+        got.append(orig(*a, **kw))
+        return got[-1]
+    ops.fused_retrieve_stack = capture
+    try:
+        res = mgr.query_specs([QuerySpec(sid=sid, embedding=emb,
+                                         strategy="topk", budget=budget)])
+    finally:
+        ops.fused_retrieve_stack = orig
+    fr = got[0]
+    return (np.asarray(res[0].frame_ids), fr.topk_v[0, 0].cpu(),
+            fr.topk_i[0, 0].cpu())
+
+
+def hold_standing(mgr, launches, evals, label, dev="cuda"):
+    """One standing launch a committing evaluation (a session with specs
+    got rows), each slab (G, pow2(max n), d) over the live sessions in sid
+    order; each launch held to the plain version on its operands
+    (``hold_fused``, no draws; top-K lanes may trade places only between
+    rows the plain version scores within the float tolerance, each swap
+    counted); and the determinism contract: every live spec's top-K
+    scores in the launch are bit for bit, and its frame ids equal, those
+    of an ad-hoc ``topk`` plan over the same rows on the card. Returns
+    the shapes held, the max abs error, the lanes held to ad-hoc plans
+    and the tied swaps."""
+    import torch
+    from repro_torch.core.standing import _pow2
+    live = [e for e in evals if e["live"]]
+    check(len(launches) == len(live),
+          f"{label}: {len(launches)} standing launches for {len(live)} "
+          f"committing evaluations")
+    err, shapes, lanes, swaps = 0.0, set(), 0, []
+    for j, (ln, ev) in enumerate(zip(launches, live)):
+        check(ln["tick"] == ev["tick"], f"{label}: launch {j} tick")
+        n = max(len(ev["rows"][s]) for s in ev["live"])
+        x = ln["index"]
+        check(tuple(x.shape) == (len(ev["live"]), _pow2(n), x.shape[2]),
+              f"{label}: launch {j} slab {tuple(x.shape)}")
+        shape = (tuple(x.shape), str(x.dtype).removeprefix("torch."),
+                 ln["query"].shape[1], ln["k"])
+        e, _, _ = hold_fused(f"{label} standing launch {j} {shape}",
+                             ln["query"], x, ln["valid"], ln["targets"],
+                             ln["k"], draws=False, tau=ln["tau"],
+                             ties=swaps)
+        err = max(err, e)
+        shapes.add(shape)
+        tv, ti = ln["fr"].topk_v.cpu(), ln["fr"].topk_i.cpu()
+        for gi, sid in enumerate(ev["live"]):
+            mem, p = mgr[sid].memory, ev["rows"][sid]
+            for qi, spec_id in enumerate(mgr.standing.by_sid[sid]):
+                ent = mgr.standing.entries[spec_id]
+                kk = min(ent.budget, ln["k"], len(p))
+                ids, a_v, a_i = adhoc_topk(mem._emb[p], mem._index_frame[p],
+                                           ent.embedding, ent.budget,
+                                           mgr.cfg.index_dtype, dev)
+                check(torch.equal(tv[gi, qi, :kk], a_v[:kk])
+                      and torch.equal(ti[gi, qi, :kk], a_i[:kk]),
+                      f"{label}: launch {j} session {sid} spec {spec_id}: "
+                      f"standing {tv[gi, qi, :kk].tolist()} "
+                      f"{ti[gi, qi, :kk].tolist()} vs ad-hoc "
+                      f"{a_v[:kk].tolist()} {a_i[:kk].tolist()}")
+                check(mem._index_frame[p][ti[gi, qi, :kk].numpy()].tolist()
+                      == ids[:kk].tolist(),
+                      f"{label}: launch {j} spec {spec_id} frame ids")
+                lanes += 1
+    return sorted(shapes), err, lanes, swaps
+
+
+def phase_standing_edges(card, dev="cuda"):
+    """The slab shapes the ingest seldom gives #1, at d = 768, f32 and
+    int8 (the int8 rows on the tensor cores): a manager of 16 sessions
+    fed by ``insert_batch``, each session with a ``topk`` spec of budget 1
+    and session 0 one more of budget 2, evaluated tick by tick over
+    ``EDGE_TICKS``: N = pow2(n) of 1, 2, 4 and 4 rows, G = 1, 16, 5 and 16
+    sessions, Q = 1 (staged in a tile of 8) or 2, K = 1 or 2. Every launch
+    held to the plain version and to ad-hoc plans (``hold_standing``);
+    for int8, ``quantise_rows`` of the host mirrors is the arena's int8
+    rows on the card."""
+    import numpy as np
+    from repro_torch.core.memory import quantise_rows
+    from repro_torch.core.queryplan import QuerySpec
+    from repro_torch.core.session import SessionManager, VenusConfig
+    out = {}
+    for dtype in ("float32", "int8"):
+        mgr = SessionManager(VenusConfig(memory_capacity=64,
+                                         index_dtype=dtype), None, D,
+                             device=dev)
+        embs = unit_queries_np(S + 1, D, 11)
+        for sid in range(S):
+            mgr.create_session(sid)
+            mgr.register_standing(sid, QuerySpec(
+                sid=sid, embedding=embs[sid], strategy="topk", budget=1),
+                threshold=-1.0)
+        mgr.register_standing(0, QuerySpec(sid=0, embedding=embs[S],
+                                           strategy="topk", budget=2),
+                              threshold=-1.0)
+        launches, evals, undo = capture_standing(mgr)
+        rng = np.random.default_rng(12)
+        fid = 0
+        try:
+            for n, g in EDGE_TICKS:
+                new = {}
+                with mgr.arena.deferred_appends():
+                    for sid in range(S - g, S):
+                        rows = rng.standard_normal((n, D)).astype(np.float32)
+                        rows /= np.linalg.norm(rows, axis=-1, keepdims=True)
+                        ids = np.arange(fid, fid + n)
+                        fid += n
+                        new[sid] = [mgr[sid].memory.insert_batch(
+                            rows, scene_ids=[0] * n, index_frames=ids,
+                            member_lists=[[int(f)] for f in ids])]
+                mgr.standing.evaluate(mgr.sessions, new, mgr.io_stats)
+        finally:
+            undo()
+        shapes, err, lanes, swaps = hold_standing(
+            mgr, launches, evals, f"standing edges {dtype}", dev)
+        check(len(launches) == len(EDGE_TICKS),
+              f"standing edges {dtype}: {len(launches)} launches")
+        if dtype == "int8":
+            for sid in range(S):
+                mem = mgr[sid].memory
+                p = np.arange(mem.size)
+                q = quantise_rows(mem._emb[p])[0]
+                check(np.array_equal(
+                    q, mgr.arena.emb[mem.slot, :mem.size].cpu().numpy()),
+                    f"standing edges: session {sid}: quantise_rows of the "
+                    f"mirrors is not the arena's int8 rows")
+        out[dtype] = dict(shapes=shapes, max_abs_err=err, lanes=lanes,
+                          tied_swaps=swaps)
+        print(f"phase standing[edges {dtype}]: ok  {len(launches)} launches "
+              f"held to the plain version at {shapes} (max abs err "
+              f"{err:.3e}; tied top-K swaps {swaps}); {lanes} spec lanes "
+              f"bit-equal to ad-hoc top-k"
+              f"{'; quantise_rows(mirrors) == arena int8 rows' if dtype == 'int8' else ''}"
+              f"  [{card}]", flush=True)
+        del mgr
+    return out
+
+
+def phase_standing(embedder, worlds, first_pass, card, dev="cuda"):
+    """Standing queries and the spill tier through the entry points: the
+    main phase's MEM embedder and 16 worlds into ``VenusConfig(spill_dir=
+    <a new temporary directory>, host_retain=128)`` (capacity 8192, f32).
+    Before the ingest every session registers a text ``topk`` spec
+    (through the MEM text tower; threshold 0.999) and an embedding spec
+    set to one of its index rows from the main phase (threshold 0.99,
+    hysteresis 0.05, cooldown 2, priority 1), which must fire. The ingest
+    (ticks of 64 frames, the flush) runs under the profiler: one #1
+    launch a committing tick, ``standing_scan_bytes`` the slabs' bytes,
+    no restack; every launch held to the plain version and to ad-hoc
+    ``topk`` plans (``hold_standing``). Then the spill tier: frames
+    demoted, every host window within ``host_retain``; a ``uniform``
+    group over the 16 sessions and every alert's frame ids read back
+    equal to the worlds' frames; ``close_session`` of every stream leaves
+    ``spill_disk_bytes`` 0 and no directory. Then the edge slabs
+    (``phase_standing_edges``)."""
+    import contextlib
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.queryplan import QuerySpec
+    from repro_torch.core.session import SessionManager, VenusConfig
+    from repro_torch.core.standing import STAGES
+    from repro_torch.kernels import ops
+    from repro_torch.serving import VenusService
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="venus-spill-")
+    fstype = subprocess.run(["stat", "-f", "-c", "%T", root],
+                            capture_output=True, text=True).stdout.strip()
+    mgr = SessionManager(VenusConfig(spill_dir=root,
+                                     host_retain=STANDING_RETAIN),
+                         embedder, embed_dim=D, device=dev)
+    svc = VenusService(mgr, None)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    text_specs, emb_specs = [], []
+    for sid in range(S):
+        mgr.create_session(sid)
+        text_specs.append(mgr.register_standing(sid, QuerySpec(
+            sid=sid, text=f"someone opens the door on camera {sid}",
+            strategy="topk", budget=4), threshold=0.999))
+        emb_specs.append(mgr.register_standing(sid, QuerySpec(
+            sid=sid, embedding=first_pass[sid], strategy="topk", budget=4),
+            threshold=0.99, hysteresis=0.05, cooldown_ticks=2,
+            priority=1.0))
+    launches, evals, undo = capture_standing(mgr)
+    trim, trim_s = mgr._trim_archives, []
+
+    def timed_trim(sids):
+        t0 = time.perf_counter()
+        n = trim(sids)
+        trim_s.append(time.perf_counter() - t0)
+        return n
+    mgr._trim_archives = timed_trim
+    ops.reset_kernel_launches()
+    ops.reset_scan_counts()
+    ticks, eval_ms = [], []
+    try:
+        with (profile(activities=[ProfilerActivity.CUDA]) if dev == "cuda"
+              else contextlib.nullcontext()) as prof:
+            longest = max(w.total_frames for w in worlds)
+            for i in list(range(0, longest, 64)) + [None]:
+                before = dict(mgr.standing.seconds)
+                sync()
+                t0 = time.perf_counter()
+                if i is None:
+                    mgr.flush()
+                else:
+                    mgr.ingest_tick({sid: w.frames[i:i + 64]
+                                     for sid, w in enumerate(worlds)
+                                     if i < w.total_frames})
+                sync()
+                ticks.append(time.perf_counter() - t0)
+                eval_ms.append({k: 1e3 * (mgr.standing.seconds[k]
+                                          - before[k]) for k in STAGES})
+    finally:
+        undo()
+        del mgr._trim_archives
+    n_fused = ops.kernel_launches()["fused_retrieve"]
+    counts = ops.scan_counts()
+    trace = prof and kernel_in_trace(prof, n_fused, ("k_scores<", "k_finish"),
+                                     "standing ingest")
+    check(n_fused == len(launches) > 0,
+          f"standing: #1 launched {n_fused} times, {len(launches)} "
+          f"standing launches")
+    check(counts["standing_scan_bytes"] == sum(
+        ln["index"].numel() * 4 for ln in launches) > 0,
+          f"standing: standing_scan_bytes {counts}")
+    check(mgr.io_stats["stack_rebuilds"] == 0, "standing: stack_rebuilds")
+    shapes, err, lanes, swaps = hold_standing(mgr, launches, evals,
+                                              "standing", dev)
+    bounds = []
+    for ln in launches:
+        g, q, d = ln["query"].shape
+        rows = int(ln["valid"].sum())
+        small = 4 * (g * q * d + g + g * q + g * q * (2 * ln["k"] + 4))
+        b, bound_by = bound_ms(rows * d * 4 + small,
+                               (2.0 * q + 3.0) * rows * d)
+        bounds.append(1e3 * b)
+    bound_us = sum(bounds) / len(bounds)
+    alerts = mgr.poll_alerts()
+    fired = {a.spec_id for a in alerts}
+    check(set(emb_specs) <= fired, f"standing: embedding specs fired "
+          f"{sorted(fired & set(emb_specs))} of {emb_specs}")
+    never = set(text_specs + emb_specs) - fired
+    check(len(never) > 0, "standing: every spec fired")
+    check(mgr.io_stats["alerts_fired"] == len(alerts),
+          f"standing: {mgr.io_stats['alerts_fired']} fired, "
+          f"{len(alerts)} polled")
+    text_best = max((float(ln["fr"].topk_v[gi, 0, 0]) for ln, ev in zip(
+        launches, [e for e in evals if e["live"]])
+        for gi, _ in enumerate(ev["live"])), default=float("nan"))
+    for a in alerts:
+        got = mgr[a.sid].frames.get(a.frame_ids)
+        check(np.array_equal(got, worlds[a.sid].frames[a.frame_ids]),
+              f"standing: alert {a.spec_id} frames read back differ")
+    # the spill tier
+    stores = [mgr[s].frames for s in range(S)]
+    spilled = sum(f.io_stats["spilled_frames"] for f in stores)
+    demoted = sum(f.io_stats["spilled_bytes"] for f in stores)
+    check(spilled > 0 and all(f.retained <= STANDING_RETAIN
+                              for f in stores),
+          f"standing: spilled {spilled}, retained "
+          f"{[f.retained for f in stores]}")
+    qe = unit_queries_np(S, D, 17)
+    t0 = time.perf_counter()
+    res = mgr.query_specs([QuerySpec(sid=s, embedding=qe[s],
+                                     strategy="uniform", budget=16)
+                           for s in range(S)])
+    t_uniform = time.perf_counter() - t0
+    from_disk = 0
+    for s, r in enumerate(res):
+        f = r.frame_ids
+        check(len(f) > 0, f"standing: uniform on session {s} empty")
+        check(np.array_equal(mgr[s].frames.get(f), worlds[s].frames[f]),
+              f"standing: uniform frames of session {s} differ")
+        from_disk += int((f < stores[s].base).sum())
+    check(from_disk > 0, "standing: no uniform draw read from disk")
+    io = svc.io_stats()
+    faults, hits = io["spill_faults"], io["spill_cache_hits"]
+    disk_before = io["spill_disk_bytes"]
+    for sid in range(S):
+        mgr.close_session(sid)
+    io = svc.io_stats()
+    check(io["spill_disk_bytes"] == 0 and not os.listdir(root)
+          and io["spilled_frames"] == spilled,
+          f"standing: after the closes {io['spill_disk_bytes']} bytes, "
+          f"{os.listdir(root)}")
+    os.rmdir(root)
+    check(not os.path.exists(root), "standing: spill directory remains")
+    ev_ms = {k: sum(t[k] for t in eval_ms) / len(eval_ms) for k in STAGES}
+    ev_tick = [sum(t.values()) for t in eval_ms]
+    print(f"phase standing: ingest  {len(ticks)} ticks (s) "
+          f"{[round(x, 4) for x in ticks]}; {len(launches)} standing "
+          f"launches at {shapes}; #1 {trace['device_us_per_launch']:.2f} "
+          f"device us a launch (profiler, {trace['launches']} launches; "
+          f"mean bound {bound_us:.3f} us a launch, {bound_by})"
+          if trace else "phase standing: ingest (empty trace)", flush=True)
+    print(f"  standing evaluation, host ms a tick {[round(x, 3) for x in ev_tick]}"
+          f" (mean by stage {({k: round(v, 3) for k, v in ev_ms.items()})});"
+          f" alerts {len(alerts)} ({len(fired)} specs fired, {len(never)} "
+          f"never; best text-spec score {text_best:.4f}); standing_scan_bytes"
+          f" {counts['standing_scan_bytes']}  [{card}]", flush=True)
+    print(f"  spill: {spilled} frames / {demoted} bytes demoted to {fstype} "
+          f"({disk_before} bytes on disk before the closes); _trim_archives"
+          f" s a tick {[round(x, 4) for x in trim_s]}; uniform group "
+          f"{t_uniform:.4f} s, {from_disk} draws from disk; spill_faults "
+          f"{faults}, spill_cache_hits {hits}  [{card}]", flush=True)
+    edges = phase_standing_edges(card, dev)
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase standing: ok  {len(launches)} launches held to the plain "
+          f"version (max abs err {err:.3e}; {len(swaps)} top-K lanes "
+          f"swapped between rows tied within the tolerance: "
+          f"{swaps}), {lanes} spec lanes bit-equal "
+          f"to ad-hoc top-k; spill checks passed; phase {phase_s:.1f} s",
+          flush=True)
+    del mgr, svc
+    return dict(ticks=ticks, eval_ms=eval_ms, trim_s=trim_s, shapes=shapes,
+                launches=len(launches), max_abs_err=err, lanes=lanes,
+                tied_swaps=swaps,
+                bound_us=bound_us, bound_by=bound_by,
+                trace=trace, alerts=len(alerts), specs_fired=len(fired),
+                specs_never=len(never), text_best=text_best,
+                standing_scan_bytes=counts["standing_scan_bytes"],
+                spilled_frames=spilled, spilled_bytes=demoted,
+                disk_bytes=disk_before, fstype=fstype, spill_faults=faults,
+                spill_cache_hits=hits, uniform_s=t_uniform,
+                uniform_from_disk=from_disk, edges=edges, phase_s=phase_s)
 
 
 def card_state(mgr, sids):
@@ -2313,6 +2749,9 @@ def main() -> int:
           f"back {seg['readback_s']:.4f}", flush=True)
     n_emb = sum(mgr[s].stats["frames_embedded"] for s in range(S))
     check(embedder.frames == n_emb, f"embedded {embedder.frames} != {n_emb}")
+    # an index row of each session: the standing phase's embedding specs
+    first_pass = [mgr[s].memory._emb[mgr[s].memory.size // 2].copy()
+                  for s in range(S)]
     rows = [mgr[s].memory.size for s in range(S)]
     times["embed"] = dict(seconds=embedder.seconds, frames=n_emb,
                           frames_per_s=n_emb / embedder.seconds,
@@ -2351,6 +2790,10 @@ def main() -> int:
     tier_full = phase_tier_full(card)
     torch.cuda.empty_cache()
 
+    # 14. standing queries and the spill tier through the entry points
+    standing = phase_standing(embedder, worlds, first_pass, card)
+    torch.cuda.empty_cache()
+
     # 8. MEM card vs CPU, and bf16 vs f32
     mem_out = phase_mem(mem, worlds[1].frames[:4])
     del mem, embedder
@@ -2387,7 +2830,8 @@ def main() -> int:
         replaces="src/repro/kernels/similarity.py:422",
         launches=launches["fused_retrieve"],
         max_abs_err=max(v["max_abs_err"] for v in list(fused.values())
-                        + [stages["stage1"], stages["stage2"]]),
+                        + [stages["stage1"], stages["stage2"], standing,
+                           *standing["edges"].values()]),
         ms=fused["f32"]["ms"], device_ms=fused["f32"]["device_ms"],
         plain_ms=fused["f32"]["plain_ms"],
         bound_ms=fused["f32"]["bound_ms"], bound_by=fused["f32"]["bound_by"],
@@ -2401,6 +2845,14 @@ def main() -> int:
         main_device_us=ft["device_us"],
         tier_launches=tier["launches"],
         tier_8192_launches=tier_full["launches"],
+        standing_launches=standing["launches"],
+        standing_device_us_per_launch=(
+            standing["trace"]["device_us_per_launch"]
+            if standing["trace"] else None),
+        standing_bound_us=standing["bound_us"],
+        standing_cases=[list(map(str, c)) for c in standing["shapes"]
+                        + standing["edges"]["float32"]["shapes"]
+                        + standing["edges"]["int8"]["shapes"]],
         **{f"{st}_{k}": stages[st][k] for st in ("stage1", "stage2")
            for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                      "max_abs_err")},
@@ -2467,7 +2919,7 @@ def main() -> int:
                        fused_stages=stages, similarity=sim, scene=scene,
                        decode=dec, main=times, dense=dense, serve=serve,
                        serve_mla=serve_mla, mem=mem_out, tier=tier,
-                       tier_8192=tier_full,
+                       tier_8192=tier_full, standing=standing,
                        parity_tier=parity), f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Hierarchical memory (paper §IV-C): an index layer over a raw data
 layer, with a coarse summary tier.
 
-* ``FrameStore`` — the raw data layer: every captured frame, on the host,
-  by absolute id (trimmable from the back).
+* ``FrameStore`` — the raw data layer: every captured frame by absolute
+  id, on the host, and with a spill directory on disk below the host
+  tier (trimming then demotes; reads fault back).
 * ``VenusMemory`` — one session's index rows (cluster centroid
   embeddings) with bounded member reservoirs. Host mirrors in numpy are
   authoritative; the device copy lives in a ``MemoryArena`` slot (or, for
@@ -26,7 +27,10 @@ retrieval scans first.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
+import os
+from collections import OrderedDict
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,45 +42,228 @@ from repro_torch.util import resolve_device
 
 
 class FrameStore:
-    """Raw data layer: host archive of frames by absolute index.
-    ``trim(keep_from)`` drops every frame below an absolute id; ids stay
-    stable (``base`` offsets the retained list) and reading a trimmed id
-    raises ``IndexError``. The disk spill tier is a later slice."""
+    """Raw data layer: a host archive of frames by absolute id, with an
+    optional disk tier.
 
-    def __init__(self):
+    ``trim(keep_from)`` drops every host frame below an absolute id; ids
+    stay stable (``base`` offsets the retained list). Without a
+    ``spill_dir`` trimming deletes, and reading a trimmed id raises
+    ``IndexError``. With one, trimming DEMOTES: the dropped frames go to
+    append-only ``seg-<start:012d>-<count:05d>.npy`` files of at most
+    ``segment_frames`` frames, tiling ``[0, base)``, and ``get`` faults
+    them back bit for bit through an LRU cache of ``cache_segments`` whole
+    segments. The names and the npy layout are the reference's, so either
+    package reopens the other's directory. Segments are written at once
+    and made durable by ``sync()`` (the session manager calls it at the
+    tick boundary). ``io_stats`` counts demotions (``spilled_frames``,
+    ``spilled_bytes``) and reads (``spill_faults``: segment loads;
+    ``spill_cache_hits``). ``close()`` releases both tiers."""
+
+    def __init__(self, spill_dir: Optional[str] = None, *,
+                 segment_frames: int = 64, cache_segments: int = 4):
+        if segment_frames < 1 or cache_segments < 1:
+            raise ValueError(f"segment_frames and cache_segments must be "
+                             f">= 1, got {segment_frames}, {cache_segments}")
         self._frames: List[np.ndarray] = []
-        self._base = 0
+        self._base = 0            # absolute id of _frames[0]
+        self.trimmed = 0          # frames dropped from the host so far
+        self.spill_dir = spill_dir
+        self.segment_frames = int(segment_frames)
+        self.cache_segments = int(cache_segments)
+        # (start, count, path, nbytes) per segment, tiling [0, _base)
+        self._segments: List[Tuple[int, int, str, int]] = []
+        self._seg_starts: List[int] = []       # bisect key of _segments
+        self._cache: "OrderedDict[int, np.ndarray]" = OrderedDict()
+        self._unsynced: List[str] = []         # written, not yet fsync'd
+        self._disk_bytes = 0
+        self.io_stats = {"spilled_frames": 0, "spilled_bytes": 0,
+                         "spill_faults": 0, "spill_cache_hits": 0}
+        self.recovered_frames = 0     # adopted from disk at open
+        self.dropped_segments = 0     # rejected: short, corrupt or gapped
+        if spill_dir is not None:
+            os.makedirs(spill_dir, exist_ok=True)
+            self._recover_segments()
+
+    def _recover_segments(self) -> None:
+        """Adopt the segments a previous process left: the longest run of
+        ``seg-<start>-<count>.npy`` files, in start order, that tiles
+        ``[0, base)`` and whose payload loads as a ``(count, ...)`` array
+        (a torn header or a short data section fails to load). A rejected
+        segment, and every one after it, is deleted; files that are not
+        segments are left alone. The host tier restarts empty at
+        ``base``, the frames adopted."""
+        try:
+            names = sorted(os.listdir(self.spill_dir))
+        except OSError:
+            return
+        parsed = []
+        for name in names:
+            parts = name.split("-")
+            if (name.endswith(".npy") and len(parts) == 3
+                    and parts[0] == "seg" and parts[1].isdigit()
+                    and parts[2][:-4].isdigit()):
+                parsed.append((int(parts[1]), int(parts[2][:-4]), name))
+        parsed.sort()
+        base = 0
+        rejects = []
+        for start, count, name in parsed:
+            path = os.path.join(self.spill_dir, name)
+            ok = start == base and count >= 1
+            if ok:
+                try:
+                    # mmap checks the header and the payload's length
+                    # without reading the frames
+                    seg = np.load(path, mmap_mode="r", allow_pickle=False)
+                    ok = seg.shape[0] == count
+                    nbytes = seg.size * seg.dtype.itemsize
+                    del seg
+                except (OSError, ValueError, EOFError):
+                    ok = False
+            if not ok:
+                rejects.append(name)
+                continue
+            self._segments.append((start, count, path, nbytes))
+            self._seg_starts.append(start)
+            self._disk_bytes += nbytes
+            base = start + count
+        self._base = self.trimmed = self.recovered_frames = base
+        for name in rejects:
+            self.dropped_segments += 1
+            with contextlib.suppress(OSError):
+                os.remove(os.path.join(self.spill_dir, name))
 
     def append(self, frames: np.ndarray) -> None:
         self._frames.extend(np.asarray(frames))
 
     def __len__(self) -> int:
+        """Frames ever archived (the absolute id space, trimmed ones
+        included)."""
         return self._base + len(self._frames)
 
     @property
     def base(self) -> int:
+        """Smallest absolute id still on the host (with spill, ids below
+        it are on disk)."""
         return self._base
+
+    @property
+    def retained(self) -> int:
+        """Frames held on the host."""
+        return len(self._frames)
+
+    @property
+    def spill_enabled(self) -> bool:
+        return self.spill_dir is not None
+
+    @property
+    def spill_floor(self) -> int:
+        """Smallest id ``get`` serves: 0 with spill, else ``base``."""
+        return 0 if self.spill_enabled else self._base
+
+    @property
+    def disk_bytes(self) -> int:
+        """Bytes in segment files now (0 after ``close``)."""
+        return self._disk_bytes
+
+    def reset_io_stats(self) -> None:
+        for k in self.io_stats:
+            self.io_stats[k] = 0
 
     def get(self, idx: Sequence[int]) -> np.ndarray:
         out = []
         for i in idx:
             i = int(i)
-            if i < self._base:
+            if i >= self._base:
+                out.append(self._frames[i - self._base])
+            elif self.spill_enabled and i >= 0:
+                out.append(self._fault(i))
+            else:
                 raise IndexError(
                     f"frame {i} was trimmed from the archive "
                     f"(retained ids start at {self._base})")
-            out.append(self._frames[i - self._base])
         return np.stack(out)
 
     def trim(self, keep_from: int) -> int:
+        """Drop every host frame with id < ``keep_from`` (clamped to the
+        end); with spill they are written to segments first. Returns the
+        frames that left the host."""
         drop = max(0, min(int(keep_from), len(self)) - self._base)
         if drop:
+            if self.spill_enabled:
+                self._spill(self._frames[:drop])
             del self._frames[:drop]
             self._base += drop
+            self.trimmed += drop
         return drop
 
+    def _spill(self, frames: List[np.ndarray]) -> None:
+        """The host prefix from ``base`` → segments of at most
+        ``segment_frames`` frames after the existing ones."""
+        for off in range(0, len(frames), self.segment_frames):
+            chunk = np.stack(frames[off:off + self.segment_frames])
+            start = self._base + off
+            path = os.path.join(self.spill_dir,
+                                f"seg-{start:012d}-{len(chunk):05d}.npy")
+            np.save(path, chunk, allow_pickle=False)
+            self._segments.append((start, len(chunk), path, chunk.nbytes))
+            self._seg_starts.append(start)
+            self._unsynced.append(path)
+            self._disk_bytes += chunk.nbytes
+            self.io_stats["spilled_frames"] += len(chunk)
+            self.io_stats["spilled_bytes"] += chunk.nbytes
+
+    def _fault(self, i: int) -> np.ndarray:
+        """A spilled id from its segment, through the LRU cache (a miss
+        loads, and counts, one segment)."""
+        k = bisect.bisect_right(self._seg_starts, i) - 1
+        start, count, path, _ = self._segments[k]
+        assert start <= i < start + count, (i, start, count)
+        seg = self._cache.get(start)
+        if seg is not None:
+            self._cache.move_to_end(start)
+            self.io_stats["spill_cache_hits"] += 1
+        else:
+            seg = np.load(path, allow_pickle=False)
+            self.io_stats["spill_faults"] += 1
+            self._cache[start] = seg
+            while len(self._cache) > self.cache_segments:
+                self._cache.popitem(last=False)
+        return seg[i - start]
+
+    def sync(self) -> int:
+        """fsync the segments written since the last sync, and the
+        directory so that their names last too. Returns the files
+        synced."""
+        if not self._unsynced:
+            return 0
+        for path in self._unsynced:
+            with open(path, "rb") as f:
+                os.fsync(f.fileno())
+        dfd = os.open(self.spill_dir, os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+        n = len(self._unsynced)
+        self._unsynced.clear()
+        return n
+
     def close(self) -> None:
+        """Release both tiers: host frames, the cache, every segment file
+        and the spill directory (if empty). Idempotent; the counters stay,
+        for the session manager to fold."""
         self._frames.clear()
+        self._cache.clear()
+        self._unsynced.clear()
+        for _, _, path, _ in self._segments:
+            with contextlib.suppress(OSError):
+                os.remove(path)
+        self._segments.clear()
+        self._seg_starts.clear()
+        self._disk_bytes = 0
+        if self.spill_dir is not None:
+            with contextlib.suppress(OSError):
+                os.rmdir(self.spill_dir)
 
 
 def quantise_rows(rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -6,7 +6,8 @@
   derives a detached key).
 * **build_plan** — groups compatible specs into ``ExecutionGroup``s
   (same strategy + resolved budget + parameters) and, given the
-  sessions, rejects ``uniform`` against a window-evicting session.
+  sessions, rejects ``uniform`` against a window-evicting session
+  without a spill tier; ``standing=True`` validates a standing query.
 * **execute_plan** — ONE scan launch per group. Sampling, AKR and top-k
   groups take the fused retrieval launch (``kops.fused_retrieve_stack``):
   draws, drawn probabilities and top-k resolve inside it. BOLT, MDF, AKS
@@ -112,32 +113,55 @@ class QueryPlan:
 
 
 def build_plan(specs: Sequence[QuerySpec], cfg,
-               sessions: Optional[Mapping[int, object]] = None
-               ) -> QueryPlan:
+               sessions: Optional[Mapping[int, object]] = None, *,
+               standing: bool = False) -> QueryPlan:
     """Group compatible specs; groups come in first-appearance order,
     each session's queries keep arrival order. ``cfg`` supplies the
     ``tau``/``theta``/``beta``/``n_max`` defaults. Given ``sessions``
     (sid → session state, the ``SessionManager.plan`` path), ``uniform``
-    against a window-evicting session is rejected here: it draws
-    arbitrary archive frame ids, and such a session's trimmed frames are
-    gone (the port has no spill tier to fault them back)."""
+    against a window-evicting session without a spill tier is rejected
+    here: it draws arbitrary archive frame ids, and such a session's
+    trimmed frames are gone (with spill they fault back from disk).
+
+    ``standing=True`` validates a standing query at registration
+    (``core.standing``): the key resolves exactly as an ad-hoc plan's,
+    but only deterministic strategies resolved inside the fused launch
+    (``topk``) are taken, and no explicit ``seed`` (standing evaluation
+    never draws)."""
     specs = list(specs)
     groups: Dict[GroupKey, ExecutionGroup] = {}
     for j, spec in enumerate(specs):
         if spec.text is None and spec.embedding is None:
             raise ValueError(f"spec {j}: needs text or embedding")
         strat = get_strategy(spec.strategy)
+        if standing:
+            if strat.stochastic or strat.name not in _FUSED_STRATEGIES:
+                raise ValueError(
+                    f"spec {j}: strategy {strat.name!r} cannot run as a "
+                    f"standing query — the ingest-path evaluation is "
+                    f"deterministic and resolves inside the fused "
+                    f"launch, so only non-stochastic fused strategies "
+                    f"('topk') are accepted (stochastic strategies "
+                    f"would consume the session PRNG chain per ingest "
+                    f"tick)")
+            if spec.seed is not None:
+                raise ValueError(
+                    f"spec {j}: standing queries never draw, so an "
+                    f"explicit seed has no effect — pass seed=None")
         if strat.name == "uniform" and sessions is not None:
             st = sessions.get(int(spec.sid))
             policy = st.memory.eviction.name if st is not None else "none"
-            if policy != "none":
+            if policy != "none" and not st.frames.spill_enabled:
                 raise ValueError(
                     f"spec {j}: strategy 'uniform' draws arbitrary "
                     f"archive frame ids, but session {spec.sid} evicts "
-                    f"with policy '{policy}' and its trimmed frames are "
-                    f"deleted, so uniform reads would IndexError in "
-                    f"FrameStore.get. Use another strategy or keep the "
-                    f"session on eviction='none'.")
+                    f"with policy '{policy}' and has no spill tier — "
+                    f"its trimmed frames are deleted, so uniform reads "
+                    f"would IndexError in FrameStore.get. Use a "
+                    f"members-expanding strategy, keep the session on "
+                    f"eviction='none', or set VenusConfig(spill_dir=..."
+                    f") so trimmed frames demote to disk and fault "
+                    f"back in.")
         key = GroupKey(
             strategy=strat.name,
             budget=int(spec.budget if spec.budget is not None

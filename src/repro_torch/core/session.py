@@ -18,7 +18,10 @@ buffers — the fused retrieval scan, or the dense scan for the
 baselines and ``fused=False`` — so ``io_stats["stack_rebuilds"]``
 stays 0. With ``coarse_capacity > 0`` each slot also has a coarse tier:
 ``eviction="consolidate"`` folds evicted rows into it, and fused groups
-then run the two-stage retrieval (``tiering``).
+then run the two-stage retrieval (``tiering``). Standing queries
+(``register_standing``) are evaluated inside ``commit_jobs`` against each
+tick's new rows (``core.standing``); ``VenusConfig(spill_dir=...)`` turns
+the frame archive's trims into demotions to disk (``FrameStore``).
 
 Entry points take ``device=``: CUDA by default, raising when there is no
 card; ``device="cpu"`` runs the plain versions of the kernels.
@@ -27,6 +30,7 @@ card; ``device="cpu"`` runs the plain versions of the kernels.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 import weakref
 from dataclasses import dataclass
@@ -42,6 +46,7 @@ from repro_torch.core.memory import (ArenaStackView, FrameStore, MemoryArena,
 from repro_torch.core.queryplan import (QueryPlan, QueryResult, QuerySpec,
                                         build_plan, execute_plan)
 from repro_torch.core.scene import Partition, StreamSegmenter
+from repro_torch.core.standing import Alert, StandingRegistry
 from repro_torch.kernels import prng
 from repro_torch.util import resolve_device
 
@@ -60,8 +65,12 @@ class VenusConfig:
     """The reference's fields and defaults. ``eviction`` is "none",
     "sliding_window", "cluster_merge" or "consolidate" (which needs
     ``coarse_capacity > 0``); ``merge_threshold`` is the merging policies'
-    cosine cut (None: 0.8). The spill tier is a later slice: its fields
-    are accepted and rejected when set."""
+    cosine cut (None: 0.8). ``spill_dir`` turns archive trims into
+    demotions to npy segments under ``spill_dir/session-<sid:05d>/``, read
+    back through an LRU of ``spill_cache_segments`` segments of
+    ``spill_segment_frames`` frames; ``host_retain`` (which needs
+    ``spill_dir``) bounds the frames a session keeps on the host, even
+    under ``eviction="none"``."""
     # ingestion
     scene_threshold: float = 0.075
     max_partition_len: int = 256
@@ -89,13 +98,24 @@ class VenusConfig:
     seed: int = 0
 
     def __post_init__(self):
-        later = {"spill_dir": self.spill_dir is not None,
-                 "host_retain": self.host_retain is not None}
-        set_later = [k for k, v in later.items() if v]
-        if set_later:
-            raise NotImplementedError(
-                f"VenusConfig fields {set_later} belong to a later slice of "
-                f"the port (ROADMAP.md, Queue 1: spill tier)")
+        if self.spill_segment_frames < 1:
+            raise ValueError(
+                f"spill_segment_frames must be >= 1, got "
+                f"{self.spill_segment_frames}")
+        if self.spill_cache_segments < 1:
+            raise ValueError(
+                f"spill_cache_segments must be >= 1, got "
+                f"{self.spill_cache_segments}")
+        if self.host_retain is not None:
+            if self.spill_dir is None:
+                raise ValueError(
+                    "host_retain bounds the HOST tier by demoting cold "
+                    "frames to disk — it requires spill_dir to be set "
+                    "(without a spill tier, demotion would be deletion "
+                    "and break the keep-everything contract)")
+            if self.host_retain < 1:
+                raise ValueError(
+                    f"host_retain must be >= 1, got {self.host_retain}")
         if self.index_dtype not in ("float32", "int8"):
             raise ValueError(f"index_dtype must be 'float32' or 'int8', "
                              f"got {self.index_dtype!r}")
@@ -136,7 +156,11 @@ class SessionState:
                                   coarse_capacity=cfg.coarse_capacity,
                                   coarse_block=cfg.coarse_block,
                                   device=self.device)
-        self.frames = FrameStore()
+        spill = (None if cfg.spill_dir is None
+                 else os.path.join(cfg.spill_dir, f"session-{sid:05d}"))
+        self.frames = FrameStore(
+            spill, segment_frames=cfg.spill_segment_frames,
+            cache_segments=cfg.spill_cache_segments)
         # frames not yet clustered, on the device (views of the chunks)
         self.pending: List[torch.Tensor] = []
         self.pending_base = 0
@@ -212,10 +236,15 @@ def release_pending(state: SessionState, closed: List[Partition]) -> None:
 
 
 def commit_jobs(sessions: Mapping[int, SessionState], embedder,
-                jobs: Sequence[EmbedJob]) -> int:
+                jobs: Sequence[EmbedJob], *,
+                standing: Optional[StandingRegistry] = None,
+                io_stats: Optional[Dict[str, int]] = None) -> int:
     """④ ONE embed call over every index frame closed this tick, inserted
     into each owning session's memory; arena-backed sessions share one
-    in-place write per super-buffer for the whole tick."""
+    in-place write per super-buffer for the whole tick. With ``standing``,
+    the physical rows each insert returns are collected by session and,
+    once the writes flush, evaluated with one slab launch
+    (``StandingRegistry.evaluate``; alert counters into ``io_stats``)."""
     if not jobs:
         return 0
     incoming: Dict[int, int] = {}
@@ -240,6 +269,7 @@ def commit_jobs(sessions: Mapping[int, SessionState], embedder,
                       np.float32)
     arenas = {id(a): a for a in
               (sessions[j.sid].memory.arena for j in jobs) if a is not None}
+    new_by_sid: Dict[int, List[np.ndarray]] = {}
     with contextlib.ExitStack() as stack:
         for a in arenas.values():
             stack.enter_context(a.deferred_appends())
@@ -247,11 +277,14 @@ def commit_jobs(sessions: Mapping[int, SessionState], embedder,
         for j in jobs:
             n = len(j.frame_ids)
             st = sessions[j.sid]
-            st.memory.insert_batch(
+            phys = st.memory.insert_batch(
                 embs[off:off + n], scene_ids=[j.scene_id] * n,
                 index_frames=j.frame_ids, member_lists=j.member_lists)
+            new_by_sid.setdefault(j.sid, []).append(phys)
             st.stats["frames_embedded"] += n
             off += n
+    if standing is not None:
+        standing.evaluate(sessions, new_by_sid, io_stats)
     return len(ids)
 
 
@@ -280,8 +313,8 @@ class SessionManager:
         self.use_arena = use_arena
         self.arena: Optional[MemoryArena] = None
         self._arena_stack: Optional[ArenaStackView] = None
-        # the reference's keys; sharding and standing queries are not
-        # ported yet, so their counters stay 0
+        # the reference's keys; sharding is not ported, so its counter
+        # stays 0
         self.io_stats = {"scans": 0, "fused_scans": 0,
                          "device_expands": 0, "group_scans": 0,
                          "stack_rebuilds": 0, "sessions_closed": 0,
@@ -289,9 +322,12 @@ class SessionManager:
                          "two_stage_groups": 0,
                          "archive_trimmed_frames": 0,
                          "alerts_fired": 0, "alerts_suppressed": 0}
-        # closed sessions' memory counters, so service-wide sums stay
-        # monotonic across stream churn
+        # standing queries, evaluated in commit_jobs on each tick's rows
+        self.standing = StandingRegistry(cfg, device=self.device)
+        # closed sessions' memory and frame-store counters, so service-wide
+        # sums stay monotonic across stream churn
         self.closed_mem_stats: Dict[str, int] = {}
+        self.closed_frame_stats: Dict[str, int] = {}
         _LIVE_MANAGERS.add(self)
 
     def reset_io_stats(self, *, include_memories: bool = True) -> None:
@@ -299,8 +335,10 @@ class SessionManager:
             self.io_stats[k] = 0
         if include_memories:
             self.closed_mem_stats.clear()
+            self.closed_frame_stats.clear()
             for st in self.sessions.values():
                 st.memory.reset_io_stats()
+                st.frames.reset_io_stats()
             if self.arena is not None:
                 self.arena.reset_io_stats()
 
@@ -330,12 +368,19 @@ class SessionManager:
 
     def close_session(self, sid: int) -> Dict[str, int]:
         """End a stream and free its arena slot for reuse (no device
-        work now; the slot's rows are zeroed when it is recycled).
-        Returns the session's final ingest stats."""
+        work now; the slot's rows are zeroed when it is recycled). Both
+        frame tiers are released (host frames and spill segments, after
+        their counters are folded into ``closed_frame_stats``), and the
+        stream's standing specs dropped (alerts already fired stay
+        pollable). Returns the session's final ingest stats."""
         st = self.sessions.pop(sid)
         for k, v in st.memory.io_stats.items():
             self.closed_mem_stats[k] = self.closed_mem_stats.get(k, 0) + v
+        for k, v in st.frames.io_stats.items():
+            self.closed_frame_stats[k] = (self.closed_frame_stats.get(k, 0)
+                                          + v)
         st.frames.close()
+        self.standing.drop_session(sid)
         self._stacks = {k: v for k, v in self._stacks.items()
                         if sid not in k}
         if self.arena is not None:
@@ -370,7 +415,8 @@ class SessionManager:
                                           self.annotation_fn))
             release_pending(st, closed)
         t_clu = time.perf_counter()
-        n_emb = commit_jobs(self.sessions, self.embedder, jobs)
+        n_emb = commit_jobs(self.sessions, self.embedder, jobs,
+                            standing=self.standing, io_stats=self.io_stats)
         n_trim = self._trim_archives(chunks.keys())
         t_emb = time.perf_counter()
         return {"segment": t_seg - t0, "cluster": t_clu - t_seg,
@@ -388,21 +434,40 @@ class SessionManager:
                                           self.annotation_fn))
             st.pending = []
             st.pending_base = st.stats["frames_seen"]
-        commit_jobs(self.sessions, self.embedder, jobs)
+        commit_jobs(self.sessions, self.embedder, jobs,
+                    standing=self.standing, io_stats=self.io_stats)
         self._trim_archives(sids)
 
     def _trim_archives(self, sids) -> int:
-        """Drop host frames below every live reference of a window-
-        evicting session (its ring window's index frames and reservoirs,
-        and the frames awaiting clustering). ``eviction="none"`` sessions
-        keep everything."""
+        """Bound the frame archive after a tick's commits. Without a spill
+        tier, a window-evicting session drops the host frames below every
+        live reference (its ring window's index frames and reservoirs, and
+        the frames awaiting clustering); ``eviction="none"`` sessions keep
+        everything. With ``spill_dir`` a trim demotes to disk, so
+        ``host_retain`` bounds the host tier of every session (``none``
+        ones too: their history moves to disk) and a window-evicting
+        session may demote past its live references (its reads fault
+        back). Frames awaiting clustering are also held in
+        ``SessionState.pending``, which ``cluster_stage`` reads. Each
+        store is ``sync()``'d here: the tick boundary is the durability
+        point of its demotions."""
         trimmed = 0
+        retain = self.cfg.host_retain
         for sid in sids:
             st = self.sessions[sid]
+            fs = st.frames
+            spill = fs.spill_enabled
             if st.memory.eviction.name == "none":
-                continue
-            n = st.frames.trim(min(st.memory.min_live_frame(),
-                                   st.pending_base))
+                if not (spill and retain is not None):
+                    continue
+                keep = len(fs) - retain
+            else:
+                keep = min(st.memory.min_live_frame(), st.pending_base)
+                if spill and retain is not None:
+                    keep = max(keep, len(fs) - retain)
+            n = fs.trim(keep)
+            if spill:
+                fs.sync()
             if n:
                 st.stats["frames_trimmed"] += n
                 trimmed += n
@@ -412,7 +477,8 @@ class SessionManager:
     # -------------------------------------------------------------- querying
     def plan(self, specs: Sequence[QuerySpec]) -> QueryPlan:
         """Group specs; strategy ↔ session compatibility is checked
-        here (``uniform`` against a window-evicting session raises)."""
+        here (``uniform`` against a window-evicting session without a
+        spill tier raises)."""
         return build_plan(specs, self.cfg, self.sessions)
 
     def execute(self, plan: QueryPlan, *, fused: bool = True,
@@ -425,6 +491,39 @@ class SessionManager:
 
     def query_specs(self, specs: Sequence[QuerySpec]) -> List[QueryResult]:
         return self.execute(self.plan(specs))
+
+    # ------------------------------------------------------ standing queries
+    def register_standing(self, sid: int, spec: QuerySpec, *,
+                          threshold: float, hysteresis: float = 0.0,
+                          cooldown_ticks: int = 0,
+                          priority: float = 0.0) -> int:
+        """Register a persistent query on ``sid``; returns its spec id.
+        ``spec`` must be a ``topk`` spec without a seed (``build_plan(
+        standing=True)``). An alert fires when the best new row's cosine
+        reaches ``threshold``; the spec re-arms once the score falls to
+        ``threshold - hysteresis`` and ``cooldown_ticks`` committing ticks
+        have passed. ``priority`` orders delivery. A text spec is embedded
+        once, here."""
+        if sid not in self.sessions:
+            raise KeyError(f"no open session {sid}")
+        emb = spec.embedding
+        if emb is None:
+            emb = np.asarray(self.embedder.embed_queries([spec.text])[0],
+                             np.float32)
+        return self.standing.register(
+            sid, spec, emb, threshold=threshold, hysteresis=hysteresis,
+            cooldown_ticks=cooldown_ticks, priority=priority,
+            sessions=self.sessions)
+
+    def unregister_standing(self, spec_id: int) -> None:
+        """Remove one standing spec (alerts already fired stay
+        pollable)."""
+        self.standing.unregister(spec_id)
+
+    def poll_alerts(self, max_alerts: Optional[int] = None) -> List[Alert]:
+        """Drain pending alerts: priority desc, score desc, tick, firing
+        order."""
+        return self.standing.poll_alerts(max_alerts)
 
     @staticmethod
     def _legacy_strategy(budget: Optional[int], use_akr: bool) -> str:

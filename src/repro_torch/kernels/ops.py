@@ -5,12 +5,14 @@ hand-written kernel (or raises), a CPU tensor takes the kernel's plain
 PyTorch version. There is no backend switch and no fallback.
 
 The scan counters keep the reference's 11 names (``repro.kernels.ops``)
-so the same invariants read the same way in both packages; the ones of
-paths outside the port so far (sharding, standing queries) stay at 0.
-Two-stage accounting: ``coarse_scan_bytes`` is the part of ``scan_bytes``
-that stage-1 scans over the coarse tier stream, ``fine_gather_rows`` the
+so the same invariants read the same way in both packages; the sharding
+counters stay at 0 (the multi-device paths are not ported). Two-stage
+accounting: ``coarse_scan_bytes`` is the part of ``scan_bytes`` that
+stage-1 scans over the coarse tier stream, ``fine_gather_rows`` the
 candidate rows stage 2 gathers (padding slots included) and
-``two_stage_scans`` the coarse→fine retrievals.
+``two_stage_scans`` the coarse→fine retrievals. ``standing_scan_bytes``
+is the part that standing-query launches stream over a tick's new-row
+slab.
 """
 
 from __future__ import annotations
@@ -135,19 +137,17 @@ def fused_retrieve_stack(query, index, *, tau: float, valid, targets,
     accumulated mass clip to lane N-1 and take ``p_last`` as their drawn
     probability, identically for both routes. ``tier="coarse"`` is the
     same launch over the coarse tier (stage 1 of a two-stage retrieval):
-    its bytes also count into ``coarse_scan_bytes``."""
-    if tier == "standing":
-        raise NotImplementedError(
-            "tier='standing' belongs to a later slice of the port "
-            "(ROADMAP.md, Queue 1: standing queries)")
-    if tier not in ("fine", "coarse"):
+    its bytes also count into ``coarse_scan_bytes``. ``tier="standing"``
+    is the same launch over a tick's new-row slab (``core.standing``): its
+    bytes also count into ``standing_scan_bytes``."""
+    if tier not in ("fine", "coarse", "standing"):
         raise ValueError(f"unknown tier {tier!r}")
     _scan_counts["similarity_stack"] += 1
     _scan_counts["fused_draw_launches"] += 1
     _count_scan(index)
-    if tier == "coarse":
-        _scan_counts["coarse_scan_bytes"] += (index.numel()
-                                              * index.element_size())
+    if tier != "fine":
+        _scan_counts[f"{tier}_scan_bytes"] += (index.numel()
+                                               * index.element_size())
     return finalize(_sim.fused_retrieve_scan_stack(
         query, index, valid, targets, tau=tau, n_topk=n_topk),
         index.shape[1])

@@ -101,6 +101,23 @@ def _unit_rows(x: torch.Tensor) -> torch.Tensor:
     return x * torch.rsqrt((x * x).sum(-1, keepdim=True) + 1e-12)
 
 
+# elements of the (S, Q, rows, d) product ``_cosines`` holds at once
+_COSINE_ELEMS = 1 << 26
+
+
+def _cosines(qn: torch.Tensor, xn: torch.Tensor) -> torch.Tensor:
+    """qn (S,Q,d) × xn (S,N,d) unit rows → (S,Q,N): each score an
+    elementwise product summed over d, so its bits depend on its query and
+    its row alone (a batched matmul's summation order changes with N and
+    Q on the CPU, and a standing query's score must equal an ad-hoc
+    scan's over the same rows). Rows in chunks that bound the product."""
+    s, q, d = qn.shape
+    step = max(1, _COSINE_ELEMS // max(1, s * q * d))
+    return torch.cat([(qn[:, :, None, :] * xn[:, None, lo:lo + step, :]
+                       ).sum(-1) for lo in range(0, xn.shape[1], step)],
+                     dim=-1)
+
+
 def similarity_scan_stack_ref(query: torch.Tensor, index: torch.Tensor,
                               valid: torch.Tensor, *, tau: float
                               ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -110,7 +127,7 @@ def similarity_scan_stack_ref(query: torch.Tensor, index: torch.Tensor,
     (sims (S,Q,N), m (S,Q,1), l (S,Q,1)), m and l the max and sum-exp of
     the masked logits (an all-invalid session: m = -1e30, l = N)."""
     valid = as_valid_mask(valid, index.shape[1])
-    sims = torch.matmul(_unit_rows(query), _unit_rows(index).transpose(1, 2))
+    sims = _cosines(_unit_rows(query), _unit_rows(index))
     logits = torch.where(valid[:, None, :], sims / tau,
                          torch.full_like(sims, NEG_INF))
     m = logits.amax(-1, keepdim=True)

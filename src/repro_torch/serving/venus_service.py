@@ -10,8 +10,9 @@ Queries of one service tick compile to one plan: the planner groups
 compatible specs, one fused scan answers a group whatever the number of
 streams it spans, and the VLM answers everything under continuous
 batching. The scan operand is the manager's grow-in-place arena, so
-``io_stats()["stack_rebuilds"]`` stays 0. Standing queries belong to a
-later slice of the port.
+``io_stats()["stack_rebuilds"]`` stays 0. Standing queries
+(``register_standing``) ride the ingest ticks and deliver alerts through
+``poll_alerts`` and ``on_alert``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 from repro_torch.core.pipeline import patch_projection, patchify
 from repro_torch.core.queryplan import QueryPlan, QuerySpec
 from repro_torch.core.session import SessionManager
+from repro_torch.core.standing import Alert
 from repro_torch.kernels import ops as kops
 from repro_torch.serving.engine import Request, ServingEngine
 
@@ -48,19 +50,6 @@ class StreamQuery:
         return QuerySpec(sid=self.sid, text=self.text,
                          embedding=self.query_emb,
                          strategy=self.strategy, budget=self.budget)
-
-
-# the reference's spill-tier counters (frame stores and disk): the spill
-# tier is a later slice, so they read 0, as the reference's do with no
-# spill_dir
-_SPILL_KEYS = ("spilled_frames", "spilled_bytes", "spill_faults",
-               "spill_cache_hits", "spill_disk_bytes")
-
-
-def _standing_later() -> NotImplementedError:
-    return NotImplementedError(
-        "standing queries belong to a later slice of the port "
-        "(ROADMAP.md, Queue 1 item 9)")
 
 
 class VenusService:
@@ -146,14 +135,27 @@ class VenusService:
         return self.engine.drain()
 
     # ------------------------------------------------------ standing queries
-    def register_standing(self, *args, **kwargs) -> int:
-        raise _standing_later()
+    def register_standing(self, sid: int, query, *, threshold: float,
+                          hysteresis: float = 0.0, cooldown_ticks: int = 0,
+                          priority: float = 0.0) -> int:
+        """Register a persistent trigger on a stream, evaluated in every
+        ``ingest_tick`` against that tick's new memory rows (one slab
+        launch, ``kops_standing_scan_bytes``). ``query`` is a
+        ``QuerySpec`` or a ``StreamQuery``; returns the spec id."""
+        spec = query.to_spec() if isinstance(query, StreamQuery) else query
+        return self.manager.register_standing(
+            sid, spec, threshold=threshold, hysteresis=hysteresis,
+            cooldown_ticks=cooldown_ticks, priority=priority)
 
-    def poll_alerts(self, *args, **kwargs):
-        raise _standing_later()
+    def poll_alerts(self, max_alerts: Optional[int] = None) -> List[Alert]:
+        """Drain pending alerts: priority desc, score desc, tick, firing
+        order."""
+        return self.manager.poll_alerts(max_alerts)
 
     def on_alert(self, callback) -> None:
-        raise _standing_later()
+        """``callback(alert)`` runs once per fired alert, in priority order
+        within an ingest tick; alerts stay pollable."""
+        self.manager.standing.on_alert(callback)
 
     # ------------------------------------------------------------ monitoring
     def io_stats(self) -> Dict[str, int]:
@@ -161,12 +163,15 @@ class VenusService:
         key set: the manager's counters, ``standing_specs``, ``kops_*``
         (the dispatch layer's scan counts, process-global), ``arena_*``,
         ``mem_*`` (per-memory counters summed over live and closed
-        sessions) and the spill counters. The invariant to alert on:
-        ``stack_rebuilds == 0``. Standing queries, sharding and the spill
-        tier are later slices: their keys read 0, as the reference's do
-        with the feature off."""
+        sessions), the spill counters (``spilled_frames``,
+        ``spilled_bytes``, ``spill_faults``, ``spill_cache_hits``, summed
+        over live and closed sessions) and the gauge ``spill_disk_bytes``
+        (bytes in live sessions' segments). The invariants to alert on:
+        ``stack_rebuilds == 0``, and ``kops_standing_scan_bytes`` growing
+        O(new rows · d) a tick. Sharding is not ported: its keys read 0,
+        as the reference's do on one device."""
         out: Dict[str, int] = dict(self.manager.io_stats)
-        out["standing_specs"] = 0
+        out["standing_specs"] = self.manager.standing.n_specs
         for k, v in kops.scan_counts().items():
             out[f"kops_{k}"] = v
         if self.manager.arena is not None:
@@ -179,5 +184,12 @@ class VenusService:
                 mem_sums[k] = mem_sums.get(k, 0) + v
         for k, v in mem_sums.items():
             out[f"mem_{k}"] = v
-        out.update(dict.fromkeys(_SPILL_KEYS, 0))
+        frame_sums = dict(self.manager.closed_frame_stats)
+        disk_bytes = 0
+        for st in self.manager.sessions.values():
+            for k, v in st.frames.io_stats.items():
+                frame_sums[k] = frame_sums.get(k, 0) + v
+            disk_bytes += st.frames.disk_bytes
+        out.update(frame_sums)
+        out["spill_disk_bytes"] = disk_bytes
         return out

@@ -9,6 +9,8 @@ partitions, clusters, embedded-frame counts, draws, n_drawn and frame
 ids. The AKR mass is a float sum: allclose at rtol 1e-5.
 """
 
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -198,12 +200,14 @@ def test_arena_from_numpy_round_trip(twin_managers):
 # ---------------------------------------------------------------------------
 
 
-def test_later_slices_raise_clearly(twin_managers):
+def test_later_slices_raise_clearly(twin_managers, tmp_path):
     """The dense strategies and ``fused=False`` run now (held against the
     reference in test_torch_dense.py), and so do the coarse tier and the
     merging eviction policies (test_torch_tier.py,
-    test_torch_lifecycle.py); the spill tier still raises, naming
-    ROADMAP."""
+    test_torch_lifecycle.py) and the spill tier (test_torch_spill.py):
+    ``spill_dir`` runs, ``host_retain`` without it is a ``ValueError``,
+    and ``uniform`` on a window-evicting session is accepted with spill
+    and rejected without."""
     _, tmgr, *_ = twin_managers
     for strategy in ("bolt", "mdf", "aks", "uniform"):
         plan = tmgr.plan([QuerySpec(sid=0, embedding=np.ones(32),
@@ -212,6 +216,22 @@ def test_later_slices_raise_clearly(twin_managers):
     for kw in (dict(coarse_capacity=8, eviction="consolidate"),
                dict(eviction="cluster_merge", merge_threshold=0.5)):
         assert VenusConfig(**kw).eviction == kw["eviction"]
-    for kw in (dict(spill_dir="/nonexistent"), dict(host_retain=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            VenusConfig(**kw)
+    with pytest.raises(ValueError, match="requires spill_dir"):
+        VenusConfig(host_retain=4)
+    spec = QuerySpec(sid=0, embedding=np.ones(32), strategy="uniform",
+                     budget=4)
+    for spill in (None, str(tmp_path)):
+        cfg = VenusConfig(memory_capacity=16, eviction="sliding_window",
+                          spill_dir=spill,
+                          host_retain=None if spill is None else 4)
+        mgr = SessionManager(cfg, None, 32, device="cpu")
+        mgr.create_session()
+        assert mgr[0].frames.spill_enabled == (spill is not None)
+        if spill is None:
+            with pytest.raises(ValueError, match="no spill tier"):
+                mgr.plan([spec])
+        else:
+            assert mgr.plan([spec]).n_scans == 1
+            assert os.path.isdir(os.path.join(spill, "session-00000"))
+            mgr.close_session(0)
+            assert not os.listdir(spill)

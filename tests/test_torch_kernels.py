@@ -397,21 +397,23 @@ def test_topk_ties_go_to_lowest_lane():
 
 
 def test_later_tiers_raise():
-    """``tier="coarse"`` runs the same launch and counts its bytes into
-    ``coarse_scan_bytes``; ``tier="standing"`` is a later slice."""
+    """``tier="coarse"`` and ``tier="standing"`` run the same launch and
+    count their bytes into ``coarse_scan_bytes`` and
+    ``standing_scan_bytes``; an unknown tier raises."""
     query, index, valid, targets = _case(**CASES[0])
     args = (_t(query), _t(index))
     kw = dict(tau=0.1, valid=_t(valid), targets=_t(targets), n_topk=2)
     tops.reset_scan_counts()
     fine = tops.fused_retrieve_stack(*args, **kw)
-    coarse = tops.fused_retrieve_stack(*args, tier="coarse", **kw)
-    for a, b in zip(fine, coarse):
-        assert torch.equal(a, b)
+    for tier in ("coarse", "standing"):
+        got = tops.fused_retrieve_stack(*args, tier=tier, **kw)
+        for a, b in zip(fine, got):
+            assert torch.equal(a, b)
     c = tops.scan_counts()
-    assert c["coarse_scan_bytes"] == index.nbytes
-    assert c["scan_bytes"] == 2 * index.nbytes
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.fused_retrieve_stack(*args, tier="standing", **kw)
+    assert c["coarse_scan_bytes"] == c["standing_scan_bytes"] == index.nbytes
+    assert c["scan_bytes"] == 3 * index.nbytes
+    with pytest.raises(ValueError, match="unknown tier"):
+        tops.fused_retrieve_stack(*args, tier="spill", **kw)
 
 
 def test_quantise_rows_identical():

@@ -403,28 +403,39 @@ def test_venus_service_matches_reference(qwen):
     stats = tsvc.io_stats()
     assert stats["stack_rebuilds"] == 0
     assert stats["kops_fused_draw_launches"] == 1       # one plan, one group
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsvc.poll_alerts()
+    # no standing query registered: nothing to deliver
+    assert tsvc.poll_alerts() == jsvc.poll_alerts() == []
+    assert stats["standing_specs"] == 0 and stats["alerts_fired"] == 0
 
 
 @pytest.mark.parametrize("use_arena", [True, False])
-def test_io_stats_match_reference(use_arena):
+def test_io_stats_match_reference(use_arena, tmp_path, monkeypatch):
     """Both services report the same io_stats keys at every point, and
     equal values on the ported paths after ingest, a query, more ingest
     and a stream close (arena slots, or detached memories that upload
-    their buffers at the query and append in place after it)."""
+    their buffers at the query and append in place after it), with a
+    spill tier (``host_retain`` 48) and a standing query on each stream:
+    the spill and standing keys equal too."""
     from repro.kernels import ops as jops
     wcfgs = [dict(n_scenes=3, seed=41), dict(n_scenes=3, seed=42)]
     jworlds = [JWorld(JWorldConfig(**w)) for w in wcfgs]
     tworlds = [VideoWorld(WorldConfig(**w)) for w in wcfgs]
     jr = _Router([JOracle(w, dim=64) for w in jworlds])
     tr = _Router([OracleEmbedder(w, dim=64) for w in tworlds])
-    jsvc = JService(JManager(JConfig(), jr, embed_dim=64,
-                             use_arena=use_arena), None)
-    tsvc = VenusService(SessionManager(VenusConfig(), tr, embed_dim=64,
-                                       use_arena=use_arena, device="cpu"),
-                        None)
+    spill = dict(host_retain=48, spill_segment_frames=16)
+    jsvc = JService(JManager(JConfig(spill_dir=str(tmp_path / "j"), **spill),
+                             jr, embed_dim=64, use_arena=use_arena), None)
+    tsvc = VenusService(SessionManager(
+        VenusConfig(spill_dir=str(tmp_path / "t"), **spill), tr,
+        embed_dim=64, use_arena=use_arena, device="cpu"), None)
     jops.reset_scan_counts()
+    standing = []           # the port's standing launches
+    launch = tops.fused_retrieve_stack
+
+    def counted(*a, tier="fine", **kw):
+        standing.extend([tier] if tier == "standing" else [])
+        return launch(*a, tier=tier, **kw)
+    monkeypatch.setattr(tops, "fused_retrieve_stack", counted)
 
     def same(stage):
         js, ts = jsvc.io_stats(), tsvc.io_stats()
@@ -434,14 +445,21 @@ def test_io_stats_match_reference(use_arena):
         assert not diff, (stage, diff)
 
     half = [len(w.frames) // 2 for w in jworlds]
+    # query embeddings from oracles of their own: the routers' oracles
+    # must embed the frames from the same generator state
+    emb = [JOracle(w, dim=64).embed_query(w.make_queries(1, seed=5)[0])
+           for w in jworlds]
     for sid in range(2):
         assert jsvc.create_stream() == tsvc.create_stream() == sid
+        for svc, cls in ((jsvc, JQuery), (tsvc, StreamQuery)):
+            assert svc.register_standing(
+                sid, cls(rid=sid, sid=sid, text="", strategy="topk",
+                         budget=2, prompt_tokens=np.zeros(1, np.int32),
+                         query_emb=emb[sid]), threshold=0.3) == sid
         jr.sid = tr.sid = sid
         jsvc.ingest_tick({sid: jworlds[sid].frames[:half[sid]]})
         tsvc.ingest_tick({sid: tworlds[sid].frames[:half[sid]]})
     same("ingest")
-    emb = [jr.oracles[s].embed_query(jworlds[s].make_queries(1, seed=5)[0])
-           for s in range(2)]
     for svc, cls in ((jsvc, JQuery), (tsvc, StreamQuery)):
         qs = [cls(rid=s, sid=s, text="", prompt_tokens=np.zeros(1, np.int32),
                   query_emb=emb[s]) for s in range(2)]
@@ -460,12 +478,25 @@ def test_io_stats_match_reference(use_arena):
     if not use_arena:       # the rows written, each once, into both copies
         assert ts["mem_appended_rows"] == ts["mem_appended_member_rows"] \
             == added > 0
+    ts = tsvc.io_stats()
+    assert ts["spill_disk_bytes"] > 0 and ts["spill_faults"] == 0
+    for sid in range(2):          # every archived frame reads back alike
+        ids = list(range(len(jsvc.manager[sid].frames)))
+        np.testing.assert_array_equal(tsvc.manager[sid].frames.get(ids),
+                                      jsvc.manager[sid].frames.get(ids))
+    same("spilled frames read back")
     jsvc.close_stream(1)
     tsvc.close_stream(1)
     same("close")
     ts = tsvc.io_stats()
-    assert ts["mem_scans"] == 0 and ts["kops_fused_draw_launches"] == 1
+    assert ts["mem_scans"] == 0
+    assert ts["kops_fused_draw_launches"] == 1 + len(standing)
     assert ts["sessions_closed"] == 1 and ts["mem_appended_rows"] > 0
+    assert ts["standing_specs"] == 1 and ts["spill_disk_bytes"] > 0
+    assert ts["alerts_fired"] > 0 and ts["kops_standing_scan_bytes"] > 0
+    assert ts["spilled_frames"] > 0 and ts["spill_faults"] > 0
+    assert [(a.sid, a.spec_id, a.tick) for a in tsvc.poll_alerts()] == \
+        [(a.sid, a.spec_id, a.tick) for a in jsvc.poll_alerts()]
     if use_arena:
         assert ts["stack_rebuilds"] == 0 and ts["arena_shards"] == 1
     else:

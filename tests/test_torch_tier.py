@@ -471,3 +471,63 @@ def test_recycled_slot_resets_coarse_tier():
         t.execute(t.plan(_specs(QuerySpec, sids, qe, "topk", 6))),
         j.execute(j.plan(_specs(JSpec, sids, qe, "topk", 6))))
     assert t.io_stats["two_stage_groups"] == 1
+
+
+def test_carried_int8_mirrors_requantise_to_arena_rows():
+    """``arena_from_numpy`` rebuilds an int8 twin's host mirrors as
+    q × scale. Re-quantising them (what a standing query's slab does with
+    the mirrors) gives back the arena's int8 rows bit for bit; the scales
+    come back within an ulp (they cancel under the scans' row
+    normalisation). A standing spec over rows inserted after the carry-over
+    fires as the reference's does."""
+    from repro.core.memory import quantise_rows as jquantise_rows
+    from repro_torch.core.memory import quantise_rows
+    kw = dict(memory_capacity=128, member_cap=8, index_dtype="int8")
+    j = JManager(JConfig(**kw), ArrayEmbedder(), embed_dim=DIM)
+    for _ in range(2):
+        j.create_session()
+    cen, _, rows = _rows(31, 200)
+    _feed(j, 0, rows[:100], 0)
+    _feed(j, 1, rows[100:], 5000)
+    a = j.arena
+    t = arena_from_numpy(
+        VenusConfig(**kw), ArrayEmbedder(), emb=np.asarray(a.emb),
+        members=np.asarray(a.members),
+        member_count=np.asarray(a.member_count),
+        index_frame=np.asarray(a.index_frame), sizes=a.sizes.copy(),
+        heads=a.heads.copy(),
+        keys=np.stack([np.asarray(jax.random.key_data(j.sessions[s].key))
+                       for s in range(2)]),
+        emb_scale=np.asarray(a.emb_scale), device="cpu")
+    for sid in range(2):
+        mem = t.sessions[sid].memory
+        p = np.arange(mem.size)
+        q, scale = quantise_rows(mem._emb[p])
+        np.testing.assert_array_equal(q, t.arena.emb[mem.slot].numpy()[p])
+        np.testing.assert_array_equal(q, np.asarray(a.emb)[sid][p])
+        want = np.asarray(a.emb_scale)[sid][p]
+        np.testing.assert_array_max_ulp(scale, want, maxulp=1)
+        # the reference's quantiser agrees on the dequantised mirrors
+        np.testing.assert_array_equal(q, jquantise_rows(mem._emb[p])[0])
+    # a standing spec rides on after the carry-over (every new row's
+    # cosine clear of the threshold)
+    emb = cen[0]
+    cos = rows[:16] @ emb / np.linalg.norm(rows[:16], axis=-1)
+    assert np.abs(cos - 0.5).min() >= 1e-4 and cos.max() > 0.5
+    fired = []
+    for m, spec in ((t, QuerySpec), (j, JSpec)):
+        m.register_standing(0, spec(sid=0, embedding=emb, strategy="topk",
+                                    budget=3), threshold=0.5)
+        mem = m.sessions[0].memory
+        fids = np.arange(9000, 9016)
+        with m.arena.deferred_appends():
+            phys = mem.insert_batch(rows[:16], scene_ids=[0] * 16,
+                                    index_frames=fids,
+                                    member_lists=[[int(f)] for f in fids])
+        fired.append(m.standing.evaluate(m.sessions, {0: [phys]},
+                                         m.io_stats))
+    (got,), (want,) = fired
+    assert (got.sid, got.spec_id, got.tick) == (want.sid, want.spec_id,
+                                                 want.tick)
+    np.testing.assert_array_equal(got.frame_ids, want.frame_ids)
+    np.testing.assert_allclose(got.score, want.score, rtol=1e-5)
