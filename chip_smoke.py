@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
-12, 7, 13, 14, 8, 9:
+12, 15, 16, 17, 7, 13, 14, 8, 9:
 
 1. build      — compile the CUDA kernels from ``src/repro_torch/kernels/
                 csrc`` (one nvcc per source, all started together);
@@ -151,14 +151,43 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 (``phase_standing_edges``: N = 1, 2, 4, G = 1 to 16, Q =
                 1 or 2, K = 1 or 2, f32 and int8 at d = 768, and
                 ``quantise_rows`` of the mirrors against the arena's int8
-                rows).
+                rows);
+15. serve_moe — the engine on DeepSeek-V2-Lite-16B at full width and
+                depth (27 layers: 1 dense, 26 of 64 routed + 2 shared
+                experts, top 6; MLA with R=512, Dr=64, 16 heads; bf16
+                weights from seed 0, made on the card; 4 slots, max_len
+                2048): 8 text requests of 8–64 tokens, 12 new tokens each;
+                mla_decode launches == 27 × decode steps, every one on
+                k_mla, and gqa_decode none; one step's logits kernel
+                against plain (rel L2 ≤ 2^-5), each MoE routing flip
+                between the two printed — where a flip occurs the gate
+                holds the comparison with the plain step's experts pinned
+                to the kernel step's — and every #6 launch of one step
+                held to the plain version on its operands (one bf16 ulp);
+                every MoE layer of one decode step and of a 64-token
+                prefill (which drops pairs at capacity) held to a plain
+                per-expert ``torch.matmul`` loop on its input (one bf16
+                ulp);
+                the step's device ms, busy share, kernels, #6's µs a
+                launch and the MoE layers' device ms (profiler); the
+                experts used a layer and the weight bytes a step against
+                their bound at 3.35 TB/s; peak GB;
+16. serve_olmoe — the same on OLMoE-1B-7B (16 MoE layers of 64 experts,
+                top 8; GQA with QK-norm: #5 at G = 1), gqa_decode
+                launches == 16 × decode steps, all on k_gqa_split;
+17. serve_zoo — the same on GLM-4-9B (#5 at G = 16, half rotary),
+                Nemotron-4-15B (G = 6, squared ReLU) and DeepSeek-LLM-7B
+                (G = 1) at full width, each cut to 4 layers: 4 requests,
+                8 new tokens each. Each serve phase frees its model
+                before the next one starts.
 
 Prints the card's name and power limit, one line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Every kernel's launch count is read around the phase that drives its path
-(main: fused retrieval and scene score; dense: the dense scans; serve and
-serve_mla: the decode kernels; tier: fused retrieval, two a group;
-standing: fused retrieval, one a committing tick).
+(main: fused retrieval and scene score; dense: the dense scans; serve,
+serve_mla, serve_moe, serve_olmoe and serve_zoo: the decode kernels;
+tier: fused retrieval, two a group; standing: fused retrieval, one a
+committing tick).
 """
 
 from __future__ import annotations
@@ -2425,12 +2454,16 @@ def logits_kernel_vs_plain(engine, attr):
 DECODE_KERNELS = ("k_gqa_split", "k_mla", "k_partial", "k_merge")
 
 
-def decode_busy(engine, steps: int = 3):
+def decode_busy(engine, steps: int = 3, span=None):
     """Device busy share of decode steps from the engine's current cache:
     ``steps`` steps under ``torch.profiler``; the device time its kernels
     cover over the host-clock time, and the decode kernels' covered time
-    and share of it. A measurement only: a profiler that reports no
-    device events gives None."""
+    and share of it; with ``span``, the name of profiler ranges the
+    steps open, also the device time its kernels cover inside those
+    ranges' device-side intervals, a step (the intervals themselves,
+    which the trace lists beside the kernels, are not kernels). A
+    measurement only: a profiler that reports no device events gives
+    None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2446,7 +2479,8 @@ def decode_busy(engine, steps: int = 3):
                                        mode="decode")[1]
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and e.name != span]
     if not kern:
         return None
     busy = _covered_us(kern)
@@ -2455,14 +2489,26 @@ def decode_busy(engine, steps: int = 3):
     for e in ours:
         n = next(n for n in DECODE_KERNELS if n in e.name)
         per[n] = per.get(n, 0.0) + e.time_range.elapsed_us() / steps
-    span = _covered_us(ours)
+    covered = _covered_us(ours)
+    extra = {}
+    if span is not None:
+        ranges = sorted((e.time_range.start, e.time_range.end)
+                        for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and e.name == span)
+        inside = [e for e in kern if any(
+            a <= e.time_range.start and e.time_range.end <= b
+            for a, b in ranges)]
+        extra["span_device_ms_per_step"] = (
+            _covered_us(inside) / steps / 1e3 if ranges else None)
+        extra["span_intervals_per_step"] = len(ranges) / steps
     return dict(steps=steps, wall_ms_per_step=wall_us / steps / 1e3,
                 device_ms_per_step=busy / steps / 1e3,
                 busy_share=busy / wall_us,
-                decode_kernel_share=span / busy,
-                decode_kernel_us_per_step=span / steps,
+                decode_kernel_share=covered / busy,
+                decode_kernel_us_per_step=covered / steps,
                 decode_kernel_spans_us_per_step=per,
-                kernels_per_step=len(kern) / steps)
+                kernels_per_step=len(kern) / steps, **extra)
 
 
 def _covered_us(events) -> float:
@@ -2654,6 +2700,390 @@ def phase_serve_mla(card):
     return rep
 
 
+def _clone_cache(cache):
+    import torch
+    return {k: (v.clone() if torch.is_tensor(v) else
+                {n: t.clone() for n, t in v.items()})
+            for k, v in cache.items()}
+
+
+class RouteLog:
+    """While active, records every ``models.moe.route`` call in call order
+    (a model step routes its MoE layers in order): its routing and the
+    router's f32 probabilities. With ``pin``, a second run of the step
+    keeps the first run's experts: call ``i`` past the first ``pin``
+    calls takes call ``i - pin``'s experts and kept pairs, its weights
+    from its own probabilities at those experts."""
+
+    def __init__(self, pin: int = 0):
+        self.pin = pin
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.calls, self.probs, self._orig = [], [], moe.route
+
+        def rec(p, cfg, x, n):
+            r = self._orig(p, cfg, x, n)
+            probs = torch.softmax(
+                (x @ p["router"].to(x.dtype)).to(torch.float32), -1)
+            if self.pin and len(self.calls) >= self.pin:
+                first = self.calls[len(self.calls) - self.pin]
+                w = probs.gather(-1, first.top_i)
+                r = r._replace(top_i=first.top_i, keep=first.keep,
+                               top_w=w / w.sum(-1, keepdim=True))
+            self.calls.append(r)
+            self.probs.append(probs)
+            return r
+        moe.route = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._orig
+
+
+def routing_flips(log, n_dense: int):
+    """Two runs of one decode step in ``log`` (a ``RouteLog``: the first
+    run's MoE layers, then the second's): each (layer, slot, kept experts
+    of the first, of the second, and each run's router margin — its k-th
+    largest probability less its (k+1)-th) where they differ."""
+    import torch
+    half = len(log.calls) // 2
+    flips = []
+    for i in range(half):
+        a, b = log.calls[i], log.calls[half + i]
+        k = a.top_i.shape[-1]
+        for row in range(a.top_i.shape[0]):
+            for t in range(a.top_i.shape[1]):
+                ea = sorted(a.top_i[row, t][a.keep[row, t]].tolist())
+                eb = sorted(b.top_i[row, t][b.keep[row, t]].tolist())
+                if ea != eb:
+                    gaps = []
+                    for pr in (log.probs[i], log.probs[half + i]):
+                        top = torch.topk(pr[row, t], k + 1).values
+                        gaps.append(float(top[k - 1] - top[k]))
+                    flips.append((n_dense + i, row, ea, eb, *gaps))
+    return flips
+
+
+def hold_decode_launches(engine, attr, label):
+    """One decode step from a copy of the engine's cache with every launch
+    of ``kernels.ops.<attr>`` captured (operands and output), then each
+    held to the plain version on those operands within one bf16 ulp."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    orig, calls = getattr(ops, attr), []
+
+    def capture(*a, **kw):
+        out = orig(*a, **kw)
+        calls.append((a, kw, out))
+        return out
+    tokens = torch.full((engine.batch_slots, 1), 7, device=engine.device)
+    setattr(ops, attr, capture)
+    try:
+        engine.model.apply(tokens, cache=_clone_cache(engine.cache),
+                           mode="decode")
+    finally:
+        setattr(ops, attr, orig)
+    plain = (ref.decode_attention_ref if attr == "decode_attention"
+             else ref.mla_decode_attention_ref)
+    err = 0.0
+    for j, (a, kw, out) in enumerate(calls):
+        err = max(err, _kernel_check(f"{label} launch {j}", out,
+                                     plain(*a, **kw), BF16_TOL, None, None))
+    return dict(held=len(calls), max_abs_err=err)
+
+
+def moe_plain(p, cfg, x):
+    """The MoE layer computed plainly on the layer's own routing: for each
+    expert a kept pair reached, its rows' FFN by ``torch.matmul``, summed
+    per token in f32 (experts in order), then the shared experts."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import activation_fn, mlp_apply
+    b, s, d = x.shape
+    k, dt = cfg.moe.experts_per_token, x.dtype
+    act = activation_fn(cfg.activation)
+    r = moe_mod.route(p, cfg, x, moe_mod.chunk_size(s))
+    xf = x.reshape(b * s, d)
+    ti, kp = r.top_i.reshape(-1, k), r.keep.reshape(-1, k)
+    tw = r.top_w.reshape(-1, k).to(dt).to(torch.float32)
+    y = torch.zeros((b * s, d), dtype=torch.float32, device=x.device)
+    for e in torch.unique(ti[kp]).tolist():
+        rows, slots = ((ti == e) & kp).nonzero(as_tuple=True)
+        h = (act(xf[rows] @ p["w_gate"][e].to(dt))
+             * (xf[rows] @ p["w_up"][e].to(dt)))
+        y[rows] += (h @ p["w_down"][e].to(dt)).to(torch.float32) \
+            * tw[rows, slots][:, None]
+    y = y.to(dt).reshape(b, s, d)
+    if cfg.moe.num_shared_experts:
+        y = y + mlp_apply(p["shared"], x, cfg.activation)
+    return y, int((~r.keep).sum())
+
+
+def hold_moe_layers(engine, label):
+    """Every MoE layer of one decode step (from a copy of the engine's
+    cache) and of one prefill of a 64-token prompt, whose chunk drops
+    pairs at capacity, with its input and output captured at
+    ``models.moe.moe_apply``, then held to ``moe_plain`` on that input
+    within one bf16 ulp. Returns the layers held, the pairs the prefill
+    dropped and the max abs error."""
+    import numpy as np
+    import torch
+    from repro_torch.models import moe as moe_mod
+    model = engine.model
+    orig, calls = moe_mod.moe_apply, []
+
+    def capture(p, cfg, x):
+        y, aux = orig(p, cfg, x)
+        calls.append((p, cfg, x, y))
+        return y, aux
+    tokens = torch.full((engine.batch_slots, 1), 7, device=engine.device)
+    prompt = torch.from_numpy(np.random.default_rng(12).integers(
+        3, model.cfg.vocab_size, (1, 64))).to(engine.device)
+    moe_mod.moe_apply = capture
+    try:
+        model.apply(tokens, cache=_clone_cache(engine.cache), mode="decode")
+        engine._prefill(prompt, torch.tensor([64], device=engine.device),
+                        None)
+    finally:
+        moe_mod.moe_apply = orig
+    err, dropped = 0.0, 0
+    for j, (p, cfg, x, y) in enumerate(calls):
+        want, drops = moe_plain(p, cfg, x)
+        err = max(err, _kernel_check(
+            f"{label} moe layer {j} {tuple(x.shape)}", y, want, BF16_TOL,
+            None, None))
+        dropped += drops if x.shape[1] > 1 else 0
+    return dict(held=len(calls), prefill_dropped_pairs=dropped,
+                max_abs_err=err)
+
+
+def step_weight_bytes(engine):
+    """One decode step from a copy of the engine's cache with the routing
+    recorded: the experts that received a kept pair in each MoE layer,
+    the bytes of their weights (what the step reads of the routed
+    experts) beside all routed experts' bytes, and the bytes of the
+    weights the step needs — every parameter but the routed experts and
+    the embedding table (of which it reads one row a slot; the table is
+    read whole where it is also the head), plus the experts used — with
+    their bound at the memory rate."""
+    import torch
+    model = engine.model
+    cfg = model.cfg
+    tokens = torch.full((engine.batch_slots, 1), 7, device=engine.device)
+    with RouteLog() as log:
+        model.apply(tokens, cache=_clone_cache(engine.cache), mode="decode")
+    used = [int(torch.unique(r.top_i[r.keep]).numel()) for r in log.calls]
+    other = 0
+    for name, t in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "blocks" and parts[2:3] == ["moe"] and parts[3] in (
+                "w_gate", "w_up", "w_down"):
+            continue
+        if name == "embed" and model.lm_head is not None:
+            other += engine.batch_slots * t.shape[1] * t.element_size()
+            continue
+        other += t.numel() * t.element_size()
+    per_expert = 0
+    if cfg.moe is not None:
+        per_expert = (3 * cfg.d_model * cfg.moe.d_ff
+                      * model.embed.element_size())
+    read = sum(used) * per_expert
+    every = len(used) * (cfg.moe.num_experts if cfg.moe else 0) * per_expert
+    return dict(experts_used=used, expert_bytes_read=read,
+                expert_bytes_all=every, other_weight_bytes=other,
+                bound_ms=(other + read) / HBM_BYTES_PER_S * 1e3,
+                all_experts_bound_ms=(other + every) / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_serve_model(label, cfg, card, *, n_req, max_new, seed, attr):
+    """The engine on ``cfg`` (bf16 weights from seed 0, initialised on the
+    card; 4 slots, max_len 2048): ``n_req`` text requests of 8–64 tokens,
+    ``max_new`` new tokens each. The decode kernel of ``attr`` (#5 for
+    ``decode_attention``, #6 for ``mla_decode_attention``) must launch
+    once a layer a decode step, all on its tensor-core route, the other
+    never. Holds one step's logits, kernel against plain (rel L2 ≤ 2^-5;
+    each MoE routing flip between the two printed; where one occurs, the
+    gate holds the step with the plain run's experts pinned to the
+    kernel run's), every attention launch of one step against the plain
+    version on its operands, and every MoE layer of a decode step and a
+    prefill against ``moe_plain``;
+    reports the step's device time, busy share, kernels, the decode
+    kernel's µs a launch and the MoE layers' device ms (profiler), the
+    weight bytes a step against their bound, and the peak memory. Frees
+    the model and its cache before it returns."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import init_model
+    from repro_torch.serving import Request, ServingEngine
+    mla = attr == "mla_decode_attention"
+    kname, other = (("mla_decode", "gqa_decode") if mla
+                    else ("gqa_decode", "mla_decode"))
+    fast = "k_mla" if mla else "k_gqa_split"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    engine = ServingEngine(model, batch_slots=4, max_len=2048)
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, tokens=rng.integers(
+        3, cfg.vocab_size, size=int(rng.integers(8, 65))),
+        max_new_tokens=max_new) for i in range(n_req)]
+    torch.cuda.synchronize()
+    ops.reset_kernel_launches()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    launches = ops.kernel_launches()
+    routes = dict(getattr(dk, kname).route_launches)
+    steps = len(engine.timings["decode"])
+    check(launches[kname] == cfg.num_layers * steps,
+          f"{label}: {kname} launches {launches[kname]} != "
+          f"{cfg.num_layers} x {steps} decode steps")
+    check(routes == {fast: launches[kname], "k_partial": 0},
+          f"{label}: {kname} routes {routes}")
+    check(launches[other] == 0, f"{label} launches {launches}")
+    check([r.rid for r in done] == list(range(n_req)), f"{label}: requests")
+    for r in done:
+        check(len(r.generated) == max_new and all(
+            0 <= t < cfg.vocab_size for t in r.generated),
+            f"{label}: request {r.rid} generated {r.generated}")
+    rep = serve_report(label, engine, done, card)
+    with RouteLog() as log:
+        rel, agree = logits_kernel_vs_plain(engine, attr)
+    n_moe = cfg.num_layers - model.n_dense
+    flips = routing_flips(log, model.n_dense)
+    for layer, row, ek, ep, gk, gp in flips:
+        print(f"  {label} routing flip: layer {layer} slot {row} experts "
+              f"{ek} (kernel) vs {ep} (plain); top-k margin of the router "
+              f"probabilities {gk:.3e} (kernel), {gp:.3e} (plain)",
+              flush=True)
+    held = hold_decode_launches(engine, attr, label)
+    check(held["held"] == cfg.num_layers,
+          f"{label}: held {held['held']} launches of {cfg.num_layers}")
+    # an MoE step is also compared with the plain step's experts pinned
+    # to the kernel step's: the bf16 router's near-ties then cannot move
+    # the logits; without a flip both comparisons are gated
+    rel_pinned = agree_pinned = None
+    if n_moe:
+        with RouteLog(pin=n_moe) as pinned:
+            rel_pinned, agree_pinned = logits_kernel_vs_plain(engine, attr)
+        check(len(pinned.calls) == 2 * n_moe, f"{label}: pinned run "
+              f"routed {len(pinned.calls)} layers of {2 * n_moe}")
+        check(rel_pinned <= 2 ** -5, f"{label}: kernel vs plain logits, "
+              f"experts pinned, rel L2 {rel_pinned}")
+    check(rel <= 2 ** -5 or flips, f"{label}: kernel vs plain logits rel "
+          f"L2 {rel} with no routing flip")
+    held_moe = None
+    if n_moe:
+        held_moe = hold_moe_layers(engine, label)
+        check(held_moe["held"] == 2 * n_moe, f"{label}: held "
+              f"{held_moe['held']} MoE layers of {2 * n_moe}")
+        check(held_moe["prefill_dropped_pairs"] > 0,
+              f"{label}: the 64-token prefill dropped no pair")
+    wb = step_weight_bytes(engine)
+    # the MoE layers' device time: each moe_apply inside a profiler range
+    orig_apply = moe_mod.moe_apply
+
+    def ranged(*a, **kw):
+        with torch.profiler.record_function("moe_apply"):
+            return orig_apply(*a, **kw)
+    moe_mod.moe_apply = ranged
+    try:
+        prof = decode_busy(engine, span="moe_apply" if cfg.moe else None)
+    finally:
+        moe_mod.moe_apply = orig_apply
+    us = (None if prof is None else
+          prof["decode_kernel_us_per_step"] / cfg.num_layers)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rep.update(arch=cfg.name, num_layers=cfg.num_layers, launches=launches,
+               routes=routes, init_s=t_init, logits_rel_l2=rel,
+               argmax_agree=agree, routing_flips=flips,
+               logits_rel_l2_pinned=rel_pinned,
+               argmax_agree_pinned=agree_pinned, held=held,
+               held_moe=held_moe,
+               weights=wb, profile=prof, kernel_us_per_launch=us,
+               peak_gb=peak)
+    nm = "not measured"
+    fmt = lambda x, f: nm if x is None else format(x, f)
+    moe_ms = None if prof is None else prof.get("span_device_ms_per_step")
+    print(f"  {label} profile: {prof}\n  {label} weights a step: experts "
+          f"used a layer {wb['experts_used']}  expert bytes read "
+          f"{wb['expert_bytes_read'] / 1e9:.3f} GB (all experts "
+          f"{wb['expert_bytes_all'] / 1e9:.3f} GB)  other weights "
+          f"{wb['other_weight_bytes'] / 1e9:.3f} GB  bound "
+          f"{wb['bound_ms']:.3f} ms (all experts "
+          f"{wb['all_experts_bound_ms']:.3f} ms)", flush=True)
+    print(f"phase {label}: ok  {cfg.name}, {cfg.num_layers} layers, bf16, "
+          f"init {t_init:.2f} s  launches {launches}  routes {routes}  "
+          f"s/step {rep['s_per_step']:.6f}  device "
+          f"{fmt(prof and prof['device_ms_per_step'], '.3f')} ms a step "
+          f"(bound {wb['bound_ms']:.3f} ms), busy "
+          f"{fmt(prof and prof['busy_share'], '.3f')}, "
+          f"{fmt(prof and prof['kernels_per_step'], '.0f')} kernels a step, "
+          f"{'#6' if mla else '#5'} {fmt(us, '.2f')} device us a launch, "
+          f"MoE layers {fmt(moe_ms, '.3f')} device ms a step  logits rel "
+          f"L2 {rel:.3e} (argmax agree {agree:.2f}, {len(flips)} routing "
+          f"flips; experts pinned: {fmt(rel_pinned, '.3e')}, argmax agree "
+          f"{fmt(agree_pinned, '.2f')})  {held['held']} launches held "
+          f"(max abs err {held['max_abs_err']:.3e}); MoE layers held to "
+          f"the plain version: "
+          f"{'none' if held_moe is None else held_moe}  peak "
+          f"{peak:.1f} GB  [{card}]",
+          flush=True)
+    del engine, model, done, log
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_serve_moe(card):
+    """DeepSeek-V2-Lite-16B at full width and depth (27 layers: 1 dense,
+    26 MoE of 64 routed + 2 shared experts; MLA, kernel #6)."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("deepseek-v2-lite-16b").replace(param_dtype="bfloat16")
+    return phase_serve_model("serve_moe", cfg, card, n_req=8, max_new=12,
+                             seed=9, attr="mla_decode_attention")
+
+
+def phase_serve_olmoe(card):
+    """OLMoE-1B-7B at full width and depth (16 MoE layers of 64 experts,
+    top 8; kernel #5 at G = 1)."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("olmoe-1b-7b").replace(param_dtype="bfloat16")
+    return phase_serve_model("serve_olmoe", cfg, card, n_req=8, max_new=12,
+                             seed=10, attr="decode_attention")
+
+
+ZOO = ("glm4-9b", "nemotron-4-15b", "deepseek-7b")
+ZOO_LAYERS = 4
+
+
+def phase_serve_zoo(card):
+    """GLM-4-9B, Nemotron-4-15B and DeepSeek-LLM-7B at full width (d_model,
+    heads, kv heads, d_ff, vocab), cut to ``ZOO_LAYERS`` layers each:
+    kernel #5 at G = 16, 6 and 1."""
+    from repro_torch.configs.registry import get_config
+    out = {}
+    for arch in ZOO:
+        full = get_config(arch)
+        print(f"  serve_zoo[{arch}]: cut to {ZOO_LAYERS} of "
+              f"{full.num_layers} layers", flush=True)
+        cfg = full.replace(num_layers=ZOO_LAYERS, param_dtype="bfloat16")
+        out[arch] = phase_serve_model(f"serve_zoo[{arch}]", cfg, card,
+                                      n_req=4, max_new=8, seed=11,
+                                      attr="decode_attention")
+        out[arch]["published_layers"] = full.num_layers
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2771,6 +3201,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_mla = phase_serve_mla(card)
     torch.cuda.empty_cache()
+
+    # 15-17. the MoE family and the dense zoo through the engine
+    serve_moe = phase_serve_moe(card)
+    serve_olmoe = phase_serve_olmoe(card)
+    serve_zoo = phase_serve_zoo(card)
 
     # 7. the int8 arena
     ops.reset_kernel_launches()
@@ -2897,12 +3332,23 @@ def main() -> int:
                    f32_bound_ms=dec[f"{prefix}_f32"]["bound_ms"])
         return row
     kernels += [
-        decode_row("gqa_decode", "decode_attention.cu",
-                   "src/repro/kernels/decode_attention.py:96",
-                   "gqa", serve["launches"]["gqa_decode"],
-                   ("bf16", "bf16_softcap30", "bf16_mha", "f32",
-                    "bf16_holes", "bf16_c2000", "bf16_g16", "bf16_serve",
-                    "bf16_g32", "bf16_d72", "f32_d6", "bf16_g128_d512")),
+        dict(decode_row("gqa_decode", "decode_attention.cu",
+                        "src/repro/kernels/decode_attention.py:96",
+                        "gqa", serve["launches"]["gqa_decode"],
+                        ("bf16", "bf16_softcap30", "bf16_mha", "f32",
+                         "bf16_holes", "bf16_c2000", "bf16_g16",
+                         "bf16_serve", "bf16_g32", "bf16_d72", "f32_d6",
+                         "bf16_g128_d512")),
+             serve_olmoe_launches=serve_olmoe["launches"]["gqa_decode"],
+             serve_olmoe_device_us_per_launch=serve_olmoe[
+                 "kernel_us_per_launch"],
+             serve_zoo_launches={a: r["launches"]["gqa_decode"]
+                                 for a, r in serve_zoo.items()},
+             serve_zoo_device_us_per_launch={
+                 a: r["kernel_us_per_launch"] for a, r in serve_zoo.items()},
+             serve_held_max_abs_err=max(
+                 [serve_olmoe["held"]["max_abs_err"]]
+                 + [r["held"]["max_abs_err"] for r in serve_zoo.values()])),
         dict(decode_row("mla_decode", "mla_decode.cu",
                         "src/repro/kernels/decode_attention.py:173",
                         "mla", serve_mla["launches"]["mla_decode"],
@@ -2911,14 +3357,20 @@ def main() -> int:
                          "bf16_r30")),
              f32_source="src/repro_torch/kernels/csrc/decode_attention.cu",
              partial_device_ms=dec["mla_bf16"]["partial_device_ms"],
-             serve_device_us_per_launch=serve_mla["mla_us_per_launch"])]
+             serve_device_us_per_launch=serve_mla["mla_us_per_launch"],
+             serve_moe_launches=serve_moe["launches"]["mla_decode"],
+             serve_moe_device_us_per_launch=serve_moe[
+                 "kernel_us_per_launch"],
+             serve_held_max_abs_err=serve_moe["held"]["max_abs_err"])]
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=kernels, fused=fused,
                        fused_stages=stages, similarity=sim, scene=scene,
                        decode=dec, main=times, dense=dense, serve=serve,
-                       serve_mla=serve_mla, mem=mem_out, tier=tier,
+                       serve_mla=serve_mla, serve_moe=serve_moe,
+                       serve_olmoe=serve_olmoe, serve_zoo=serve_zoo,
+                       mem=mem_out, tier=tier,
                        tier_8192=tier_full, standing=standing,
                        parity_tier=parity), f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)

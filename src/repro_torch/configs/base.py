@@ -1,7 +1,8 @@
 """Model configuration: one frozen ``ModelConfig`` per architecture, with
-the reference's field names and defaults. The port carries the fields its
-decoders read (dense and VLM families, GQA or MLA attention, RoPE or
-M-RoPE); the MoE, SSM, RWKV and encoder-decoder fields come with the
+the reference's field names and defaults, and the input shapes of the
+reference's dry runs (``ShapeSpec``). The port carries the fields its
+decoders read (dense, VLM and MoE families, GQA or MLA attention, RoPE
+or M-RoPE); the SSM, RWKV and encoder-decoder fields come with the
 slices that port those models.
 """
 
@@ -25,6 +26,21 @@ class MLAConfig:
     @property
     def qk_head_dim(self) -> int:
         return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Sparse mixture-of-experts feed-forward."""
+
+    num_experts: int = 64
+    experts_per_token: int = 8
+    d_ff: int = 1024              # per-expert hidden size
+    num_shared_experts: int = 0   # DeepSeek-style always-on experts
+    shared_d_ff: int = 0          # hidden size of the shared expert block
+    first_dense_layers: int = 0   # leading layers that stay dense
+    dense_d_ff: int = 0           # d_ff for those dense layers
+    router_aux_coef: float = 0.01  # load-balance loss coefficient
+    capacity_factor: float = 1.25  # dispatch capacity per chunk
 
 
 @dataclass(frozen=True)
@@ -60,6 +76,7 @@ class ModelConfig:
 
     # sub-family configs ---------------------------------------------------
     mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
 
     # multimodal stub -----------------------------------------------------
     vision_tokens: int = 0        # VLM: patch-embedding tokens per request
@@ -75,3 +92,43 @@ class ModelConfig:
     @property
     def q_per_kv(self) -> int:
         return self.num_heads // max(self.num_kv_heads, 1)
+
+    def param_count(self) -> int:
+        """Non-embedding parameter count (``models.params``)."""
+        from repro_torch.models.params import count_params_analytic
+        return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.params import count_active_params_analytic
+        return count_active_params_analytic(self)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes of the reference's dry runs.
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}
+
+
+def get_shape(name: str) -> ShapeSpec:
+    try:
+        return INPUT_SHAPES[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown shape {name!r}; choose from {sorted(INPUT_SHAPES)}")

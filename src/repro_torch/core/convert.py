@@ -23,23 +23,36 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
+def _flatten(tree: Mapping, prefix: str, i: int,
+             out: Dict[str, torch.Tensor]) -> None:
+    """Layer i of a layer-stacked subtree → ``<prefix>.<name>`` entries,
+    nested dicts (``moe.shared``) joined by dots."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            _flatten(v, f"{prefix}.{k}", i, out)
+        else:
+            out[f"{prefix}.{k}"] = _t(np.asarray(v)[i])
+
+
 def _decoder_params(tree: Mapping, head: bool) -> Dict[str, torch.Tensor]:
     """A reference decoder tree → port state-dict entries: ``embed``,
     ``pos_embed``, ``final_norm``, ``lm_head`` (if ``head``) and the
-    layer-stacked ``dense_blocks`` split into ``blocks.<i>``."""
-    if "moe_blocks" in tree:
-        raise NotImplementedError(
-            "MoE blocks belong to a later slice of the port (ROADMAP.md)")
+    layer-stacked groups split into ``blocks.<i>``: ``dense_blocks[i]``
+    → ``blocks.i``, then ``moe_blocks[j]`` → ``blocks.<n_dense + j>``."""
     out = {k: _t(tree[k]) for k in ("embed", "pos_embed") if k in tree}
     if head and "lm_head" in tree:
         out["lm_head"] = _t(tree["lm_head"])
     for k, v in tree["final_norm"].items():
         out[f"final_norm.{k}"] = _t(v)
-    blocks = tree["dense_blocks"]
-    for i in range(len(np.asarray(blocks["ln1"]["w"]))):
-        for group, leaves in blocks.items():
-            for k, v in leaves.items():
-                out[f"blocks.{i}.{group}.{k}"] = _t(np.asarray(v)[i])
+    first = 0
+    for group in ("dense_blocks", "moe_blocks"):
+        if group not in tree:
+            continue
+        blocks = tree[group]
+        n = len(np.asarray(blocks["ln1"]["w"]))
+        for i in range(n):
+            _flatten(blocks, f"blocks.{first + i}", i, out)
+        first += n
     return out
 
 
@@ -47,9 +60,10 @@ def model_params_from_numpy(cfg: ModelConfig, tree: Mapping
                             ) -> Dict[str, torch.Tensor]:
     """The reference's ``Transformer.init`` tree for ``cfg`` (nested dicts
     of numpy arrays) → a state dict for ``models.transformer.Transformer.
-    load_state_dict``, leaf for leaf; arrays keep their dtype
+    load_state_dict``, leaf for leaf (the MoE blocks' ``moe.router``,
+    experts and ``moe.shared`` included); arrays keep their dtype
     (``param_dtype``)."""
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} belongs to a later slice of the port "
             f"(ROADMAP.md)")

@@ -1,6 +1,7 @@
 """Serving launcher of the port: batched requests through the
-continuous-batching engine for a ported ``--arch``, with random weights
-from a seed.
+continuous-batching engine for a ported ``--arch`` (qwen2-vl-7b,
+minicpm3-4b, glm4-9b, nemotron-4-15b, deepseek-7b, olmoe-1b-7b,
+deepseek-v2-lite-16b), with random weights from a seed.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \\
       --requests 8 --slots 4 --max-new 16 [--full] [--device cpu] \\

@@ -1,23 +1,27 @@
-"""The decoder stack of the dense and VLM families — GQA or MLA blocks, with
-a KV cache — one ``nn.Module`` per layer where the reference scans stacked
-layers.
+"""The decoder stack of the dense, VLM and MoE families — GQA or MLA
+blocks, with a KV cache — one ``nn.Module`` per layer where the reference
+scans stacked layers.
 
 A model holds ``embed`` (vocab, d), ``pos_embed`` (max_seq_len, d) for
 learned positions, ``final_norm``, ``blocks`` and, unless the embeddings
 are tied, ``lm_head`` (d, vocab); every leaf keeps the reference's name,
 so ``core.convert`` maps a reference parameter tree onto it one to one.
-The MEM towers are built without a head (``head=False``) and read only
-``hidden``.
+The reference's two groups of blocks (``dense_blocks``, then
+``moe_blocks``: an MoE config's ``first_dense_layers`` dense blocks of
+``dense_d_ff``, then blocks with ``moe`` in place of ``mlp``) are
+``blocks[:n_dense]`` and ``blocks[n_dense:]``. The MEM towers are built
+without a head (``head=False``) and read only ``hidden``.
 
 ``apply`` modes: "train" (full logits), "prefill" (fills the cache,
 returns last-position logits only), "decode" (one token against the
-cache). The cache keeps the reference's layout: ``pos`` (B,), for M-RoPE
-``mrope_delta`` (B,), and ``dense`` — the layers' cache leaves stacked on
-a leading layer axis, the batch on axis 1. Layers write their slices of
-the stacked leaves in place.
+cache); it returns the MoE blocks' summed aux loss. The cache keeps the
+reference's layout: ``pos`` (B,), for M-RoPE ``mrope_delta`` (B,), and a
+group per block group — ``dense`` and ``moe`` — holding its layers'
+cache leaves stacked on a leading layer axis, the batch on axis 1.
+Layers write their slices of the stacked leaves in place.
 
-Norms are RMSNorm, the dense families' norm. MoE, the hybrid, RWKV and
-audio families come with later slices.
+Norms are RMSNorm, the dense families' norm. The hybrid, RWKV and audio
+families come with later slices.
 """
 
 from __future__ import annotations
@@ -30,11 +34,13 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
                                        mlp_init, rms_norm)
 from repro_torch.util import resolve_device
 
 Cache = Optional[Dict[str, Any]]
+GROUPS = ("dense", "moe")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -44,6 +50,27 @@ def _dtype(name: str) -> torch.dtype:
 def _params(tensors: dict) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
                              for k, v in tensors.items()})
+
+
+class _Tree(nn.Module):
+    """A parameter tree read like the reference's nested dicts
+    (``p["router"]``, ``"shared" in p``): tensors become parameters,
+    dicts ``nn.ParameterDict`` children."""
+
+    def __init__(self, tensors: dict):
+        super().__init__()
+        for k, v in tensors.items():
+            if isinstance(v, dict):
+                self.add_module(k, _params(v))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, k: str):
+        return getattr(self, k)
+
+    def __contains__(self, k: str) -> bool:
+        return k in self._parameters or k in self._modules
 
 
 def _norm_init(d: int, dtype, device) -> dict:
@@ -56,9 +83,10 @@ def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 class AttnBlock(nn.Module):
     """Pre-norm attention block: ``ln1``, ``attn`` (GQA or MLA), ``ln2``,
-    ``mlp``."""
+    and ``mlp`` of ``d_ff`` or, with ``use_moe``, ``moe``."""
 
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, *,
+                 d_ff: int, use_moe: bool = False):
         super().__init__()
         self.cfg = cfg
         dtype, dev = _dtype(cfg.param_dtype), gen.device
@@ -66,15 +94,21 @@ class AttnBlock(nn.Module):
         self.ln2 = _params(_norm_init(cfg.d_model, dtype, dev))
         init = attn.mla_init if cfg.attn_type == "mla" else attn.gqa_init
         self.attn = _params(init(gen, cfg, dtype))
-        self.mlp = _params(mlp_init(gen, cfg.d_model, cfg.d_ff,
-                                    gated=cfg.gated_mlp, dtype=dtype))
+        self.use_moe = use_moe
+        if use_moe:
+            self.moe = _Tree(moe_mod.moe_init(gen, cfg, dtype))
+        else:
+            self.mlp = _params(mlp_init(gen, cfg.d_model, d_ff,
+                                        gated=cfg.gated_mlp, dtype=dtype))
 
     def step(self, x: torch.Tensor, *, positions: torch.Tensor,
              mrope_positions: Optional[torch.Tensor] = None,
              cache: Optional[dict] = None,
              cache_pos: Optional[torch.Tensor] = None, mode: str = "train",
              kv_lengths: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, Optional[dict]]:
+             ) -> Tuple[torch.Tensor, Optional[dict],
+                        Optional[torch.Tensor]]:
+        """→ (x, cache, the MoE aux loss or None)."""
         cfg = self.cfg
         h = _norm(cfg, self.ln1, x)
         if cfg.attn_type == "mla":
@@ -88,7 +122,10 @@ class AttnBlock(nn.Module):
                 cache_pos=cache_pos, mode=mode, kv_lengths=kv_lengths)
         x = x + a
         h = _norm(cfg, self.ln2, x)
-        return x + mlp_apply(self.mlp, h, cfg.activation), cache
+        if self.use_moe:
+            m, aux = moe_mod.moe_apply(self.moe, cfg, h)
+            return x + m, cache, aux
+        return x + mlp_apply(self.mlp, h, cfg.activation), cache, None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor
                 ) -> torch.Tensor:
@@ -96,14 +133,14 @@ class AttnBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    """A dense or VLM decoder. ``gen`` draws the initial weights (on its
-    device) with the reference's scales; ``head=False`` leaves out the LM
-    head (the MEM towers)."""
+    """A dense, VLM or MoE decoder. ``gen`` draws the initial weights (on
+    its device) with the reference's scales; ``head=False`` leaves out the
+    LM head (the MEM towers)."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, *,
                  head: bool = True):
         super().__init__()
-        if cfg.family not in ("dense", "vlm") or cfg.attn_type not in (
+        if cfg.family not in ("dense", "vlm", "moe") or cfg.attn_type not in (
                 "gqa", "mla"):
             raise NotImplementedError(
                 f"{cfg.name}: family {cfg.family!r} / attention "
@@ -128,8 +165,16 @@ class Transformer(nn.Module):
                 requires_grad=False)
         else:
             self.lm_head = None
-        self.blocks = nn.ModuleList(AttnBlock(cfg, gen)
-                                    for _ in range(cfg.num_layers))
+        # blocks of the ``dense`` group; the rest form the ``moe`` group
+        self.n_dense = min(cfg.moe.first_dense_layers if cfg.moe
+                           else cfg.num_layers, cfg.num_layers)
+        dense_ff = (cfg.moe.dense_d_ff if cfg.moe and cfg.moe.dense_d_ff
+                    else cfg.d_ff)
+        self.blocks = nn.ModuleList(
+            [AttnBlock(cfg, gen, d_ff=dense_ff)
+             for _ in range(self.n_dense)]
+            + [AttnBlock(cfg, gen, d_ff=cfg.d_ff, use_moe=True)
+               for _ in range(cfg.num_layers - self.n_dense)])
 
     @property
     def device(self) -> torch.device:
@@ -158,21 +203,33 @@ class Transformer(nn.Module):
         mk = (attn.mla_cache_init if cfg.attn_type == "mla"
               else attn.gqa_cache_init)
         one = mk(cfg, batch, max_len, dtype, device="meta")
-        cache["dense"] = {k: torch.zeros((cfg.num_layers,) + v.shape,
-                                         dtype=dtype, device=device)
-                          for k, v in one.items()}
+        for group, n in zip(GROUPS, (self.n_dense,
+                                     cfg.num_layers - self.n_dense)):
+            if n:
+                cache[group] = {k: torch.zeros((n,) + v.shape, dtype=dtype,
+                                               device=device)
+                                for k, v in one.items()}
         return cache
+
+    def _layer_cache(self, cache: Cache, i: int) -> Optional[dict]:
+        """Layer i's views into its group's stacked leaves."""
+        if cache is None:
+            return None
+        group, j = (("dense", i) if i < self.n_dense
+                    else ("moe", i - self.n_dense))
+        return {k: v[j] for k, v in cache[group].items()}
 
     @staticmethod
     def insert_slot(cache: Dict[str, Any], one: Dict[str, Any],
                     slot: int) -> None:
         """Copy a batch-1 cache ``one`` into batch row ``slot`` of
         ``cache`` in place: ``pos`` and ``mrope_delta`` have the batch on
-        axis 0, the stacked ``dense`` leaves on axis 1."""
+        axis 0, the stacked leaves of the ``dense`` and ``moe`` groups on
+        axis 1."""
         for k, v in cache.items():
-            if k == "dense":
+            if k in GROUPS:
                 for n, buf in v.items():
-                    buf.narrow(1, slot, 1).copy_(one["dense"][n])
+                    buf.narrow(1, slot, 1).copy_(one[k][n])
             else:
                 v.narrow(0, slot, 1).copy_(one[k])
 
@@ -204,13 +261,15 @@ class Transformer(nn.Module):
             tokens, vision_embeds, cache_pos, cached_delta, mode)
         x = x.to(self.adtype)
         s_total = x.shape[1]                    # vision tokens included
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
         for i, block in enumerate(self.blocks):
-            layer = (None if cache is None
-                     else {k: v[i] for k, v in cache["dense"].items()})
-            x, _ = block.step(x, positions=positions,
-                              mrope_positions=mrope_positions, cache=layer,
-                              cache_pos=cache_pos, mode=mode,
-                              kv_lengths=kv_lengths)
+            x, _, a = block.step(x, positions=positions,
+                                 mrope_positions=mrope_positions,
+                                 cache=self._layer_cache(cache, i),
+                                 cache_pos=cache_pos, mode=mode,
+                                 kv_lengths=kv_lengths)
+            if a is not None:
+                aux = aux + a
 
         x = _norm(cfg, self.final_norm, x)
         if mode == "prefill":
@@ -221,7 +280,6 @@ class Transformer(nn.Module):
                 x = x[:, -1:]
         head = self.embed.t() if self.lm_head is None else self.lm_head
         logits = x @ head.to(x.dtype)
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
         if cache is None:
             return logits, None, aux
         b = tokens.shape[0]

@@ -7,8 +7,10 @@ reference's (``repro.serving.engine``):
   admitted without stalling the others;
 * prefill runs at batch 1 over power-of-two right-padded prompt buckets
   (``pow2_bucket(s, lo=16)``; pad keys are masked through
-  ``prompt_lengths``), then ``Transformer.insert_slot`` copies its cache
-  into the slot in place;
+  ``prompt_lengths``, which only attention reads: in an MoE block the
+  pads are routed and take expert capacity, as in the reference), then
+  ``Transformer.insert_slot`` copies its cache — both block groups,
+  ``dense`` and ``moe`` — into the slot in place;
 * decoding is greedy, or, with ``temperature > 0``, a Gumbel-max draw
   whose noise comes from the reference's key chain (``kernels.prng``);
 * ``timings`` keeps the host-clock seconds of every prefill and decode
