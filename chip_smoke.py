@@ -688,15 +688,22 @@ def kernels_by_name(fn, reps: int = 5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    return _by_name([e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA], reps) or None
+
+
+def _by_name(events, reps):
+    """{kernel name without its template arguments (a mangled name cut
+    to 60 characters): (launches, device us), each a call of ``reps``},
+    dearest first."""
     by = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in events:
         name = e.name.removeprefix("void ").split("<")[0].split("(")[0]
+        name = name[:60]
         n, us = by.get(name, (0, 0.0))
         by[name] = (n + 1, us + e.time_range.end - e.time_range.start)
     return {k: (n / reps, us / reps) for k, (n, us) in
-            sorted(by.items(), key=lambda kv: -kv[1][1])} or None
+            sorted(by.items(), key=lambda kv: -kv[1][1])}
 
 
 def _scan_check(name, got, want, valid, sessions_empty=()):
@@ -2419,6 +2426,13 @@ def phase_decode_mla(gen, valid, holes):
     return out
 
 
+def _clone_cache(cache):
+    import torch
+    return {k: (v.clone() if torch.is_tensor(v) else
+                {n: t.clone() for n, t in v.items()})
+            for k, v in cache.items()}
+
+
 def logits_kernel_vs_plain(engine, attr):
     """One decode step from the engine's current cache twice: through the
     decode kernel, and with ``kernels.ops.<attr>`` routed to its plain
@@ -2430,10 +2444,8 @@ def logits_kernel_vs_plain(engine, attr):
     tokens = torch.full((engine.batch_slots, 1), 7, device=engine.device)
 
     def step():
-        cache = {k: (v.clone() if torch.is_tensor(v) else
-                     {n: t.clone() for n, t in v.items()})
-                 for k, v in engine.cache.items()}
-        return model.apply(tokens, cache=cache, mode="decode")[0].float()
+        return model.apply(tokens, cache=_clone_cache(engine.cache),
+                           mode="decode")[0].float()
 
     got = step()
     kernel = getattr(ops, attr)
@@ -2458,7 +2470,8 @@ def decode_busy(engine, steps: int = 3, span=None):
     """Device busy share of decode steps from the engine's current cache:
     ``steps`` steps under ``torch.profiler``; the device time its kernels
     cover over the host-clock time, and the decode kernels' covered time
-    and share of it; with ``span``, the name of profiler ranges the
+    and share of it, and the eight dearest kernels by name (launches and
+    device us a step); with ``span``, the name of profiler ranges the
     steps open, also the device time its kernels cover inside those
     ranges' device-side intervals, a step (the intervals themselves,
     which the trace lists beside the kernels, are not kernels). A
@@ -2508,7 +2521,9 @@ def decode_busy(engine, steps: int = 3, span=None):
                 decode_kernel_share=covered / busy,
                 decode_kernel_us_per_step=covered / steps,
                 decode_kernel_spans_us_per_step=per,
-                kernels_per_step=len(kern) / steps, **extra)
+                kernels_per_step=len(kern) / steps,
+                top_kernels=dict(list(_by_name(kern, steps).items())[:8]),
+                **extra)
 
 
 def _covered_us(events) -> float:
@@ -2700,40 +2715,28 @@ def phase_serve_mla(card):
     return rep
 
 
-def _clone_cache(cache):
-    import torch
-    return {k: (v.clone() if torch.is_tensor(v) else
-                {n: t.clone() for n, t in v.items()})
-            for k, v in cache.items()}
-
-
 class RouteLog:
     """While active, records every ``models.moe.route`` call in call order
-    (a model step routes its MoE layers in order): its routing and the
-    router's f32 probabilities. With ``pin``, a second run of the step
-    keeps the first run's experts: call ``i`` past the first ``pin``
-    calls takes call ``i - pin``'s experts and kept pairs, its weights
-    from its own probabilities at those experts."""
+    (a model step routes its MoE layers in order). With ``pin``, a second
+    run of the step keeps the first run's experts: call ``i`` past the
+    first ``pin`` calls takes call ``i - pin``'s experts and kept pairs,
+    its weights from its own probabilities at those experts."""
 
     def __init__(self, pin: int = 0):
         self.pin = pin
 
     def __enter__(self):
-        import torch
         from repro_torch.models import moe
-        self.calls, self.probs, self._orig = [], [], moe.route
+        self.calls, self._orig = [], moe.route
 
         def rec(p, cfg, x, n):
             r = self._orig(p, cfg, x, n)
-            probs = torch.softmax(
-                (x @ p["router"].to(x.dtype)).to(torch.float32), -1)
             if self.pin and len(self.calls) >= self.pin:
                 first = self.calls[len(self.calls) - self.pin]
-                w = probs.gather(-1, first.top_i)
+                w = r.probs.gather(-1, first.top_i)
                 r = r._replace(top_i=first.top_i, keep=first.keep,
                                top_w=w / w.sum(-1, keepdim=True))
             self.calls.append(r)
-            self.probs.append(probs)
             return r
         moe.route = rec
         return self
@@ -2760,7 +2763,7 @@ def routing_flips(log, n_dense: int):
                 eb = sorted(b.top_i[row, t][b.keep[row, t]].tolist())
                 if ea != eb:
                     gaps = []
-                    for pr in (log.probs[i], log.probs[half + i]):
+                    for pr in (a.probs, b.probs):
                         top = torch.topk(pr[row, t], k + 1).values
                         gaps.append(float(top[k - 1] - top[k]))
                     flips.append((n_dense + i, row, ea, eb, *gaps))

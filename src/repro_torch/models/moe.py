@@ -82,6 +82,7 @@ class Routing(NamedTuple):
     top_w: torch.Tensor     # (B, S, k) f32 weights, summing to 1 a token
     keep: torch.Tensor      # (B, S, k) bool: the pair got a slot
     aux: torch.Tensor       # (S // n,) f32 each chunk's aux (unscaled)
+    probs: torch.Tensor     # (B, S, E) f32 router probabilities
 
 
 def route(p: Mapping[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
@@ -110,7 +111,7 @@ def route(p: Mapping[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
         torch.float32) / (b * n)                                # (nc, E)
     mean_p = probs.reshape(b, nc, n, e).mean(dim=(0, 2))        # (nc, E)
     aux = e * (frac / k * mean_p).sum(-1)
-    return Routing(top_i, top_w, keep, aux)
+    return Routing(top_i, top_w, keep, aux, probs)
 
 
 def _experts(p: Mapping[str, torch.Tensor], cfg: ModelConfig,

@@ -12,7 +12,6 @@ shared experts' leaves too, since their paths lie under ``moe``.
 from __future__ import annotations
 
 import math
-from functools import lru_cache
 from typing import Dict
 
 import torch
@@ -32,7 +31,6 @@ class _MetaGenerator(torch.Generator):
         return torch.device("meta")
 
 
-@lru_cache(maxsize=64)
 def _shapes(cfg: ModelConfig) -> Dict[str, int]:
     """Element count of each reference leaf path (layer-stacked leaves
     summed over their layers)."""

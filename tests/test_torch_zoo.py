@@ -11,8 +11,11 @@ Each test is parametrised over the five archs: the port's versions of
 ``tests/test_models.py``'s prefill→decode parity, sliding-window ring
 cache, right-padded prefill and parameter counts; the round trip of
 the weights; the engine against the reference's engine; and, on OLMoE,
-``tests/test_serving.py::test_serve_step_factory_shapes``.
+``tests/test_serving.py::test_serve_step_factory_shapes``. One more
+test holds the dry runs' input shapes to the reference's.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -208,6 +211,20 @@ def test_param_counts_match_reference(arch, size):
     assert n == jparams.count_params_analytic(jcfg) == tcfg.param_count()
     assert na == jparams.count_active_params_analytic(jcfg) == \
         tcfg.active_param_count()
+
+
+def test_input_shapes_match_reference():
+    """The dry runs' input shapes, field for field, and ``get_shape``'s
+    lookup and its error on an unknown name."""
+    from repro.configs import base as jbase
+    from repro_torch.configs import base as tbase
+    assert {k: dataclasses.astuple(v) for k, v in
+            tbase.INPUT_SHAPES.items()} == {
+        k: dataclasses.astuple(v) for k, v in jbase.INPUT_SHAPES.items()}
+    for name in jbase.INPUT_SHAPES:
+        assert tbase.get_shape(name) is tbase.INPUT_SHAPES[name]
+    with pytest.raises(KeyError, match="unknown shape"):
+        tbase.get_shape("train_8k")
 
 
 def _stacked(state, tcfg, n_dense):
