@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
-12, 15, 16, 17, 7, 13, 14, 8, 9:
+12, 15–20, 7, 13, 14, 8, 9:
 
 1. build      — compile the CUDA kernels from ``src/repro_torch/kernels/
                 csrc`` (one nvcc per source, all started together);
@@ -85,7 +85,9 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 a single valid row and one with none): GQA at Qwen2-VL-7B
                 (H=28, Hkv=4, D=128; also softcap 30 and q_per_kv=1; in
                 bf16 also masks with holes of whole tiles and a last-row
-                mask, C=2000, and G=16 at H=32, Hkv=2; and the shapes
+                mask, C=2000, G=16 at H=32, Hkv=2, and the zoo's other
+                widths at G = 1: D=80 at H=Hkv=32 (Zamba2-2.7B) and D=64
+                at H=Hkv=8 (Whisper-base); and the shapes
                 k_gqa_split leaves to k_partial: bf16 G=32 at H=32,
                 Hkv=1, bf16 D=72, f32 D=6, and H=128, Hkv=1, D=512,
                 which it takes 64 heads to a block); MLA at MiniCPM3-4B
@@ -178,14 +180,38 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
 17. serve_zoo — the same on GLM-4-9B (#5 at G = 16, half rotary),
                 Nemotron-4-15B (G = 6, squared ReLU) and DeepSeek-LLM-7B
                 (G = 1) at full width, each cut to 4 layers: 4 requests,
-                8 new tokens each. Each serve phase frees its model
-                before the next one starts.
+                8 new tokens each;
+18. serve_hybrid — the same on Zamba2-2.7B at full width and depth (54
+                Mamba2 layers; one weight-tied attention block after each
+                group of 6: #5 at G = 1, D = 80, 9 launches a decode step,
+                each application its own KV cache): 8 requests of 8–200
+                tokens, two over 128 (the SSD's multi-chunk scan and its
+                padded last chunk on the card), prefilled at their exact
+                lengths; the bytes a step count the shared block once an
+                application and the f32 SSM and conv state read and
+                written; then ``state_continuation``: the model in f32
+                (TF32 off) prefills 150 tokens of two sequences and
+                decodes 4 more, each step's logits against its own
+                train-mode logits at rtol = atol = 1e-3;
+19. serve_rwkv — RWKV6-1.6B at full width and depth (24 layers, no
+                attention: neither decode kernel may launch): 8 requests
+                of 8–64 tokens at their exact lengths; the continuation
+                over 24 tokens;
+20. serve_whisper — Whisper-base at full width and depth (6 encoder, 6
+                decoder layers; #5 at G = 1, D = 64, 6 a step): 8 requests
+                of 8–64 tokens, each with 1,500 × 512 encoder frames
+                (N(0, 0.02) from the seed, as the reference's launcher);
+                the per-step cross K/V recompute's operations in the
+                bound; the continuation over 20 tokens, its decode reading
+                the encoder's output from the cache. Each serve phase
+                frees its model before the next one starts.
 
 Prints the card's name and power limit, one line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Every kernel's launch count is read around the phase that drives its path
 (main: fused retrieval and scene score; dense: the dense scans; serve,
-serve_mla, serve_moe, serve_olmoe and serve_zoo: the decode kernels;
+serve_mla, serve_moe, serve_olmoe, serve_zoo, serve_hybrid, serve_rwkv
+and serve_whisper: the decode kernels;
 tier: fused retrieval, two a group; standing: fused retrieval, one a
 committing tick).
 """
@@ -2196,6 +2222,10 @@ def phase_decode(gen):
              split),
             ("bf16_g16", 32, 2, 128, 0.0, bf, valid, split),
             ("bf16_serve", 28, 4, 128, 0.0, bf, serve, split),
+            # the zoo's other widths at G = 1: Zamba2-2.7B's shared block
+            # (32 heads of 80) and Whisper-base's decoder (8 heads of 64)
+            ("bf16_d80", 32, 32, 80, 0.0, bf, valid, split),
+            ("bf16_d64", 8, 8, 64, 0.0, bf, valid, split),
             # shapes the split kernel leaves to k_partial (checked only)
             ("bf16_g32", 32, 1, 128, 0.0, bf, valid, part),
             ("bf16_d72", 28, 4, 72, 0.0, bf, valid, part),
@@ -2867,15 +2897,21 @@ def step_weight_bytes(engine):
     """One decode step from a copy of the engine's cache with the routing
     recorded: the experts that received a kept pair in each MoE layer,
     the bytes of their weights (what the step reads of the routed
-    experts) beside all routed experts' bytes, and the bytes of the
-    weights the step needs — every parameter but the routed experts and
-    the embedding table (of which it reads one row a slot; the table is
-    read whole where it is also the head), plus the experts used — with
-    their bound at the memory rate."""
+    experts) beside all routed experts' bytes, and the bytes the step
+    needs — every parameter but the routed experts, the encoder (which
+    runs at prefill only) and the embedding and position tables (of which
+    it reads one row a slot; the embedding is read whole where it is also
+    the head), a weight-tied block once for each of its applications,
+    plus the experts used — and the recurrent state read and written
+    (``mamba``, ``rwkv``) and the encoder output read (``enc_out``). The
+    bound is the larger of those bytes at the memory rate and the
+    operations of the per-step cross K/V recompute (audio) at the bf16
+    tensor-core rate."""
     import torch
     model = engine.model
     cfg = model.cfg
-    tokens = torch.full((engine.batch_slots, 1), 7, device=engine.device)
+    b = engine.batch_slots
+    tokens = torch.full((b, 1), 7, device=engine.device)
     with RouteLog() as log:
         model.apply(tokens, cache=_clone_cache(engine.cache), mode="decode")
     used = [int(torch.unique(r.top_i[r.keep]).numel()) for r in log.calls]
@@ -2885,38 +2921,62 @@ def step_weight_bytes(engine):
         if parts[0] == "blocks" and parts[2:3] == ["moe"] and parts[3] in (
                 "w_gate", "w_up", "w_down"):
             continue
-        if name == "embed" and model.lm_head is not None:
-            other += engine.batch_slots * t.shape[1] * t.element_size()
+        if parts[0] in ("enc_blocks", "enc_pos_embed", "enc_final_norm"):
             continue
-        other += t.numel() * t.element_size()
+        if name == "pos_embed" or (name == "embed"
+                                   and model.lm_head is not None):
+            other += b * t.shape[1] * t.element_size()
+            continue
+        n = t.numel() * t.element_size()
+        other += n * (model.attn_applications if parts[0] == "shared" else 1)
+    state = sum(2 * v.numel() * v.element_size()
+                for g in ("mamba", "rwkv") for v in engine.cache.get(
+                    g, {}).values())
+    if "enc_out" in engine.cache:
+        state += engine.cache["enc_out"].numel() * \
+            engine.cache["enc_out"].element_size()
+    # the cross attention's K and V of every encoder frame, each layer
+    flops = (2 * b * cfg.encoder_seq_len * cfg.d_model
+             * 2 * cfg.num_heads * cfg.head_dim * cfg.num_layers
+             if cfg.family == "audio" else 0)
     per_expert = 0
     if cfg.moe is not None:
         per_expert = (3 * cfg.d_model * cfg.moe.d_ff
                       * model.embed.element_size())
     read = sum(used) * per_expert
     every = len(used) * (cfg.moe.num_experts if cfg.moe else 0) * per_expert
+    bnd, by = bound_ms(other + read + state, 0.0, flops)
     return dict(experts_used=used, expert_bytes_read=read,
                 expert_bytes_all=every, other_weight_bytes=other,
-                bound_ms=(other + read) / HBM_BYTES_PER_S * 1e3,
-                all_experts_bound_ms=(other + every) / HBM_BYTES_PER_S * 1e3)
+                state_bytes=state, recompute_flops=flops,
+                bound_ms=bnd, bound_by=by,
+                all_experts_bound_ms=bound_ms(other + every + state, 0.0,
+                                              flops)[0])
 
 
-def phase_serve_model(label, cfg, card, *, n_req, max_new, seed, attr):
+def phase_serve_model(label, cfg, card, *, n_req, max_new, seed, attr,
+                      lengths=None, continuation=None):
     """The engine on ``cfg`` (bf16 weights from seed 0, initialised on the
-    card; 4 slots, max_len 2048): ``n_req`` text requests of 8–64 tokens,
-    ``max_new`` new tokens each. The decode kernel of ``attr`` (#5 for
-    ``decode_attention``, #6 for ``mla_decode_attention``) must launch
-    once a layer a decode step, all on its tensor-core route, the other
-    never. Holds one step's logits, kernel against plain (rel L2 ≤ 2^-5;
-    each MoE routing flip between the two printed; where one occurs, the
-    gate holds the step with the plain run's experts pinned to the
-    kernel run's), every attention launch of one step against the plain
-    version on its operands, and every MoE layer of a decode step and a
-    prefill against ``moe_plain``;
+    card; 4 slots, max_len 2048): ``n_req`` text requests of ``lengths``
+    tokens (default: drawn from 8–64), ``max_new`` new tokens each; an
+    audio request carries 1,500 frames of N(0, 0.02) from the seed, as
+    the reference's launcher. The decode kernel of ``attr`` (#5 for
+    ``decode_attention``, #6 for ``mla_decode_attention``; None for a
+    model without attention) must launch once an attention application a
+    decode step (``Transformer.attn_applications``: each layer, the
+    hybrid's shared block's applications), all on its tensor-core route,
+    the other never. Holds one step's logits, kernel against plain (rel L2
+    ≤ 2^-5; each MoE routing flip between the two printed; where one
+    occurs, the gate holds the step with the plain run's experts pinned
+    to the kernel run's), every attention launch of one step against the
+    plain version on its operands, and every MoE layer of a decode step
+    and a prefill against ``moe_plain``;
     reports the step's device time, busy share, kernels, the decode
     kernel's µs a launch and the MoE layers' device ms (profiler), the
-    weight bytes a step against their bound, and the peak memory. Frees
-    the model and its cache before it returns."""
+    bytes a step against their bound, and the peak memory. Frees the
+    model and its cache; then, with ``continuation`` (the keyword
+    arguments of ``state_continuation``), holds the recurrent or encoder
+    state."""
     import gc
     import numpy as np
     import torch
@@ -2935,11 +2995,19 @@ def phase_serve_model(label, cfg, card, *, n_req, max_new, seed, attr):
     model = init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
+    apps = model.attn_applications
     engine = ServingEngine(model, batch_slots=4, max_len=2048)
     rng = np.random.default_rng(seed)
-    reqs = [Request(rid=i, tokens=rng.integers(
-        3, cfg.vocab_size, size=int(rng.integers(8, 65))),
-        max_new_tokens=max_new) for i in range(n_req)]
+    reqs = []
+    for i in range(n_req):
+        n = int(rng.integers(8, 65)) if lengths is None else lengths[i]
+        r = Request(rid=i, tokens=rng.integers(3, cfg.vocab_size, size=n),
+                    max_new_tokens=max_new)
+        if cfg.family == "audio":
+            r.encoder_frames = rng.normal(
+                0, 0.02, (cfg.encoder_seq_len, cfg.d_model)).astype(
+                    np.float32)
+        reqs.append(r)
     torch.cuda.synchronize()
     ops.reset_kernel_launches()
     done = engine.run(reqs)
@@ -2947,34 +3015,44 @@ def phase_serve_model(label, cfg, card, *, n_req, max_new, seed, attr):
     launches = ops.kernel_launches()
     routes = dict(getattr(dk, kname).route_launches)
     steps = len(engine.timings["decode"])
-    check(launches[kname] == cfg.num_layers * steps,
-          f"{label}: {kname} launches {launches[kname]} != "
-          f"{cfg.num_layers} x {steps} decode steps")
-    check(routes == {fast: launches[kname], "k_partial": 0},
-          f"{label}: {kname} routes {routes}")
-    check(launches[other] == 0, f"{label} launches {launches}")
+    if attr is None:
+        check(apps == 0 and launches["gqa_decode"] == 0
+              and launches["mla_decode"] == 0,
+              f"{label}: a model without attention launched {launches}")
+    else:
+        check(launches[kname] == apps * steps,
+              f"{label}: {kname} launches {launches[kname]} != "
+              f"{apps} x {steps} decode steps")
+        check(routes == {fast: launches[kname], "k_partial": 0},
+              f"{label}: {kname} routes {routes}")
+        check(launches[other] == 0, f"{label} launches {launches}")
     check([r.rid for r in done] == list(range(n_req)), f"{label}: requests")
     for r in done:
         check(len(r.generated) == max_new and all(
             0 <= t < cfg.vocab_size for t in r.generated),
             f"{label}: request {r.rid} generated {r.generated}")
     rep = serve_report(label, engine, done, card)
-    with RouteLog() as log:
-        rel, agree = logits_kernel_vs_plain(engine, attr)
-    n_moe = cfg.num_layers - model.n_dense
-    flips = routing_flips(log, model.n_dense)
-    for layer, row, ek, ep, gk, gp in flips:
-        print(f"  {label} routing flip: layer {layer} slot {row} experts "
-              f"{ek} (kernel) vs {ep} (plain); top-k margin of the router "
-              f"probabilities {gk:.3e} (kernel), {gp:.3e} (plain)",
-              flush=True)
-    held = hold_decode_launches(engine, attr, label)
-    check(held["held"] == cfg.num_layers,
-          f"{label}: held {held['held']} launches of {cfg.num_layers}")
+    rel = agree = held = None
+    flips = []
+    if attr is not None:
+        with RouteLog() as log:
+            rel, agree = logits_kernel_vs_plain(engine, attr)
+        flips = routing_flips(log, model.n_dense)
+        for layer, row, ek, ep, gk, gp in flips:
+            print(f"  {label} routing flip: layer {layer} slot {row} "
+                  f"experts {ek} (kernel) vs {ep} (plain); top-k margin of "
+                  f"the router probabilities {gk:.3e} (kernel), {gp:.3e} "
+                  f"(plain)", flush=True)
+        held = hold_decode_launches(engine, attr, label)
+        check(held["held"] == apps,
+              f"{label}: held {held['held']} launches of {apps}")
+        check(rel <= 2 ** -5 or flips, f"{label}: kernel vs plain logits "
+              f"rel L2 {rel} with no routing flip")
+    n_moe = cfg.num_layers - model.n_dense if cfg.moe else 0
     # an MoE step is also compared with the plain step's experts pinned
     # to the kernel step's: the bf16 router's near-ties then cannot move
     # the logits; without a flip both comparisons are gated
-    rel_pinned = agree_pinned = None
+    rel_pinned = agree_pinned = held_moe = None
     if n_moe:
         with RouteLog(pin=n_moe) as pinned:
             rel_pinned, agree_pinned = logits_kernel_vs_plain(engine, attr)
@@ -2982,10 +3060,6 @@ def phase_serve_model(label, cfg, card, *, n_req, max_new, seed, attr):
               f"routed {len(pinned.calls)} layers of {2 * n_moe}")
         check(rel_pinned <= 2 ** -5, f"{label}: kernel vs plain logits, "
               f"experts pinned, rel L2 {rel_pinned}")
-    check(rel <= 2 ** -5 or flips, f"{label}: kernel vs plain logits rel "
-          f"L2 {rel} with no routing flip")
-    held_moe = None
-    if n_moe:
         held_moe = hold_moe_layers(engine, label)
         check(held_moe["held"] == 2 * n_moe, f"{label}: held "
               f"{held_moe['held']} MoE layers of {2 * n_moe}")
@@ -3003,26 +3077,30 @@ def phase_serve_model(label, cfg, card, *, n_req, max_new, seed, attr):
         prof = decode_busy(engine, span="moe_apply" if cfg.moe else None)
     finally:
         moe_mod.moe_apply = orig_apply
-    us = (None if prof is None else
-          prof["decode_kernel_us_per_step"] / cfg.num_layers)
+    us = (None if prof is None or not apps else
+          prof["decode_kernel_us_per_step"] / apps)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    rep.update(arch=cfg.name, num_layers=cfg.num_layers, launches=launches,
+    rep.update(arch=cfg.name, num_layers=cfg.num_layers,
+               attn_applications=apps, launches=launches,
                routes=routes, init_s=t_init, logits_rel_l2=rel,
                argmax_agree=agree, routing_flips=flips,
                logits_rel_l2_pinned=rel_pinned,
                argmax_agree_pinned=agree_pinned, held=held,
                held_moe=held_moe,
                weights=wb, profile=prof, kernel_us_per_launch=us,
-               peak_gb=peak)
+               peak_gb=peak,
+               prompt_lengths=[len(r.tokens) for r in reqs])
     nm = "not measured"
     fmt = lambda x, f: nm if x is None else format(x, f)
     moe_ms = None if prof is None else prof.get("span_device_ms_per_step")
-    print(f"  {label} profile: {prof}\n  {label} weights a step: experts "
+    print(f"  {label} profile: {prof}\n  {label} bytes a step: experts "
           f"used a layer {wb['experts_used']}  expert bytes read "
           f"{wb['expert_bytes_read'] / 1e9:.3f} GB (all experts "
           f"{wb['expert_bytes_all'] / 1e9:.3f} GB)  other weights "
-          f"{wb['other_weight_bytes'] / 1e9:.3f} GB  bound "
-          f"{wb['bound_ms']:.3f} ms (all experts "
+          f"{wb['other_weight_bytes'] / 1e9:.3f} GB  state "
+          f"{wb['state_bytes'] / 1e9:.3f} GB  recompute "
+          f"{wb['recompute_flops'] / 1e9:.1f} GFLOP  bound "
+          f"{wb['bound_ms']:.3f} ms ({wb['bound_by']}; all experts "
           f"{wb['all_experts_bound_ms']:.3f} ms)", flush=True)
     print(f"phase {label}: ok  {cfg.name}, {cfg.num_layers} layers, bf16, "
           f"init {t_init:.2f} s  launches {launches}  routes {routes}  "
@@ -3031,20 +3109,93 @@ def phase_serve_model(label, cfg, card, *, n_req, max_new, seed, attr):
           f"(bound {wb['bound_ms']:.3f} ms), busy "
           f"{fmt(prof and prof['busy_share'], '.3f')}, "
           f"{fmt(prof and prof['kernels_per_step'], '.0f')} kernels a step, "
-          f"{'#6' if mla else '#5'} {fmt(us, '.2f')} device us a launch, "
-          f"MoE layers {fmt(moe_ms, '.3f')} device ms a step  logits rel "
-          f"L2 {rel:.3e} (argmax agree {agree:.2f}, {len(flips)} routing "
-          f"flips; experts pinned: {fmt(rel_pinned, '.3e')}, argmax agree "
-          f"{fmt(agree_pinned, '.2f')})  {held['held']} launches held "
-          f"(max abs err {held['max_abs_err']:.3e}); MoE layers held to "
-          f"the plain version: "
+          f"{'#6' if mla else '#5'} x {apps} a step, {fmt(us, '.2f')} "
+          f"device us a launch, MoE layers {fmt(moe_ms, '.3f')} device ms "
+          f"a step  logits rel L2 {fmt(rel, '.3e')} (argmax agree "
+          f"{fmt(agree, '.2f')}, {len(flips)} routing flips; experts "
+          f"pinned: {fmt(rel_pinned, '.3e')}, argmax agree "
+          f"{fmt(agree_pinned, '.2f')})  "
+          f"{'no' if held is None else held['held']} launches held "
+          f"(max abs err {fmt(held and held['max_abs_err'], '.3e')}); MoE "
+          f"layers held to the plain version: "
           f"{'none' if held_moe is None else held_moe}  peak "
           f"{peak:.1f} GB  [{card}]",
           flush=True)
-    del engine, model, done, log
+    del engine, model, done
     gc.collect()
     torch.cuda.empty_cache()
+    if continuation:
+        rep["continuation"] = state_continuation(label, cfg, **continuation)
     return rep
+
+
+def state_continuation(label, cfg, prompt: int, extra: int = 4,
+                       layers=None):
+    """The recurrent and encoder state on the card: ``cfg`` in float32
+    (weights from seed 0, TF32 off) prefills ``prompt`` tokens of two
+    sequences (audio: over 1,500 frames each) into a cache, then decodes
+    ``extra`` more one at a time; the prefill's and every decode step's
+    logits against the same model's train-mode logits over all the tokens
+    at rtol = atol = 1e-3 (``tests/test_models.py::
+    test_prefill_decode_parity``'s bound). With ``layers`` the model is
+    cut to that depth (full width), and first the full-depth model's
+    train-mode logits are printed beside how far they move when the
+    embedding table is scaled by 1 + 1e-7, about one f32 rounding: at a
+    depth where rounding alone moves the logits past the bound, the
+    comparison cannot hold whatever the port does. Frees the model."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.models.transformer import init_model
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    f32 = cfg.replace(dtype="float32", param_dtype="float32")
+    rng = np.random.default_rng(13)
+    tok = torch.from_numpy(rng.integers(
+        3, cfg.vocab_size, (2, prompt + extra))).cuda()
+    kw = {}
+    if cfg.family == "audio":
+        kw["encoder_frames"] = torch.from_numpy(rng.normal(
+            0, 0.02, (2, cfg.encoder_seq_len, cfg.d_model)).astype(
+                np.float32)).cuda()
+    moved = None
+    if layers is not None:
+        model = init_model(f32, seed=0, device="cuda")
+        full = model.apply(tok, mode="train", **kw)[0]
+        model.embed.mul_(1 + 1e-7)
+        moved = float((model.apply(tok, mode="train", **kw)[0]
+                       - full).abs().max())
+        print(f"  {label} continuation: the {cfg.num_layers}-layer f32 "
+              f"model's train logits (up to {float(full.abs().max()):.2f})"
+              f" move by {moved:.3e} under a 1e-7 relative change of the "
+              f"embedding; held at {layers} layers", flush=True)
+        del model, full
+        f32 = f32.replace(num_layers=layers)
+    model = init_model(f32, seed=0, device="cuda")
+    full = model.apply(tok, mode="train", **kw)[0]
+    cache = model.init_cache(2, prompt + extra, torch.float32)
+    got, cache, _ = model.apply(tok[:, :prompt], mode="prefill",
+                                cache=cache, **kw)
+    pairs = [(got[:, 0], full[:, prompt - 1])]
+    for t in range(prompt, prompt + extra):
+        got, cache, _ = model.apply(tok[:, t:t + 1], mode="decode",
+                                    cache=cache)
+        pairs.append((got[:, 0], full[:, t]))
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    for j, (a, b) in enumerate(pairs):
+        check(bool(torch.isfinite(a).all()) and torch.allclose(
+            a, b, rtol=1e-3, atol=1e-3), f"{label} continuation step {j}: "
+            f"max abs err {float((a - b).abs().max())}")
+    scale = float(full.abs().max())
+    print(f"  {label} continuation: ok  f32 on the card, "
+          f"{f32.num_layers} layers, prompt {prompt} + {extra} decode steps "
+          f"against train mode: max abs err {err:.3e} (logits up to "
+          f"{scale:.2f})", flush=True)
+    del model, cache, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(prompt=prompt, extra=extra, layers=f32.num_layers,
+                max_abs_err=err, max_abs_logit=scale,
+                full_depth_moved_by_1e7=moved)
 
 
 def phase_serve_moe(card):
@@ -3085,6 +3236,52 @@ def phase_serve_zoo(card):
                                       attr="decode_attention")
         out[arch]["published_layers"] = full.num_layers
     return out
+
+
+def phase_serve_hybrid(card):
+    """Zamba2-2.7B at full width and depth (54 Mamba2 layers; the shared
+    attention block, #5 at G = 1, D = 80, after each group of 6: 9
+    applications a step): 8 requests of 8–200 tokens, two of them over
+    128, so the SSD's multi-chunk scan and its padded last chunk run on
+    the card; then the f32 continuation over a 150-token prompt (3
+    chunks, the last padded)."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("zamba2-2.7b").replace(param_dtype="bfloat16")
+    lengths = [200, 137] + [int(x) for x in
+                            np.random.default_rng(14).integers(8, 201, 6)]
+    return phase_serve_model("serve_hybrid", cfg, card, n_req=8, max_new=12,
+                             seed=14, attr="decode_attention",
+                             lengths=lengths,
+                             continuation=dict(prompt=150))
+
+
+def phase_serve_rwkv(card):
+    """RWKV6-1.6B at full width and depth (24 layers; no attention: neither
+    decode kernel may launch): 8 requests of 8–64 tokens, prefilled at
+    their exact lengths; then the f32 continuation over 24 tokens, at 4
+    layers: with the reference's random initialisation (decay ≈ 0.9975 a
+    token) the 24-layer model amplifies rounding past the 1e-3 bound (on
+    the CPU a 1e-6 change of the embedding moves 2, 4 and 8 layers'
+    logits by 3e-5, 1e-4 and 1.5e-3), which the phase prints."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("rwkv6-1.6b").replace(param_dtype="bfloat16")
+    return phase_serve_model("serve_rwkv", cfg, card, n_req=8, max_new=12,
+                             seed=15, attr=None,
+                             continuation=dict(prompt=24, layers=4))
+
+
+def phase_serve_whisper(card):
+    """Whisper-base at full width and depth (6 encoder and 6 decoder
+    layers; the decoder's self-attention is #5 at G = 1, D = 64): 8
+    requests of 8–64 tokens, each with 1,500 × 512 encoder frames; then
+    the f32 continuation over 20 tokens, its decode reading the encoder's
+    output back from the cache."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("whisper-base").replace(param_dtype="bfloat16")
+    return phase_serve_model("serve_whisper", cfg, card, n_req=8,
+                             max_new=12, seed=16, attr="decode_attention",
+                             continuation=dict(prompt=20))
 
 
 def main() -> int:
@@ -3209,6 +3406,11 @@ def main() -> int:
     serve_moe = phase_serve_moe(card)
     serve_olmoe = phase_serve_olmoe(card)
     serve_zoo = phase_serve_zoo(card)
+
+    # 18-20. the rest of the zoo: the Mamba2 hybrid, RWKV6, Whisper
+    serve_hybrid = phase_serve_hybrid(card)
+    serve_rwkv = phase_serve_rwkv(card)
+    serve_whisper = phase_serve_whisper(card)
 
     # 7. the int8 arena
     ops.reset_kernel_launches()
@@ -3340,8 +3542,8 @@ def main() -> int:
                         "gqa", serve["launches"]["gqa_decode"],
                         ("bf16", "bf16_softcap30", "bf16_mha", "f32",
                          "bf16_holes", "bf16_c2000", "bf16_g16",
-                         "bf16_serve", "bf16_g32", "bf16_d72", "f32_d6",
-                         "bf16_g128_d512")),
+                         "bf16_serve", "bf16_d80", "bf16_d64", "bf16_g32",
+                         "bf16_d72", "f32_d6", "bf16_g128_d512")),
              serve_olmoe_launches=serve_olmoe["launches"]["gqa_decode"],
              serve_olmoe_device_us_per_launch=serve_olmoe[
                  "kernel_us_per_launch"],
@@ -3349,9 +3551,16 @@ def main() -> int:
                                  for a, r in serve_zoo.items()},
              serve_zoo_device_us_per_launch={
                  a: r["kernel_us_per_launch"] for a, r in serve_zoo.items()},
+             serve_hybrid_launches=serve_hybrid["launches"]["gqa_decode"],
+             serve_hybrid_device_us_per_launch=serve_hybrid[
+                 "kernel_us_per_launch"],
+             serve_whisper_launches=serve_whisper["launches"]["gqa_decode"],
+             serve_whisper_device_us_per_launch=serve_whisper[
+                 "kernel_us_per_launch"],
              serve_held_max_abs_err=max(
-                 [serve_olmoe["held"]["max_abs_err"]]
-                 + [r["held"]["max_abs_err"] for r in serve_zoo.values()])),
+                 [r["held"]["max_abs_err"] for r in (
+                     serve_olmoe, serve_hybrid, serve_whisper,
+                     *serve_zoo.values())])),
         dict(decode_row("mla_decode", "mla_decode.cu",
                         "src/repro/kernels/decode_attention.py:173",
                         "mla", serve_mla["launches"]["mla_decode"],
@@ -3373,6 +3582,8 @@ def main() -> int:
                        decode=dec, main=times, dense=dense, serve=serve,
                        serve_mla=serve_mla, serve_moe=serve_moe,
                        serve_olmoe=serve_olmoe, serve_zoo=serve_zoo,
+                       serve_hybrid=serve_hybrid, serve_rwkv=serve_rwkv,
+                       serve_whisper=serve_whisper,
                        mem=mem_out, tier=tier,
                        tier_8192=tier_full, standing=standing,
                        parity_tier=parity), f, indent=1)

@@ -1,9 +1,8 @@
 """Model configuration: one frozen ``ModelConfig`` per architecture, with
 the reference's field names and defaults, and the input shapes of the
-reference's dry runs (``ShapeSpec``). The port carries the fields its
-decoders read (dense, VLM and MoE families, GQA or MLA attention, RoPE
-or M-RoPE); the SSM, RWKV and encoder-decoder fields come with the
-slices that port those models.
+reference's dry runs (``ShapeSpec``): every family of the reference —
+dense, VLM and MoE decoders (GQA or MLA attention, RoPE or M-RoPE), the
+Mamba2 hybrid, RWKV6 and the Whisper encoder-decoder.
 """
 
 from __future__ import annotations
@@ -44,6 +43,32 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) block parameters."""
+
+    state_dim: int = 64
+    conv_dim: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 64               # chunked-scan block length
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def num_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV6 (Finch) time-mix parameters."""
+
+    head_dim: int = 64
+    decay_lora: int = 64          # rank of the data-dependent decay LoRA
+    gate_lora: int = 32           # rank of token-shift mix LoRAs
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     # identity -----------------------------------------------------------
     name: str = "tiny"
@@ -77,9 +102,22 @@ class ModelConfig:
     # sub-family configs ---------------------------------------------------
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    rwkv: Optional[RWKVConfig] = None
+
+    # layer pattern for hybrids; "M"=mamba2, "A"=attention, "R"=rwkv6,
+    # "D"=dense attn+mlp. Empty => homogeneous from family/attn_type.
+    layer_pattern: str = ""
+    shared_attn_period: int = 0   # zamba2: weight-tied attn block every k layers
+
+    # encoder-decoder (whisper) -------------------------------------------
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    encoder_seq_len: int = 0      # fixed encoder frames (whisper: 1500)
 
     # multimodal stub -----------------------------------------------------
     vision_tokens: int = 0        # VLM: patch-embedding tokens per request
+    audio_frontend: bool = False  # whisper: precomputed frame embeddings
 
     # numerics ------------------------------------------------------------
     dtype: str = "bfloat16"
@@ -92,6 +130,19 @@ class ModelConfig:
     @property
     def q_per_kv(self) -> int:
         return self.num_heads // max(self.num_kv_heads, 1)
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Resolve the per-layer block kinds for this architecture."""
+        if self.layer_pattern:
+            assert len(self.layer_pattern) == self.num_layers, (
+                f"{self.name}: layer_pattern len {len(self.layer_pattern)} "
+                f"!= num_layers {self.num_layers}")
+            return tuple(self.layer_pattern)
+        if self.family == "ssm" and self.rwkv is not None:
+            return tuple("R" * self.num_layers)
+        if self.family == "ssm":
+            return tuple("M" * self.num_layers)
+        return tuple("D" * self.num_layers)
 
     def param_count(self) -> int:
         """Non-embedding parameter count (``models.params``)."""

@@ -1,6 +1,5 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
-launchers. It lists the architectures the port runs; the reference's
-other ids raise ``NotImplementedError`` until their slices land."""
+launchers: the reference's ten architectures."""
 
 from __future__ import annotations
 
@@ -18,19 +17,15 @@ _ARCH_MODULES: Dict[str, str] = {
     "nemotron-4-15b": "nemotron4_15b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "qwen2-vl-7b": "qwen2_vl_7b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
+    "whisper-base": "whisper_base",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 ARCH_IDS: List[str] = sorted(_ARCH_MODULES)
 
-# the reference's other architectures: not yet ported nor held against it
-LATER_ARCH_IDS = ("rwkv6-1.6b", "whisper-base", "zamba2-2.7b")
-
 
 def _module(arch: str):
-    if arch in LATER_ARCH_IDS:
-        raise NotImplementedError(
-            f"{arch!r} belongs to a later slice of the port (ROADMAP.md); "
-            f"ported: {ARCH_IDS}")
     try:
         mod = _ARCH_MODULES[arch]
     except KeyError:

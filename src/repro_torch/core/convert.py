@@ -4,8 +4,9 @@
   session state are exactly the reference arena's arrays, so both
   packages can be queried over identical memory, independent of ingest;
 * ``model_params_from_numpy`` turns the reference's ``Transformer.init``
-  parameter tree into the port's ``Transformer`` state dict, and
-  ``mem_params_from_numpy`` its ``MEM.init`` tree into a ``MEM`` one.
+  parameter tree, of any family, into the port's ``Transformer`` state
+  dict, and ``mem_params_from_numpy`` its ``MEM.init`` tree into a
+  ``MEM`` one.
 """
 
 from __future__ import annotations
@@ -23,35 +24,52 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
-def _flatten(tree: Mapping, prefix: str, i: int,
+def _flatten(tree: Mapping, prefix: str, i: Optional[int],
              out: Dict[str, torch.Tensor]) -> None:
-    """Layer i of a layer-stacked subtree → ``<prefix>.<name>`` entries,
-    nested dicts (``moe.shared``) joined by dots."""
+    """A subtree → ``<prefix>.<name>`` entries, nested dicts (``moe.shared``,
+    ``attn``) joined by dots; with ``i``, layer i of a layer-stacked
+    subtree."""
     for k, v in tree.items():
         if isinstance(v, Mapping):
             _flatten(v, f"{prefix}.{k}", i, out)
         else:
-            out[f"{prefix}.{k}"] = _t(np.asarray(v)[i])
+            out[f"{prefix}.{k}"] = _t(v if i is None else np.asarray(v)[i])
 
 
-def _decoder_params(tree: Mapping, head: bool) -> Dict[str, torch.Tensor]:
-    """A reference decoder tree → port state-dict entries: ``embed``,
-    ``pos_embed``, ``final_norm``, ``lm_head`` (if ``head``) and the
-    layer-stacked groups split into ``blocks.<i>``: ``dense_blocks[i]``
-    → ``blocks.i``, then ``moe_blocks[j]`` → ``blocks.<n_dense + j>``."""
-    out = {k: _t(tree[k]) for k in ("embed", "pos_embed") if k in tree}
-    if head and "lm_head" in tree:
-        out["lm_head"] = _t(tree["lm_head"])
-    for k, v in tree["final_norm"].items():
-        out[f"final_norm.{k}"] = _t(v)
+def _n_layers(blocks: Mapping) -> int:
+    leaf = blocks
+    while isinstance(leaf, Mapping):
+        leaf = next(iter(leaf.values()))
+    return len(np.asarray(leaf))
+
+
+def _model_params(tree: Mapping, head: bool) -> Dict[str, torch.Tensor]:
+    """A reference model tree → port state-dict entries. Top-level arrays
+    (``embed``, ``pos_embed``, ``enc_pos_embed``, ``lm_head`` if ``head``)
+    by name, unstacked subtrees (``final_norm``, ``enc_final_norm``, the
+    hybrid's ``shared`` block) by dotted path, and the layer-stacked
+    groups split into layers: ``blocks[i]`` → ``blocks.i``,
+    ``enc_blocks[i]`` → ``enc_blocks.i``, and a decoder's
+    ``dense_blocks[i]`` → ``blocks.i``, then ``moe_blocks[j]`` →
+    ``blocks.<n_dense + j>``."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        if k in ("blocks", "enc_blocks"):
+            for i in range(_n_layers(v)):
+                _flatten(v, f"{k}.{i}", i, out)
+        elif k in ("dense_blocks", "moe_blocks"):
+            continue
+        elif isinstance(v, Mapping):
+            _flatten(v, k, None, out)
+        elif k != "lm_head" or head:
+            out[k] = _t(v)
     first = 0
     for group in ("dense_blocks", "moe_blocks"):
         if group not in tree:
             continue
-        blocks = tree[group]
-        n = len(np.asarray(blocks["ln1"]["w"]))
+        n = _n_layers(tree[group])
         for i in range(n):
-            _flatten(blocks, f"blocks.{first + i}", i, out)
+            _flatten(tree[group], f"blocks.{first + i}", i, out)
         first += n
     return out
 
@@ -59,19 +77,18 @@ def _decoder_params(tree: Mapping, head: bool) -> Dict[str, torch.Tensor]:
 def model_params_from_numpy(cfg: ModelConfig, tree: Mapping
                             ) -> Dict[str, torch.Tensor]:
     """The reference's ``Transformer.init`` tree for ``cfg`` (nested dicts
-    of numpy arrays) → a state dict for ``models.transformer.Transformer.
-    load_state_dict``, leaf for leaf (the MoE blocks' ``moe.router``,
-    experts and ``moe.shared`` included); arrays keep their dtype
-    (``param_dtype``)."""
-    if cfg.family not in ("dense", "vlm", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} belongs to a later slice of the port "
-            f"(ROADMAP.md)")
+    of numpy arrays), of any family → a state dict for
+    ``models.transformer.Transformer.load_state_dict``, leaf for leaf (the
+    MoE blocks' ``moe.router``, experts and ``moe.shared``, the hybrid's
+    stacked Mamba ``blocks`` and unstacked ``shared`` block, the RWKV
+    blocks, and the audio tree's ``enc_blocks``, ``enc_pos_embed``,
+    ``enc_final_norm`` and decoder blocks with ``ln_x``/``xattn``
+    included); arrays keep their dtype (``param_dtype``)."""
     if cfg.tie_embeddings == ("lm_head" in tree):
         raise ValueError(f"tie_embeddings={cfg.tie_embeddings} does not "
                          f"match the tree (lm_head present: "
                          f"{'lm_head' in tree})")
-    return _decoder_params(tree, head=True)
+    return _model_params(tree, head=True)
 
 
 def mem_params_from_numpy(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -81,7 +98,7 @@ def mem_params_from_numpy(tree: Mapping) -> Dict[str, torch.Tensor]:
     The towers' unused ``lm_head`` is dropped."""
     out: Dict[str, torch.Tensor] = {}
     for tower in ("text", "vision"):
-        for k, v in _decoder_params(tree[tower], head=False).items():
+        for k, v in _model_params(tree[tower], head=False).items():
             out[f"{tower}.{k}"] = v
     for k in ("text_proj", "vision_proj", "logit_scale", "logit_bias"):
         out[k] = _t(tree[k])

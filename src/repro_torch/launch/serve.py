@@ -1,7 +1,8 @@
 """Serving launcher of the port: batched requests through the
-continuous-batching engine for a ported ``--arch`` (qwen2-vl-7b,
-minicpm3-4b, glm4-9b, nemotron-4-15b, deepseek-7b, olmoe-1b-7b,
-deepseek-v2-lite-16b), with random weights from a seed.
+continuous-batching engine for any ``--arch`` of the reference's ten
+(the dense, VLM and MoE decoders, zamba2-2.7b, rwkv6-1.6b and
+whisper-base), with random weights from a seed; an audio request carries
+encoder frames drawn from the seed, as in the reference's launcher.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \\
       --requests 8 --slots 4 --max-new 16 [--full] [--device cpu] \\
@@ -59,6 +60,10 @@ def main() -> None:
         if cfg.family == "vlm":
             r.vision_embeds = rng.normal(
                 0, 0.02, (cfg.vision_tokens, cfg.d_model)).astype(
+                    np.float32)
+        if cfg.family == "audio":
+            r.encoder_frames = rng.normal(
+                0, 0.02, (cfg.encoder_seq_len, cfg.d_model)).astype(
                     np.float32)
         reqs.append(r)
 

@@ -15,6 +15,10 @@ Cache conventions (the reference's):
   the latent cache; decode uses the matrix-absorbed form, so heads are
   never materialised per cache token.
 
+Cross attention (the Whisper decoder's) has no cache: every call
+projects the encoder output to keys and values again, as the reference
+does.
+
 ``mode``: "train" (no cache), "prefill" (fills cache[0:S]), "decode"
 (S == 1, attends to the cache at ``cache_pos``). Where the reference
 returns new cache arrays, the port writes the given cache tensors in
@@ -226,6 +230,36 @@ def gqa_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
         q, cache["k"].to(dt), cache["v"].to(dt), valid, scale=scale,
         softcap=cfg.attn_logit_softcap, q_per_kv=cfg.q_per_kv)
     return ctx.reshape(b, 1, h * hd) @ p["wo"].to(dt), cache
+
+
+# ===========================================================================
+# Cross attention (whisper decoder)
+# ===========================================================================
+
+
+def cross_attn_init(gen: torch.Generator, cfg: ModelConfig,
+                    dtype=torch.float32) -> dict:
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    return {"wq": dense_init(gen, d, h * hd, dtype=dtype),
+            "wk": dense_init(gen, d, h * hd, dtype=dtype),
+            "wv": dense_init(gen, d, h * hd, dtype=dtype),
+            "wo": dense_init(gen, h * hd, d, dtype=dtype)}
+
+
+def cross_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                    x: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
+    """x: (B, Sq, d) decoder states; enc: (B, Sk, d) encoder output; every
+    query sees every encoder frame."""
+    b, sq, _ = x.shape
+    sk = enc.shape[1]
+    h, hd = cfg.num_heads, cfg.head_dim
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(b, sq, h, hd)
+    k = (enc @ p["wk"].to(dt)).reshape(b, sk, h, hd)
+    v = (enc @ p["wv"].to(dt)).reshape(b, sk, h, hd)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=x.device)
+    ctx = _sdpa(q, k, v, mask, 1.0 / (hd ** 0.5), 0.0, 1)
+    return ctx.reshape(b, sq, h * hd) @ p["wo"].to(dt)
 
 
 # ===========================================================================

@@ -2,10 +2,12 @@
 a model built on the ``meta`` device (the port's ``jax.eval_shape``).
 
 The counts equal the reference's (``repro.models.params``) leaf for leaf:
-each port parameter is read under the reference's tree path
-(``blocks.<i>`` → ``dense_blocks`` or ``moe_blocks``, dots → slashes), and
-the active count scales each layer-stacked leaf as the reference does,
-once over all its layers — which, as in the reference, takes k/E of the
+each port parameter is read under the reference's tree path (dots →
+slashes; a decoder's ``blocks.<i>`` → ``dense_blocks`` or ``moe_blocks``,
+every other family's ``blocks.<i>`` → ``blocks`` and ``enc_blocks.<i>`` →
+``enc_blocks``; the hybrid's weight-tied ``shared`` block once), and the
+active count scales each layer-stacked leaf as the reference does, once
+over all its layers — which, as in the reference, takes k/E of the
 shared experts' leaves too, since their paths lie under ``moe``.
 """
 
@@ -39,9 +41,11 @@ def _shapes(cfg: ModelConfig) -> Dict[str, int]:
     out: Dict[str, int] = {}
     for name, t in model.named_parameters():
         parts = name.split(".")
-        if parts[0] == "blocks":
-            group = ("dense_blocks" if int(parts[1]) < model.n_dense
-                     else "moe_blocks")
+        if parts[0] in ("blocks", "enc_blocks"):
+            group = parts[0]
+            if model.kind == "decoder":
+                group = ("dense_blocks" if int(parts[1]) < model.n_dense
+                         else "moe_blocks")
             parts = [group] + parts[2:]
         path = "/".join(parts)
         out[path] = out.get(path, 0) + t.numel()

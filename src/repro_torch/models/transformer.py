@@ -1,27 +1,41 @@
-"""The decoder stack of the dense, VLM and MoE families — GQA or MLA
-blocks, with a KV cache — one ``nn.Module`` per layer where the reference
-scans stacked layers.
+"""Every model family of the reference — the dense, VLM and MoE
+decoders (GQA or MLA blocks), the Mamba2 hybrid, RWKV6 and the Whisper
+encoder-decoder — with their caches, one ``nn.Module`` per layer where
+the reference scans stacked layers.
 
 A model holds ``embed`` (vocab, d), ``pos_embed`` (max_seq_len, d) for
 learned positions, ``final_norm``, ``blocks`` and, unless the embeddings
 are tied, ``lm_head`` (d, vocab); every leaf keeps the reference's name,
 so ``core.convert`` maps a reference parameter tree onto it one to one.
-The reference's two groups of blocks (``dense_blocks``, then
-``moe_blocks``: an MoE config's ``first_dense_layers`` dense blocks of
-``dense_d_ff``, then blocks with ``moe`` in place of ``mlp``) are
-``blocks[:n_dense]`` and ``blocks[n_dense:]``. The MEM towers are built
-without a head (``head=False``) and read only ``hidden``.
+By family, ``blocks`` holds:
+
+* dense / VLM / MoE: ``AttnBlock``s — the reference's two groups of
+  blocks (``dense_blocks``, then ``moe_blocks``: an MoE config's
+  ``first_dense_layers`` dense blocks of ``dense_d_ff``, then blocks with
+  ``moe`` in place of ``mlp``) are ``blocks[:n_dense]`` and
+  ``blocks[n_dense:]``;
+* hybrid (Zamba2): ``MambaBlock``s, and one weight-tied ``AttnBlock``,
+  ``shared``, applied after each group of ``shared_attn_period`` of them;
+* RWKV: ``RWKVBlock``s (time mix, then channel mix);
+* audio (Whisper): decoder ``AttnBlock``s with cross attention over the
+  encoder's output; the encoder is ``enc_pos_embed``, ``enc_blocks``
+  (bidirectional ``AttnBlock``s over the given frame embeddings) and
+  ``enc_final_norm``.
+
+The MEM towers are built without a head (``head=False``) and read only
+``hidden``. Norms are RMSNorm, or LayerNorm (with a ``b`` leaf) for the
+audio and RWKV families, as in the reference.
 
 ``apply`` modes: "train" (full logits), "prefill" (fills the cache,
 returns last-position logits only), "decode" (one token against the
 cache); it returns the MoE blocks' summed aux loss. The cache keeps the
-reference's layout: ``pos`` (B,), for M-RoPE ``mrope_delta`` (B,), and a
-group per block group — ``dense`` and ``moe`` — holding its layers'
-cache leaves stacked on a leading layer axis, the batch on axis 1.
+reference's layout: ``pos`` (B,), for M-RoPE ``mrope_delta`` (B,), for
+audio ``enc_out`` (B, S_enc, d) in the cache dtype, and the groups of
+``GROUPS`` — ``dense`` and ``moe``, ``mamba`` and ``shared``, ``rwkv``,
+``self`` — each holding its layers' (or shared-block applications')
+cache leaves stacked on a leading axis, the batch on axis 1. The
+recurrent groups (``mamba``, ``rwkv``) are f32 whatever the cache dtype.
 Layers write their slices of the stacked leaves in place.
-
-Norms are RMSNorm, the dense families' norm. The hybrid, RWKV and audio
-families come with later slices.
 """
 
 from __future__ import annotations
@@ -35,12 +49,15 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
-                                       mlp_init, rms_norm)
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (dense_init, embed_init, layer_norm,
+                                       mlp_apply, mlp_init, rms_norm)
 from repro_torch.util import resolve_device
 
 Cache = Optional[Dict[str, Any]]
-GROUPS = ("dense", "moe")
+# the cache's layer-stacked groups (batch on axis 1)
+GROUPS = ("dense", "moe", "mamba", "shared", "rwkv", "self")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -73,27 +90,50 @@ class _Tree(nn.Module):
         return k in self._parameters or k in self._modules
 
 
-def _norm_init(d: int, dtype, device) -> dict:
-    return {"w": torch.ones((d,), dtype=dtype, device=device)}
+def _layernorm_family(cfg: ModelConfig) -> bool:
+    return cfg.family == "audio" or cfg.rwkv is not None
+
+
+def _norm_init(cfg: ModelConfig, dtype, device) -> nn.ParameterDict:
+    p = {"w": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if _layernorm_family(cfg):
+        p["b"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    return _params(p)
 
 
 def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    if "b" in p:
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
     return rms_norm(x, p["w"], cfg.norm_eps)
 
 
+def _write(views: Optional[dict], new: Optional[dict]) -> None:
+    """Copy a layer's new cache leaves into its views of the stacked
+    leaves."""
+    if views is not None and new is not None:
+        for k, t in new.items():
+            views[k].copy_(t)
+
+
 class AttnBlock(nn.Module):
-    """Pre-norm attention block: ``ln1``, ``attn`` (GQA or MLA), ``ln2``,
-    and ``mlp`` of ``d_ff`` or, with ``use_moe``, ``moe``."""
+    """Pre-norm attention block: ``ln1``, ``attn`` (GQA or MLA), with
+    ``cross`` ``ln_x`` and ``xattn`` (cross attention over the encoder's
+    output), ``ln2``, and ``mlp`` of ``d_ff`` or, with ``use_moe``,
+    ``moe``."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, *,
-                 d_ff: int, use_moe: bool = False):
+                 d_ff: int, use_moe: bool = False, cross: bool = False):
         super().__init__()
         self.cfg = cfg
         dtype, dev = _dtype(cfg.param_dtype), gen.device
-        self.ln1 = _params(_norm_init(cfg.d_model, dtype, dev))
-        self.ln2 = _params(_norm_init(cfg.d_model, dtype, dev))
+        self.ln1 = _norm_init(cfg, dtype, dev)
+        self.ln2 = _norm_init(cfg, dtype, dev)
         init = attn.mla_init if cfg.attn_type == "mla" else attn.gqa_init
         self.attn = _params(init(gen, cfg, dtype))
+        self.cross = cross
+        if cross:
+            self.ln_x = _norm_init(cfg, dtype, dev)
+            self.xattn = _params(attn.cross_attn_init(gen, cfg, dtype))
         self.use_moe = use_moe
         if use_moe:
             self.moe = _Tree(moe_mod.moe_init(gen, cfg, dtype))
@@ -105,7 +145,8 @@ class AttnBlock(nn.Module):
              mrope_positions: Optional[torch.Tensor] = None,
              cache: Optional[dict] = None,
              cache_pos: Optional[torch.Tensor] = None, mode: str = "train",
-             kv_lengths: Optional[torch.Tensor] = None
+             kv_lengths: Optional[torch.Tensor] = None,
+             enc_out: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Optional[dict],
                         Optional[torch.Tensor]]:
         """→ (x, cache, the MoE aux loss or None)."""
@@ -121,31 +162,91 @@ class AttnBlock(nn.Module):
                 mrope_positions=mrope_positions, cache=cache,
                 cache_pos=cache_pos, mode=mode, kv_lengths=kv_lengths)
         x = x + a
+        if self.cross:
+            assert enc_out is not None
+            x = x + attn.cross_attention(self.xattn, cfg,
+                                         _norm(cfg, self.ln_x, x), enc_out)
         h = _norm(cfg, self.ln2, x)
         if self.use_moe:
             m, aux = moe_mod.moe_apply(self.moe, cfg, h)
             return x + m, cache, aux
         return x + mlp_apply(self.mlp, h, cfg.activation), cache, None
 
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """The Whisper encoder's block: bidirectional self-attention with
+        the GQA weights, no positions, then the MLP."""
+        cfg = self.cfg
+        p = self.attn
+        h = _norm(cfg, self.ln1, x)
+        b, s, _ = h.shape
+        hd, dt = cfg.head_dim, h.dtype
+        q = (h @ p["wq"].to(dt)).reshape(b, s, cfg.num_heads, hd)
+        k = (h @ p["wk"].to(dt)).reshape(b, s, cfg.num_kv_heads, hd)
+        v = (h @ p["wv"].to(dt)).reshape(b, s, cfg.num_kv_heads, hd)
+        mask = torch.ones((s, s), dtype=torch.bool, device=x.device)
+        ctx = attn._sdpa(q, k, v, mask, 1.0 / (hd ** 0.5), 0.0,
+                         cfg.q_per_kv)
+        x = x + ctx.reshape(b, s, cfg.num_heads * hd) @ p["wo"].to(dt)
+        h = _norm(cfg, self.ln2, x)
+        return x + mlp_apply(self.mlp, h, cfg.activation)
+
     def forward(self, x: torch.Tensor, positions: torch.Tensor
                 ) -> torch.Tensor:
         return self.step(x, positions=positions)[0]
 
 
+class MambaBlock(nn.Module):
+    """Pre-norm Mamba2 block: ``ln``, ``mamba``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        dtype = _dtype(cfg.param_dtype)
+        self.ln = _norm_init(cfg, dtype, gen.device)
+        self.mamba = _params(ssm_mod.mamba2_init(gen, cfg, dtype))
+
+    def step(self, x: torch.Tensor, cache: Optional[dict], mode: str
+             ) -> torch.Tensor:
+        y, new = ssm_mod.mamba2_apply(self.mamba, self.cfg,
+                                      _norm(self.cfg, self.ln, x),
+                                      cache=cache, mode=mode)
+        _write(cache, new)
+        return x + y
+
+
+class RWKVBlock(nn.Module):
+    """RWKV6 block: ``ln1``, the time mix, ``ln2``, the channel mix (both
+    mixes' leaves under ``mix``)."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        dtype = _dtype(cfg.param_dtype)
+        self.ln1 = _norm_init(cfg, dtype, gen.device)
+        self.ln2 = _norm_init(cfg, dtype, gen.device)
+        self.mix = _params(rwkv_mod.rwkv6_init(gen, cfg, dtype))
+
+    def step(self, x: torch.Tensor, state: Optional[dict], mode: str
+             ) -> torch.Tensor:
+        cfg = self.cfg
+        y, st_tm = rwkv_mod.rwkv6_time_mix(
+            self.mix, cfg, _norm(cfg, self.ln1, x), state, mode)
+        x = x + y
+        y, st_cm = rwkv_mod.rwkv6_channel_mix(
+            self.mix, cfg, _norm(cfg, self.ln2, x), state, mode)
+        # both mixes read the state before either is written
+        _write(state, {**st_tm, **st_cm})
+        return x + y
+
+
 class Transformer(nn.Module):
-    """A dense, VLM or MoE decoder. ``gen`` draws the initial weights (on
-    its device) with the reference's scales; ``head=False`` leaves out the
-    LM head (the MEM towers)."""
+    """A model of any family. ``gen`` draws the initial weights (on its
+    device) with the reference's scales; ``head=False`` leaves out the LM
+    head (the MEM towers)."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, *,
                  head: bool = True):
         super().__init__()
-        if cfg.family not in ("dense", "vlm", "moe") or cfg.attn_type not in (
-                "gqa", "mla"):
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} / attention "
-                f"{cfg.attn_type!r} belong to later slices of the port "
-                f"(ROADMAP.md)")
         self.cfg = cfg
         self.adtype = _dtype(cfg.dtype)
         dtype, dev = _dtype(cfg.param_dtype), gen.device
@@ -158,7 +259,7 @@ class Transformer(nn.Module):
                 requires_grad=False)
         else:
             self.pos_embed = None
-        self.final_norm = _params(_norm_init(cfg.d_model, dtype, dev))
+        self.final_norm = _norm_init(cfg, dtype, dev)
         if head and not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
                 dense_init(gen, cfg.d_model, cfg.vocab_size, dtype=dtype),
@@ -168,13 +269,53 @@ class Transformer(nn.Module):
         # blocks of the ``dense`` group; the rest form the ``moe`` group
         self.n_dense = min(cfg.moe.first_dense_layers if cfg.moe
                            else cfg.num_layers, cfg.num_layers)
-        dense_ff = (cfg.moe.dense_d_ff if cfg.moe and cfg.moe.dense_d_ff
-                    else cfg.d_ff)
-        self.blocks = nn.ModuleList(
-            [AttnBlock(cfg, gen, d_ff=dense_ff)
-             for _ in range(self.n_dense)]
-            + [AttnBlock(cfg, gen, d_ff=cfg.d_ff, use_moe=True)
-               for _ in range(cfg.num_layers - self.n_dense)])
+        if cfg.family == "audio":
+            self.enc_pos_embed = nn.Parameter(
+                embed_init(gen, cfg.encoder_seq_len, cfg.d_model, dtype),
+                requires_grad=False)
+            self.enc_blocks = nn.ModuleList(
+                [AttnBlock(cfg, gen, d_ff=cfg.d_ff)
+                 for _ in range(cfg.num_encoder_layers)])
+            self.enc_final_norm = _norm_init(cfg, dtype, dev)
+            self.blocks = nn.ModuleList(
+                [AttnBlock(cfg, gen, d_ff=cfg.d_ff, cross=True)
+                 for _ in range(cfg.num_layers)])
+        elif cfg.family == "hybrid":
+            if cfg.num_layers % cfg.shared_attn_period:
+                raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are "
+                                 f"not groups of {cfg.shared_attn_period}")
+            self.blocks = nn.ModuleList([MambaBlock(cfg, gen)
+                                         for _ in range(cfg.num_layers)])
+            self.shared = AttnBlock(cfg, gen, d_ff=cfg.d_ff)
+        elif cfg.rwkv is not None:
+            self.blocks = nn.ModuleList([RWKVBlock(cfg, gen)
+                                         for _ in range(cfg.num_layers)])
+        else:
+            dense_ff = (cfg.moe.dense_d_ff if cfg.moe and cfg.moe.dense_d_ff
+                        else cfg.d_ff)
+            self.blocks = nn.ModuleList(
+                [AttnBlock(cfg, gen, d_ff=dense_ff)
+                 for _ in range(self.n_dense)]
+                + [AttnBlock(cfg, gen, d_ff=cfg.d_ff, use_moe=True)
+                   for _ in range(cfg.num_layers - self.n_dense)])
+
+    @property
+    def kind(self) -> str:
+        """Which family's stack ``apply`` runs: "audio", "hybrid", "rwkv"
+        or "decoder" (dense, VLM and MoE)."""
+        cfg = self.cfg
+        if cfg.family in ("audio", "hybrid"):
+            return cfg.family
+        return "rwkv" if cfg.rwkv is not None else "decoder"
+
+    @property
+    def attn_applications(self) -> int:
+        """Self-attention layers a decode step runs: the shared block's
+        applications for the hybrid, none for RWKV."""
+        cfg = self.cfg
+        if self.kind == "hybrid":
+            return cfg.num_layers // cfg.shared_attn_period
+        return 0 if self.kind == "rwkv" else cfg.num_layers
 
     @property
     def device(self) -> torch.device:
@@ -200,32 +341,52 @@ class Transformer(nn.Module):
         if cfg.pos_type == "mrope":
             cache["mrope_delta"] = torch.zeros((batch,), dtype=torch.int32,
                                                device=device)
-        mk = (attn.mla_cache_init if cfg.attn_type == "mla"
-              else attn.gqa_cache_init)
-        one = mk(cfg, batch, max_len, dtype, device="meta")
-        for group, n in zip(GROUPS, (self.n_dense,
-                                     cfg.num_layers - self.n_dense)):
-            if n:
-                cache[group] = {k: torch.zeros((n,) + v.shape, dtype=dtype,
-                                               device=device)
-                                for k, v in one.items()}
+
+        def stack(one: dict, n: int) -> dict:
+            # ``one`` lives on the meta device: its shapes and dtypes only
+            return {k: torch.zeros((n,) + v.shape, dtype=v.dtype,
+                                   device=device) for k, v in one.items()}
+
+        def kv():
+            mk = (attn.mla_cache_init if cfg.attn_type == "mla"
+                  else attn.gqa_cache_init)
+            return mk(cfg, batch, max_len, dtype, device="meta")
+        kind = self.kind
+        if kind == "audio":
+            cache["self"] = stack(kv(), cfg.num_layers)
+            cache["enc_out"] = torch.zeros(
+                (batch, cfg.encoder_seq_len, cfg.d_model), dtype=dtype,
+                device=device)
+        elif kind == "hybrid":
+            cache["mamba"] = stack(
+                ssm_mod.mamba2_cache_init(cfg, batch, device="meta"),
+                cfg.num_layers)
+            cache["shared"] = stack(kv(), self.attn_applications)
+        elif kind == "rwkv":
+            cache["rwkv"] = stack(
+                rwkv_mod.rwkv6_state_init(cfg, batch, device="meta"),
+                cfg.num_layers)
+        else:
+            for group, n in (("dense", self.n_dense),
+                             ("moe", cfg.num_layers - self.n_dense)):
+                if n:
+                    cache[group] = stack(kv(), n)
         return cache
 
-    def _layer_cache(self, cache: Cache, i: int) -> Optional[dict]:
-        """Layer i's views into its group's stacked leaves."""
+    @staticmethod
+    def _views(cache: Cache, group: str, j: int) -> Optional[dict]:
+        """Entry j's views into a group's stacked leaves."""
         if cache is None:
             return None
-        group, j = (("dense", i) if i < self.n_dense
-                    else ("moe", i - self.n_dense))
         return {k: v[j] for k, v in cache[group].items()}
 
     @staticmethod
     def insert_slot(cache: Dict[str, Any], one: Dict[str, Any],
                     slot: int) -> None:
         """Copy a batch-1 cache ``one`` into batch row ``slot`` of
-        ``cache`` in place: ``pos`` and ``mrope_delta`` have the batch on
-        axis 0, the stacked leaves of the ``dense`` and ``moe`` groups on
-        axis 1."""
+        ``cache`` in place: ``pos``, ``mrope_delta`` and ``enc_out`` have
+        the batch on axis 0, the stacked leaves of every group of
+        ``GROUPS`` on axis 1."""
         for k, v in cache.items():
             if k in GROUPS:
                 for n, buf in v.items():
@@ -237,11 +398,14 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def apply(self, tokens: torch.Tensor, *,
               vision_embeds: Optional[torch.Tensor] = None,
+              encoder_frames: Optional[torch.Tensor] = None,
               cache: Cache = None, mode: str = "train",
               prompt_lengths: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
         """tokens: (B, S_text) int. Returns (logits, new_cache, aux).
 
+        encoder_frames (B, S_enc, d): the audio family's frame embeddings,
+        read in train and prefill (decode reads the cache's ``enc_out``).
         prompt_lengths (B,): true prompt lengths (vision tokens included)
         for right-padded prefill — pad keys are masked, last-token logits
         and cache positions use the true length."""
@@ -262,14 +426,35 @@ class Transformer(nn.Module):
         x = x.to(self.adtype)
         s_total = x.shape[1]                    # vision tokens included
         aux = torch.zeros((), dtype=torch.float32, device=dev)
-        for i, block in enumerate(self.blocks):
-            x, _, a = block.step(x, positions=positions,
-                                 mrope_positions=mrope_positions,
-                                 cache=self._layer_cache(cache, i),
-                                 cache_pos=cache_pos, mode=mode,
-                                 kv_lengths=kv_lengths)
-            if a is not None:
-                aux = aux + a
+        kw = dict(positions=positions, cache_pos=cache_pos, mode=mode,
+                  kv_lengths=kv_lengths)
+        kind = self.kind
+        if kind == "audio":
+            enc_out = self._encode(encoder_frames, cache, mode)
+            for i, block in enumerate(self.blocks):
+                x = block.step(x, cache=self._views(cache, "self", i),
+                               enc_out=enc_out, **kw)[0]
+        elif kind == "hybrid":
+            period = cfg.shared_attn_period
+            for i, block in enumerate(self.blocks):
+                x = block.step(x, self._views(cache, "mamba", i), mode)
+                if i % period == period - 1:
+                    # the weight-tied block, with application j's cache
+                    x = self.shared.step(
+                        x, cache=self._views(cache, "shared", i // period),
+                        **kw)[0]
+        elif kind == "rwkv":
+            for i, block in enumerate(self.blocks):
+                x = block.step(x, self._views(cache, "rwkv", i), mode)
+        else:
+            for i, block in enumerate(self.blocks):
+                group, j = (("dense", i) if i < self.n_dense
+                            else ("moe", i - self.n_dense))
+                x, _, a = block.step(x, mrope_positions=mrope_positions,
+                                     cache=self._views(cache, group, j),
+                                     **kw)
+                if a is not None:
+                    aux = aux + a
 
         x = _norm(cfg, self.final_norm, x)
         if mode == "prefill":
@@ -297,6 +482,23 @@ class Transformer(nn.Module):
                 else torch.full((b,), delta, dtype=torch.int32, device=dev))
         return logits, new_cache, aux
 
+    def _encode(self, encoder_frames, cache: Cache, mode: str
+                ) -> torch.Tensor:
+        """The encoder's output in the activation dtype: at decode the
+        cache's ``enc_out``; else the encoder over ``encoder_frames``,
+        stored into the cache (in its dtype) at prefill."""
+        if mode == "decode":
+            return cache["enc_out"].to(self.adtype)
+        assert encoder_frames is not None, "audio needs encoder_frames"
+        e = encoder_frames.to(self.device, self.adtype)
+        e = e + self.enc_pos_embed.to(self.adtype)[None, :e.shape[1]]
+        for block in self.enc_blocks:
+            e = block.encode(e)
+        e = _norm(self.cfg, self.enc_final_norm, e)
+        if cache is not None:
+            cache["enc_out"].copy_(e)
+        return e
+
     # ------------------------------------------------------------- internals
     def _embed(self, tokens, vision_embeds, cache_pos, cached_delta, mode):
         cfg = self.cfg
@@ -315,7 +517,10 @@ class Transformer(nn.Module):
                 b, s, vision_embeds, cache_pos, cached_delta, mode,
                 x.device)
         if cfg.pos_type == "learned":
-            x = x + self.pos_embed.to(self.adtype)[positions]
+            # a position past the table reads its last row, as the
+            # reference's gather clamps it
+            table = self.pos_embed.to(self.adtype)
+            x = x + table[positions.clamp(max=table.shape[0] - 1)]
         return x, positions, mrope_positions, delta
 
     def _mrope_positions(self, b, s, vision_embeds, cache_pos, cached_delta,

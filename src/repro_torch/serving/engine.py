@@ -8,9 +8,11 @@ reference's (``repro.serving.engine``):
 * prefill runs at batch 1 over power-of-two right-padded prompt buckets
   (``pow2_bucket(s, lo=16)``; pad keys are masked through
   ``prompt_lengths``, which only attention reads: in an MoE block the
-  pads are routed and take expert capacity, as in the reference), then
-  ``Transformer.insert_slot`` copies its cache — both block groups,
-  ``dense`` and ``moe`` — into the slot in place;
+  pads are routed and take expert capacity, as in the reference) — or,
+  for the recurrent archs (SSM, RWKV, the hybrid), whose state a pad
+  would enter, at the prompt's exact length — then
+  ``Transformer.insert_slot`` copies its cache — every group, and an
+  audio request's encoder output — into the slot in place;
 * decoding is greedy, or, with ``temperature > 0``, a Gumbel-max draw
   whose noise comes from the reference's key chain (``kernels.prng``);
 * ``timings`` keeps the host-clock seconds of every prefill and decode
@@ -44,6 +46,7 @@ class Request:
     tokens: np.ndarray                       # (S,) prompt
     max_new_tokens: int = 16
     vision_embeds: Any = None                # (vision_tokens, d) array/tensor
+    encoder_frames: Any = None               # (encoder_seq_len, d) audio
     # arrival time: set by the caller (``VenusService`` stamps it before
     # retrieval) or else by ``ServingEngine.submit``; TTFT counts from it
     submitted_at: Optional[float] = None
@@ -92,11 +95,13 @@ class ServingEngine:
         return _argmax(logits)
 
     def _prefill(self, tokens: torch.Tensor, lengths: torch.Tensor,
-                 vision_embeds: Optional[torch.Tensor]):
+                 vision_embeds: Optional[torch.Tensor],
+                 encoder_frames: Optional[torch.Tensor] = None):
         cache = self.model.init_cache(tokens.shape[0], self.max_len,
                                       self.cache_dtype)
         logits, cache, _ = self.model.apply(
-            tokens, vision_embeds=vision_embeds, cache=cache, mode="prefill",
+            tokens, vision_embeds=vision_embeds,
+            encoder_frames=encoder_frames, cache=cache, mode="prefill",
             prompt_lengths=lengths)
         return _argmax(logits), cache
 
@@ -108,23 +113,28 @@ class ServingEngine:
 
     def _admit(self) -> None:
         dev = self.device
+        cfg = self.cfg
+        recurrent = cfg.family in ("ssm", "hybrid") or cfg.rwkv is not None
+
+        def batch1(x):
+            return (None if x is None else
+                    torch.as_tensor(x).to(dev, torch.float32)[None])
         for slot in range(self.batch_slots):
             if self._slot_req[slot] is not None or not self._pending:
                 continue
             req = self._pending.pop(0)
             toks = np.asarray(req.tokens[-self.max_len:], np.int32)
             s = len(toks)
-            buf = np.full((pow2_bucket(s, lo=16),), PAD, np.int32)
+            bucket = s if recurrent else pow2_bucket(s, lo=16)
+            buf = np.full((bucket,), PAD, np.int32)
             buf[:s] = toks              # right-pad
-            ve = None
-            if req.vision_embeds is not None:
-                ve = torch.as_tensor(req.vision_embeds).to(
-                    dev, torch.float32)[None]
+            ve = batch1(req.vision_embeds)
             nv = 0 if ve is None else ve.shape[1]
             t0 = time.perf_counter()
             nxt, one_cache = self._prefill(
                 torch.from_numpy(buf)[None].to(dev),
-                torch.tensor([s + nv], dtype=torch.int32, device=dev), ve)
+                torch.tensor([s + nv], dtype=torch.int32, device=dev), ve,
+                batch1(req.encoder_frames))
             self.model.insert_slot(self.cache, one_cache, slot)
             req.generated.append(int(nxt[0]))
             req.first_token_at = time.perf_counter()
@@ -183,13 +193,15 @@ def make_serve_step(model: Transformer):
 
 
 def make_prefill_step(model: Transformer, max_len: int):
-    """Returns prefill_step(tokens, vision_embeds=None) -> (last-token
-    logits, bf16 cache)."""
-    def prefill_step(tokens, vision_embeds=None):
+    """Returns prefill_step(tokens, vision_embeds=None,
+    encoder_frames=None) -> (last-token logits, bf16 cache); the VLM reads
+    the vision embeddings, the audio family the encoder frames."""
+    def prefill_step(tokens, vision_embeds=None, encoder_frames=None):
+        family = model.cfg.family
         cache = model.init_cache(tokens.shape[0], max_len, torch.bfloat16)
         logits, cache, _ = model.apply(
-            tokens, vision_embeds=(vision_embeds if model.cfg.family == "vlm"
-                                   else None),
+            tokens, vision_embeds=vision_embeds if family == "vlm" else None,
+            encoder_frames=encoder_frames if family == "audio" else None,
             cache=cache, mode="prefill")
         return logits, cache
     return prefill_step
