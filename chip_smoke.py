@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
-12, 15–20, 7, 13, 14, 8, 9:
+12, 15–20, 7, 13, 14, 8, 9, 21–25:
 
 1. build      — compile the CUDA kernels from ``src/repro_torch/kernels/
                 csrc`` (one nvcc per source, all started together);
@@ -205,6 +205,35 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 bound; the continuation over 20 tokens, its decode reading
                 the encoder's output from the cache. Each serve phase
                 frees its model before the next one starts.
+21. train_mem — SigLIP training of venus-mem-large at full width and
+                depth (f32 weights, bf16 activations, remat on): 20 steps
+                of 32 synthetic pairs (a class a row: a prototype patch
+                row over 784 patches, a caption); the contrastive accuracy
+                of the last 5 steps above the first 5's;
+22. train_lm  — DeepSeek-LLM-7B at full width cut to 4 layers: one
+                batch's gradients with remat off and on (equal within
+                1e-5 relative L2 a leaf, each one's memory printed), then
+                20 steps of 4 × 512 tokens from ``lm_batches``; the last
+                3 steps' mean loss below the first 3's;
+23. train_moe — OLMoE-1B-7B at full width cut to 4 layers: 10 steps of
+                4 × 512; then one batch's gradients with its routing
+                recorded: pairs dropped, every gradient finite, each
+                router's nonzero; the drop share and the experts reached
+                a layer;
+24. train_zoo — one step each (then one timed warm) of Qwen2-VL-7B (4
+                layers, 1,024 vision tokens a row), MiniCPM3-4B (4 layers),
+                Zamba2-2.7B (6 Mamba2 layers and the shared block once),
+                RWKV6-1.6B (4 layers) and Whisper-base (full, 1,500
+                frames a row): a finite loss and changed parameters;
+25. train_parity — f32 with TF32 off, the card against the CPU on the
+                same weights and batch: MEM at full width with 2 layers a
+                tower, OLMoE at full width with 1 layer (the same routing
+                on both); every gradient leaf within 1e-4 relative L2.
+                Each training phase prints its seconds a step, tokens or
+                pairs a second, peak ``max_memory_allocated``, the
+                optimiser's share of a step (AdamW alone, CUDA events)
+                and the card; each frees its models and optimiser state.
+                No hand-written kernel launches on the train path.
 
 Prints the card's name and power limit, one line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -3284,6 +3313,456 @@ def phase_serve_whisper(card):
                              continuation=dict(prompt=20))
 
 
+# ---------------------------------------------------------------------------
+# training (phases 21-25): plain PyTorch, no hand-written kernel on the path
+# ---------------------------------------------------------------------------
+
+MEM_PATCHES = 784                  # 224² frames in 8 × 8 patches
+TRAIN_SEQ = 512
+
+
+def _fingerprint(model):
+    """Σ p² of each parameter in f64: a leaf that an update moved changes
+    its fingerprint."""
+    import torch
+    with torch.no_grad():
+        return {k: float(torch.sum(torch.square(p.to(torch.float64))))
+                for k, p in model.named_parameters()}
+
+
+def loss_and_grads(model, loss_fn):
+    """(loss, {name: gradient}) of ``loss_fn(model)`` over the model's
+    parameters, unfrozen for it."""
+    import torch
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    loss, _ = loss_fn(model)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(p) if g is None else g
+                           for (k, p), g in zip(params.items(), grads)}
+
+
+def _rel_l2(a, b) -> float:
+    """‖a − b‖ / ‖b‖, summed in f64 on b's device."""
+    import torch
+    f64 = torch.float64
+    den = float(torch.linalg.vector_norm(b, dtype=f64))
+    num = float(torch.linalg.vector_norm(a.to(b.device) - b, dtype=f64))
+    return num / den if den else num
+
+
+def hold_grads(label, got, want, gate):
+    """Every gradient leaf of ``got`` within ``gate`` relative L2 of
+    ``want``'s and finite; → (worst leaf, its error)."""
+    import math
+    import torch
+    check(set(got) == set(want), f"{label}: gradient leaves differ")
+    errs = {k: _rel_l2(got[k], want[k]) for k in want}
+    worst = max(errs, key=errs.get)
+    check(all(bool(torch.isfinite(g).all()) for g in got.values()),
+          f"{label}: a gradient is not finite")
+    check(errs[worst] <= gate and math.isfinite(errs[worst]),
+          f"{label}: {worst} rel L2 {errs[worst]:.3e} > {gate}")
+    return worst, errs[worst]
+
+
+def train_run(label, model, step, batches, card, *, units, unit_name,
+              first_step=0):
+    """Train ``model`` on the card over ``batches`` with ``step``; every
+    metric finite. → seconds a step (the median after the first, which
+    warms the allocator), ``units`` a step per second, the peak of
+    ``torch.cuda.max_memory_allocated`` and the optimiser alone (AdamW in
+    place over this model's state with zero gradients and lr 0, CUDA
+    events) beside the step."""
+    import math
+    import statistics
+    import torch
+    from repro_torch.training import adamw_init, adamw_update
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw_init(dict(model.named_parameters()))
+    secs, hist = [], {}
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, b, first_step + i)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        for k, v in m.items():
+            hist.setdefault(k, []).append(float(v))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    bad = {k: v for k, v in hist.items()
+           if not all(math.isfinite(x) for x in v)}
+    check(not bad, f"{label}: metrics not finite: {bad}")
+    params = dict(model.named_parameters())
+    zero = {k: torch.zeros_like(p) for k, p in params.items()}
+    opt_ms = cuda_ms(lambda: adamw_update(zero, opt, params, lr=0.0),
+                     reps=3)
+    del zero, opt
+    step_s = statistics.median(secs[1:]) if len(secs) > 1 else secs[0]
+    out = dict(steps=len(secs), step_s=step_s, first_step_s=secs[0],
+               all_step_s=secs, **{f"{unit_name}_per_s": units / step_s},
+               peak_gb=peak, optimiser_ms=opt_ms,
+               optimiser_share=opt_ms / 1e3 / step_s, metrics=hist,
+               params=sum(p.numel() for p in params.values()))
+    print(f"  {label}: {len(secs)} steps, {step_s:.4f} s a step (first "
+          f"{secs[0]:.3f}), {units / step_s:.1f} {unit_name}/s, "
+          f"optimiser {opt_ms:.2f} ms = {100 * out['optimiser_share']:.1f} "
+          f"% of a step, peak {peak:.2f} GB, {out['params'] / 1e9:.3f} B "
+          f"params  [{card}]", flush=True)
+    return out
+
+
+def free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mem_pairs(cfg, n, steps, seed, device):
+    """SigLIP pairs as ``tests/test_training.py::
+    test_mem_contrastive_training_improves`` builds them, at full width
+    with n classes: each class a prototype patch row (N(0, 1), repeated
+    over the frame's patches, N(0, 0.1) noise) and a caption; each batch
+    the n classes in a random order (distinct rows, as SigLIP needs)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.text import tokenize_batch
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dv = cfg.vision.d_model
+    protos = torch.from_numpy(rng.normal(0, 1, (n, dv)).astype(
+        np.float32)).to(device)
+    texts = [f"class{i} object{i}" for i in range(n)]
+    out = []
+    for _ in range(steps):
+        cls = rng.permutation(n)
+        toks, mask = tokenize_batch([texts[c] for c in cls],
+                                    cfg.text.vocab_size, 16)
+        patches = protos[torch.from_numpy(cls).to(device)][:, None].expand(
+            n, MEM_PATCHES, dv) + 0.1 * torch.randn(
+            (n, MEM_PATCHES, dv), generator=gen, device=device)
+        out.append({"tokens": toks, "mask": mask, "patches": patches})
+    return out
+
+
+def phase_train_mem(card):
+    """SigLIP training of venus-mem-large at full width and depth (text
+    12 × 768, vision 12 × 1024 over 784 patches; f32 weights, bf16
+    activations): 32 pairs a batch, remat on, 20 steps; the contrastive
+    accuracy of the last 5 steps above the first 5's."""
+    import numpy as np
+    from repro_torch.configs.venus_mem import config as mem_config
+    from repro_torch.models.mem import MEM
+    from repro_torch.training import TrainHParams, make_mem_train_step
+    cfg = mem_config()
+    mem = MEM.init(cfg, seed=0, device="cuda")
+    batches = mem_pairs(cfg, 32, 20, seed=21, device="cuda")
+    # lr 3e-4 with 2 warm-up steps (the CPU test's) lifts the accuracy to
+    # 0.81 at step 2 at this width, then collapses it to 0.03 by step 10
+    step = make_mem_train_step(mem, TrainHParams(base_lr=5e-5, warmup=5,
+                                                 total_steps=20))
+    r = train_run("train_mem", mem, step, batches, card, units=32,
+                  unit_name="pairs")
+    acc = r["metrics"]["contrastive_acc"]
+    check(np.mean(acc[-5:]) > np.mean(acc[:5]),
+          f"train_mem: contrastive accuracy did not rise: {acc}")
+    print(f"phase train_mem: ok  contrastive accuracy {acc}: first 5 "
+          f"steps {np.mean(acc[:5]):.4f}, last 5 {np.mean(acc[-5:]):.4f}; "
+          f"loss {r['metrics']['loss'][0]:.4f} -> "
+          f"{r['metrics']['loss'][-1]:.4f}  [{card}]", flush=True)
+    del mem, batches, step
+    free_card()
+    return r
+
+
+def lm_batches_for(cfg, batch, seq, steps, seed):
+    from repro_torch.data.text import lm_batches
+    it = lm_batches(cfg.vocab_size, batch, seq, seed=seed)
+    return [next(it) for _ in range(steps)]
+
+
+def phase_train_lm(card, layers: int = 4):
+    """deepseek-7b (the launcher's default) at full width (4096, vocab
+    102,400), cut to ``layers`` layers: first the gradients of one batch
+    with remat off and on, held equal (rel L2 ≤ 1e-5 a leaf) with each
+    one's peak memory; then 20 steps of 4 × 512 tokens from
+    ``lm_batches``, remat on; the mean loss of the last 3 steps below the
+    first 3's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import TrainHParams, make_train_step
+    from repro_torch.training.trainer import lm_loss
+    full = get_config("deepseek-7b")
+    cfg = full.replace(num_layers=layers)
+    print(f"  train_lm: deepseek-7b cut to {layers} of {full.num_layers} "
+          f"layers", flush=True)
+    model = init_model(cfg, seed=0, device="cuda")
+    batches = lm_batches_for(cfg, 4, TRAIN_SEQ, 20, seed=0)
+    b0 = {k: torch.from_numpy(v).cuda() for k, v in batches[0].items()}
+    grads, remat = {}, {}
+    for on in (False, True):
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g = loss_and_grads(model, lambda m: lm_loss(cfg, m, b0,
+                                                          remat=on))
+        torch.cuda.synchronize()
+        remat[on] = dict(loss=float(loss), s=time.perf_counter() - t0,
+                         activation_gb=(torch.cuda.max_memory_allocated()
+                                        - base) / 1e9)
+        grads[on] = g
+        del g
+    worst, err = hold_grads("train_lm remat", grads[True], grads[False],
+                            1e-5)
+    check(abs(remat[True]["loss"] - remat[False]["loss"])
+          <= 1e-6 * abs(remat[False]["loss"]),
+          f"train_lm: remat loss {remat[True]['loss']} != "
+          f"{remat[False]['loss']}")
+    del grads
+    print(f"  train_lm: remat on vs off, one batch: loss "
+          f"{remat[True]['loss']:.6f} both, worst gradient {worst} rel L2 "
+          f"{err:.3e}; forward+backward {remat[False]['s']:.3f} s off, "
+          f"{remat[True]['s']:.3f} s on (cold); beyond the weights "
+          f"{remat[False]['activation_gb']:.2f} GB off, "
+          f"{remat[True]['activation_gb']:.2f} GB on", flush=True)
+    free_card()
+    step = make_train_step(cfg, TrainHParams(base_lr=3e-4, warmup=2,
+                                             total_steps=20))
+    r = train_run("train_lm", model, step, batches, card,
+                  units=4 * TRAIN_SEQ, unit_name="tokens")
+    loss = r["metrics"]["loss"]
+    check(np.mean(loss[-3:]) < np.mean(loss[:3]),
+          f"train_lm: the loss did not fall: {loss}")
+    print(f"phase train_lm: ok  loss {[round(x, 4) for x in loss]}: first "
+          f"3 steps {np.mean(loss[:3]):.4f}, last 3 {np.mean(loss[-3:]):.4f}"
+          f"  [{card}]", flush=True)
+    r.update(remat=remat, remat_worst_rel_l2=err,
+             published_layers=full.num_layers, layers=layers)
+    del model, batches, step, b0
+    free_card()
+    return r
+
+
+class RouteSpy:
+    """Records the ``Routing`` of every MoE layer ``moe.route`` computes
+    while it is installed (``with RouteSpy() as spy``)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+        self.routes, self._route = [], moe_mod.route
+
+        def spy(*a, **kw):
+            r = self._route(*a, **kw)
+            self.routes.append(r)
+            return r
+        moe_mod.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as moe_mod
+        moe_mod.route = self._route
+
+
+def phase_train_moe(card, layers: int = 4):
+    """OLMoE-1B-7B at full width (2048, 64 experts, top 8) cut to
+    ``layers`` layers: 10 steps of 4 × 512 tokens, remat on; then the
+    last batch's gradients, remat off, with the routing recorded: pairs
+    dropped at capacity, every gradient — each router's included, and
+    nonzero — finite; the drop share and the experts each layer's kept
+    pairs reached printed."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import TrainHParams, make_train_step
+    from repro_torch.training.trainer import lm_loss
+    full = get_config("olmoe-1b-7b")
+    cfg = full.replace(num_layers=layers)
+    print(f"  train_moe: olmoe-1b-7b cut to {layers} of {full.num_layers} "
+          f"layers", flush=True)
+    model = init_model(cfg, seed=0, device="cuda")
+    batches = lm_batches_for(cfg, 4, TRAIN_SEQ, 10, seed=1)
+    step = make_train_step(cfg, TrainHParams(base_lr=3e-4, warmup=1,
+                                             total_steps=10))
+    r = train_run("train_moe", model, step, batches, card,
+                  units=4 * TRAIN_SEQ, unit_name="tokens")
+    last = {k: torch.from_numpy(v).cuda() for k, v in batches[-1].items()}
+    with RouteSpy() as spy:
+        _, grads = loss_and_grads(model, lambda m: lm_loss(cfg, m, last))
+    check(len(spy.routes) == layers, f"train_moe: {len(spy.routes)} routings")
+    check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+          "train_moe: a gradient is not finite")
+    routers = [k for k in grads if k.endswith("moe.router")]
+    check(len(routers) == layers and all(
+        float(grads[k].abs().max()) > 0 for k in routers),
+        "train_moe: a router's gradient is zero")
+    drop = [float(1 - rt.keep.float().mean()) for rt in spy.routes]
+    reached = [int(torch.unique(rt.top_i[rt.keep]).numel())
+               for rt in spy.routes]
+    check(max(drop) > 0, f"train_moe: no pair dropped ({drop})")
+    print(f"phase train_moe: ok  every gradient finite, routers' max "
+          f"|g| {[round(float(grads[k].abs().max()), 6) for k in routers]};"
+          f" dropped share a layer {[round(d, 4) for d in drop]}; experts "
+          f"reached a layer {reached} of {cfg.moe.num_experts}  [{card}]",
+          flush=True)
+    r.update(drop_share=drop, experts_reached=reached,
+             published_layers=full.num_layers, layers=layers)
+    del model, batches, step, grads, spy, last
+    free_card()
+    return r
+
+
+# (arch, layers or None for full depth, batch, text tokens)
+TRAIN_ZOO = (("qwen2-vl-7b", 4, 2, TRAIN_SEQ),
+             ("minicpm3-4b", 4, 4, TRAIN_SEQ),
+             ("zamba2-2.7b", 6, 4, TRAIN_SEQ),
+             ("rwkv6-1.6b", 4, 4, TRAIN_SEQ),
+             ("whisper-base", None, 4, 256))
+
+
+def phase_train_zoo(card):
+    """One step each, at full width, of the families ``train_lm`` and
+    ``train_moe`` do not run: Qwen2-VL-7B (4 layers; 1,024 vision tokens
+    a row, N(0, 0.02)), MiniCPM3-4B (4 layers, MLA), Zamba2-2.7B (6
+    Mamba2 layers + 1 application of the shared block), RWKV6-1.6B (4
+    layers; the WKV loop over 512 steps) and Whisper-base (full depth,
+    1,500 encoder frames a row): a finite loss and changed parameters
+    (the card's ``test_smoke_train_step``); a second step timed warm."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import TrainHParams, make_train_step
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for arch, layers, b, s in TRAIN_ZOO:
+        full = get_config(arch)
+        cfg = full if layers is None else full.replace(num_layers=layers)
+        model = init_model(cfg, seed=0, device="cuda")
+        batches = lm_batches_for(cfg, b, s, 2, seed=2)
+        for batch in batches:
+            if cfg.family == "vlm":
+                batch["vision_embeds"] = 0.02 * torch.randn(
+                    (b, cfg.vision_tokens, cfg.d_model), generator=gen,
+                    device="cuda")
+            if cfg.family == "audio":
+                batch["encoder_frames"] = 0.02 * torch.randn(
+                    (b, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+                    device="cuda")
+        before = _fingerprint(model)
+        step = make_train_step(cfg, TrainHParams(warmup=1, total_steps=10))
+        r = train_run(f"train_zoo[{arch}]", model, step, batches, card,
+                      units=b * s, unit_name="tokens", first_step=1)
+        after = _fingerprint(model)
+        moved = sum(after[k] != v for k, v in before.items())
+        check(moved > 0, f"train_zoo[{arch}]: no parameter changed")
+        r.update(layers=cfg.num_layers, published_layers=full.num_layers,
+                 batch=b, seq=s, leaves_changed=moved, leaves=len(before))
+        print(f"  train_zoo[{arch}]: ok  {cfg.num_layers} of "
+              f"{full.num_layers} layers, loss {r['metrics']['loss'][0]:.4f}"
+              f", {moved} of {len(before)} parameter leaves changed",
+              flush=True)
+        out[arch] = r
+        del model, batches, step
+        free_card()
+    print(f"phase train_zoo: ok  {', '.join(out)}  [{card}]", flush=True)
+    return out
+
+
+def phase_train_parity(card):
+    """The train path on the card against the port on the CPU, float32
+    with TF32 off, the same weights and batch: MEM at full width with 2
+    layers a tower (4 pairs), and OLMoE at full width with 1 layer (2 ×
+    64 tokens; the routing recorded on both sides and held equal, its
+    least top-k margin printed); each gradient leaf within 1e-4 relative
+    L2 of the CPU's, the worst printed."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.venus_mem import config as mem_config
+    from repro_torch.models.mem import MEM
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training.trainer import lm_loss, mem_loss
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    out = {}
+    mc = mem_config()
+    mc = dataclasses.replace(
+        mc, text=mc.text.replace(num_layers=2, dtype="float32"),
+        vision=mc.vision.replace(num_layers=2, dtype="float32"))
+    cpu = MEM.init(mc, seed=3, device="cpu")
+    dev = copy.deepcopy(cpu).to("cuda")
+    batch = mem_pairs(mc, 4, 1, seed=23, device="cpu")[0]
+    res = {}
+    for name, m, where in (("cpu", cpu, "cpu"), ("card", dev, "cuda")):
+        b = {k: torch.as_tensor(v).to(where) for k, v in batch.items()}
+        res[name] = loss_and_grads(m, lambda mm: mem_loss(mm, b))
+    worst, err = hold_grads("train_parity mem", res["card"][1],
+                            res["cpu"][1], 1e-4)
+    lerr = abs(float(res["card"][0]) - float(res["cpu"][0]))
+    check(lerr <= 1e-5 * abs(float(res["cpu"][0])) + 1e-6,
+          f"train_parity mem: loss {float(res['card'][0])} vs "
+          f"{float(res['cpu'][0])}")
+    out["mem"] = dict(worst=worst, rel_l2=err, loss_abs_err=lerr)
+    print(f"  train_parity[mem]: ok  loss {float(res['cpu'][0]):.6f}, "
+          f"|card - cpu| {lerr:.2e}; worst gradient {worst} rel L2 "
+          f"{err:.3e}", flush=True)
+    del cpu, dev, res
+    free_card()
+    cfg = get_config("olmoe-1b-7b").replace(num_layers=1, dtype="float32")
+    cpu = init_model(cfg, seed=4, device="cpu")
+    dev = copy.deepcopy(cpu).to("cuda")
+    raw = lm_batches_for(cfg, 2, 64, 1, seed=24)[0]
+    res, routes = {}, {}
+    for name, m, where in (("cpu", cpu, "cpu"), ("card", dev, "cuda")):
+        b = {k: torch.from_numpy(v).to(where) for k, v in raw.items()}
+        with RouteSpy() as spy:
+            res[name] = loss_and_grads(m, lambda mm: lm_loss(cfg, mm, b))
+        routes[name] = spy.routes[0]
+    rc, rd = routes["cpu"], routes["card"]
+    check(torch.equal(rc.top_i, rd.top_i.cpu())
+          and torch.equal(rc.keep, rd.keep.cpu()),
+          "train_parity olmoe: the card routed otherwise than the CPU")
+    srt = torch.sort(rc.probs.detach(), dim=-1, descending=True).values
+    k = cfg.moe.experts_per_token
+    margin = float((srt[..., k - 1] - srt[..., k]).min())
+    worst, err = hold_grads("train_parity olmoe", res["card"][1],
+                            res["cpu"][1], 1e-4)
+    lerr = abs(float(res["card"][0]) - float(res["cpu"][0]))
+    check(lerr <= 1e-5 * abs(float(res["cpu"][0])) + 1e-6,
+          f"train_parity olmoe: loss {float(res['card'][0])} vs "
+          f"{float(res['cpu'][0])}")
+    drop = float(1 - rc.keep.float().mean())
+    out["olmoe"] = dict(worst=worst, rel_l2=err, loss_abs_err=lerr,
+                        top_k_margin=margin, drop_share=drop)
+    print(f"  train_parity[olmoe]: ok  the same routing (least top-{k} "
+          f"margin {margin:.3e}, {100 * drop:.1f} % of pairs dropped); loss "
+          f"|card - cpu| {lerr:.2e}; worst gradient {worst} rel L2 "
+          f"{err:.3e}", flush=True)
+    print(f"phase train_parity: ok  f32, TF32 off  [{card}]", flush=True)
+    del cpu, dev, res, routes
+    free_card()
+    return out
+
+
+def phase_train(card):
+    """Phases 21-25; no hand-written kernel launches on the train path."""
+    from repro_torch.kernels import ops
+    ops.reset_kernel_launches()
+    out = dict(train_mem=phase_train_mem(card),
+               train_lm=phase_train_lm(card),
+               train_moe=phase_train_moe(card),
+               train_zoo=phase_train_zoo(card),
+               train_parity=phase_train_parity(card))
+    launched = {k: v for k, v in ops.kernel_launches().items() if v}
+    check(not launched, f"train phases launched kernels: {launched}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3441,6 +3920,10 @@ def main() -> int:
     # 9. a small input through the card and through the plain versions
     parity = phase_parity()
 
+    # 21-25. training on the card, from an empty card
+    free_card()
+    train = phase_train(card)
+
     dl = dense["launches"]
 
     def scan_row(name, source, replaces, r, n_launch):
@@ -3586,7 +4069,7 @@ def main() -> int:
                        serve_whisper=serve_whisper,
                        mem=mem_out, tier=tier,
                        tier_8192=tier_full, standing=standing,
-                       parity_tier=parity), f, indent=1)
+                       parity_tier=parity, **train), f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,15 +6,19 @@
 * ``model_params_from_numpy`` turns the reference's ``Transformer.init``
   parameter tree, of any family, into the port's ``Transformer`` state
   dict, and ``mem_params_from_numpy`` its ``MEM.init`` tree into a
-  ``MEM`` one.
+  ``MEM`` one; ``model_params_to_numpy`` and ``mem_params_to_numpy``
+  fold the port's state back into the reference's nested, layer-stacked
+  trees (the layout of a checkpoint both packages read).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+import sys
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.session import SessionManager, VenusConfig
@@ -103,6 +107,76 @@ def mem_params_from_numpy(tree: Mapping) -> Dict[str, torch.Tensor]:
     for k in ("text_proj", "vision_proj", "logit_scale", "logit_bias"):
         out[k] = _t(tree[k])
     return out
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _stack_state(state: Mapping[str, torch.Tensor], n_dense: Optional[int]
+                 ) -> dict:
+    """Port state-dict entries → the reference's nested tree of numpy
+    arrays: dotted names nest, and ``blocks.<i>`` / ``enc_blocks.<i>``
+    stack on a leading layer axis — with ``n_dense`` (a decoder) into
+    ``dense_blocks`` for i < n_dense and ``moe_blocks`` after."""
+    leaves: Dict[tuple, np.ndarray] = {}
+    layers: Dict[tuple, list] = {}
+    for name, t in state.items():
+        parts = name.split(".")
+        if parts[0] in ("blocks", "enc_blocks"):
+            group = parts[0]
+            if group == "blocks" and n_dense is not None:
+                group = ("dense_blocks" if int(parts[1]) < n_dense
+                         else "moe_blocks")
+            layers.setdefault((group,) + tuple(parts[2:]), []).append(t)
+        else:
+            leaves[tuple(parts)] = _np(t)
+    for path, ts in layers.items():
+        leaves[path] = _np(torch.stack([t.detach() for t in ts]))
+    tree: dict = {}
+    for path, arr in leaves.items():
+        node = tree
+        for q in path[:-1]:
+            node = node.setdefault(q, {})
+        node[path[-1]] = arr
+    return tree
+
+
+def _state(model: Union[nn.Module, Mapping[str, torch.Tensor]]
+           ) -> Mapping[str, torch.Tensor]:
+    return model.state_dict() if isinstance(model, nn.Module) else model
+
+
+def model_params_to_numpy(cfg: ModelConfig,
+                          model: Union[nn.Module, Mapping[str, torch.Tensor]]
+                          ) -> dict:
+    """The inverse of ``model_params_from_numpy``: a ``Transformer`` of
+    ``cfg`` — or any mapping under its parameter names, such as AdamW's
+    moments — → the reference's ``Transformer.init`` tree of numpy arrays
+    (a decoder's ``dense_blocks`` / ``moe_blocks``, the other families'
+    ``blocks`` and ``enc_blocks``, stacked by layer)."""
+    n_dense = None
+    if cfg.family not in ("audio", "hybrid") and cfg.rwkv is None:
+        n_dense = min(cfg.moe.first_dense_layers if cfg.moe
+                      else cfg.num_layers, cfg.num_layers)
+    return _stack_state(_state(model), n_dense)
+
+
+def mem_params_to_numpy(mem: Union[nn.Module, Mapping[str, torch.Tensor]]
+                        ) -> dict:
+    """The inverse of ``mem_params_from_numpy``: a ``MEM`` — or a mapping
+    under its parameter names — → the reference's MEM tree, each tower's
+    blocks stacked into ``dense_blocks``; the towers' unused ``lm_head``
+    is not there."""
+    state = _state(mem)
+    tree = {k: _np(state[k]) for k in ("text_proj", "vision_proj",
+                                       "logit_scale", "logit_bias")}
+    for tower in ("text", "vision"):
+        pre = tower + "."
+        tree[tower] = _stack_state(
+            {k[len(pre):]: v for k, v in state.items()
+             if k.startswith(pre)}, n_dense=sys.maxsize)
+    return tree
 
 
 # the coarse tier's arrays ``arena_from_numpy`` takes: the device buffers

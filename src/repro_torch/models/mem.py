@@ -10,6 +10,11 @@ towers run their stack in "train" mode, so attention is causal in both;
 the text mask is used only in pooling; the vision tower adds its learned
 ``pos_embed`` here, not in an embedding layer; ``_l2norm`` computes in
 f32 and casts back to the activation dtype.
+
+Every parameter, the SigLIP ``logit_scale`` and ``logit_bias`` among
+them, is frozen until a trainer unfreezes the model
+(``training.make_mem_train_step``); ``remat`` checkpoints each tower
+block.
 """
 
 from __future__ import annotations
@@ -52,10 +57,10 @@ class MEM(nn.Module):
                                       requires_grad=False)
         self.vision_proj = nn.Parameter(
             dense_init(gen, cfg.vision.d_model, d), requires_grad=False)
-        self.register_buffer("logit_scale", torch.tensor(
-            2.0, device=gen.device))
-        self.register_buffer("logit_bias", torch.tensor(
-            -10.0, device=gen.device))
+        self.logit_scale = nn.Parameter(
+            torch.tensor(2.0, device=gen.device), requires_grad=False)
+        self.logit_bias = nn.Parameter(
+            torch.tensor(-10.0, device=gen.device), requires_grad=False)
 
     @classmethod
     def init(cls, cfg: MEMConfig, seed: int = 0, device=None) -> "MEM":
@@ -71,25 +76,27 @@ class MEM(nn.Module):
         return self.text_proj.device
 
     def _trunk(self, tower: Transformer, x: torch.Tensor,
-               mask: Optional[torch.Tensor]) -> torch.Tensor:
+               mask: Optional[torch.Tensor], remat: bool) -> torch.Tensor:
         """The tower body without an LM head over already-embedded x."""
-        h = _norm(tower.cfg, tower.final_norm, tower.hidden(x))
+        h = _norm(tower.cfg, tower.final_norm, tower.hidden(x, remat))
         return _pool(h, mask)
 
     def encode_text(self, tokens: torch.Tensor,
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    mask: Optional[torch.Tensor] = None,
+                    remat: bool = False) -> torch.Tensor:
         """tokens (B, L) int → (B, embed_dim) unit rows in the activation
         dtype; ``mask`` (B, L) marks real tokens (pooling only)."""
         tower = self.text
         x = tower.embed.to(tower.adtype)[tokens.long()]
-        pooled = self._trunk(tower, x, mask)
+        pooled = self._trunk(tower, x, mask, remat)
         return _l2norm(pooled @ self.text_proj.to(pooled.dtype))
 
-    def encode_image(self, patch_embeds: torch.Tensor) -> torch.Tensor:
+    def encode_image(self, patch_embeds: torch.Tensor,
+                     remat: bool = False) -> torch.Tensor:
         """patch_embeds (B, P, d_vision) → (B, embed_dim) unit rows."""
         tower = self.vision
         x = patch_embeds.to(tower.adtype)
         if tower.pos_embed is not None:
             x = x + tower.pos_embed.to(tower.adtype)[None, : x.shape[1]]
-        pooled = self._trunk(tower, x, None)
+        pooled = self._trunk(tower, x, None, remat)
         return _l2norm(pooled @ self.vision_proj.to(pooled.dtype))

@@ -132,15 +132,18 @@ def _experts(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     counts.scatter_add_(0, eid, torch.ones_like(eid))
     offs = torch.cumsum(counts[:e], 0).to(torch.int32)
     tok = torch.div(order, k, rounding_mode="floor")
-    xs = x.reshape(b * s, d)[tok]
+    # the rows past the last group (the dropped pairs) belong to no
+    # group: the products leave them unwritten, forward and backward (in
+    # a's gradient). A ``where`` on each side selects them away — in the
+    # backward pass too, where a product by 0 would keep a NaN.
+    kept = (eid[order] < e)[:, None]
+    xs = torch.where(kept, x.reshape(b * s, d)[tok], 0.0)
 
     def gmm(a, w):
         return F.grouped_mm(a, w.to(dt), offs=offs)
     ys = gmm(act(gmm(xs, p["w_gate"])) * gmm(xs, p["w_up"]), p["w_down"])
-    # the rows past the last group (the dropped pairs) are left unwritten
-    kept = (eid[order] < e)[:, None]
     w = r.top_w.reshape(-1)[order].to(dt).to(torch.float32)
-    ys = torch.where(kept, ys.to(torch.float32) * w[:, None], 0.0)
+    ys = torch.where(kept, ys.to(torch.float32), 0.0) * w[:, None]
     y = torch.zeros((b * s, d), dtype=torch.float32, device=x.device)
     y.index_add_(0, tok, ys)
     return y.to(dt).reshape(b, s, d)

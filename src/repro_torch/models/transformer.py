@@ -28,23 +28,30 @@ audio and RWKV families, as in the reference.
 
 ``apply`` modes: "train" (full logits), "prefill" (fills the cache,
 returns last-position logits only), "decode" (one token against the
-cache); it returns the MoE blocks' summed aux loss. The cache keeps the
-reference's layout: ``pos`` (B,), for M-RoPE ``mrope_delta`` (B,), for
-audio ``enc_out`` (B, S_enc, d) in the cache dtype, and the groups of
-``GROUPS`` — ``dense`` and ``moe``, ``mamba`` and ``shared``, ``rwkv``,
-``self`` — each holding its layers' (or shared-block applications')
-cache leaves stacked on a leading axis, the batch on axis 1. The
-recurrent groups (``mamba``, ``rwkv``) are f32 whatever the cache dtype.
+cache); it returns the MoE blocks' summed aux loss. Train mode follows
+the caller's grad mode, and with ``remat`` checkpoints what the
+reference's ``jax.checkpoint`` does: each decoder, encoder or RWKV
+layer body and the hybrid's superstep (a Mamba2 group and the shared
+block). Prefill and decode build no autograd graph. Parameters are
+frozen (``requires_grad=False``) until a trainer unfreezes its model.
+The cache keeps the reference's layout: ``pos`` (B,), for M-RoPE
+``mrope_delta`` (B,), for audio ``enc_out`` (B, S_enc, d) in the cache
+dtype, and the groups of ``GROUPS`` — ``dense`` and ``moe``, ``mamba``
+and ``shared``, ``rwkv``, ``self`` — each holding its layers' (or
+shared-block applications') cache leaves stacked on a leading axis, the
+batch on axis 1. The recurrent groups (``mamba``, ``rwkv``) are f32
+whatever the cache dtype.
 Layers write their slices of the stacked leaves in place.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -105,6 +112,17 @@ def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
     return rms_norm(x, p["w"], cfg.norm_eps)
+
+
+def _remat(fn: Callable, remat: bool) -> Callable:
+    """``fn``, or with ``remat`` ``fn`` under activation checkpointing:
+    its activations are recomputed in the backward pass."""
+    if not remat:
+        return fn
+
+    def run(*args, **kw):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
 
 
 def _write(views: Optional[dict], new: Optional[dict]) -> None:
@@ -321,14 +339,14 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def hidden(self, x: torch.Tensor) -> torch.Tensor:
+    def hidden(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """The block stack over already-embedded x (B, S, d), positions
         0..S-1, in "train" mode (the reference's ``_apply_decoder``
-        without a cache)."""
+        without a cache), each block checkpointed with ``remat``."""
         positions = torch.arange(x.shape[1], device=x.device)[None].expand(
             x.shape[0], -1)
         for block in self.blocks:
-            x = block(x, positions)
+            x = _remat(block, remat)(x, positions)
         return x
 
     # ----------------------------------------------------------------- cache
@@ -395,20 +413,30 @@ class Transformer(nn.Module):
                 v.narrow(0, slot, 1).copy_(one[k])
 
     # ----------------------------------------------------------------- apply
-    @torch.no_grad()
     def apply(self, tokens: torch.Tensor, *,
               vision_embeds: Optional[torch.Tensor] = None,
               encoder_frames: Optional[torch.Tensor] = None,
-              cache: Cache = None, mode: str = "train",
+              cache: Cache = None, mode: str = "train", remat: bool = False,
               prompt_lengths: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
         """tokens: (B, S_text) int. Returns (logits, new_cache, aux).
 
         encoder_frames (B, S_enc, d): the audio family's frame embeddings,
         read in train and prefill (decode reads the cache's ``enc_out``).
+        remat: checkpoint each layer body (train mode).
         prompt_lengths (B,): true prompt lengths (vision tokens included)
         for right-padded prefill — pad keys are masked, last-token logits
         and cache positions use the true length."""
+        kw = dict(vision_embeds=vision_embeds, encoder_frames=encoder_frames,
+                  cache=cache, mode=mode, remat=remat,
+                  prompt_lengths=prompt_lengths)
+        if mode == "train":
+            return self._forward(tokens, **kw)
+        with torch.no_grad():
+            return self._forward(tokens, **kw)
+
+    def _forward(self, tokens, *, vision_embeds, encoder_frames, cache,
+                 mode, remat, prompt_lengths):
         cfg = self.cfg
         dev = self.device
         tokens = tokens.to(dev)
@@ -430,29 +458,35 @@ class Transformer(nn.Module):
                   kv_lengths=kv_lengths)
         kind = self.kind
         if kind == "audio":
-            enc_out = self._encode(encoder_frames, cache, mode)
+            enc_out = self._encode(encoder_frames, cache, mode, remat)
             for i, block in enumerate(self.blocks):
-                x = block.step(x, cache=self._views(cache, "self", i),
-                               enc_out=enc_out, **kw)[0]
+                x = _remat(block.step, remat)(
+                    x, cache=self._views(cache, "self", i), enc_out=enc_out,
+                    **kw)[0]
         elif kind == "hybrid":
             period = cfg.shared_attn_period
-            for i, block in enumerate(self.blocks):
-                x = block.step(x, self._views(cache, "mamba", i), mode)
-                if i % period == period - 1:
-                    # the weight-tied block, with application j's cache
-                    x = self.shared.step(
-                        x, cache=self._views(cache, "shared", i // period),
-                        **kw)[0]
+
+            def superstep(x, j):
+                # a group of Mamba2 layers, then the weight-tied block
+                # with application j's cache
+                for i in range(j * period, (j + 1) * period):
+                    x = self.blocks[i].step(
+                        x, self._views(cache, "mamba", i), mode)
+                return self.shared.step(
+                    x, cache=self._views(cache, "shared", j), **kw)[0]
+            for j in range(self.attn_applications):
+                x = _remat(superstep, remat)(x, j)
         elif kind == "rwkv":
             for i, block in enumerate(self.blocks):
-                x = block.step(x, self._views(cache, "rwkv", i), mode)
+                x = _remat(block.step, remat)(
+                    x, self._views(cache, "rwkv", i), mode)
         else:
             for i, block in enumerate(self.blocks):
                 group, j = (("dense", i) if i < self.n_dense
                             else ("moe", i - self.n_dense))
-                x, _, a = block.step(x, mrope_positions=mrope_positions,
-                                     cache=self._views(cache, group, j),
-                                     **kw)
+                x, _, a = _remat(block.step, remat)(
+                    x, mrope_positions=mrope_positions,
+                    cache=self._views(cache, group, j), **kw)
                 if a is not None:
                     aux = aux + a
 
@@ -482,18 +516,19 @@ class Transformer(nn.Module):
                 else torch.full((b,), delta, dtype=torch.int32, device=dev))
         return logits, new_cache, aux
 
-    def _encode(self, encoder_frames, cache: Cache, mode: str
-                ) -> torch.Tensor:
+    def _encode(self, encoder_frames, cache: Cache, mode: str,
+                remat: bool = False) -> torch.Tensor:
         """The encoder's output in the activation dtype: at decode the
-        cache's ``enc_out``; else the encoder over ``encoder_frames``,
-        stored into the cache (in its dtype) at prefill."""
+        cache's ``enc_out``; else the encoder over ``encoder_frames``
+        (each block checkpointed with ``remat``), stored into the cache
+        (in its dtype) at prefill."""
         if mode == "decode":
             return cache["enc_out"].to(self.adtype)
         assert encoder_frames is not None, "audio needs encoder_frames"
         e = encoder_frames.to(self.device, self.adtype)
         e = e + self.enc_pos_embed.to(self.adtype)[None, :e.shape[1]]
         for block in self.enc_blocks:
-            e = block.encode(e)
+            e = _remat(block.encode, remat)(e)
         e = _norm(self.cfg, self.enc_final_norm, e)
         if cache is not None:
             cache["enc_out"].copy_(e)

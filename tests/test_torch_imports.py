@@ -1,9 +1,9 @@
 """Import hygiene of the PyTorch port: every module of ``repro_torch``
-(kernels, core, models, configs, data, serving, launch) and the imports
-of ``chip_smoke.py`` load neither JAX nor anything of the reference
-package ``repro``, and the entry points (the session manager, the façade,
-the MEM model, the serving model) refuse to run on the CPU unless
-asked."""
+(kernels, core, models, configs, data, serving, training, launch) and
+the imports of ``chip_smoke.py`` load neither JAX nor anything of the
+reference package ``repro``, and the entry points (the session manager,
+the façade, the MEM model, the serving model) refuse to run on the CPU
+unless asked."""
 
 import os
 import subprocess
@@ -38,7 +38,9 @@ from repro_torch.models.transformer import init_model
 for name in ("repro_torch.serving.engine",
              "repro_torch.serving.venus_service",
              "repro_torch.kernels.decode_attention",
-             "repro_torch.launch.serve"):
+             "repro_torch.launch.serve", "repro_torch.launch.train",
+             "repro_torch.training", "repro_torch.training.trainer",
+             "repro_torch.training.checkpoint"):
     assert name in names, name
 if not torch.cuda.is_available():
     for make in (lambda: SessionManager(VenusConfig(), None, 8),
@@ -63,6 +65,6 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
     n_modules, bad = lines[0].split(" ", 1)
-    assert int(n_modules) >= 38       # serving/ and launch/ included
+    assert int(n_modules) >= 44       # serving/, training/, launch/
     assert bad == "[]", bad
     assert lines[-1] == "raises-ok"

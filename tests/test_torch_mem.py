@@ -24,7 +24,8 @@ from repro.models import layers as jlayers
 from repro.models import transformer as jtransformer
 from repro.models.mem import MEM as JMEM
 from repro_torch.configs.venus_mem import smoke_config
-from repro_torch.core.convert import mem_params_from_numpy
+from repro_torch.core.convert import (mem_params_from_numpy,
+                                      mem_params_to_numpy)
 from repro_torch.core.pipeline import MICRO_BATCH, MEMEmbedder
 from repro_torch.data.text import tokenize_batch
 from repro_torch.models import attention as tattn
@@ -219,29 +220,20 @@ def test_mem_embedder_matches_reference(twin_mem):
 
 
 def test_mem_params_round_trip(twin_mem):
-    """Reference tree → port state → back to a layer-stacked tree: every
-    array equal (the unused LM heads are the only leaves dropped)."""
+    """Reference tree → port state → back to the layer-stacked tree by
+    ``mem_params_to_numpy``: every array equal, ``logit_scale`` and
+    ``logit_bias`` among them (the unused LM heads are the only leaves
+    dropped)."""
     _, _, params, tmem = twin_mem
-    tree = jax.tree.map(np.asarray, params)
-    sd = {k: v.numpy() for k, v in tmem.state_dict().items()}
-    for tower in ("text", "vision"):
-        t = tree[tower]
-        np.testing.assert_array_equal(sd[f"{tower}.embed"], t["embed"])
-        np.testing.assert_array_equal(sd[f"{tower}.final_norm.w"],
-                                      t["final_norm"]["w"])
-        blocks = t["dense_blocks"]
-        for group, leaves in blocks.items():
-            for k, v in leaves.items():
-                stacked = np.stack([sd[f"{tower}.blocks.{i}.{group}.{k}"]
-                                    for i in range(v.shape[0])])
-                np.testing.assert_array_equal(stacked, v)
-    np.testing.assert_array_equal(sd["vision.pos_embed"],
-                                  tree["vision"]["pos_embed"])
-    for k in ("text_proj", "vision_proj", "logit_scale", "logit_bias"):
-        np.testing.assert_array_equal(sd[k], tree[k])
-    n_ref = sum(a.size for a in jax.tree.leaves(tree)) - sum(
-        tree[t]["lm_head"].size for t in ("text", "vision"))
-    assert sum(v.size for v in sd.values()) == n_ref
+    want = jax.tree.map(np.asarray, params)
+    for t in ("text", "vision"):
+        want[t] = {k: v for k, v in want[t].items() if k != "lm_head"}
+    got = mem_params_to_numpy(tmem)
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(a, b)
+    assert {"logit_scale", "logit_bias"} <= {
+        k for k, _ in tmem.named_parameters()}
 
 
 def test_port_init_scales():

@@ -28,7 +28,8 @@ from repro.models.transformer import Transformer as JTransformer
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JEngine
 from repro_torch.configs import registry as tregistry
-from repro_torch.core.convert import model_params_from_numpy
+from repro_torch.core.convert import (model_params_from_numpy,
+                                      model_params_to_numpy)
 from repro_torch.models import params as tparams
 from repro_torch.models import rwkv as trwkv
 from repro_torch.models.transformer import init_model
@@ -121,35 +122,13 @@ def test_param_counts_match_reference(size):
         tcfg.num_layers
 
 
-def _tree(state):
-    """The port's state dict folded back into the reference's tree:
-    ``blocks.<i>`` stacked into ``blocks``."""
-    tree, layers = {}, {}
-    for name, t in state.items():
-        parts = name.split(".")
-        if parts[0] == "blocks":
-            layers.setdefault(("blocks",) + tuple(parts[2:]), []).append(
-                t.numpy())
-            continue
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = t.numpy()
-    for path, arrs in layers.items():
-        node = tree
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        node[path[-1]] = np.stack(arrs)
-    return tree
-
-
 def test_model_params_round_trip(twin):
     """Every reference leaf (the norms' ``b`` included) lands in the
     port's model bit for bit, and the port's parameters fold back into
     the reference's tree."""
     jm, params, tm = twin
     want = jax.tree.map(np.asarray, params)
-    got = _tree(tm.state_dict())
+    got = model_params_to_numpy(tm.cfg, tm)
     assert jax.tree.structure(got) == jax.tree.structure(want)
     for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
         np.testing.assert_array_equal(a, b)

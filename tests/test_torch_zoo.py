@@ -30,7 +30,8 @@ from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JEngine
 from repro.serving.engine import make_serve_step as jmake_serve_step
 from repro_torch.configs import registry as tregistry
-from repro_torch.core.convert import model_params_from_numpy
+from repro_torch.core.convert import (model_params_from_numpy,
+                                      model_params_to_numpy)
 from repro_torch.models import params as tparams
 from repro_torch.models.transformer import GROUPS, init_model
 from repro_torch.serving import Request, ServingEngine, make_serve_step
@@ -227,36 +228,12 @@ def test_input_shapes_match_reference():
         tbase.get_shape("train_8k")
 
 
-def _stacked(state, tcfg, n_dense):
-    """The port's state dict folded back into the reference's tree:
-    ``blocks.<i>`` stacked into ``dense_blocks`` / ``moe_blocks``."""
-    tree, layers = {}, {}
-    for name, t in state.items():
-        parts = name.split(".")
-        if parts[0] == "blocks":
-            i = int(parts[1])
-            group = "dense_blocks" if i < n_dense else "moe_blocks"
-            layers.setdefault((group,) + tuple(parts[2:]), []).append(
-                t.numpy())
-            continue
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = t.numpy()
-    for path, arrs in layers.items():
-        node = tree
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        node[path[-1]] = np.stack(arrs)
-    return tree
-
-
 def test_model_params_round_trip(twin):
     """Every reference leaf lands in the port's model bit for bit, and
     the port's parameters fold back into the reference's tree."""
     jm, params, tm = twin
     want = jax.tree.map(np.asarray, params)
-    got = _stacked(tm.state_dict(), tm.cfg, tm.n_dense)
+    got = model_params_to_numpy(tm.cfg, tm)
     assert jax.tree.structure(got) == jax.tree.structure(want)
     for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
         np.testing.assert_array_equal(a, b)
