@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
-12, 15–20, 7, 13, 14, 8, 9, 21–25:
+12, 15–20, 7, 26, 13, 14, 8, 9, 21–25:
 
 1. build      — compile the CUDA kernels from ``src/repro_torch/kernels/
                 csrc`` (one nvcc per source, all started together);
@@ -234,6 +234,28 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 optimiser's share of a step (AdamW alone, CUDA events)
                 and the card; each frees its models and optimiser state.
                 No hand-written kernel launches on the train path.
+26. shard     — the sharded, double-buffered memory path on one card, its
+                slabs on ``cuda:0`` K times (``phase_shard``): the main
+                worlds' 16 streams in 3 ticks of 64 frames at d = 768,
+                capacity 8192 (``PixelEmbedder(dim=768)``, which does not
+                touch sharding), into (a) an unsharded single-buffered
+                oracle, (b) a K = 1 mesh, double-buffered, (c) K = 2, (d)
+                K = 4, (e) K = 4 int8 beside an unsharded int8 oracle;
+                an akr group before each tick equal on (a)–(d), every
+                session's front rows bit-equal to its oracle's after each
+                tick; then the akr, sampling, topk and a ``fused=False``
+                group with equal draws, frame ids and n_drawn, one
+                sharded launch a group, the gathered bytes under one f32
+                (S, Q, cap) tensor, a double flush an append; every #1
+                and #3 launch (one a slab) held to its plain version; a
+                launch queued behind a sleep unchanged by two flushes
+                (the streams' order); the tier configuration of phase 13
+                at K = 4 against the unsharded tier manager (16 sessions
+                filled by ``insert_batch``); ``DistributedVenusMemory``
+                at K = 4 over 131,072 × 768 f32 rows (every per-shard #4
+                launch held, the candidates' probabilities against the
+                dense softmax renormalised over them, an empty index's
+                zero mass).
 
 Prints the card's name and power limit, one line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -242,7 +264,8 @@ Every kernel's launch count is read around the phase that drives its path
 serve_mla, serve_moe, serve_olmoe, serve_zoo, serve_hybrid, serve_rwkv
 and serve_whisper: the decode kernels;
 tier: fused retrieval, two a group; standing: fused retrieval, one a
-committing tick).
+committing tick; shard: fused retrieval and the dense stack scan, one a
+slab a group).
 """
 
 from __future__ import annotations
@@ -761,16 +784,16 @@ def _by_name(events, reps):
             sorted(by.items(), key=lambda kv: -kv[1][1])}
 
 
-def _scan_check(name, got, want, valid, sessions_empty=()):
-    """Kernel triple vs plain triple (+ the epilogue's probs of each):
-    allclose at rtol 1e-5 / atol 1e-6; empty sessions give l = N and
-    probs = 1/N. Returns the max abs error (l, a sum of N terms, is
-    judged relative only)."""
+def _scan_check(name, got, want, valid, sessions_empty=(), tau=TAU):
+    """Kernel triple vs plain triple (+ the epilogue's probs of each, at
+    the scan's ``tau``): allclose at rtol 1e-5 / atol 1e-6; empty sessions
+    give l = N and probs = 1/N. Returns the max abs error (l, a sum of N
+    terms, is judged relative only)."""
     import torch
     from repro_torch.kernels import ref
     n = got[0].shape[-1]
-    pk = ref.scan_probs(*got, valid, TAU)
-    pp = ref.scan_probs(*want, valid, TAU)
+    pk = ref.scan_probs(*got, valid, tau)
+    pp = ref.scan_probs(*want, valid, tau)
     err = 0.0
     for f, a, b in (("sims", got[0], want[0]), ("m", got[1], want[1]),
                     ("l", got[2], want[2]), ("probs", pk, pp)):
@@ -1123,9 +1146,11 @@ def kernel_in_trace(prof, launches: int, parts, what: str):
     ``launches`` launches, and the device time of every kernel in the
     trace. None where the trace holds no device event at all (the
     profiler now and then returns such a trace); else fails unless it
-    holds one of each part for each launch."""
+    holds one of each part for each launch. The ``torch.cuda._sleep``
+    pad at the head of a trace (``spin_kernel``) is not counted."""
     from torch.autograd import DeviceType
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and "spin_kernel" not in e.name]
     if not kern:
         return None
     found = {p: [e for e in kern if p in e.name] for p in parts}
@@ -1259,10 +1284,11 @@ def hold_tier_launches(mgr, label, text=True):
     from repro_torch.kernels import ops
     orig, calls = ops.fused_retrieve_stack, []
 
-    def capture(query, index, *, tau, valid, targets, n_topk, tier="fine"):
+    def capture(query, index, *, tau, valid, targets, n_topk, tier="fine",
+                **mesh):
         calls.append((tier, query, index, valid, targets, n_topk, tau))
         return orig(query, index, tau=tau, valid=valid, targets=targets,
-                    n_topk=n_topk, tier=tier)
+                    n_topk=n_topk, tier=tier, **mesh)
     ops.fused_retrieve_stack = capture
     try:
         run_queries(mgr, S, D, coarse=True, text=text)
@@ -1482,9 +1508,10 @@ def capture_standing(mgr):
     orig, evaluate = ops.fused_retrieve_stack, mgr.standing.evaluate
     launches, evals = [], []
 
-    def capture(query, index, *, tau, valid, targets, n_topk, tier="fine"):
+    def capture(query, index, *, tau, valid, targets, n_topk, tier="fine",
+                **mesh):
         fr = orig(query, index, tau=tau, valid=valid, targets=targets,
-                  n_topk=n_topk, tier=tier)
+                  n_topk=n_topk, tier=tier, **mesh)
         if tier == "standing":
             launches.append(dict(query=query, index=index, valid=valid,
                                  targets=targets, k=n_topk, tau=tau, fr=fr,
@@ -3763,6 +3790,541 @@ def phase_train(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 26. the sharded memory path
+# ---------------------------------------------------------------------------
+
+# name: (K slabs or None for no mesh, double_buffer, index dtype, oracle)
+SHARD_MGRS = {"a": (None, False, "float32", None),
+              "b": (1, True, "float32", "a"),
+              "c": (2, None, "float32", "a"),
+              "d": (4, None, "float32", "a"),
+              "e0": (None, False, "int8", None),
+              "e": (4, None, "int8", "e0")}
+SHARD_TICKS = 3
+TRACE_PAD = 64          # sleeps heading a trace, for the events it loses
+DVM_ROWS, DVM_BLOCK, DVM_QUERIES = 16 * N, N, 8
+
+
+class SlabLaunches:
+    """Inside the context, every launch of #1 and #3 by the wrappers of
+    ``kernels.similarity`` (their ``_launch`` and ``_launch_scan``, so the
+    wrappers' launch counts stay theirs) is captured with its operands,
+    one a slab when sharded; ``hold()`` then holds each to its plain
+    version and clears the capture."""
+
+    def __enter__(self):
+        from repro_torch.kernels import similarity
+        self.sim, self.fused, self.scans = similarity, [], []
+        self.f0, self.s0 = similarity._launch, similarity._launch_scan
+
+        def fused(q, x, v, t, *, tau, n_topk):
+            self.fused.append((q, x, v, t, n_topk, tau))
+            return self.f0(q, x, v, t, tau=tau, n_topk=n_topk)
+
+        def scan(q, x, v, *, tau):
+            out = self.s0(q, x, v, tau=tau)
+            self.scans.append((q, x, v, tau, out))
+            return out
+        similarity._launch, similarity._launch_scan = fused, scan
+        return self
+
+    def __exit__(self, *exc):
+        self.sim._launch, self.sim._launch_scan = self.f0, self.s0
+
+    def hold(self, label, totals):
+        """Each captured launch against its plain version: #1 by
+        ``hold_fused`` (a stage-1 launch's dummy zero target undrawn), #3
+        by ``_scan_check``; adds to ``totals``' counts, shapes and error."""
+        from repro_torch.kernels import ref
+        for j, (q, x, v, t, k, tau) in enumerate(self.fused):
+            err, _, _ = hold_fused(f"{label} #1 launch {j}", q, x, v, t, k,
+                                   draws=bool(t.any()), tau=tau)
+            totals["fused"] += 1
+            totals["err"] = max(totals["err"], err)
+            totals["shapes"].add(("#1", *q.shape, x.shape[1], t.shape[-1]))
+        for j, (q, x, v, tau, out) in enumerate(self.scans):
+            want = ref.similarity_scan_stack_ref(q, x, v, tau=tau)
+            err = _scan_check(f"{label} #3 launch {j}", out, want,
+                              ref.as_valid_mask(v, x.shape[1])[:, None, :],
+                              tau=tau)
+            totals["scan"] += 1
+            totals["err"] = max(totals["err"], err)
+            totals["shapes"].add(("#3", *q.shape, x.shape[1]))
+        self.fused, self.scans = [], []
+
+
+def same_results(got, want, label):
+    check(len(got) == len(want), f"{label}: {len(got)} != {len(want)}")
+    for j, (x, y) in enumerate(zip(got, want)):
+        check(x.draws.tolist() == y.draws.tolist()
+              and x.frame_ids.tolist() == y.frame_ids.tolist()
+              and x.n_drawn == y.n_drawn,
+              f"{label} query {j}: draws {x.draws} vs {y.draws}, frames "
+              f"{x.frame_ids} vs {y.frame_ids}")
+
+
+def same_fronts(mgr, oracle, label):
+    """Each session's front rows bit-equal to the oracle's (compared by
+    session: the slots differ at K > 1)."""
+    import torch
+    names = ("emb", "members", "member_count", "index_frame") + (
+        ("emb_scale",) if mgr.cfg.index_dtype == "int8" else ())
+    for sid in mgr.sessions:
+        for name in names:
+            a = mgr.arena.slot_view(name, mgr[sid].memory.slot)
+            b = oracle.arena.slot_view(name, oracle[sid].memory.slot)
+            check(torch.equal(a, b), f"{label}: session {sid} {name}")
+
+
+def shard_group(mgr, fused=True, seed=9, sids=range(S)):
+    """One akr group of 8 queries a session of ``sids`` (``fused=False``:
+    the dense scan)."""
+    from repro_torch.core.queryplan import QuerySpec
+    qe = unit_queries_np(8 * len(sids), D, seed)
+    return mgr.execute(mgr.plan([QuerySpec(sid=sids[j // 8],
+                                           embedding=qe[j])
+                                 for j in range(8 * len(sids))]),
+                       fused=fused)
+
+
+def check_stream_order(mgr, label):
+    """A fused launch queued behind a ~100 ms sleep on the query stream,
+    then two double-buffered flushes that rewrite row 0 of every session
+    with its first query (the second flush writes the set the queued
+    launch reads): the launch's answer must be the one taken before the
+    flushes, bit for bit. Without the flush waiting on the swap's event
+    the second flush would land first."""
+    import numpy as np
+    import torch
+    from repro_torch.core.memory import arena_fused_retrieve
+    a = mgr.arena
+    q = torch.from_numpy(unit_queries_np(S * Q, D, 17).reshape(S, Q, D)
+                         ).cuda()
+    tg = torch.rand((S, Q, T), generator=torch.Generator("cuda")
+                    .manual_seed(3), device="cuda")
+    lanes = mgr.scan_lanes(sorted(mgr.sessions))
+    check(None not in lanes, f"{label}: a free slot")
+    ql = torch.stack([q[s] for s in lanes])
+    tl = torch.stack([tg[s] for s in lanes])
+    want = [x.cpu() for x in arena_fused_retrieve(a, ql, tl, TAU, K)]
+    torch.cuda._sleep(200_000_000)
+    queued = arena_fused_retrieve(a, ql, tl, TAU, K)
+    for flush in range(2):
+        with a.deferred_appends():
+            for sid in sorted(mgr.sessions):
+                m = mgr[sid].memory
+                row = q[sid, flush].cpu().numpy()[None]
+                a.append(m.slot, m.head, row,
+                         np.zeros((1, m.member_cap), np.int32),
+                         np.ones((1,), np.int32),
+                         np.asarray([flush], np.int32), m.window)
+    got = [x.cpu() for x in queued]
+    check(all(torch.equal(x, y) for x, y in zip(got, want)),
+          f"{label}: a launch queued before the flushes saw their rows")
+    after = arena_fused_retrieve(a, ql, tl, TAU, K)
+    check(not torch.equal(after.topk_i.cpu(), want[3]),
+          f"{label}: the rewritten rows do not show after the flushes")
+
+
+def shard_tier(dev, card):
+    """Phase 13's tier configuration on a 4-slab arena against the
+    unsharded tier manager: 16 sessions filled by ``insert_batch`` with 2
+    × 128 rows each (``tier_rows_np``; every session consolidates), then
+    the akr, sampling and topk groups, two-stage; equal results, every
+    #1 launch held."""
+    import numpy as np
+    from repro_torch.core.session import SessionManager, VenusConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_memory_mesh
+    cfg = VenusConfig(memory_capacity=128, eviction="consolidate",
+                      coarse_capacity=32, coarse_block=16, coarse_topb=4)
+    mgrs = {"oracle": SessionManager(cfg, None, D, device="cuda"),
+            "k4": SessionManager(cfg, None, D,
+                                 mesh=make_memory_mesh(4, [dev] * 4))}
+    n_rows = 2 * cfg.memory_capacity
+    data = [tier_rows_np(sid, n_rows, D) for sid in range(S)]
+    for m in mgrs.values():
+        for sid in range(S):
+            m.create_session(sid)
+        for lo in range(0, n_rows, 32):
+            r = np.arange(lo, lo + 32)
+            with m.arena.deferred_appends():
+                for sid in range(S):
+                    m[sid].memory.insert_batch(
+                        data[sid][r], scene_ids=list(r // TIER_SCENE_ROWS),
+                        index_frames=4 * r + 1,
+                        member_lists=[range(4 * i, 4 * i + 4) for i in r])
+        for sid in range(S):
+            m[sid].stats["frames_seen"] = 4 * n_rows
+        check(m.arena.has_consolidated(), "shard tier: no history")
+    totals = dict(fused=0, scan=0, err=0.0, shapes=set())
+    res = {}
+    for name, m in mgrs.items():
+        m.reset_io_stats(include_memories=False)
+        ops.reset_scan_counts()
+        with SlabLaunches() as cap:
+            res[name], _ = run_queries(m, S, D, coarse=True, text=False)
+        cap.hold(f"shard tier {name}", totals)
+        c = ops.scan_counts()
+        check(m.io_stats["two_stage_groups"] == 3
+              and m.io_stats["stack_rebuilds"] == 0,
+              f"shard tier {name}: {m.io_stats}")
+        if name == "k4":
+            check(m.io_stats["sharded_group_scans"] == 3
+                  and c["sharded_stack_launches"] == 3,
+                  f"shard tier k4: stage 1 once a slab: {c}")
+    for g in res["oracle"]:
+        same_results(res["k4"][g], res["oracle"][g], f"shard tier {g}")
+    print(f"phase shard[tier]: ok  {S} sessions x {n_rows} rows, 3 "
+          f"two-stage groups equal to the unsharded tier manager's; "
+          f"{totals['fused']} #1 launches held (max abs err "
+          f"{totals['err']:.3e})  [{card}]", flush=True)
+    return dict(held=totals["fused"], max_abs_err=totals["err"])
+
+
+def shard_edges(worlds, card):
+    """The edge slab shapes on a 4-slab arena (double-buffered, as a mesh
+    makes it) against an unsharded manager with the same sessions, each
+    step one tick of 64 frames of the main worlds: 3 sessions (S = 4, so
+    S/K = 1, and slab 3 one virgin slot: all-invalid); 2 more (a block of
+    growth, S = 8: slab 3 two virgin slots); the fifth closed (slab 2 a
+    released and a virgin slot). After each step the fronts are
+    bit-equal, an akr group and a ``fused=False`` group give equal
+    answers, and every #1 and #3 launch (one a slab) is held to its
+    plain version; among them a one-slot slab and an all-invalid slab of
+    each kernel."""
+    import torch
+    from repro_torch.core.session import SessionManager, VenusConfig
+    from repro_torch.data.video import PixelEmbedder
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import make_memory_mesh
+    dev = torch.device("cuda", 0)
+    mgrs = {"oracle": SessionManager(VenusConfig(), PixelEmbedder(dim=D), D,
+                                     device="cuda"),
+            "k4": SessionManager(VenusConfig(), PixelEmbedder(dim=D), D,
+                                 mesh=make_memory_mesh(4, [dev] * 4))}
+    totals = dict(fused=0, scan=0, err=0.0, shapes=set())
+    seen = set()
+    steps = (("3 sessions", (0, 1, 2), (), 4), ("5 sessions", (3, 4), (), 8),
+             ("the fifth closed", (), (4,), 8))
+    for t, (label, opened, closed, n_slots) in enumerate(steps):
+        for m in mgrs.values():
+            for sid in opened:
+                m.create_session(sid)
+            for sid in closed:
+                m.close_session(sid)
+            live = sorted(m.sessions)
+            m.ingest_tick({sid: worlds[sid].frames[64 * t:64 * (t + 1)]
+                           for sid in live})
+            m.flush()
+        a = mgrs["k4"].arena
+        check(a.n_sessions == n_slots, f"shard edges ({label}): "
+              f"{a.n_sessions} slots, free {a.free_slots}, virgin "
+              f"{a.virgin_slots}")
+        same_fronts(mgrs["k4"], mgrs["oracle"], f"shard edges ({label})")
+        res = {}
+        for name, m in mgrs.items():
+            with SlabLaunches() as cap:
+                res[name] = [shard_group(m, fused=f, seed=60 + t, sids=live)
+                             for f in (True, False)]
+            if name == "k4":
+                for kern, launches in (("#1", cap.fused), ("#3", cap.scans)):
+                    for q, x, v, *_ in launches:
+                        if q.shape[0] == 1:
+                            seen.add((kern, "one slot"))
+                        if not bool(ref.as_valid_mask(v, x.shape[1]).any()):
+                            seen.add((kern, "all-invalid"))
+            cap.hold(f"shard edges ({label}) {name}", totals)
+        for f, group in enumerate(("akr", "dense")):
+            same_results(res["k4"][f], res["oracle"][f],
+                         f"shard edges ({label}) {group}")
+    want = {(k, e) for k in ("#1", "#3") for e in ("one slot", "all-invalid")}
+    check(seen == want, f"shard edges: slab shapes launched {sorted(seen)}")
+    print(f"phase shard[edges]: ok  4 slabs of 1 and 2 slots, virgin and "
+          f"released slots, all-invalid slabs: {totals['fused']} #1 and "
+          f"{totals['scan']} #3 launches held (max abs err "
+          f"{totals['err']:.3e})  [{card}]", flush=True)
+    return dict(held_fused=totals["fused"], held_scan=totals["scan"],
+                max_abs_err=totals["err"])
+
+
+def shard_dvm(dev, card):
+    """``DistributedVenusMemory`` over 4 slabs of one card: 131,072 rows
+    × 768 f32 (16 streams × 8192), inserted in blocks of 8192, then 8
+    queries near 8 of its rows. Each query's candidates' probabilities
+    against the plain dense softmax over all rows restricted to the
+    candidates (renormalised over them: the contract of the top-M
+    gather; the candidates' dense mass is printed), the global argmax a
+    candidate, every per-shard #4 launch held to its plain version,
+    ``scatter_bytes`` of a block equal in a memory of a quarter the
+    capacity, and zero mass from an empty index."""
+    import numpy as np
+    import torch
+    from repro_torch.core.distributed_memory import DistributedVenusMemory
+    from repro_torch.kernels import ref, similarity
+    from repro_torch.launch.mesh import make_memory_mesh
+    mesh = make_memory_mesh(4, [dev] * 4)
+    mem = DistributedVenusMemory(DVM_ROWS, D, mesh, top_m=64)
+    small = DistributedVenusMemory(DVM_ROWS // 4, D, mesh, top_m=64)
+    rng = np.random.default_rng(31)
+    keep = []
+    t_ins = 0.0
+    for lo in range(0, DVM_ROWS, DVM_BLOCK):
+        block = rng.standard_normal((DVM_BLOCK, D), dtype=np.float32)
+        if lo == 0:
+            keep = block[:DVM_QUERIES].copy()
+            small.insert(block)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mem.insert(block)
+        torch.cuda.synchronize()
+        t_ins += time.perf_counter() - t0
+        if lo == 0:
+            check(mem.io_stats["scatter_bytes"]
+                  == small.io_stats["scatter_bytes"]
+                  == DVM_BLOCK * (4 * D + 5),
+                  f"dvm: scatter bytes {mem.io_stats} {small.io_stats}")
+    del small
+    queries = keep + 0.3 * rng.standard_normal(keep.shape, dtype=np.float32)
+    per = DVM_ROWS // 4
+    x_all = torch.cat(mem._emb)                        # global id order
+    v_all = torch.cat(mem._valid)
+    orig = similarity._launch_scan_2d
+    launches = []
+
+    def capture(q, x, v, *, tau):
+        out = orig(q, x, v, tau=tau)
+        launches.append((q, x, v, tau, out))
+        return out
+    err, search_s, mass = 0.0, [], []
+    for j, qv in enumerate(queries):
+        similarity._launch_scan_2d = capture
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids, probs = mem.search(qv, tau=TAU)
+            torch.cuda.synchronize()
+            search_s.append(time.perf_counter() - t0)
+        finally:
+            similarity._launch_scan_2d = orig
+        sims, m, l = ref.similarity_scan_ref(
+            torch.from_numpy(qv)[None].cuda(), x_all, v_all, tau=TAU)
+        dense = ref.scan_probs(sims, m, l, v_all[None], TAU)[0]
+        gids = (ids % 4) * per + ids // 4
+        live = probs > 0
+        pd = dense[gids[live]]
+        mass.append(float(pd.sum()))
+        want = pd / pd.sum()
+        check(torch.allclose(probs[live], want, rtol=1e-4, atol=1e-5),
+              f"dvm query {j}: max abs err "
+              f"{float((probs[live] - want).abs().max())}")
+        err = max(err, float((probs[live] - want).abs().max()))
+        check(int(dense.argmax()) in set(gids[live].tolist()),
+              f"dvm query {j}: the dense argmax is not a candidate")
+    for j, (q, x, v, tau, out) in enumerate(launches):
+        want = ref.similarity_scan_ref(q, x, v, tau=tau)
+        err4 = _scan_check(f"dvm #4 launch {j}", tuple(t[None] for t in out),
+                           tuple(t[None] for t in want), v[None, None, :],
+                           tau=tau)
+        err = max(err, err4)
+    check(len(launches) == 4 * DVM_QUERIES, f"dvm: {len(launches)} #4 "
+          f"launches for {DVM_QUERIES} searches over 4 shards")
+    empty = DistributedVenusMemory(4 * 1024, D, mesh, top_m=64)
+    _, p0 = empty.search(queries[0], tau=TAU)
+    check(float(p0.abs().sum()) == 0.0, "dvm: an empty index has mass")
+    out = dict(rows=DVM_ROWS, insert_s=t_ins, search_s=search_s,
+               candidate_dense_mass=mass, max_abs_err=err,
+               launches=len(launches))
+    print(f"phase shard[dvm]: ok  {DVM_ROWS} x {D} f32 over 4 slabs, "
+          f"inserted in {DVM_ROWS // DVM_BLOCK} blocks in {t_ins:.3f} s; "
+          f"search (s, host clock) {[round(s, 6) for s in search_s]}; "
+          f"candidates' dense mass {min(mass):.3e}-{max(mass):.3e}; "
+          f"{len(launches)} #4 launches held (max abs err {err:.3e})  "
+          f"[{card}]", flush=True)
+    del mem, x_all, v_all
+    return out
+
+
+def phase_shard(worlds, card):
+    """The sharded, double-buffered memory path on one card, its slabs
+    on ``cuda:0`` K times (the per-slab code a box with K cards runs):
+    16 streams of the main worlds in 3 ticks of 64 frames at d = 768 and
+    capacity 8192, embedded by ``PixelEmbedder(dim=768)`` (the embedder
+    does not touch sharding), into the managers of ``SHARD_MGRS``: (a)
+    no mesh, single buffer, the oracle; (b) a K = 1 mesh, double
+    buffered; (c) K = 2; (d) K = 4; (e) K = 4 int8 against (e0), an
+    unsharded int8 oracle. Before each tick an akr group on (a)-(d), equal
+    answers; after it each session's front rows bit-equal to its
+    oracle's. Then the akr, sampling and topk groups and one
+    ``fused=False`` akr group: equal draws, frame ids and n_drawn; one
+    ``sharded_stack_launches`` a group, ``shard_gather_bytes`` of a fused
+    group under one f32 (S, Q, cap) tensor, no restack, a double flush a
+    append and a carry. Every #1 and #3 launch (one a slab) held to its
+    plain version. Then the stream order (``check_stream_order``), the
+    tier at K = 4 (``shard_tier``), the edge slab shapes
+    (``shard_edges``) and ``DistributedVenusMemory``
+    (``shard_dvm``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.session import SessionManager, VenusConfig
+    from repro_torch.data.video import PixelEmbedder
+    from repro_torch.kernels import ops, similarity
+    from repro_torch.launch.mesh import make_memory_mesh
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    mgrs = {}
+    for name, (k, db, dtype, _) in SHARD_MGRS.items():
+        mesh = None if k is None else make_memory_mesh(k, [dev] * k)
+        mgrs[name] = m = SessionManager(
+            VenusConfig(index_dtype=dtype), PixelEmbedder(dim=D), D,
+            mesh=mesh, double_buffer=db,
+            device="cuda" if mesh is None else None)
+        for sid in range(S):
+            m.create_session(sid)
+    sharded = [n for n, v in SHARD_MGRS.items() if v[0] is not None]
+    totals = dict(fused=0, scan=0, err=0.0, shapes=set())
+    tick_s = {n: [] for n in mgrs}
+    group_s = {n: [] for n in mgrs}
+    for t in range(SHARD_TICKS):
+        pre = {}
+        with SlabLaunches() as cap:
+            for n in ("a", "b", "c", "d"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pre[n] = shard_group(mgrs[n], seed=40 + t)
+                group_s[n].append(time.perf_counter() - t0)
+        cap.hold(f"shard tick {t}", totals)
+        for n in ("b", "c", "d"):
+            same_results(pre[n], pre["a"], f"shard ({n}) before tick {t}")
+        chunks = {sid: w.frames[64 * t:64 * (t + 1)]
+                  for sid, w in enumerate(worlds)}
+        for n, m in mgrs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.ingest_tick(chunks)
+            torch.cuda.synchronize()
+            tick_s[n].append(time.perf_counter() - t0)
+        for n in sharded:
+            same_fronts(mgrs[n], mgrs[SHARD_MGRS[n][3]],
+                        f"shard ({n}) after tick {t}")
+    for n, m in mgrs.items():
+        m.flush()
+    for n in sharded:
+        same_fronts(mgrs[n], mgrs[SHARD_MGRS[n][3]], f"shard ({n}) flushed")
+    rows = [mgrs["a"][s].memory.size for s in range(S)]
+    io_arena = {n: dict(mgrs[n].arena.io_stats) for n in mgrs}
+    results, counts, launch = {}, {}, {}
+    for n, m in mgrs.items():
+        m.reset_io_stats(include_memories=False)
+        ops.reset_scan_counts()
+        ops.reset_kernel_launches()
+        with SlabLaunches() as cap:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[n], qtimes = run_queries(m, S, D, text=False)
+            group_s[n] += [qtimes[g] for g in ("akr", "sampling", "topk")]
+            counts[n] = ops.scan_counts()
+            t0 = time.perf_counter()
+            results[n]["dense"] = shard_group(m, fused=False)
+            torch.cuda.synchronize()
+            group_s[n].append(time.perf_counter() - t0)
+        launch[n] = ops.kernel_launches()
+        if n == "d":     # one slab launch of the akr group, by CUDA events
+            q, x, v, tg, k_, tau = cap.fused[0]
+            slab_ms = device_ms(
+                lambda: similarity.fused_retrieve_scan_stack(
+                    q, x, v, tg, tau=tau, n_topk=k_))
+        cap.hold(f"shard ({n})", totals)
+        k = SHARD_MGRS[n][0] or 1
+        c = counts[n]
+        check(launch[n]["fused_retrieve"] == 3 * k
+              and launch[n]["similarity_scan_stack"] == k,
+              f"shard ({n}): one launch a slab a group: {launch[n]}")
+        check(m.io_stats["stack_rebuilds"] == 0, f"shard ({n}): restack")
+        if k > 1:
+            check(c["sharded_stack_launches"] == 3
+                  and m.io_stats["sharded_group_scans"] == 4,
+                  f"shard ({n}): one sharded launch a group: {c} "
+                  f"{m.io_stats}")
+            check(0 < c["shard_gather_bytes"] / 3
+                  < S * 8 * m.arena.capacity * 4,
+                  f"shard ({n}): gather bytes {c['shard_gather_bytes']}")
+        else:
+            check(c["sharded_stack_launches"] == 0
+                  and m.io_stats["sharded_group_scans"] == 0,
+                  f"shard ({n}): K = 1 is the single launch: {c}")
+        if SHARD_MGRS[n][1] is not False:
+            io = io_arena[n]
+            check(io["double_flushes"] == io["appends"] > 0
+                  and io["carry_rows"] > 0, f"shard ({n}): {io}")
+    for n in sharded:
+        o = SHARD_MGRS[n][3]
+        for g in results[o]:
+            same_results(results[n][g], results[o][g], f"shard ({n}) {g}")
+    check_results(mgrs["d"], S, {g: results["d"][g] for g in
+                                 ("akr", "sampling", "topk")}, "shard (d)")
+    # #1's device time a slab launch in (d)'s akr group, by the profiler.
+    # Late in the script a trace loses its first 8 device events (PERF.md
+    # §6), so 64 short sleeps head the trace and take that loss; three
+    # traces that still lose a launch, or hold no device event, fail the
+    # phase
+    trace, lost = None, "no device event"
+    for _ in range(3):
+        before = similarity.fused_retrieve_scan_stack.launches
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_PAD):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            shard_group(mgrs["d"], seed=77)
+            torch.cuda.synchronize()
+        try:
+            trace = kernel_in_trace(
+                prof, similarity.fused_retrieve_scan_stack.launches - before,
+                ("k_scores<", "k_finish"), "shard (d) akr")
+        except RuntimeError as e:
+            lost = str(e)
+            print(f"  {lost}: traced again", flush=True)
+            continue
+        if trace is not None:
+            break
+    check(trace is not None, f"shard (d): 3 traces of the akr group, the "
+          f"last with {lost}")
+    for n in ("b", "d"):
+        check_stream_order(mgrs[n], f"shard ({n}) order")
+    gather = {n: counts[n]["shard_gather_bytes"] / 3 for n in sharded
+              if SHARD_MGRS[n][0] > 1}
+    rounded = lambda d: {n: [round(x, 4) for x in v] for n, v in d.items()}
+    print(f"phase shard: ingest ticks (s) {rounded(tick_s)}  query groups "
+          f"(s; 3 before the ticks, akr, sampling, topk, dense) "
+          f"{rounded(group_s)}  shard_gather_bytes a fused group {gather}  "
+          f"[{card}]", flush=True)
+    print(f"  #1 a slab launch of (d)'s akr group: {1e3 * slab_ms:.2f} device "
+          f"us (CUDA events, 20 launches behind a sleep); in the group "
+          f"(profiler): {trace['launches']} slab launches, "
+          f"{trace['device_us_per_launch']:.2f} device us a launch",
+          flush=True)
+    del mgrs, results
+    torch.cuda.empty_cache()
+    tier = shard_tier(dev, card)
+    edges = shard_edges(worlds, card)
+    dvm = shard_dvm(dev, card)
+    out = dict(tick_s=tick_s, group_s=group_s, rows=rows,
+               shard_gather_bytes=gather, trace=trace, slab_device_ms=slab_ms,
+               arena=io_arena,
+               held_fused=totals["fused"], held_scan=totals["scan"],
+               shapes=sorted(map(str, totals["shapes"])),
+               max_abs_err=totals["err"], launches=launch, tier=tier,
+               edges=edges, dvm=dvm, phase_s=time.perf_counter() - t_phase)
+    print(f"phase shard: ok  K = 1 (double-buffered), 2, 4 and 4 int8 "
+          f"answer like their oracles; fronts bit-equal every tick; "
+          f"{totals['fused']} #1 and {totals['scan']} #3 launches held "
+          f"(max abs err {totals['err']:.3e}); phase {out['phase_s']:.1f} s"
+          f"  [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3904,6 +4466,10 @@ def main() -> int:
     print(f"phase main_int8: ok  launches {l8}", flush=True)
     del mgr8
 
+    # 26. the sharded, double-buffered memory path
+    shard = phase_shard(worlds, card)
+    torch.cuda.empty_cache()
+
     # 13. the hierarchical tier through the entry points
     tier = phase_tier(embedder, card)
     tier_full = phase_tier_full(card)
@@ -3979,8 +4545,17 @@ def main() -> int:
         **{f"{st}_{k}": stages[st][k] for st in ("stage1", "stage2")
            for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                      "max_abs_err")},
-        stage2_gather_device_ms=stages["gather"]["device_ms"]),
-        stack_row,
+        stage2_gather_device_ms=stages["gather"]["device_ms"],
+        shard_launches={n: v["fused_retrieve"]
+                        for n, v in shard["launches"].items()},
+        shard_device_us_per_launch=shard["trace"]["device_us_per_launch"],
+        shard_slab_device_ms=shard["slab_device_ms"],
+        shard_tier_held=shard["tier"]["held"],
+        shard_edges_held=shard["edges"]["held_fused"]),
+        dict(stack_row, shard_launches={
+            n: v["similarity_scan_stack"]
+            for n, v in shard["launches"].items()},
+            shard_edges_held=shard["edges"]["held_scan"]),
         dict(scan_row("similarity_scan", "similarity_scan_2d.cu",
                       "src/repro/kernels/similarity.py:148", sim["2d"],
                       dl["similarity_scan"]),
@@ -3988,7 +4563,8 @@ def main() -> int:
                              if k.startswith("2d")),
              int8_ms=sim["2d_int8"]["ms"],
              int8_device_ms=sim["2d_int8"]["device_ms"],
-             int8_bound_ms=sim["2d_int8"]["bound_ms"]),
+             int8_bound_ms=sim["2d_int8"]["bound_ms"],
+             shard_dvm_launches=shard["dvm"]["launches"]),
         dict(name="scene_score", route="cuda",
              source="src/repro_torch/kernels/csrc/scene_score.cu",
              replaces="src/repro/kernels/scene_score.py:75",
@@ -4069,6 +4645,7 @@ def main() -> int:
                        serve_whisper=serve_whisper,
                        mem=mem_out, tier=tier,
                        tier_8192=tier_full, standing=standing,
+                       shard=shard,
                        parity_tier=parity, **train), f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -193,6 +193,7 @@ def arena_from_numpy(cfg: VenusConfig, embedder, *, emb: np.ndarray,
                      emb_scale: Optional[np.ndarray] = None,
                      coarse: Optional[Mapping[str, np.ndarray]] = None,
                      sids: Optional[Sequence[int]] = None,
+                     mesh=None, double_buffer: Optional[bool] = None,
                      device=None) -> SessionManager:
     """emb (S, cap, d) f32 — or int8 with ``emb_scale`` (S, cap) — plus
     members (S, cap, K), member_count / index_frame (S, cap), the ring
@@ -205,7 +206,10 @@ def arena_from_numpy(cfg: VenusConfig, embedder, *, emb: np.ndarray,
     ``weight``, ``fid_lo``, ``fid_hi`` (S, coarse_capacity) and
     ``csize`` (S,). The host mirrors are rebuilt from the same arrays
     (int8 rows dequantised with their scales), so later inserts and
-    consolidations continue the same memory."""
+    consolidations continue the same memory. ``mesh`` and
+    ``double_buffer`` go to the ``SessionManager``: a sharded manager
+    places session ``sids[s]`` where its arena puts it, and row s of
+    each array goes to that slot's slab."""
     emb = np.asarray(emb)
     s, cap, d = emb.shape
     int8 = emb.dtype == np.int8
@@ -222,32 +226,33 @@ def arena_from_numpy(cfg: VenusConfig, embedder, *, emb: np.ndarray,
     missing = sorted(set(COARSE_KEYS) - set(coarse or COARSE_KEYS))
     if missing:
         raise ValueError(f"coarse lacks {missing}")
-    mgr = SessionManager(cfg, embedder, d, device=device)
+    mgr = SessionManager(cfg, embedder, d, mesh=mesh,
+                         double_buffer=double_buffer, device=device)
     sids = list(range(s)) if sids is None else [int(x) for x in sids]
     for sid in sids:
         mgr.create_session(sid)
     a = mgr.arena
-
-    def put(buf, x, dtype):
-        # np.array copies: the caller's arrays may be read-only views
-        buf.copy_(torch.from_numpy(np.array(x, dtype)).to(a.device))
-
-    put(a.emb, emb, emb.dtype)
+    if coarse is not None and np.shape(coarse["emb"])[1:] != (a.n_coarse, d):
+        raise ValueError("coarse tier shape does not match cfg")
+    bufs = [("emb", emb, emb.dtype), ("members", members, np.int32),
+            ("member_count", member_count, np.int32),
+            ("index_frame", index_frame, np.int32)]
     if int8:
-        put(a.emb_scale, emb_scale, np.float32)
-    put(a.members, members, np.int32)
-    put(a.member_count, member_count, np.int32)
-    put(a.index_frame, index_frame, np.int32)
-    a.sizes[:] = np.asarray(sizes, np.int32)
-    a.heads[:] = np.asarray(heads, np.int32)
+        bufs.append(("emb_scale", emb_scale, np.float32))
     if coarse is not None:
-        if a.coarse_emb.shape != np.shape(coarse["emb"]):
-            raise ValueError("coarse tier shape does not match cfg")
-        put(a.coarse_emb, coarse["emb"], np.float32)
-        put(a.coarse_members, coarse["members"], np.int32)
-        put(a.coarse_member_count, coarse["member_count"], np.int32)
-        put(a.coarse_index_frame, coarse["index_frame"], np.int32)
-        a.coarse_valid[:] = np.asarray(coarse["valid"], bool)
+        bufs += [(f"coarse_{k}", coarse[k], t) for k, t in (
+            ("emb", np.float32), ("members", np.int32),
+            ("member_count", np.int32), ("index_frame", np.int32))]
+    for row, sid in enumerate(sids):
+        slot = mgr.sessions[sid].memory.slot
+        for name, x, dtype in bufs:
+            # np.array copies: the caller's arrays may be read-only views
+            a.load_slot(name, slot, torch.from_numpy(np.array(x[row],
+                                                              dtype)))
+        a.sizes[slot] = sizes[row]
+        a.heads[slot] = heads[row]
+        if coarse is not None:
+            a.coarse_valid[slot] = np.asarray(coarse["valid"][row], bool)
     a.version += 1
     for slot, sid in enumerate(sids):
         st = mgr.sessions[sid]

@@ -11,7 +11,9 @@ layer, with a coarse summary tier.
 * ``MemoryArena`` — the device-resident ``(S, capacity, ·)`` super-buffers
   every session's rows live in. A tick's appends land with one in-place
   ``index_put_`` per super-buffer, so the buffers ARE the fused scan's
-  operand and no ingest↔query interleaving ever restacks anything.
+  operand and no ingest↔query interleaving ever restacks anything. Given
+  a mesh, each buffer is K slabs of contiguous slots, one a device; with
+  ``double_buffer`` a tick is written into a back set, then swapped in.
 * ``MemoryStack`` / ``ArenaStackView`` — the stacked scan views: the
   fused retrieval launch and the dense ``search``.
 
@@ -38,6 +40,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import as_valid_mask
+from repro_torch.launch.sharding import mesh_axis_size, slab_devices
 from repro_torch.util import resolve_device
 
 
@@ -300,6 +303,13 @@ def expand_gather(members: torch.Tensor, counts: torch.Tensor,
     return fids, ok
 
 
+def gather_rows(table: torch.Tensor, draws: torch.Tensor) -> torch.Tensor:
+    """table (S, cap) per-row values (index frame ids); draws (S, Q, n)
+    rows → (S, Q, n), on the table's device."""
+    sidx = torch.arange(table.shape[0], device=table.device)[:, None, None]
+    return table[sidx, draws.long().clamp(0, table.shape[1] - 1)]
+
+
 # ---------------------------------------------------------------------------
 # Eviction policies
 # ---------------------------------------------------------------------------
@@ -402,13 +412,38 @@ def _index_dtype(index_dtype: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
+class _Buffer:
+    """A front super-buffer by name on an unsharded arena (K == 1), where
+    it is one tensor: the buffer itself, so writes through it reach the
+    arena. A K-slab arena has no such tensor and reading one raises: the
+    slabs (``MemoryArena.slabs``, ``slot_view``) or an explicit copy
+    (``MemoryArena.whole``) serve there."""
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, arena, owner=None):
+        if arena is None:
+            return self
+        if arena.n_shards > 1:
+            raise RuntimeError(
+                f"a {arena.n_shards}-slab arena has no single {self.name!r} "
+                f"tensor: read arena.slabs({self.name!r}) or copy it with "
+                f"arena.whole({self.name!r})")
+        return arena.whole(self.name)
+
+
+_COARSE = ("coarse_emb", "coarse_members", "coarse_member_count",
+           "coarse_index_frame")
+
+
 class MemoryArena:
     """Shared device-resident super-buffers for S sessions' memories:
     ``emb`` (S, cap, d) f32 or int8 (+ ``emb_scale`` (S, cap) for int8),
     ``members`` (S, cap, K), ``member_count`` and ``index_frame`` (S, cap).
-    ``emb`` is the head of a buffer with one more row, always zero:
-    ``emb_rows`` (S·cap + 1, d) lets one gather take a zero row
-    (``tiering``).
+    ``emb`` is the head of a buffer with one more row, always zero
+    (``slabs("rows")``, (S·cap + 1, d)), so one gather can take a zero
+    row (``tiering``).
 
     Slots: ``add_session`` reuses the last released slot (its rows are
     zeroed in place, ``slot_reuses``) or grows every buffer by one slot
@@ -424,107 +459,263 @@ class MemoryArena:
 
     Appends: the reference's donated XLA scatters become in-place
     ``index_put_`` writes into the preallocated buffers — one per
-    super-buffer per tick inside ``deferred_appends``, coarse rows after
-    fine ones."""
+    super-buffer (and slab) per tick inside ``deferred_appends``, coarse
+    rows after fine ones.
+
+    **Sharding** (``mesh=`` whose ``mesh_axis`` has K > 1 devices): every
+    super-buffer is K slab tensors, slab k holding slots ``[k·S/K,
+    (k+1)·S/K)`` on ``mesh`` device k (``launch.sharding``), each with its
+    own zero row after ``emb``. The scans of ``kernels.ops`` launch once
+    per slab and the executor's gathers read each slot from its slab
+    (``map_slabs``). The arena grows by blocks of K slots — the first
+    handed out, the rest parked in ``virgin_slots`` (zero already, so
+    claiming one is free and no ``slot_reuse``) — and growth moves slab
+    boundaries, a reshard copy counted in ``grows``. Allocation takes the
+    free or virgin slot of the least-loaded slab, ties to the lowest
+    slot. There ``arena.emb`` and its siblings raise (no one tensor holds
+    the buffer); ``whole(name)`` is an explicit copy. K == 1 (or no mesh)
+    is the unsharded arena: one tensor a buffer, single-slot growth, LIFO
+    reuse.
+
+    **Double buffering** (``double_buffer=True``): a back set of the fine
+    buffers, one tick behind the front. A flush writes last tick's blocks
+    (the carry) and then this tick's into the back set and swaps the two;
+    writes keep the last one per (slot, pos), so the front after every
+    flush is bitwise the single-buffer state. On CUDA the back set's
+    writes run on an ingest stream of the arena's own (one a device), so
+    they overlap query launches already queued on the front: the flush
+    waits on an event recorded at the previous swap (and after any reset
+    or growth the query stream made to the back set since), and at the
+    swap the query stream waits on the flush's event. Slot resets and
+    growth apply to both sets; a recycled slot is dropped from the
+    carry. The coarse tier stays single-buffered."""
+
+    emb = _Buffer()
+    emb_scale = _Buffer()
+    members = _Buffer()
+    member_count = _Buffer()
+    index_frame = _Buffer()
+    coarse_emb = _Buffer()
+    coarse_members = _Buffer()
+    coarse_member_count = _Buffer()
+    coarse_index_frame = _Buffer()
 
     def __init__(self, capacity: int, dim: int, member_cap: int = 128,
-                 index_dtype: str = "float32", *, coarse_capacity: int = 0,
-                 coarse_block: int = 64, device=None):
+                 index_dtype: str = "float32", *, mesh=None,
+                 mesh_axis: str = "model", double_buffer: bool = False,
+                 coarse_capacity: int = 0, coarse_block: int = 64,
+                 device=None):
         self.capacity = capacity
         self.dim = dim
         self.member_cap = member_cap
         self.index_dtype = index_dtype
         self._emb_dtype = _index_dtype(index_dtype)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.n_shards = mesh_axis_size(mesh, mesh_axis)
+        self.devices = ([resolve_device(device)] if mesh is None
+                        else slab_devices(mesh, mesh_axis))
+        self.device = self.devices[0]
         self.n_sessions = 0
-        self.emb: Optional[torch.Tensor] = None
-        self.emb_rows: Optional[torch.Tensor] = None
-        self.emb_scale: Optional[torch.Tensor] = None
-        self.members: Optional[torch.Tensor] = None
-        self.member_count: Optional[torch.Tensor] = None
-        self.index_frame: Optional[torch.Tensor] = None
         self.sizes = np.zeros((0,), np.int32)
         self.heads = np.zeros((0,), np.int32)
         self.coarse_capacity = coarse_capacity
         self.coarse_block = coarse_block
         self.n_blocks, self.n_coarse = coarse_rows_for(
             capacity, coarse_capacity, coarse_block)
-        self.coarse_emb: Optional[torch.Tensor] = None
-        self.coarse_members: Optional[torch.Tensor] = None
-        self.coarse_member_count: Optional[torch.Tensor] = None
-        self.coarse_index_frame: Optional[torch.Tensor] = None
+        # name → K slab tensors; "rows" holds each slab's emb with its
+        # zero row. The coarse tier has one set; the fine buffers a front
+        # and, double-buffered, a back set
+        self._front: dict = {}
+        self._back: Optional[dict] = {} if double_buffer else None
+        self._coarse: dict = {}
+        self._carry: list = []
+        self._streams: dict = {}         # device → the ingest stream
+        self._back_free: dict = {}       # device → event: back set idle
+        self._ingest_done: dict = {}     # device → event: flush written
         self.coarse_valid = np.zeros((0, self.n_coarse), bool)
         self._coarse_valid_dev: Optional[torch.Tensor] = None
         self._coarse_valid_ver = -1
         self.free_slots: List[int] = []
+        self.virgin_slots: List[int] = []
         self.version = 0
         self._windows_dev: Optional[torch.Tensor] = None
         self._valid_dev: Optional[torch.Tensor] = None
         self._valid_version = -1
         self._deferred: Optional[list] = None
         self._coarse_deferred: Optional[list] = None
-        # the reference's keys; double buffering (its carry) is not
-        # ported yet, so its counters stay 0
         self.io_stats = {"grows": 0, "appends": 0, "appended_rows": 0,
                          "slot_releases": 0, "slot_reuses": 0,
                          "double_flushes": 0, "carry_rows": 0,
                          "coarse_appends": 0, "coarse_appended_rows": 0}
 
+    @property
+    def double_buffer(self) -> bool:
+        return self._back is not None
+
     def reset_io_stats(self) -> None:
         for k in self.io_stats:
             self.io_stats[k] = 0
 
-    def _buffers(self):
-        return {"emb": self.emb, "emb_scale": self.emb_scale,
-                "members": self.members, "member_count": self.member_count,
-                "index_frame": self.index_frame,
-                "coarse_emb": self.coarse_emb,
-                "coarse_members": self.coarse_members,
-                "coarse_member_count": self.coarse_member_count,
-                "coarse_index_frame": self.coarse_index_frame}
+    # ---------------------------------------------------------------- slabs
+    def slabs(self, name: str) -> List[torch.Tensor]:
+        """The K slab tensors of a front buffer (``"rows"``: each slab's
+        emb with its zero row after it)."""
+        return (self._coarse if name in _COARSE else self._front)[name]
+
+    def whole(self, name: str) -> Optional[torch.Tensor]:
+        """A front buffer whole: at K == 1 the buffer itself; at K > 1 a
+        copy, its slabs concatenated on the first device, which writes do
+        not reach (for tests and tools: the ingest and query paths read
+        the slabs). None for a buffer this arena does not keep."""
+        slabs = (self._coarse if name in _COARSE else self._front).get(name)
+        if slabs is None:
+            return None
+        if len(slabs) == 1:
+            return slabs[0]
+        return torch.cat([x.to(self.device) for x in slabs])
+
+    def operand(self, name: str = "emb"):
+        """A buffer as a scan operand: the tensor, or the K slabs."""
+        slabs = self.slabs(name)
+        return slabs[0] if self.n_shards == 1 else list(slabs)
+
+    @property
+    def per_slab(self) -> int:
+        return self.n_sessions // self.n_shards
+
+    def _shard_of(self, slot: int) -> int:
+        """The slab (device) a slot lives on now."""
+        slab = max(1, self.n_sessions // self.n_shards)
+        return min(slot // slab, self.n_shards - 1)
+
+    def slab_of(self, slot: int) -> Tuple[int, int]:
+        """(slab, slot within the slab)."""
+        k = self._shard_of(slot)
+        return k, slot - k * self.per_slab
+
+    def slot_view(self, name: str, slot: int) -> torch.Tensor:
+        """One slot's rows of a front buffer, a view into its slab."""
+        k, i = self.slab_of(slot)
+        return self.slabs(name)[k][i]
+
+    def load_slot(self, name: str, slot: int, rows: torch.Tensor) -> None:
+        """Set one slot's rows of a buffer, in both sets when
+        double-buffered: a memory carried in from elsewhere
+        (``convert.arena_from_numpy``)."""
+        k, i = self.slab_of(slot)
+        for bufs in self._sets() + [self._coarse]:
+            if name in bufs:
+                bufs[name][k][i].copy_(rows)
+        self._back_written()
+
+    def map_slabs(self, fn, *xs: torch.Tensor):
+        """``fn(k, *parts)`` for each slab k, ``parts`` the slab's rows of
+        the (S, …) operands ``xs`` on its device; the outputs (a tensor or
+        a tuple) come back to the first device concatenated along S. At
+        K == 1 it is one call on ``xs``."""
+        if self.n_shards == 1:
+            return fn(0, *xs)
+        per = self.per_slab
+        outs = [fn(k, *(x[k * per:(k + 1) * per].to(dev) for x in xs))
+                for k, dev in enumerate(self.devices)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat([o[i].to(self.device) for o in outs])
+                         for i in range(len(outs[0])))
+        return torch.cat([o.to(self.device) for o in outs])
+
+    def _by_slab(self, slots: np.ndarray):
+        """(slab, selection, slots within the slab) of each slab the slot
+        ids touch."""
+        if self.n_shards == 1:
+            yield 0, slice(None), slots
+            return
+        per = self.per_slab
+        shard = slots // per
+        for k in np.unique(shard):
+            sel = np.nonzero(shard == k)[0]
+            yield int(k), sel, slots[sel] - int(k) * per
 
     # ------------------------------------------------------------- lifecycle
-    def _grow_block(self) -> int:
-        slot = self.n_sessions
-        s = slot + 1
+    def _slot_shapes(self, coarse: bool):
         cap, d, k, nc = self.capacity, self.dim, self.member_cap, \
             self.n_coarse
-        shapes = {"emb": ((s, cap, d), self._emb_dtype),
-                  "members": ((s, cap, k), torch.int32),
-                  "member_count": ((s, cap), torch.int32),
-                  "index_frame": ((s, cap), torch.int32)}
+        if coarse:
+            return {"coarse_emb": ((nc, d), torch.float32),
+                    "coarse_members": ((nc, k), torch.int32),
+                    "coarse_member_count": ((nc,), torch.int32),
+                    "coarse_index_frame": ((nc,), torch.int32)}
+        shapes = {"emb": ((cap, d), self._emb_dtype),
+                  "members": ((cap, k), torch.int32),
+                  "member_count": ((cap,), torch.int32),
+                  "index_frame": ((cap,), torch.int32)}
         if self.index_dtype == "int8":
-            shapes["emb_scale"] = ((s, cap), torch.float32)
-        if nc:
-            shapes.update(coarse_emb=((s, nc, d), torch.float32),
-                          coarse_members=((s, nc, k), torch.int32),
-                          coarse_member_count=((s, nc), torch.int32),
-                          coarse_index_frame=((s, nc), torch.int32))
-        for name, (shape, dtype) in shapes.items():
-            if name == "emb":
-                rows = torch.zeros((s * cap + 1, d), dtype=dtype,
-                                   device=self.device)
-                new = rows[:s * cap].view(shape)
-                self.emb_rows = rows
-            else:
-                new = torch.zeros(shape, dtype=dtype, device=self.device)
-            old = getattr(self, name)
-            if old is not None:
-                new[:slot] = old
-            setattr(self, name, new)
+            shapes["emb_scale"] = ((cap,), torch.float32)
+        return shapes
+
+    def _reslab(self, bufs: dict, s: int, coarse: bool) -> None:
+        """Re-lay one buffer set over S = ``s`` slots: new zero slabs of
+        s/K slots, each filled with the old slots it now holds."""
+        old_s, old_per = self.n_sessions, self.per_slab
+        per = s // self.n_shards
+        cap, d = self.capacity, self.dim
+        for name, (shape, dtype) in self._slot_shapes(coarse).items():
+            old, new, rows = bufs.get(name), [], []
+            for k, dev in enumerate(self.devices):
+                if name == "emb":
+                    rows.append(torch.zeros((per * cap + 1, d), dtype=dtype,
+                                            device=dev))
+                    slab = rows[-1][:per * cap].view(per, cap, d)
+                else:
+                    slab = torch.zeros((per,) + shape, dtype=dtype,
+                                       device=dev)
+                g, hi = k * per, min((k + 1) * per, old_s)
+                while g < hi:
+                    i, lo = divmod(g, old_per)
+                    n = min(hi - g, old_per - lo)
+                    slab[g - k * per:g - k * per + n] = old[i][lo:lo + n]
+                    g += n
+                new.append(slab)
+            bufs[name] = new
+            if rows:
+                bufs["rows"] = rows
+
+    def _sets(self) -> List[dict]:
+        return [self._front] + ([self._back] if self._back is not None
+                                else [])
+
+    def _grow_block(self) -> int:
+        """Grow every buffer by one block of K slots; returns the first,
+        parking the rest in ``virgin_slots``."""
+        slot = self.n_sessions
+        s = slot + self.n_shards
+        for bufs in self._sets():
+            self._reslab(bufs, s, coarse=False)
+        if self.n_coarse:
+            self._reslab(self._coarse, s, coarse=True)
         self.n_sessions = s
-        self.sizes = np.append(self.sizes, np.int32(0))
-        self.heads = np.append(self.heads, np.int32(0))
+        self.sizes = np.append(self.sizes, np.zeros((self.n_shards,),
+                                                    np.int32))
+        self.heads = np.append(self.heads, np.zeros((self.n_shards,),
+                                                    np.int32))
         self.coarse_valid = np.concatenate(
-            [self.coarse_valid, np.zeros((1, nc), bool)])
+            [self.coarse_valid, np.zeros((self.n_shards, self.n_coarse),
+                                         bool)])
+        self.virgin_slots.extend(range(slot + 1, s))
+        self._back_written()
         self.version += 1
         self.io_stats["grows"] += 1
         return slot
 
     def _recycle(self, slot: int) -> int:
-        for buf in self._buffers().values():
-            if buf is not None:
-                buf[slot].zero_()
+        k, i = self.slab_of(slot)
+        for bufs in self._sets() + [self._coarse]:
+            for name, slabs in bufs.items():
+                if name != "rows":
+                    slabs[k][i].zero_()
+        # last tick's rows must not come back into the recycled slot
+        self._carry = [b for b in self._carry if b[0] != slot]
+        self._back_written()
         self.coarse_valid[slot] = False
         self.sizes[slot] = 0
         self.heads[slot] = 0
@@ -533,14 +724,31 @@ class MemoryArena:
         return slot
 
     def add_session(self) -> int:
-        """Allocate a slot: the last released one (LIFO) or a new one."""
-        if self.free_slots:
-            return self._recycle(self.free_slots.pop())
-        return self._grow_block()
+        """Allocate a slot. Unsharded: the last released one (LIFO) or a
+        new one. Sharded: the free or virgin slot on the least-loaded slab
+        (ties to the lowest slot), else a new block."""
+        if self.n_shards == 1:
+            if self.free_slots:
+                return self._recycle(self.free_slots.pop())
+            return self._grow_block()
+        dead = set(self.free_slots) | set(self.virgin_slots)
+        if not dead:
+            return self._grow_block()
+        load = [0] * self.n_shards
+        for s in range(self.n_sessions):
+            if s not in dead:
+                load[self._shard_of(s)] += 1
+        slot = min(sorted(dead), key=lambda s: (load[self._shard_of(s)], s))
+        if slot in self.virgin_slots:
+            self.virgin_slots.remove(slot)
+            return slot
+        self.free_slots.remove(slot)
+        return self._recycle(slot)
 
     def release_slot(self, slot: int) -> None:
         assert 0 <= slot < self.n_sessions, slot
         assert slot not in self.free_slots, f"slot {slot} already free"
+        assert slot not in self.virgin_slots, f"slot {slot} never allocated"
         self.free_slots.append(slot)
         self.sizes[slot] = 0
         self.heads[slot] = 0
@@ -548,13 +756,59 @@ class MemoryArena:
         self.version += 1
         self.io_stats["slot_releases"] += 1
 
+    # ------------------------------------------------------ ingest streams
+    def _cuda_devices(self) -> List[torch.device]:
+        return [d for d in dict.fromkeys(self.devices) if d.type == "cuda"]
+
+    def _back_written(self) -> None:
+        """The query stream just reset or grew the back set: the next
+        flush's writes wait for that (an event after it)."""
+        if self._back is None:
+            return
+        for d in self._cuda_devices():
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(d))
+            self._back_free[d] = ev
+
+    @contextlib.contextmanager
+    def _ingest(self):
+        """Write the back set on each device's ingest stream, after the
+        back set's last reader; record the writes' event for the swap."""
+        devs = self._cuda_devices()
+        with contextlib.ExitStack() as stack:
+            for d in devs:
+                st = self._streams.get(d)
+                if st is None:
+                    st = self._streams[d] = torch.cuda.Stream(d)
+                if d in self._back_free:
+                    st.wait_event(self._back_free[d])
+                stack.enter_context(torch.cuda.stream(st))
+            yield
+        for d in devs:
+            ev = torch.cuda.Event()
+            ev.record(self._streams[d])
+            self._ingest_done[d] = ev
+
+    def _swap(self) -> None:
+        """Front ↔ back. Every launch queued so far read the old front,
+        the next flush's target: an event after them frees it. The query
+        stream then waits for the new front's writes. The ingest stream's
+        temporaries never reach the query stream, and every buffer it
+        writes is freed (at a growth) only after the query stream has
+        waited for it, so the caching allocator needs no
+        ``record_stream``."""
+        self._front, self._back = self._back, self._front
+        self._back_written()
+        for d in self._cuda_devices():
+            torch.cuda.current_stream(d).wait_event(self._ingest_done[d])
+
     # ------------------------------------------------------------ ingestion
     @contextlib.contextmanager
     def deferred_appends(self):
         """Batch every ``append`` and ``append_coarse`` inside the context
-        into ONE in-place write per super-buffer. Re-entrant: the
-        outermost context flushes, fine rows first (block summaries are
-        computed from the post-tick host mirrors)."""
+        into ONE in-place write per super-buffer (and slab). Re-entrant:
+        the outermost context flushes, fine rows first (block summaries
+        are computed from the post-tick host mirrors)."""
         if self._deferred is not None:
             yield
             return
@@ -574,7 +828,8 @@ class MemoryArena:
         and record its new ``(head, size)`` window — queued inside a
         ``deferred_appends`` window, else written now. The rows are
         copied: the caller's arrays are views of host mirrors that a later
-        ring write may overwrite before the flush."""
+        ring write may overwrite before the flush (or, double-buffered,
+        before the carry's replay)."""
         block = (slot, pos, np.array(emb_rows, np.float32),
                  np.array(member_rows, np.int32),
                  np.array(member_cnts, np.int32),
@@ -609,8 +864,9 @@ class MemoryArena:
         """Concatenate queued blocks → (slots, poss, and the ``ncols``
         row columns after each block's (slot, pos)), keeping
         only the LAST write per (slot, pos): a session that wraps inside
-        one tick can hit a position twice, and ``index_put_`` leaves the
-        order of duplicate writes unspecified."""
+        one tick can hit a position twice, the carry's replay precedes
+        the tick's own blocks, and ``index_put_`` leaves the order of
+        duplicate writes unspecified."""
         slots = np.concatenate([np.full(len(b[2]), b[0], np.int64)
                                 for b in blocks])
         poss = np.concatenate([np.arange(b[1], b[1] + len(b[2]),
@@ -625,48 +881,65 @@ class MemoryArena:
             cols = [c[keep] for c in cols]
         return (slots, poss, *cols)
 
-    def _put(self, sl: torch.Tensor, po: torch.Tensor, buf: torch.Tensor,
-             rows: np.ndarray) -> None:
-        buf.index_put_((sl, po), torch.from_numpy(rows).to(self.device))
+    def _put_rows(self, bufs: dict, slots: np.ndarray, poss: np.ndarray,
+                  cols: dict) -> None:
+        """One ``index_put_`` per buffer and slab the rows touch."""
+        for k, sel, local in self._by_slab(slots):
+            dev = self.devices[k]
+            sl = torch.from_numpy(local).to(dev)
+            po = torch.from_numpy(poss[sel]).to(dev)
+            for name, rows in cols.items():
+                bufs[name][k].index_put_(
+                    (sl, po), torch.from_numpy(rows[sel]).to(dev))
 
-    def _flush(self, blocks: list) -> int:
-        """One in-place write per super-buffer for all queued blocks."""
-        if not blocks:
-            return 0
+    def _write(self, bufs: dict, blocks: list) -> int:
         slots, poss, emb_rows, mem_rows, cnt_rows, if_rows = \
             self._last_writes(blocks, self.capacity, 4)
-        sl = torch.from_numpy(slots).to(self.device)
-        po = torch.from_numpy(poss).to(self.device)
+        cols = {}
         if self.index_dtype == "int8":
             # quantise ONCE, at the append; scans stream the int8 rows
-            emb_rows, scale_rows = quantise_rows(emb_rows)
-            self._put(sl, po, self.emb_scale, scale_rows)
-        self._put(sl, po, self.emb, emb_rows)
-        self._put(sl, po, self.members, mem_rows)
-        self._put(sl, po, self.member_count, cnt_rows)
-        self._put(sl, po, self.index_frame, if_rows)
+            emb_rows, cols["emb_scale"] = quantise_rows(emb_rows)
+        cols.update(emb=emb_rows, members=mem_rows, member_count=cnt_rows,
+                    index_frame=if_rows)
+        self._put_rows(bufs, slots, poss, cols)
+        return len(slots)
+
+    def _flush(self, blocks: list) -> int:
+        """Write the queued blocks: into the front set, or double-buffered
+        the carry and then them into the back set, then swap."""
+        if not blocks:
+            return 0
+        if self._back is None:
+            n = self._write(self._front, blocks)
+        else:
+            carry = self._carry
+            with self._ingest():
+                n = self._write(self._back, carry + blocks)
+            self._swap()
+            # append copied every block, so the carry keeps them as they
+            # are (the reference's _copy_block)
+            self._carry = list(blocks)
+            self.io_stats["double_flushes"] += 1
+            self.io_stats["carry_rows"] += sum(len(b[2]) for b in carry)
         for slot, _pos, _e, _m, _c, _f, window in blocks:
             self.heads[slot], self.sizes[slot] = window
         self.version += 1
         self.io_stats["appends"] += 1
-        self.io_stats["appended_rows"] += len(slots)
-        return len(slots)
+        self.io_stats["appended_rows"] += n
+        return n
 
     def _flush_coarse(self, blocks: list) -> int:
-        """One in-place write per coarse super-buffer for the queued
-        summary rows; bumps ``version`` so every cached view and mask
-        refreshes."""
+        """One in-place write per coarse super-buffer (and slab) for the
+        queued summary rows; bumps ``version`` so every cached view and
+        mask refreshes."""
         if not blocks:
             return 0
         slots, poss, emb_rows, mem_rows, cnt_rows, if_rows, val_rows = \
             self._last_writes(blocks, self.n_coarse, 5)
         self.coarse_valid[slots, poss] = val_rows
-        sl = torch.from_numpy(slots).to(self.device)
-        po = torch.from_numpy(poss).to(self.device)
-        self._put(sl, po, self.coarse_emb, emb_rows)
-        self._put(sl, po, self.coarse_members, mem_rows)
-        self._put(sl, po, self.coarse_member_count, cnt_rows)
-        self._put(sl, po, self.coarse_index_frame, if_rows)
+        self._put_rows(self._coarse, slots, poss, {
+            "coarse_emb": emb_rows, "coarse_members": mem_rows,
+            "coarse_member_count": cnt_rows, "coarse_index_frame": if_rows})
         self.version += 1
         self.io_stats["coarse_appends"] += 1
         self.io_stats["coarse_appended_rows"] += len(slots)
@@ -709,6 +982,21 @@ class MemoryArena:
         consolidation every query takes the flat scan unchanged."""
         return bool(self.n_coarse
                     and self.coarse_valid[:, self.n_blocks:].any())
+
+    # ------------------------------------------------ per-slab query gathers
+    def expand_members(self, draws: torch.Tensor, valid: torch.Tensor,
+                       u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``expand_gather`` over the arena's reservoirs, each slot's
+        from its slab."""
+        mem, cnt = self.slabs("members"), self.slabs("member_count")
+        return self.map_slabs(lambda k, d, v: expand_gather(
+            mem[k], cnt[k], d, v, u.to(d.device)), draws, valid)
+
+    def gather_index_frames(self, draws: torch.Tensor) -> torch.Tensor:
+        """draws (S, Q, n) slots → index frame ids (S, Q, n), each slot's
+        from its slab."""
+        ifr = self.slabs("index_frame")
+        return self.map_slabs(lambda k, d: gather_rows(ifr[k], d), draws)
 
 
 # ---------------------------------------------------------------------------
@@ -1136,27 +1424,27 @@ class VenusMemory:
             self._valid_dev = as_valid_mask(w, self.capacity)[0]
             self._window_key = self.window
         if self.arena is not None:
-            return self.arena.emb[self.slot], self._valid_dev
+            return self.arena.slot_view("emb", self.slot), self._valid_dev
         return self._detached("emb")[0], self._valid_dev
 
     def search(self, query_emb, *, tau: float
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """query_emb (Q, d) → (sims (Q, cap), probs (Q, cap)), Eq. 4+5:
-        one 2-D dense scan of this memory's rows."""
+        one 2-D dense scan of this memory's rows (on its slab's device)."""
         emb, valid = self.device_index()
         self.io_stats["scans"] += 1
-        q = torch.as_tensor(query_emb, dtype=torch.float32).to(self.device)
+        q = torch.as_tensor(query_emb, dtype=torch.float32).to(emb.device)
         return kops.similarity(q, emb, tau=tau, valid=valid)
 
     def device_members(self) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.arena is not None:
-            return (self.arena.members[self.slot],
-                    self.arena.member_count[self.slot])
+            return (self.arena.slot_view("members", self.slot),
+                    self.arena.slot_view("member_count", self.slot))
         return self._detached("members")
 
     def device_index_frames(self) -> torch.Tensor:
         if self.arena is not None:
-            return self.arena.index_frame[self.slot]
+            return self.arena.slot_view("index_frame", self.slot)
         return self._detached("index_frame")[0]
 
     # -------------------------------------------------- per-memory expansion
@@ -1291,31 +1579,37 @@ class MemoryStack:
                     self.rebuild_stats.get("stack_rebuilds", 0) + 1
         return hit[1]
 
-    def device_stack(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def device_stack(self) -> Tuple[kops.IndexOperand, torch.Tensor]:
+        """(the index operand, (S, cap) valid mask): over the arena its
+        ``operand()`` — the K slabs when sharded — else a cached stack."""
         a = self.arena_view()
         if a is not None:
-            return a.emb, a.device_valid()
+            return a.operand(), a.device_valid()
         return self._stacked("emb", lambda: (
             torch.stack([m.device_index()[0] for m in self.memories]),
             torch.stack([m.device_index()[1] for m in self.memories])),
             "stack_builds")
 
-    def device_members(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def expand_members(self, draws: torch.Tensor, valid: torch.Tensor,
+                       u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Reservoir picks of (S, Q, n) draws (``expand_gather``)."""
         a = self.arena_view()
         if a is not None:
-            return a.members, a.member_count
-        return self._stacked("members", lambda: tuple(
+            return a.expand_members(draws, valid, u)
+        members, counts = self._stacked("members", lambda: tuple(
             torch.stack(t) for t in zip(*[m.device_members()
                                           for m in self.memories])),
             "member_stack_builds")
+        return expand_gather(members, counts, draws, valid, u)
 
-    def device_index_frames(self) -> torch.Tensor:
+    def gather_index_frames(self, draws: torch.Tensor) -> torch.Tensor:
+        """Index frame ids of (S, Q, n) draws."""
         a = self.arena_view()
         if a is not None:
-            return a.index_frame
-        return self._stacked("index_frame", lambda: torch.stack(
+            return a.gather_index_frames(draws)
+        return gather_rows(self._stacked("index_frame", lambda: torch.stack(
             [m.device_index_frames() for m in self.memories]),
-            "index_frame_stack_builds")
+            "index_frame_stack_builds"), draws)
 
     def search(self, query_emb: torch.Tensor, *, tau: float
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1324,8 +1618,7 @@ class MemoryStack:
         are the valid operand; the mask derives on the device."""
         a = self.arena_view()
         if a is not None:
-            return kops.similarity_stack(query_emb, a.emb, tau=tau,
-                                         valid=a.device_windows())
+            return arena_search(a, query_emb, tau)
         emb, valid = self.device_stack()
         return kops.similarity_stack(query_emb, emb, tau=tau, valid=valid)
 
@@ -1335,18 +1628,35 @@ class MemoryStack:
         it, no (S, Q, cap) score tensor comes back."""
         a = self.arena_view()
         if a is not None:
-            return kops.fused_retrieve_stack(
-                query_emb, a.emb, tau=tau, valid=a.device_windows(),
-                targets=targets, n_topk=n_topk)
+            return arena_fused_retrieve(a, query_emb, targets, tau, n_topk)
         emb, valid = self.device_stack()
         return kops.fused_retrieve_stack(query_emb, emb, tau=tau,
                                          valid=valid, targets=targets,
                                          n_topk=n_topk)
 
 
+def arena_search(a: MemoryArena, query_emb: torch.Tensor, tau: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense stack scan over the arena: its (S, 2) ring windows are
+    the valid operand, and a sharded arena scans slab by slab."""
+    return kops.similarity_stack(query_emb, a.operand(), tau=tau,
+                                 valid=a.device_windows(), mesh=a.mesh,
+                                 mesh_axis=a.mesh_axis)
+
+
+def arena_fused_retrieve(a: MemoryArena, query_emb: torch.Tensor,
+                         targets: torch.Tensor, tau: float, n_topk: int
+                         ) -> kops.FusedRetrieval:
+    """The fused launch over the arena (one a slab when sharded)."""
+    return kops.fused_retrieve_stack(
+        query_emb, a.operand(), tau=tau, valid=a.device_windows(),
+        targets=targets, n_topk=n_topk, mesh=a.mesh, mesh_axis=a.mesh_axis)
+
+
 class ArenaStackView:
     """The arena AS the stacked scan operand, lanes = arena slots (free
-    slots are masked-out padding lanes). Nothing is built or copied."""
+    and virgin slots are masked-out padding lanes). Nothing is built or
+    copied."""
 
     def __init__(self, arena: MemoryArena):
         self.arena = arena
@@ -1362,24 +1672,20 @@ class ArenaStackView:
     def arena_view(self) -> MemoryArena:
         return self.arena
 
-    def device_stack(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.arena.emb, self.arena.device_valid()
+    def device_stack(self) -> Tuple[kops.IndexOperand, torch.Tensor]:
+        return self.arena.operand(), self.arena.device_valid()
 
-    def device_members(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.arena.members, self.arena.member_count
+    def expand_members(self, draws, valid, u):
+        return self.arena.expand_members(draws, valid, u)
 
-    def device_index_frames(self) -> torch.Tensor:
-        return self.arena.index_frame
+    def gather_index_frames(self, draws: torch.Tensor) -> torch.Tensor:
+        return self.arena.gather_index_frames(draws)
 
     def search(self, query_emb: torch.Tensor, *, tau: float
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        a = self.arena
-        return kops.similarity_stack(query_emb, a.emb, tau=tau,
-                                     valid=a.device_windows())
+        return arena_search(self.arena, query_emb, tau)
 
     def fused_retrieve(self, query_emb: torch.Tensor, targets: torch.Tensor,
                        *, tau: float, n_topk: int) -> kops.FusedRetrieval:
-        a = self.arena
-        return kops.fused_retrieve_stack(
-            query_emb, a.emb, tau=tau, valid=a.device_windows(),
-            targets=targets, n_topk=n_topk)
+        return arena_fused_retrieve(self.arena, query_emb, targets, tau,
+                                    n_topk)

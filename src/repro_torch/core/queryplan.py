@@ -18,7 +18,9 @@
   probabilities. Once the arena's coarse tier holds a consolidated row, a
   fused group runs the two-stage retrieval instead (``tiering``: a coarse
   scan, then a scan of the winners' gathered candidates); ``coarse=False``
-  keeps the flat scan.
+  keeps the flat scan. Over a sharded arena a group's scan runs once a
+  slab (``sharded_group_scans``), and the reservoir and index-frame
+  gathers read each slot from its slab.
 
 Strategies live in a registry (``register_strategy`` / ``get_strategy``)
 behind one batched interface over ``(S, Q, cap)`` scan outputs. Each
@@ -37,14 +39,14 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 from typing import (Callable, Dict, List, Mapping, NamedTuple, Optional,
-                    Sequence, Tuple)
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
 
 from repro_torch.core import retrieval as rt
 from repro_torch.core import tiering
-from repro_torch.core.memory import VenusMemory, expand_gather
+from repro_torch.core.memory import VenusMemory
 from repro_torch.kernels import prng
 
 
@@ -188,7 +190,9 @@ class StrategyContext(NamedTuple):
     sims: torch.Tensor            # (S, Q, cap) cosine similarities
     probs: torch.Tensor           # (S, Q, cap) temperature softmax
     valid: torch.Tensor           # (S, cap) per-session slot validity
-    emb: torch.Tensor             # (S, cap, d) index embedding stack
+    emb: Union[torch.Tensor, List[torch.Tensor]]  # (S, cap, d) index
+    #                               embedding stack, or a sharded arena's
+    #                               K slabs of it
     keys: Optional[np.ndarray]    # (S, Q, 2) key data (stochastic only)
     total_frames: np.ndarray      # (S,) raw frames seen per session
     key: GroupKey                 # resolved strategy/budget/params
@@ -294,8 +298,14 @@ def _run_bolt(ctx: StrategyContext) -> StrategyOutput:
 
 def _run_mdf(ctx: StrategyContext) -> StrategyOutput:
     n = ctx.key.budget
-    return _per_session(rt.mdf_retrieve_batch(ctx.emb, ctx.valid, n),
-                        ctx, n)
+    if isinstance(ctx.emb, list):       # a sharded arena: slab by slab
+        per = ctx.emb[0].shape[0]
+        draws = torch.cat([rt.mdf_retrieve_batch(
+            x, ctx.valid[k * per:(k + 1) * per].to(x.device), n
+        ).to(ctx.valid.device) for k, x in enumerate(ctx.emb)])
+    else:
+        draws = rt.mdf_retrieve_batch(ctx.emb, ctx.valid, n)
+    return _per_session(draws, ctx, n)
 
 
 def _run_aks(ctx: StrategyContext) -> StrategyOutput:
@@ -427,14 +437,6 @@ def _fused_output(strat, k, fr, sq, two_stage: bool) -> StrategyOutput:
                           akr.mass.cpu().numpy())
 
 
-def _gather_index_frames(table: torch.Tensor, draws: torch.Tensor
-                         ) -> torch.Tensor:
-    """table (S, cap) index_frame ids; draws (S, Q, n) slots → frame ids
-    (S, Q, n), on the device."""
-    sidx = torch.arange(table.shape[0], device=table.device)[:, None, None]
-    return table[sidx, draws.long().clamp(0, table.shape[1] - 1)]
-
-
 def _execute_group(manager, group: ExecutionGroup, specs, embedded,
                    results, t_embed: float, *, fused: bool = True,
                    coarse: bool = True) -> None:
@@ -492,6 +494,8 @@ def _execute_group(manager, group: ExecutionGroup, specs, embedded,
     else:
         manager.io_stats["fused_scans"] += 1
     manager.io_stats["group_scans"] += 1
+    if arena is not None and arena.n_shards > 1:    # one launch a slab
+        manager.io_stats["sharded_group_scans"] += 1
     timings["similarity"] = time.perf_counter() - t0
 
     # --- strategy post-processing + expansion ----------------------------
@@ -514,14 +518,12 @@ def _execute_group(manager, group: ExecutionGroup, specs, embedded,
             fids, ok = tiering.expand_candidates(
                 ts.cand_members, ts.cand_counts, out.draws, out.valid, u)
         else:
-            members, counts = stack.device_members()
-            fids, ok = expand_gather(members, counts, out.draws, out.valid,
-                                     u)
+            fids, ok = stack.expand_members(out.draws, out.valid, u)
         manager.io_stats["device_expands"] += 1
     elif ts is not None:                    # top-k over the candidates
         fids = tiering.gather_candidate_ifr(ts.cand_ifr, out.draws)
     elif strat.expand == "index":
-        fids = _gather_index_frames(stack.device_index_frames(), out.draws)
+        fids = stack.gather_index_frames(out.draws)
     else:                                   # raw: draws ARE frame ids
         fids = out.draws
     fids_np, ok_np = fids.cpu().numpy(), ok.cpu().numpy()

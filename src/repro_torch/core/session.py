@@ -22,6 +22,8 @@ then run the two-stage retrieval (``tiering``). Standing queries
 (``register_standing``) are evaluated inside ``commit_jobs`` against each
 tick's new rows (``core.standing``); ``VenusConfig(spill_dir=...)`` turns
 the frame archive's trims into demotions to disk (``FrameStore``).
+``SessionManager(mesh=...)`` shards the arena's slots over the mesh's
+``model`` axis, each group's scan running once a slab (``MemoryArena``).
 
 Entry points take ``device=``: CUDA by default, raising when there is no
 card; ``device="cpu"`` runs the plain versions of the kernels.
@@ -296,25 +298,35 @@ def commit_jobs(sessions: Mapping[int, SessionState], embedder,
 class SessionManager:
     """N concurrent streams sharing one embedder and one memory arena.
     ``aux_models`` with ``annotation_fn`` add an Eq. 2 prompt to every
-    index frame's embedding."""
+    index frame's embedding. ``mesh`` (``launch.mesh``) shards the arena
+    over its ``model`` axis; ``double_buffer`` (default: on with a mesh)
+    writes each tick into a back buffer set (``MemoryArena``)."""
 
     def __init__(self, cfg: VenusConfig, embedder, embed_dim: int,
                  aux_models: Sequence[AuxModel] = (), annotation_fn=None,
-                 *, use_arena: bool = True, device=None):
+                 *, use_arena: bool = True, mesh=None,
+                 double_buffer: Optional[bool] = None, device=None):
         self.cfg = cfg
         self.embedder = embedder
         self.embed_dim = embed_dim
         self.aux_models = list(aux_models)
         self.annotation_fn = annotation_fn
-        self.device = resolve_device(device)
+        # mesh= shards the arena's slots over the mesh's "model" axis
+        # (MemoryArena); its first device is the manager's. Double
+        # buffering defaults on whenever a mesh is given.
+        self.mesh = mesh
+        self.double_buffer = ((mesh is not None) if double_buffer is None
+                              else bool(double_buffer))
+        self.device = (resolve_device(device) if mesh is None
+                       else torch.device(mesh.devices[0]))
         self.sessions: Dict[int, SessionState] = {}
         self._next_sid = 0
         self._stacks: Dict[Tuple[int, ...], MemoryStack] = {}
         self.use_arena = use_arena
         self.arena: Optional[MemoryArena] = None
         self._arena_stack: Optional[ArenaStackView] = None
-        # the reference's keys; sharding is not ported, so its counter
-        # stays 0
+        # the reference's keys; sharded_group_scans counts the groups
+        # whose scan ran once per slab
         self.io_stats = {"scans": 0, "fused_scans": 0,
                          "device_expands": 0, "group_scans": 0,
                          "stack_rebuilds": 0, "sessions_closed": 0,
@@ -357,6 +369,7 @@ class SessionManager:
                 self.arena = MemoryArena(
                     self.cfg.memory_capacity, self.embed_dim,
                     self.cfg.member_cap, index_dtype=self.cfg.index_dtype,
+                    mesh=self.mesh, double_buffer=self.double_buffer,
                     coarse_capacity=self.cfg.coarse_capacity,
                     coarse_block=self.cfg.coarse_block, device=self.device)
             arena, slot = self.arena, self.arena.add_session()

@@ -9,12 +9,15 @@ summaries of evicted history (running centroids with merged reservoirs).
 ``two_stage_retrieve`` makes two launches of the fused scan:
 
 1. **Stage 1** over the ``(S, n_coarse, d)`` coarse tier
-   (``tier="coarse"``) picks each query's top-B coarse rows.
+   (``tier="coarse"``; one launch a slab over a sharded arena) picks
+   each query's top-B coarse rows.
 2. **Stage 2** gathers each (session, query)'s candidates — a block
    winner's ``coarse_block`` fine rows, a consolidated winner itself in
    slot 0 with the rest masked — into one ``(S·Q, B·block, d)`` operand
    and scans it with the group's own inverse-CDF targets, so draws, top-k
-   and AKR's state resolve over the candidates only.
+   and AKR's state resolve over the candidates only. Each slab gathers
+   its own slots' candidates; the operand, on the arena's first device,
+   is scanned unsharded.
 
 The executor enters this path only once the tier holds a consolidated
 row (``MemoryArena.has_consolidated``); before that, and always with
@@ -47,15 +50,29 @@ class TwoStageResult(NamedTuple):
 def _gather_candidates(arena: MemoryArena, winners: torch.Tensor):
     """winners (S, Q, B) coarse rows → the candidate tables (emb (S, Q, C,
     d) f32, members (S, Q, C, K), counts, ifr, valid (S, Q, C)), C =
-    B·block. A block winner (< n_blocks) contributes its block's fine rows
-    (clipped to the capacity; int8 rows as raw values in f32, which the
-    scan's normalisation makes scale-free); a consolidated winner
-    contributes its row in slot 0 and zero rows, masked, in the others.
-    The embeddings are one gather over ``arena.emb_rows``, whose last row
-    is zero, with slot 0 of the consolidated winners set after."""
+    B·block, on the arena's first device. A block winner (< n_blocks)
+    contributes its block's fine rows (clipped to the capacity; int8 rows
+    as raw values in f32, which the scan's normalisation makes
+    scale-free); a consolidated winner contributes its row in slot 0 and
+    zero rows, masked, in the others. Each slab gathers its own slots'
+    winners (``MemoryArena.map_slabs``)."""
+    return arena.map_slabs(
+        lambda k, w, valid, cvalid: _gather_slab(arena, k, w, valid, cvalid),
+        winners, arena.device_valid(), arena.device_coarse_valid())
+
+
+def _gather_slab(arena: MemoryArena, k: int, winners: torch.Tensor,
+                 fine_valid: torch.Tensor, coarse_valid: torch.Tensor):
+    """``_gather_candidates`` over slab k: its slots' winners, fine and
+    coarse masks on its device. The embeddings are one gather over the
+    slab's ``rows``, whose last row is zero, with slot 0 of the
+    consolidated winners set after."""
     s, q, b = winners.shape
     blk, cap, d = arena.coarse_block, arena.capacity, arena.dim
     dev = winners.device
+    slab = {name: arena.slabs(name)[k] for name in (
+        "rows", "members", "member_count", "index_frame", "coarse_emb",
+        "coarse_members", "coarse_member_count", "coarse_index_frame")}
     w = winners.long()
     is_blk = w < arena.n_blocks                               # (S, Q, B)
     offs = torch.arange(blk, device=dev)
@@ -65,19 +82,21 @@ def _gather_candidates(arena: MemoryArena, winners: torch.Tensor):
     srows = sidx[..., None]
     cw = w.clamp(0, arena.n_coarse - 1)
     flat = torch.where(is_blk[..., None], srows * cap + rows, s * cap)
-    emb = arena.emb_rows.index_select(0, flat.reshape(-1)).to(
+    emb = slab["rows"].index_select(0, flat.reshape(-1)).to(
         torch.float32).view(s, q, b, blk, d)
     emb[..., 0, :] = torch.where(is_blk[..., None], emb[..., 0, :],
-                                 arena.coarse_emb[sidx, cw])
+                                 slab["coarse_emb"][sidx, cw])
     blk_ = is_blk[..., None]
-    mem = torch.where(blk_[..., None], arena.members[srows, rows],
-                      arena.coarse_members[sidx, cw][..., None, :])
-    cnt = torch.where(blk_, arena.member_count[srows, rows],
-                      arena.coarse_member_count[sidx, cw][..., None] * first)
-    ifr = torch.where(blk_, arena.index_frame[srows, rows],
-                      arena.coarse_index_frame[sidx, cw][..., None] * first)
-    cvalid = arena.device_coarse_valid()[sidx, cw] & ~is_blk
-    valid = torch.where(blk_, arena.device_valid()[srows, rows] & blk_,
+    mem = torch.where(blk_[..., None], slab["members"][srows, rows],
+                      slab["coarse_members"][sidx, cw][..., None, :])
+    cnt = torch.where(blk_, slab["member_count"][srows, rows],
+                      slab["coarse_member_count"][sidx, cw][..., None]
+                      * first)
+    ifr = torch.where(blk_, slab["index_frame"][srows, rows],
+                      slab["coarse_index_frame"][sidx, cw][..., None]
+                      * first)
+    cvalid = coarse_valid[sidx, cw] & ~is_blk
+    valid = torch.where(blk_, fine_valid[srows, rows] & blk_,
                         cvalid[..., None] & first)
     c = b * blk
     return (emb.view(s, q, c, d), mem.reshape(s, q, c, -1),
@@ -95,11 +114,12 @@ def two_stage_retrieve(arena: MemoryArena, q_stack: torch.Tensor,
     s, q, d = q_stack.shape
     topb = max(1, min(int(topb), arena.n_coarse))
     fr1 = kops.fused_retrieve_stack(
-        q_stack, arena.coarse_emb, tau=tau,
+        q_stack, arena.operand("coarse_emb"), tau=tau,
         valid=arena.device_coarse_valid(),
         targets=torch.zeros((s, q, 1), dtype=torch.float32,
                             device=q_stack.device),
-        n_topk=topb, tier="coarse")
+        n_topk=topb, mesh=arena.mesh, mesh_axis=arena.mesh_axis,
+        tier="coarse")
     winners = fr1.topk_i
     emb, mem, cnt, ifr, valid = _gather_candidates(arena, winners)
     c = topb * arena.coarse_block

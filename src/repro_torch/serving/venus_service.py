@@ -168,8 +168,15 @@ class VenusService:
         over live and closed sessions) and the gauge ``spill_disk_bytes``
         (bytes in live sessions' segments). The invariants to alert on:
         ``stack_rebuilds == 0``, and ``kops_standing_scan_bytes`` growing
-        O(new rows · d) a tick. Sharding is not ported: its keys read 0,
-        as the reference's do on one device."""
+        O(new rows · d) a tick. A sharded arena
+        (``SessionManager(mesh=...)``) adds ``arena_shards`` (the mesh
+        ``model`` axis size its slots are slabbed over),
+        ``sharded_group_scans`` (query groups whose scan ran once a
+        slab), ``kops_sharded_stack_launches`` (the same at the kernel
+        layer) and ``kops_shard_gather_bytes`` (the bytes of the
+        per-slab outputs brought to the first device: O(S·Q·(T+K))
+        fused, no O(S·Q·capacity) term); double buffering adds
+        ``arena_double_flushes`` and ``arena_carry_rows``."""
         out: Dict[str, int] = dict(self.manager.io_stats)
         out["standing_specs"] = self.manager.standing.n_specs
         for k, v in kops.scan_counts().items():
@@ -177,7 +184,7 @@ class VenusService:
         if self.manager.arena is not None:
             for k, v in self.manager.arena.io_stats.items():
                 out[f"arena_{k}"] = v
-            out["arena_shards"] = 1
+            out["arena_shards"] = self.manager.arena.n_shards
         mem_sums = dict(self.manager.closed_mem_stats)
         for st in self.manager.sessions.values():
             for k, v in st.memory.io_stats.items():
