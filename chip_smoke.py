@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
-12, 15–20, 7, 26, 13, 14, 8, 9, 21–25:
+12, 15–20, 7, 26, 13, 14, 8, 9, 21–25, 27:
 
 1. build      — compile the CUDA kernels from ``src/repro_torch/kernels/
                 csrc`` (one nvcc per source, all started together);
@@ -112,6 +112,11 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 each; gqa_decode launches == 28 × decode steps; one decode
                 step's logits through the kernel against the same step
                 through the plain version (relative L2 error ≤ 2^-5);
+                the dry run's argument bytes of the decode step (the
+                bf16 weights, the 4 × 2048 cache) within 2 % of what
+                building the model and the engine allocated, and the
+                cost model's ``venus_query_latency`` of the main phase's
+                akr group from its measured edge seconds;
 12. serve_mla — the engine on MiniCPM3-4B at full width (bf16): 8 text
                 requests of 8–64 tokens, 12 new tokens each;
                 mla_decode launches == 62 × decode steps, every one on
@@ -255,7 +260,20 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 at K = 4 over 131,072 × 768 f32 rows (every per-shard #4
                 launch held, the candidates' probabilities against the
                 dense softmax renormalised over them, an empty index's
-                zero mass).
+                zero mass; the lane order, a stable sort, timed against
+                ``torch.topk`` on a shard's scores).
+27. mesh_train — FSDP2 on one card: DeepSeek-LLM-7B at full width cut to
+                4 layers, 3 steps of 4 × 512 tokens without a mesh, then
+                the same 3 steps through ``fsdp_shard`` and
+                ``make_train_step(mesh=)`` on a (1, 1) ``("data",
+                "model")`` mesh over an NCCL process group of one rank;
+                the losses at rtol 1e-6, the parameters after step 3
+                within 1e-6 · max |p|; both step times; the dry run of the same step on the ``meta``
+                device against the card: its argument bytes within 1 %
+                of ``memory_allocated()``, its flops equal to
+                ``FlopCounterMode`` around a card step, its temp bytes
+                printed beside the step's peak. The process group is
+                destroyed.
 
 Prints the card's name and power limit, one line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -2672,8 +2690,46 @@ def serve_report(label, engine, done, card, retrieval_s=None):
     return rep
 
 
-def phase_serve(mgr, card):
-    """VenusService over the main manager, Qwen2-VL-7B at full width."""
+def serve_dryrun_line(cfg, held, card, slots=4, max_len=2048):
+    """The dry run's argument bytes of the decode step of ``cfg`` at the
+    engine's slots and ``max_len`` (its weights, its cache, a token a
+    slot) against the ``held`` bytes that building the engine
+    allocated; within 2 %."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import placement_bytes
+    from repro_torch.launch.mesh import make_abstract_mesh
+    arg = placement_bytes(cfg, ShapeSpec("decode_32k", max_len, slots,
+                                         "decode"),
+                          make_abstract_mesh((1, 1), ("data", "model")))[
+                              "argument"]
+    check(abs(held - arg) <= 0.02 * arg,
+          f"serve: dry-run argument bytes {arg} vs {held} allocated")
+    print(f"  serve dry run: {cfg.name} weights + cache ({slots} slots x "
+          f"{max_len}) {arg:.0f} argument bytes vs {held} allocated by "
+          f"the model and the engine ({100 * (held / arg - 1):+.3f} %)  "
+          f"[{card}]", flush=True)
+    return dict(argument_bytes=arg, allocated_bytes=held)
+
+
+def serve_costmodel_line(akr, card):
+    """``costmodel.venus_query_latency`` of the main phase's akr group:
+    its first query's measured edge seconds (the group's ``timings``)
+    and its frames, the upload and the cloud VLM modelled."""
+    from repro_torch.core.costmodel import venus_query_latency
+    results, group_s = akr
+    res = results[0]
+    lat = venus_query_latency(measured_edge_s=res.timings,
+                              n_frames_uploaded=len(res.frame_ids))
+    print(f"  serve cost model, main phase's akr group ({len(results)} "
+          f"queries in {group_s:.6f} s on the host clock): first query "
+          f"{lat}  [{card}]", flush=True)
+    return dict(parts=lat.parts, total=lat.total, group_s=group_s)
+
+
+def phase_serve(mgr, card, akr=None):
+    """VenusService over the main manager, Qwen2-VL-7B at full width;
+    ``akr``: the main phase's akr group (results, seconds) for the cost
+    model's line."""
     import numpy as np
     import torch
     from repro_torch.configs.qwen2_vl_7b import config
@@ -2681,11 +2737,16 @@ def phase_serve(mgr, card):
     from repro_torch.models.transformer import init_model
     from repro_torch.serving import ServingEngine, StreamQuery, VenusService
     cfg = config().replace(param_dtype="bfloat16")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     engine = ServingEngine(model, batch_slots=4, max_len=2048)
+    torch.cuda.synchronize()
+    dry = serve_dryrun_line(cfg, torch.cuda.memory_allocated() - base, card)
+    cost = serve_costmodel_line(akr, card) if akr is not None else None
     svc = VenusService(mgr, engine)
     retrieval_s = []
     execute = mgr.execute
@@ -2731,7 +2792,7 @@ def phase_serve(mgr, card):
     rel, agree = logits_kernel_vs_plain(engine, "decode_attention")
     check(rel <= 2 ** -5, f"serve: kernel vs plain logits rel L2 {rel}")
     rep.update(launches=launches, init_s=t_init, logits_rel_l2=rel,
-               argmax_agree=agree,
+               argmax_agree=agree, dryrun=dry, costmodel=cost,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                probe=step_probe(engine), profile=decode_busy(engine))
     print(f"  serve probe: {rep['probe']}\n  serve profile: "
@@ -3791,6 +3852,143 @@ def phase_train(card):
 
 
 # ---------------------------------------------------------------------------
+# 27. FSDP2 on one card, and the dry run held to it
+# ---------------------------------------------------------------------------
+
+MESH_LAYERS = 4
+MESH_STEPS = 3
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_steps(label, model, opt, step, batches, card):
+    """Run ``step`` over ``batches`` → (losses, seconds a step, model,
+    opt)."""
+    import torch
+    losses, secs = [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, b, i)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    print(f"  mesh_train {label}: losses {losses}  step s {secs}  "
+          f"[{card}]", flush=True)
+    return losses, secs, model, opt
+
+
+def phase_mesh_train(card, layers: int = MESH_LAYERS):
+    """DeepSeek-LLM-7B at full width cut to ``layers`` layers: 3 steps
+    without a mesh, then 3 under FSDP2 on a (1, 1) mesh of one NCCL
+    rank, on the same batches; the dry run of the step held to the
+    card."""
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_abstract_mesh, to_device_mesh
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import TrainHParams, adamw_init
+    from repro_torch.training.trainer import fsdp_shard, make_train_step
+    cfg = get_config("deepseek-7b").replace(num_layers=layers)
+    host = make_abstract_mesh((1, 1), ("data", "model"))
+    shape = ShapeSpec("train_4k", TRAIN_SEQ, 4, "train")
+    t0 = time.perf_counter()
+    rec = dryrun.lower_combo("deepseek-7b", shape, mesh=host, cfg=cfg,
+                             verbose=False)
+    t_dry = time.perf_counter() - t0
+    raw = lm_batches_for(cfg, 4, TRAIN_SEQ, MESH_STEPS, seed=0)
+    hp = TrainHParams(base_lr=3e-4, warmup=1, total_steps=MESH_STEPS)
+    free_card()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = init_model(cfg, seed=0, device="cuda")
+    opt = adamw_init(dict(model.named_parameters()))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in raw[0].items()}]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    arg = rec["memory"]["argument_bytes"]
+    check(abs(held - arg) <= 0.01 * arg,
+          f"mesh_train: dry-run argument bytes {arg} vs {held} allocated")
+    batches += [{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+                for b in raw[1:]]
+    torch.cuda.reset_peak_memory_stats()
+    before_step = torch.cuda.memory_allocated()
+    step = make_train_step(cfg, hp)
+    plain, plain_s, model, opt = _mesh_steps("no mesh", model, opt, step,
+                                             batches, card)
+    step_peak = torch.cuda.max_memory_allocated() - before_step
+    want = {k: p.detach().clone() for k, p in model.named_parameters()}
+    # one more step under the counter: a dispatch mode changes the bf16
+    # products' rounding, so the compared steps run without it
+    with FlopCounterMode(display=False) as flops:
+        step(model, opt, batches[0], MESH_STEPS)
+    card_flops = flops.get_total_flops()
+    check(rec["flops_per_device"] == card_flops,
+          f"mesh_train: dry-run flops {rec['flops_per_device']} != "
+          f"{card_flops} counted on the card")
+    del model, opt
+    free_card()
+    port = _free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda:0"))
+    try:
+        dm = to_device_mesh(host, "cuda")
+        model = fsdp_shard(init_model(cfg, seed=0, device="cuda"), dm)
+        opt = adamw_init(dict(model.named_parameters()))
+        fsdp, fsdp_s, model, opt = _mesh_steps(
+            "fsdp (1, 1)", model, opt, make_train_step(cfg, hp, mesh=dm),
+            batches, card)
+        dmax = pmax = 0.0
+        worst = None
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                full = p.full_tensor()
+                d = float((full - want[k]).abs().max())
+                pmax = max(pmax, float(want[k].abs().max()))
+                if worst is None or d > dmax:
+                    dmax, worst = d, k
+        del model, opt, full
+    finally:
+        dist.destroy_process_group()
+    del want, batches
+    free_card()
+    check(all(abs(a - b) <= 1e-6 * abs(b) for a, b in zip(fsdp, plain)),
+          f"mesh_train: losses {fsdp} vs {plain} without a mesh")
+    check(dmax <= 1e-6 * pmax,
+          f"mesh_train: parameters after step {MESH_STEPS}: max |d| {dmax}"
+          f" ({worst}) > 1e-6 x {pmax}")
+    out = dict(layers=layers, losses=plain, fsdp_losses=fsdp,
+               step_s=statistics.median(plain_s[1:]),
+               fsdp_step_s=statistics.median(fsdp_s[1:]),
+               all_step_s=plain_s, fsdp_all_step_s=fsdp_s,
+               param_max_abs_diff=dmax, param_max_abs=pmax,
+               dryrun=rec, dryrun_s=t_dry, allocated_argument_bytes=held,
+               card_flops=card_flops, step_peak_bytes=step_peak)
+    print(f"phase mesh_train: ok  deepseek-7b {layers} layers, 4 x "
+          f"{TRAIN_SEQ}: step {out['step_s']:.4f} s without a mesh, "
+          f"{out['fsdp_step_s']:.4f} s FSDP2 (1, 1) (median of steps 2-3); "
+          f"losses equal (rtol 1e-6), params max |d| {dmax:.3e} of "
+          f"{pmax:.3e}; dry run ({t_dry:.2f} s on meta): argument bytes "
+          f"{arg:.0f} vs {held} allocated ({100 * (held / arg - 1):+.3f} "
+          f"%), flops {rec['flops_per_device']:.6e} = card's, temp bytes "
+          f"{rec['memory']['temp_bytes']:.0f} (estimate) vs a step's peak "
+          f"{step_peak} (ratio {rec['memory']['temp_bytes'] / step_peak:.3f})"
+          f"  [{card}]", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 26. the sharded memory path
 # ---------------------------------------------------------------------------
 
@@ -4133,9 +4331,26 @@ def shard_dvm(dev, card):
     empty = DistributedVenusMemory(4 * 1024, D, mesh, top_m=64)
     _, p0 = empty.search(queries[0], tau=TAU)
     check(float(p0.abs().sum()) == 0.0, "dvm: an empty index has mass")
+    # the lane order (lax.top_k's: a stable descending sort of the shard)
+    # against torch.topk on one shard's scores, A B B A
+    sims = ref.similarity_scan_ref(torch.from_numpy(queries[0])[None].cuda(),
+                                   mem._emb[0], mem._valid[0], tau=1.0)[0]
+    sc = torch.where(mem._valid[0], sims[0], -torch.inf)
+    sort_ms, topk_ms = [], []
+    for fn in ("sort", "topk", "topk", "sort"):
+        if fn == "sort":
+            sort_ms.append(cuda_ms(lambda: ref.topk_lowest_lane(sc, 64),
+                                   reps=50))
+        else:
+            topk_ms.append(cuda_ms(lambda: torch.topk(sc, 64), reps=50))
     out = dict(rows=DVM_ROWS, insert_s=t_ins, search_s=search_s,
                candidate_dense_mass=mass, max_abs_err=err,
-               launches=len(launches))
+               launches=len(launches), lane_sort_ms=sort_ms,
+               torch_topk_ms=topk_ms)
+    print(f"  shard[dvm] lanes of one shard ({per} rows, top 64; CUDA "
+          f"events, 50 calls, A B B A): stable sort (lax.top_k's order) "
+          f"{[round(x, 5) for x in sort_ms]} ms, torch.topk "
+          f"{[round(x, 5) for x in topk_ms]} ms  [{card}]", flush=True)
     print(f"phase shard[dvm]: ok  {DVM_ROWS} x {D} f32 over 4 slabs, "
           f"inserted in {DVM_ROWS // DVM_BLOCK} blocks in {t_ins:.3f} s; "
           f"search (s, host clock) {[round(s, 6) for s in search_s]}; "
@@ -4437,7 +4652,8 @@ def main() -> int:
     dense = phase_dense(mgr, worlds, card)
 
     # 11-12. serving: Venus retrieval feeding Qwen2-VL-7B, then MiniCPM3-4B
-    serve = phase_serve(mgr, card)
+    serve = phase_serve(mgr, card, akr=(results["akr"],
+                                        times["queries"]["akr"]))
     del mgr
     torch.cuda.empty_cache()
     serve_mla = phase_serve_mla(card)
@@ -4489,6 +4705,12 @@ def main() -> int:
     # 21-25. training on the card, from an empty card
     free_card()
     train = phase_train(card)
+
+    # 27. FSDP2 on one card, and the dry run held to it
+    ops.reset_kernel_launches()
+    mesh_train = phase_mesh_train(card)
+    launched = {k: v for k, v in ops.kernel_launches().items() if v}
+    check(not launched, f"mesh_train launched kernels: {launched}")
 
     dl = dense["launches"]
 
@@ -4645,7 +4867,7 @@ def main() -> int:
                        serve_whisper=serve_whisper,
                        mem=mem_out, tier=tier,
                        tier_8192=tier_full, standing=standing,
-                       shard=shard,
+                       shard=shard, mesh_train=mesh_train,
                        parity_tier=parity, **train), f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ launchers: the reference's ten architectures."""
 from __future__ import annotations
 
 import importlib
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from repro_torch.configs.base import ModelConfig
 
@@ -24,6 +24,12 @@ _ARCH_MODULES: Dict[str, str] = {
 
 ARCH_IDS: List[str] = sorted(_ARCH_MODULES)
 
+# (arch, shape) combinations skipped by design, as in the reference
+SKIPPED_COMBOS = {
+    ("whisper-base", "long_500k"): (
+        "enc-dec audio model: no 524k-token decoder-stream analogue"),
+}
+
 
 def _module(arch: str):
     try:
@@ -39,3 +45,7 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
+
+
+def combo_is_skipped(arch: str, shape: str) -> Optional[str]:
+    return SKIPPED_COMBOS.get((arch, shape))

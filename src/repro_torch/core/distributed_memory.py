@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import topk_lowest_lane
 from repro_torch.launch.sharding import mesh_axis_size, slab_devices
 
 
@@ -109,9 +110,10 @@ class DistributedVenusMemory:
         for j, (x, v) in enumerate(zip(self._emb, self._valid)):
             sims, _ = kops.similarity(q.to(x.device), x, tau=1.0, valid=v)
             s = torch.where(v, sims[0], -torch.inf)
-            top_s, top_i = torch.topk(s, m)
+            # lax.top_k's order: descending, ties to the lowest lane
+            top_s, top_i = topk_lowest_lane(s, m)
             scores.append(top_s.to(home))
-            gids.append((top_i + j * per).to(home))
+            gids.append((top_i.to(torch.int64) + j * per).to(home))
         scores, gids = torch.cat(scores), torch.cat(gids)
         finite = torch.isfinite(scores)
         logits = torch.where(finite, scores / tau, -1e30)

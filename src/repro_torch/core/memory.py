@@ -1064,6 +1064,8 @@ class VenusMemory:
         self._members = np.zeros((capacity, member_cap), np.int32)
         self._member_count = np.zeros((capacity,), np.int32)
         self._index_frame = np.zeros((capacity,), np.int32)
+        # each row's scene (partition) id, kept as the reference keeps it
+        self._scene_id = np.zeros((capacity,), np.int32)
         self._size = 0
         self._head = 0
         self._rng = np.random.default_rng(seed)
@@ -1119,6 +1121,7 @@ class VenusMemory:
             self.eviction.evict(self, overflow)
         tail = (self._head + self._size) % self.capacity
         ids = np.asarray(index_frames, np.int32)
+        scn = np.asarray(scene_ids, np.int32)
         run1 = min(n, self.capacity - tail)
         runs = [(tail, 0, run1)]
         if run1 < n:
@@ -1126,6 +1129,7 @@ class VenusMemory:
         for pos, off, cnt in runs:
             self._emb[pos:pos + cnt] = embeddings[off:off + cnt]
             self._index_frame[pos:pos + cnt] = ids[off:off + cnt]
+            self._scene_id[pos:pos + cnt] = scn[off:off + cnt]
         for j, member_frames in enumerate(member_lists):
             members = np.asarray(member_frames, np.int32)
             m = len(members)

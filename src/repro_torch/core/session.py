@@ -318,7 +318,7 @@ class SessionManager:
         self.double_buffer = ((mesh is not None) if double_buffer is None
                               else bool(double_buffer))
         self.device = (resolve_device(device) if mesh is None
-                       else torch.device(mesh.devices[0]))
+                       else torch.device(mesh.device_list()[0]))
         self.sessions: Dict[int, SessionState] = {}
         self._next_sid = 0
         self._stacks: Dict[Tuple[int, ...], MemoryStack] = {}

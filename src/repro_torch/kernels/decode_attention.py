@@ -229,7 +229,8 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                q_per_kv: int = 1) -> torch.Tensor:
     """q (B,1,H,D); k/v (B,C,Hkv,D); valid (B or 1, C) bool → (B,1,H,D)
     in q's dtype. CUDA tensors run the kernel that ``gqa_route`` names,
-    CPU tensors the plain version."""
+    CPU tensors the plain version; so do ``meta`` tensors, whose shapes
+    the dry run counts (``launch.dryrun``)."""
     if q.device.type == "cuda":
         route = gqa_route(q.dtype, q_per_kv, q.shape[-1])
         launch = (_launch_gqa_split if route == "k_gqa_split"
@@ -239,7 +240,7 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         gqa_decode.launches += 1
         gqa_decode.route_launches[route] += 1
         return out
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):
         return ref.decode_attention_ref(q, k, v, valid, scale=scale,
                                         softcap=softcap, q_per_kv=q_per_kv)
     raise ValueError(f"no decode attention route for device {q.device}")
@@ -366,8 +367,8 @@ def mla_decode(q_abs: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
                ) -> torch.Tensor:
     """q_abs (B,1,H,R), q_rope (B,1,H,Dr), ckv (B,C,R), krope (B,C,Dr),
     valid (B or 1, C) → latent context (B,1,H,R) in q_abs's dtype. CUDA
-    tensors run the kernel that ``mla_route`` names, CPU tensors the plain
-    version."""
+    tensors run the kernel that ``mla_route`` names, CPU (and ``meta``)
+    tensors the plain version."""
     if q_abs.device.type == "cuda":
         route = mla_route(q_abs.dtype, q_abs.shape[2], q_abs.shape[-1],
                           q_rope.shape[-1])
@@ -376,7 +377,7 @@ def mla_decode(q_abs: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
         mla_decode.launches += 1
         mla_decode.route_launches[route] += 1
         return out
-    if q_abs.device.type == "cpu":
+    if q_abs.device.type in ("cpu", "meta"):
         return ref.mla_decode_attention_ref(q_abs, q_rope, ckv, krope, valid,
                                             scale=scale)
     raise ValueError(f"no decode attention route for device {q_abs.device}")

@@ -104,6 +104,41 @@ def _position_embed(cfg: ModelConfig, q, k, positions, mrope_positions):
     return q, k
 
 
+# Sequence-parallel attention (the reference's §Perf iteration C): where
+# the heads do not divide the model axis, q is sharded over its sequence
+# on that axis and k, v replicated, so attention stays shard-local. A
+# launcher sets the spec; by default (None) it is off and q, k, v pass
+# through unchanged.
+_SEQ_PARALLEL_SPEC = None     # (data axes, model axis name) or None
+
+
+def set_seq_parallel_attn(spec) -> None:
+    """spec: None to disable, or (data axes tuple, model axis name)."""
+    global _SEQ_PARALLEL_SPEC
+    _SEQ_PARALLEL_SPEC = spec
+
+
+def _seq_shard(q, k, v):
+    """q (B, S, H, D) → ``Shard(1)`` on the model axis, k and v
+    ``Replicate`` there; the batch stays ``Shard(0)`` on the data axes.
+    Takes DTensors only: a plain tensor has no mesh to place it on."""
+    if _SEQ_PARALLEL_SPEC is None:
+        return q, k, v
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    daxes, model = _SEQ_PARALLEL_SPEC
+    if not all(isinstance(t, DTensor) for t in (q, k, v)):
+        raise ValueError("sequence-parallel attention takes DTensor q, k, "
+                         "v; set_seq_parallel_attn(None) for plain tensors")
+    mesh = q.device_mesh
+
+    def place(seq):
+        return [seq if a == model else Shard(0) if a in daxes
+                else Replicate() for a in mesh.mesh_dim_names]
+    return (q.redistribute(mesh, place(Shard(1))),
+            k.redistribute(mesh, place(Replicate())),
+            v.redistribute(mesh, place(Replicate())))
+
+
 def _sdpa(q, k, v, mask, scale, softcap, q_per_kv):
     """q: (B,Sq,H,D), k/v: (B,Sk,Hkv,D'), mask: (Sq,Sk) or (B,Sq,Sk).
     The f32 products of model-dtype operands are exact, so upcasting them
@@ -211,6 +246,7 @@ def gqa_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     scale = 1.0 / (hd ** 0.5)
 
     if mode in ("train", "prefill"):
+        q, k, v = _seq_shard(q, k, v)
         ctx = _sdpa_causal_chunked(q, k, v, scale, cfg.attn_logit_softcap,
                                    cfg.q_per_kv, cfg.sliding_window,
                                    kv_lengths)
@@ -344,6 +380,7 @@ def mla_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
             b, s, h, m.qk_rope_head_dim)], dim=-1)
+        q, k, v = _seq_shard(q, k, v)
         ctx = _sdpa_causal_chunked(q, k, v, scale, 0.0, 1,
                                    cfg.sliding_window, kv_lengths)
         if mode == "prefill" and cache is not None:

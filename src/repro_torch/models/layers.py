@@ -19,20 +19,27 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------------------
 
 
+def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
+    """N(0, std²) draws of ``shape`` on ``gen.device``; on the ``meta``
+    device, where a tensor has no values, only the shape and dtype."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * std).to(dtype)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                scale: Optional[float] = None, dtype=torch.float32
                ) -> torch.Tensor:
     """(d_in, d_out) variance-scaling (fan-in) weight."""
     if scale is None:
         scale = 1.0 / math.sqrt(d_in)
-    return (torch.randn((d_in, d_out), generator=gen, device=gen.device)
-            * scale).to(dtype)
+    return _normal(gen, (d_in, d_out), scale, dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32
                ) -> torch.Tensor:
-    return (torch.randn((vocab, d), generator=gen, device=gen.device)
-            * 0.02).to(dtype)
+    return _normal(gen, (vocab, d), 0.02, dtype)
 
 
 # ---------------------------------------------------------------------------

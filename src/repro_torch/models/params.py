@@ -33,21 +33,38 @@ class _MetaGenerator(torch.Generator):
         return torch.device("meta")
 
 
+def reference_path(model, name: str) -> str:
+    """The reference's tree path of the port parameter ``name`` of
+    ``model`` (a ``Transformer``): dots → slashes, a decoder's
+    ``blocks.<i>`` → ``dense_blocks`` or ``moe_blocks``, every other
+    family's ``blocks.<i>`` → ``blocks`` and ``enc_blocks.<i>`` →
+    ``enc_blocks``; the layer index goes, as the reference stacks its
+    layers on a leading axis (the hybrid's ``shared`` block is one
+    block in both)."""
+    parts = name.split(".")
+    if parts[0] in ("blocks", "enc_blocks"):
+        group = parts[0]
+        if model.kind == "decoder" and group == "blocks":
+            group = ("dense_blocks" if int(parts[1]) < model.n_dense
+                     else "moe_blocks")
+        parts = [group] + parts[2:]
+    return "/".join(parts)
+
+
+def meta_model(cfg: ModelConfig):
+    """A ``Transformer`` of ``cfg`` on the ``meta`` device: shapes and
+    dtypes, no storage."""
+    from repro_torch.models.transformer import Transformer
+    return Transformer(cfg, _MetaGenerator())
+
+
 def _shapes(cfg: ModelConfig) -> Dict[str, int]:
     """Element count of each reference leaf path (layer-stacked leaves
     summed over their layers)."""
-    from repro_torch.models.transformer import Transformer
-    model = Transformer(cfg, _MetaGenerator())
+    model = meta_model(cfg)
     out: Dict[str, int] = {}
     for name, t in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] in ("blocks", "enc_blocks"):
-            group = parts[0]
-            if model.kind == "decoder":
-                group = ("dense_blocks" if int(parts[1]) < model.n_dense
-                         else "moe_blocks")
-            parts = [group] + parts[2:]
-        path = "/".join(parts)
+        path = reference_path(model, name)
         out[path] = out.get(path, 0) + t.numel()
     return out
 

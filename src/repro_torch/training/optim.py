@@ -56,10 +56,12 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
     c1 = 1 - b1 ** cf
     c2 = 1 - b2 ** cf
     for k, p in params.items():
-        g = grads[k].to(f32)
+        # DTensors (FSDP2) update shard by shard: the same elements
+        p, g, m, v = (_local(t) for t in (p, grads[k], state.mu[k],
+                                          state.nu[k]))
+        g = g.to(f32)
         if scale is not None:
             g = g * scale
-        m, v = state.mu[k], state.nu[k]
         torch.add(b1 * m, (1 - b1) * g, out=m)
         torch.add(b2 * v, (1 - b2) * torch.square(g), out=v)
         p32 = p.to(f32)
@@ -68,12 +70,25 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: AdamWState,
     return dict(params), AdamWState(count, state.mu, state.nu)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view of its storage), else ``t``."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _square_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ x² in f32; over all shards of a DTensor (an all-reduce)."""
+    from torch.distributed.tensor import DTensor
+    s = torch.sum(torch.square(x.to(torch.float32)))
+    return s.full_tensor() if isinstance(s, DTensor) else s
+
+
 def global_norm(tree: Union[Mapping[str, torch.Tensor],
                             Iterable[torch.Tensor]]) -> torch.Tensor:
-    """sqrt(Σ over every leaf of Σ x²), in f32."""
+    """sqrt(Σ over every leaf of Σ x²), in f32; the global norm of
+    DTensor leaves, whatever their sharding."""
     leaves = tree.values() if isinstance(tree, Mapping) else tree
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves))
+    return torch.sqrt(sum(_square_sum(x) for x in leaves))
 
 
 def cosine_schedule(step, *, base_lr: float, warmup: int, total: int,

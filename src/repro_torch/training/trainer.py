@@ -5,17 +5,30 @@ A step takes the module it trains, its AdamW state, a batch (numpy
 arrays or tensors) and the step number, and returns the module (its
 parameters updated in place), the new state and the metrics as 0-d
 tensors. The module is unfrozen (``requires_grad_``) for the step, the
-gradients come from ``torch.autograd.grad`` (nothing accumulates in
-``.grad``), and ``adamw_update`` writes the update in place. With
-``remat`` each layer body is checkpointed, as the reference's
-``jax.checkpoint`` (``Transformer.apply(remat=)``): the same gradients
-for less activation memory.
+gradients come from ``loss.backward()`` and are read from ``p.grad``,
+which is cleared before and after (nothing accumulates across steps),
+and ``adamw_update`` writes the update in place. With ``remat`` each
+layer body is checkpointed, as the reference's ``jax.checkpoint``
+(``Transformer.apply(remat=)``): the same gradients for less activation
+memory.
+
+FSDP2 training over a ``DeviceMesh``: the caller shards the model once
+with ``fsdp_shard`` (the reference's ``param_specs(mode="train")``
+placement over the mesh's data axes) and then makes its AdamW state
+with ``adamw_init``, whose moments are DTensors placed as their
+parameters (the reference's ``opt_specs``); ``make_train_step(mesh=)``
+trains it. Each rank runs its rows of the global batch, FSDP2's
+reduce-scatter (a mean over the ranks) runs in the backward hooks, the
+clip's norm is global (``optim.global_norm``), and the loss, NLL,
+accuracy and MoE aux come back as means over the ranks. The MoE aux
+loss is each rank's own routing statistic, so an MoE arch's step is not
+the single-process step at every world size.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -44,21 +57,92 @@ def _on(batch: Mapping, dev: torch.device) -> dict:
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 
-def _step(loss_fn: Callable, hp: TrainHParams) -> Callable:
+def fsdp_shard(model: nn.Module, device_mesh) -> nn.Module:
+    """Shard ``model`` (a ``Transformer``) in place with FSDP2 over the
+    data axes of ``device_mesh``: ``fully_shard`` on each block (their
+    ``step`` and ``encode`` registered as forward methods), then on the
+    root (``apply``). Each parameter is split on the dim that the
+    reference's ``param_specs(mode="train")`` gives its FSDP axes; where
+    that table gives none (norms, scalars, a dim the axes do not divide),
+    FSDP2's default ``Shard(0)`` (the reference replicates those). The
+    parameters are unfrozen first."""
+    from torch.distributed.fsdp import (fully_shard,
+                                        register_fsdp_forward_method)
+    from torch.distributed.tensor import Shard
+    from repro_torch.launch.mesh import data_axes, make_abstract_mesh
+    from repro_torch.launch.sharding import param_specs, spec_axes
+    names = tuple(device_mesh.mesh_dim_names)
+    daxes = data_axes(device_mesh)
+    specs = param_specs(model, make_abstract_mesh(device_mesh.shape, names),
+                        mode="train")
+    dims = {}
+    for name, p in model.named_parameters():
+        spec = specs[name]
+        fsdp = [d for d in range(len(spec))
+                if set(spec_axes(spec, d)) & set(daxes)]
+        if fsdp:
+            dims[id(p)] = Shard(fsdp[0])
+    if len(daxes) != 1:
+        raise ValueError(f"FSDP runs over one data axis; the mesh has "
+                         f"{daxes}")
+    kw = dict(mesh=device_mesh[daxes[0]], reshard_after_forward=True,
+              shard_placement_fn=lambda p: dims.get(id(p)))
+    model.requires_grad_(True)
+    for group in ("blocks", "enc_blocks"):
+        for block in getattr(model, group, None) or ():
+            fully_shard(block, **kw)
+            for method in ("step", "encode"):
+                if hasattr(block, method):
+                    register_fsdp_forward_method(block, method)
+    fully_shard(model, **kw)
+    register_fsdp_forward_method(model, "apply")
+    return model
+
+
+def _rank_means(metrics: Metrics, group) -> Metrics:
+    """Each metric's mean over the ranks of ``group``."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    keys = list(metrics)
+    vals = torch.stack([metrics[k].to(torch.float32) for k in keys])
+    dist.all_reduce(vals, group=group)
+    return {k: v / n for k, v in zip(keys, vals)}
+
+
+def _step(loss_fn: Callable, hp: TrainHParams, device_mesh=None
+          ) -> Callable:
     """The step shared by both factories: ``loss_fn(model, batch)`` →
-    (loss, metrics); gradients, the schedule, AdamW."""
+    (loss, metrics); gradients, the schedule, AdamW; the metrics are
+    means over the ranks of ``device_mesh``'s data axis when one is
+    given (the model sharded over it by ``fsdp_shard``)."""
+    group = None
+    if device_mesh is not None:
+        from repro_torch.launch.mesh import data_axes
+        daxes = data_axes(device_mesh)
+        if len(daxes) != 1:
+            raise ValueError(f"FSDP runs over one data axis; the mesh has "
+                             f"{daxes}")
+        group = device_mesh.get_group(daxes[0])
 
     def train_step(model: nn.Module, opt_state: AdamWState, batch: Mapping,
                    step) -> Tuple[nn.Module, AdamWState, Metrics]:
+        if group is not None:
+            from torch.distributed.fsdp import FSDPModule
+            if not isinstance(model, FSDPModule):
+                raise ValueError("make_train_step(mesh=) trains a model "
+                                 "sharded by fsdp_shard(model, mesh)")
         params = dict(model.named_parameters())
         dev = next(iter(params.values())).device
         model.requires_grad_(True)
+        for p in params.values():
+            p.grad = None
         with torch.enable_grad():
             loss, metrics = loss_fn(model, _on(batch, dev))
-            grads = torch.autograd.grad(loss, list(params.values()),
-                                        allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(params.items(), grads)}
+            loss.backward()
+        grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+                 for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
         lr = cosine_schedule(torch.as_tensor(step, device=dev),
                              base_lr=hp.base_lr, warmup=hp.warmup,
                              total=hp.total_steps)
@@ -66,8 +150,10 @@ def _step(loss_fn: Callable, hp: TrainHParams) -> Callable:
             grads, opt_state, params, lr=lr, weight_decay=hp.weight_decay,
             grad_clip=hp.grad_clip)
         metrics = {**{k: v.detach() for k, v in metrics.items()},
-                   "loss": loss.detach(), "lr": lr,
-                   "grad_norm": global_norm(grads)}
+                   "loss": loss.detach()}
+        if group is not None:
+            metrics = _rank_means(metrics, group)
+        metrics.update(lr=lr, grad_norm=global_norm(grads))
         return model, opt_state, metrics
 
     return train_step
@@ -105,15 +191,18 @@ def mem_loss(mem: MEM, batch: Mapping, *, remat: bool = False
     return siglip_loss(img, txt, mem.logit_scale, mem.logit_bias)
 
 
-def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams()
-                    ) -> Callable:
+def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(),
+                    mesh: Optional[object] = None) -> Callable:
     """LM train step for a ``Transformer`` of ``cfg``. batch: ``tokens``
     and ``labels`` (B, S), optional ``mask``, and ``vision_embeds`` (vlm:
     the logits over them are dropped) or ``encoder_frames`` (audio).
     Loss: ``lm_loss``; metrics ``loss``, ``nll``, ``accuracy``,
-    ``moe_aux``, ``lr``, ``grad_norm``."""
+    ``moe_aux``, ``lr``, ``grad_norm``. ``mesh``: a ``torch.distributed``
+    ``DeviceMesh`` with the reference's axis names, over which the
+    caller sharded the model (``fsdp_shard``) before ``adamw_init``;
+    each rank's batch is its rows of the global batch."""
     return _step(lambda model, batch: lm_loss(cfg, model, batch,
-                                              remat=hp.remat), hp)
+                                              remat=hp.remat), hp, mesh)
 
 
 def make_mem_train_step(mem: MEM, hp: TrainHParams = TrainHParams()

@@ -398,3 +398,52 @@ def test_detached_memories_match_arena():
             np.testing.assert_array_equal(x.draws, y.draws)
     assert mgrs[0].io_stats["stack_rebuilds"] == 0
     assert mgrs[1].io_stats["stack_rebuilds"] == 2   # emb + members, once
+
+
+# ---------------------------------------------------------------------------
+# the reference's int8 arena cases (tests/test_fused_retrieval.py)
+# ---------------------------------------------------------------------------
+
+
+def test_int8_slot_recycle_resets_scales():
+    """Twin of the reference's case: a recycled int8 slot starts with its
+    row scales zeroed."""
+    worlds = [VideoWorld(WorldConfig(n_scenes=3 + s, seed=160 + s))
+              for s in range(2)]
+    mgr = SessionManager(VenusConfig(index_dtype="int8"),
+                         PixelEmbedder(dim=64), embed_dim=64, device="cpu")
+    for sid, w in enumerate(worlds):
+        mgr.create_session(sid)
+        for i in range(0, w.total_frames, 96):
+            mgr.ingest_tick({sid: w.frames[i:i + 96]})
+    mgr.flush()
+    assert bool((mgr.arena.emb_scale[0] > 0).any())
+    mgr.close_session(0)
+    mgr.create_session(5)
+    assert mgr[5].memory.slot == 0              # recycled, not grown
+    assert bool((mgr.arena.emb_scale[0] == 0).all())
+
+
+def test_int8_topk_recall_drift_bounded():
+    """Twin of the reference's case: on clustered rows int8 top-k overlaps
+    f32 top-k ≥ 0.9 on average."""
+    rng = np.random.default_rng(11)
+    c, per, d, k = 8, 32, 64, 16
+    centers = rng.standard_normal((c, d)).astype(np.float32)
+    rows = np.repeat(centers, per, 0) + 0.15 * rng.standard_normal(
+        (c * per, d)).astype(np.float32)
+    q8 = _t(tmem.quantise_rows(rows)[0])
+    q32 = _t(rows)
+    valid = torch.ones((rows.shape[0],), dtype=torch.bool)
+    overlaps = []
+    for ci in range(c):
+        query = _t((centers[ci] + 0.05 * rng.standard_normal(d)).astype(
+            np.float32))[None]
+        top32 = trt.topk_retrieve(
+            tops.similarity(query, q32, tau=0.1, valid=valid)[0][0],
+            valid, k).numpy()
+        top8 = trt.topk_retrieve(
+            tops.similarity(query, q8, tau=0.1, valid=valid)[0][0],
+            valid, k).numpy()
+        overlaps.append(len(set(top32) & set(top8)) / k)
+    assert np.mean(overlaps) >= 0.9, overlaps

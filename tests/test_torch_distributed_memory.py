@@ -93,3 +93,35 @@ def test_insert_scatter_is_capacity_independent(k):
     assert small.io_stats["scatter_rows"] == n
     assert large.io_stats["inserts"] == 1
     assert [x.data_ptr() for x in large._emb] == before
+
+
+@pytest.mark.parametrize("k", SHARDS)
+def test_search_lanes_follow_lax_top_k(k):
+    """The candidates come in ``lax.top_k``'s order — descending, ties to
+    the lowest lane, the invalid (-inf) padding lanes included — shard by
+    shard: five rows equal e0 and one at cos 0.894 to it, queried with
+    e0. The reference's class raises on this JAX, so the lanes are held
+    to ``jax.lax.top_k`` over the shard's own scores."""
+    import jax
+    import torch
+    dim, cap, m = 8, 128, 8
+    e0 = np.eye(dim, dtype=np.float32)[0]
+    near = e0 + 0.5 * np.eye(dim, dtype=np.float32)[1]     # cos 0.894
+    rows = np.stack([e0, e0, e0, near, e0, e0])
+    mem = DistributedVenusMemory(cap, dim, _mesh(k), top_m=m)
+    mem.insert(rows)
+    ids, _ = mem.search(e0, tau=0.1)
+    per = cap // k
+    want = []
+    for j in range(k):
+        sims, _ = tops.similarity(torch.from_numpy(e0)[None], mem._emb[j],
+                                  tau=1.0, valid=mem._valid[j])
+        s = torch.where(mem._valid[j], sims[0], -torch.inf).numpy()
+        _, lanes = jax.lax.top_k(jnp.asarray(s), min(m, per))
+        want.append(np.asarray(lanes) + j * per)
+    gids = torch.from_numpy(np.concatenate(want).astype(np.int64))
+    np.testing.assert_array_equal(ids.numpy(),
+                                  mem.insert_orders(gids).numpy())
+    if k == 1:
+        np.testing.assert_array_equal(ids.numpy()[:8],
+                                      [0, 1, 2, 4, 5, 3, 6, 7])

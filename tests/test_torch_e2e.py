@@ -235,3 +235,34 @@ def test_later_slices_raise_clearly(twin_managers, tmp_path):
             assert os.path.isdir(os.path.join(spill, "session-00000"))
             mgr.close_session(0)
             assert not os.listdir(spill)
+
+
+def test_interleaved_sessions_match_separate_ingestion():
+    """Twin of the reference's case (tests/test_multistream.py): two
+    streams interleaved tick by tick through one ``SessionManager``
+    build exactly the memories that single-stream ingestion builds."""
+    from repro_torch.core.pipeline import VenusSystem
+    from repro_torch.data.video import PixelEmbedder, VideoWorld, WorldConfig
+    worlds = [VideoWorld(WorldConfig(n_scenes=5, seed=21)),
+              VideoWorld(WorldConfig(n_scenes=5, seed=22))]
+    n = min(w.total_frames for w in worlds)
+    mgr = SessionManager(VenusConfig(), PixelEmbedder(dim=64), embed_dim=64,
+                         device="cpu")
+    sids = [mgr.create_session(), mgr.create_session()]
+    for i in range(0, n, 50):
+        mgr.ingest_tick({sid: w.frames[i:i + 50]
+                         for sid, w in zip(sids, worlds)})
+    mgr.flush()
+    for sid, world in zip(sids, worlds):
+        solo = VenusSystem(VenusConfig(), PixelEmbedder(dim=64),
+                           embed_dim=64, device="cpu")
+        for i in range(0, n, 50):
+            solo.ingest(world.frames[i:i + 50])
+        solo.flush()
+        a, b = mgr[sid].memory, solo.memory
+        assert a.size == b.size
+        for f in ("_emb", "_members", "_member_count", "_index_frame",
+                  "_scene_id"):
+            np.testing.assert_array_equal(getattr(a, f)[:a.size],
+                                          getattr(b, f)[:b.size], err_msg=f)
+        assert mgr[sid].stats == solo.stats

@@ -531,3 +531,88 @@ def test_carried_int8_mirrors_requantise_to_arena_rows():
                                                  want.tick)
     np.testing.assert_array_equal(got.frame_ids, want.frame_ids)
     np.testing.assert_allclose(got.score, want.score, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the reference's acceptance cases (tests/test_tiering.py), on the port
+# ---------------------------------------------------------------------------
+
+
+def _port_manager(**cfg):
+    return SessionManager(VenusConfig(**cfg), ArrayEmbedder(), embed_dim=DIM,
+                          device="cpu")
+
+
+def _feed_own(mgr, sid, rows, chunk=16):
+    """As the reference's acceptance cases feed: each row's reservoir is
+    its own frame id."""
+    mem = mgr.sessions[sid].memory
+    for lo in range(0, len(rows), chunk):
+        fids = np.arange(lo, lo + len(rows[lo:lo + chunk]))
+        with mgr.arena.deferred_appends():
+            mem.insert_batch(rows[lo:lo + chunk], scene_ids=[0] * len(fids),
+                             index_frames=fids,
+                             member_lists=[[int(f)] for f in fids])
+
+
+def test_two_stage_scans_fewer_bytes_than_flat():
+    """Twin of the reference's case: with the tier populated, one query's
+    coarse scan and gathered fine candidates stream fewer bytes than one
+    flat 1×-capacity scan, and both stages are counted."""
+    rng = np.random.default_rng(5)
+    cen = _unit(rng.normal(size=(8, DIM)))
+    labels = rng.integers(0, 8, size=4 * TIER["memory_capacity"])
+    rows = _unit(cen[labels] + 0.05 * rng.normal(size=(len(labels), DIM)))
+    mgr = _port_manager(**TIER)
+    sid = mgr.create_session()
+    _feed_own(mgr, sid, rows)
+    a = mgr.arena
+    assert a.has_consolidated()
+    spec = QuerySpec(sid=sid, embedding=cen[0], strategy="topk", budget=8)
+    tops.reset_scan_counts()
+    mgr.execute(mgr.plan([spec]), coarse=False)
+    flat_bytes = tops.scan_counts()["scan_bytes"]
+    assert tops.scan_counts()["two_stage_scans"] == 0
+    tops.reset_scan_counts()
+    mgr.execute(mgr.plan([spec]))
+    sc = tops.scan_counts()
+    assert sc["two_stage_scans"] == 1
+    assert mgr.io_stats["two_stage_groups"] == 1
+    assert sc["coarse_scan_bytes"] > 0
+    assert sc["fine_gather_rows"] == TIER["coarse_topb"] * \
+        TIER["coarse_block"]
+    gathered_bytes = sc["fine_gather_rows"] * DIM * 4     # f32 tiers
+    assert sc["coarse_scan_bytes"] + gathered_bytes < flat_bytes
+    assert a.n_coarse + sc["fine_gather_rows"] < TIER["memory_capacity"]
+    assert mgr.io_stats["stack_rebuilds"] == 0
+
+
+def test_recall_vs_unbounded_oracle():
+    """Twin of the reference's acceptance case: 4× capacity ingested,
+    top-k recall ≥ 0.8 against an unbounded-capacity oracle (on cluster
+    identity: the oracle scores 1.0 by construction)."""
+    rng = np.random.default_rng(11)
+    n_clusters = 8
+    cen = _unit(rng.normal(size=(n_clusters, DIM)))
+    total = 4 * TIER["memory_capacity"]
+    labels = rng.integers(0, n_clusters, size=total)
+    rows = _unit(cen[labels] + 0.05 * rng.normal(size=(total, DIM)))
+    mgr = _port_manager(**TIER)
+    sid = mgr.create_session()
+    _feed_own(mgr, sid, rows)
+    assert mgr.arena.has_consolidated()
+    om = _port_manager(memory_capacity=total, member_cap=8)
+    osid = om.create_session()
+    _feed_own(om, osid, rows)
+    recalls, oracle_recalls = [], []
+    for q in range(n_clusters):
+        got = mgr.execute(mgr.plan([QuerySpec(
+            sid=sid, embedding=cen[q], strategy="topk", budget=8)]))[0]
+        want = om.execute(om.plan([QuerySpec(
+            sid=osid, embedding=cen[q], strategy="topk", budget=8)]))[0]
+        assert len(got.frame_ids) > 0
+        recalls.append(np.mean(labels[got.frame_ids] == q))
+        oracle_recalls.append(np.mean(labels[want.frame_ids] == q))
+    assert np.mean(oracle_recalls) == 1.0
+    assert np.mean(recalls) >= 0.8, recalls
+    assert mgr.io_stats["two_stage_groups"] == n_clusters
