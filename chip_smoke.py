@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
-12, 15–20, 7, 26, 13, 14, 8, 9, 21–25, 27:
+12, 15–20, 7, 26, 13, 14, 8, 9, 21–25, 27, 28:
 
 1. build      — compile the CUDA kernels from ``src/repro_torch/kernels/
                 csrc`` (one nvcc per source, all started together);
@@ -274,13 +274,37 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 ``FlopCounterMode`` around a card step, its temp bytes
                 printed beside the step's peak. The process group is
                 destroyed.
+28. tp_serve  — serving on the model axis: ``python -m
+                repro_torch.launch.serve --model K`` under ``torchrun``
+                (each rank this script's ``--tp-worker``, around the
+                launcher's ``main``), the K ranks on this card over gloo,
+                bf16 weights from seed 0, 2 slots, 2 requests of 3
+                tokens, then 4 teacher-forced decode steps:
+                Qwen2-VL-7B at (1, 2), 2048 cache rows (each rank's 14 q
+                and 2 KV heads, #5 on k_gqa_split at G = 7) and GLM-4-9B
+                at full depth (40 layers) at (1, 4), 64 cache rows (2 KV
+                heads: the cache split by its sequence, #5's partials on
+                each rank's 16 rows merged across the ranks by one
+                k_merge a layer; the held step has valid rows on two or
+                more ranks, and a shard with none is the empty part);
+                each against a one-process run of the same seed, the
+                teacher-forced logits within relative L2 ``TP_BOUND`` a
+                step; every #5 launch of the first decode step (each
+                rank's partials reduced to one part) and every
+                cross-rank merge held to the plain versions on every
+                rank (one bf16 ulp); the launches counted over the run;
+                each rank's #5 device µs by the profiler over decode
+                steps 2–4. The
+                one-process run is the launcher's ``main`` in this
+                process.
 
 Prints the card's name and power limit, one line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Every kernel's launch count is read around the phase that drives its path
 (main: fused retrieval and scene score; dense: the dense scans; serve,
 serve_mla, serve_moe, serve_olmoe, serve_zoo, serve_hybrid, serve_rwkv
-and serve_whisper: the decode kernels;
+and serve_whisper: the decode kernels; tp_serve: #5 and the cross-rank
+merge in each rank;
 tier: fused retrieval, two a group; standing: fused retrieval, one a
 committing tick; shard: fused retrieval and the dense stack scan, one a
 slab a group).
@@ -2369,6 +2393,31 @@ def phase_decode(gen):
               f"max_abs_err {err:.3e}", flush=True)
         _print_kernel_us(per_kernel)
         del q, k, v
+    # the partials of a sequence shard (``partials=True``, no merge) on
+    # both routes: the mask with holes (sequence 2 with no valid row: the
+    # empty part), against the plain version's, each reduced to one part
+    shard = holes
+    for name, dt, route in (("bf16", torch.bfloat16, split),
+                            ("f32", torch.float32, part)):
+        c = shard.shape[-1]
+        q = torch.randn((b, 1, 28, 128), generator=gen, device=dev).to(dt)
+        k = torch.randn((b, c, 4, 128), generator=gen, device=dev).to(dt)
+        v = torch.randn((b, c, 4, 128), generator=gen, device=dev).to(dt)
+        kw = dict(scale=128 ** -0.5, q_per_kv=7)
+        before = dict(dk.gqa_decode.route_launches)
+        got = dk.gqa_decode(q, k, v, shard, partials=True, **kw)
+        torch.cuda.synchronize()
+        ran = [r for r, n in dk.gqa_decode.route_launches.items()
+               if n != before[r]]
+        check(ran == [route], f"gqa partials {name}: ran {ran}, not "
+              f"{route}")
+        err = hold_parts(got, ref.decode_partials_ref(q, k, v, shard, **kw),
+                         v, f"gqa partials {name}")
+        out[f"gqa_partials_{name}"] = dict(max_abs_err=err, route=route)
+        print(f"phase decode[gqa partials {name}]: ok  {route}  "
+              f"{got[0].shape[-1]} parts a head, one sequence empty  "
+              f"max_abs_err {err:.3e}", flush=True)
+        del q, k, v
     out.update(phase_decode_mla(gen, valid, holes))
     return out
 
@@ -3992,6 +4041,304 @@ def phase_mesh_train(card, layers: int = MESH_LAYERS):
 # 26. the sharded memory path
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------- tp_serve
+# The model axis: the serving launcher under torchrun against one process.
+# (arch, model-axis size K, cache rows): Qwen2-VL-7B at (1, 2) keeps 14 q
+# and 2 KV heads a rank (#5 on k_gqa_split at G = 7); GLM-4-9B at (1, 4),
+# all 40 layers: its 2 KV heads do not divide 4, so its cache splits by
+# sequence and #5's partials are merged across the ranks. Its 64 rows
+# give 16 a rank, so the served prompts (55 and 29 tokens) and the
+# teacher-forced ones (19 and 20) put valid rows on two to four ranks,
+# and some shards of a sequence hold none.
+TP_CASES = (("qwen2-vl-7b", 2, 2048), ("glm4-9b", 4, 64))
+TP_ARGS = ("--full", "--param-dtype", "bfloat16", "--requests", "2",
+           "--slots", "2", "--max-new", "3")
+# teacher-forced logits, mesh against one process: relative L2 of each
+# step's (B, V) logits. Both run bf16 weights and activations; the mesh
+# sums each row-parallel product's R bf16 partials in f32 (two a layer)
+# and merges #5 over other splits, so each layer adds a few bf16
+# roundings (2^-9 relative) that one process does not make
+TP_BOUND = 2 ** -4
+# each rank's decode steps under the profiler (the first is held)
+TP_PROFILED = (2, 3, 4)
+BF16_ULP = dict(rtol=2 ** -7, atol=1e-6)
+
+
+def reduced_parts(m, l, acc):
+    """Softmax parts m, l (B, H, N), acc (B, H, N, D) as one part: (M,
+    sum l e^(m - M), sum acc e^(m - M)), M = max m."""
+    import torch
+    top = m.amax(-1)
+    w = torch.exp(m - top[..., None])
+    return top, (l * w).sum(-1), (acc * w[..., None]).sum(2)
+
+
+def hold_parts(got, want, v, what) -> float:
+    """Partials against the plain version's, each reduced to one part: M
+    and l at one bf16 ulp; acc over the plain l (the context they give;
+    0 for the empty part, so an empty part must be exactly empty) at one
+    bf16 ulp, its absolute part 2^-14 max |v|: ``k_gqa_split`` carries
+    each f32 weight as two bf16 (p = hi + lo, 2^-17 of p), so a context
+    near 0 keeps an error of ~2^-17 mean |v|. An l and acc off by one
+    factor fail on l. Returns acc / l's max abs error."""
+    import torch
+    (gm, gl, ga), (wm, wl, wa) = (reduced_parts(*got),
+                                  reduced_parts(*want))
+    den = wl.clamp(min=1e-30)[..., None]
+    ctx = dict(rtol=BF16_ULP["rtol"],
+               atol=max(BF16_ULP["atol"], 2 ** -14 * v.abs().max().item()))
+    for name, x, y, tol in (("m", gm, wm, BF16_ULP), ("l", gl, wl, BF16_ULP),
+                            ("acc / l", ga / den, wa / den, ctx)):
+        torch.testing.assert_close(x.float(), y.float(), **tol,
+                                   msg=lambda e: f"{what} {name}: {e}")
+    return (ga / den - wa / den).abs().max().item()
+
+
+def tp_worker(argv) -> int:
+    """One rank of phase tp_serve under ``torchrun``: the serving launcher
+    (``repro_torch.launch.serve.main(argv)``) with every #5 launch of the
+    first decode step captured (the split or chunk kernel, with or
+    without ``partials``, and each cross-rank ``k_merge``) and held to
+    the plain versions afterwards, and decode steps ``TP_PROFILED`` under
+    the profiler; writes the rank's json beside ``--dump``. Any failure
+    raises: the rank, and so torchrun, exits non-zero."""
+    import json as _json
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import Transformer
+    rank = int(os.environ["RANK"])
+    st = dict(decode=0, capture=False, prof=None)
+    caps, events = [], []
+
+    def spy(name, fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            if st["capture"]:
+                keep = (tuple(o.clone() for o in out)
+                        if isinstance(out, tuple) else out.clone())
+                caps.append((name, [x.clone() if torch.is_tensor(x) else x
+                                    for x in a], dict(kw), keep))
+            return out
+        return run
+    da._launch_gqa_split = spy("k_gqa_split", da._launch_gqa_split)
+    da._launch_gqa = spy("k_partial", da._launch_gqa)
+    da._launch_merge = spy("k_merge", da._launch_merge)
+    apply = Transformer.apply
+
+    def traced(self, tokens, **kw):
+        dec = kw.get("mode") == "decode"
+        if dec:
+            st["decode"] += 1
+            st["capture"] = st["decode"] == 1
+            if st["decode"] in TP_PROFILED:
+                torch.cuda.synchronize()
+                st["prof"] = profile(activities=[ProfilerActivity.CUDA])
+                st["prof"].__enter__()
+        out = apply(self, tokens, **kw)
+        if dec:
+            st["capture"] = False
+            if st["prof"] is not None:
+                torch.cuda.synchronize()
+                st["prof"].__exit__(None, None, None)
+                events.extend((e.name, e.time_range.elapsed_us())
+                              for e in st["prof"].events()
+                              if e.device_type == DeviceType.CUDA)
+                st["prof"] = None
+        return out
+    Transformer.apply = traced
+    ops.reset_kernel_launches()
+    serve.main(argv)
+    launches = dict(gqa_decode=da.gqa_decode.launches,
+                    partial_launches=da.gqa_decode.partial_launches,
+                    merge_partials=da.merge_partials.launches,
+                    routes=dict(da.gqa_decode.route_launches),
+                    decode_steps=st["decode"])
+    held = dict(k_gqa_split=0, k_partial=0, k_merge=0, partials=0,
+                max_abs_err=0.0, shapes=[], bound_us={}, valid_rows=None)
+
+    def nbytes(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
+    for name, a, kw, out in caps:
+        if name == "k_merge":
+            m, l, acc, dtype = a
+            want = ref.merge_partials_ref(m, l, acc, dtype)
+            got = out
+            moved = nbytes(m, l, acc, out)
+            key = "k_merge_partials"
+        else:
+            q, k, v, valid = a
+            plain = dict(scale=kw["scale"], softcap=kw["softcap"],
+                         q_per_kv=kw["q_per_kv"])
+            rows = int(valid.sum())
+            if kw.get("partials"):
+                held["partials"] += 1
+                got = want = None
+                err = hold_parts(out, ref.decode_partials_ref(
+                    q, k, v, valid, **plain), v, f"rank {rank} {name}")
+                if held["valid_rows"] is None:
+                    held["valid_rows"] = valid.sum(1).tolist()
+            else:
+                got, want = out, ref.decode_attention_ref(q, k, v, valid,
+                                                          **plain)
+                # the merge's own launch: a sequence with no valid row
+                # takes every row (the mean of v)
+                rows = int(torch.where(valid.any(1), valid.sum(1),
+                                       valid.shape[1]).sum())
+            # the bound reads the mask, the valid cache rows and, where
+            # there is one, q, and writes the output: the partials, or the
+            # merged context
+            moved = (nbytes(valid) + (nbytes(q) if rows else 0)
+                     + 2 * rows * k.shape[2] * k.shape[3] * k.element_size()
+                     + (nbytes(*out) if kw.get("partials") else nbytes(out)))
+            key = name
+            shape = [list(q.shape), list(k.shape), bool(kw.get("partials"))]
+            if shape not in held["shapes"]:
+                held["shapes"].append(shape)
+        held[name] += 1
+        held["bound_us"][key] = moved / HBM_BYTES_PER_S * 1e6
+        if got is not None:
+            err = (got.float() - want.float()).abs().max().item()
+            torch.testing.assert_close(
+                got.float(), want.float(), **BF16_ULP,
+                msg=lambda m: f"rank {rank} {name}: {m}")
+        held["max_abs_err"] = max(held["max_abs_err"], err)
+    us = {}
+    for ename, t in events:
+        key = ("k_merge_partials" if "k_merge" in ename and "false>" in ename
+               else next((k for k in ("k_gqa_split", "k_partial", "k_merge")
+                          if k in ename), None))
+        if key:
+            n, tot = us.get(key, (0, 0.0))
+            us[key] = (n + 1, tot + t)
+    dump = argv[argv.index("--dump") + 1]
+    with open(f"{dump}.rank{rank}.json", "w") as f:
+        _json.dump(dict(rank=rank, launches=launches, held=held, profile={
+            k: dict(launches=n, device_us=tot, device_us_per_launch=tot / n)
+            for k, (n, tot) in us.items()}), f)
+    return 0
+
+
+def phase_tp_serve(card):
+    """The serving launcher on the model axis (``python -m
+    repro_torch.launch.serve --model K`` under torchrun, ``tp_worker`` in
+    each rank): for each of ``TP_CASES``, the ranks on this card (gloo)
+    and one process of the same seed; their teacher-forced logits within
+    ``TP_BOUND`` (relative L2 a step), every #5 launch of one decode step
+    and every cross-rank merge held on every rank, the launches counted
+    over the run, each rank's #5 device µs by the profiler."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    out_dir = os.path.join(HERE, "chiprun_out", "tp_serve")
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    res = {}
+    for arch, k, max_len in TP_CASES:
+        tp_npz = os.path.join(out_dir, f"{arch}_model{k}.npz")
+        one_npz = os.path.join(out_dir, f"{arch}_one.npz")
+        for f in os.listdir(out_dir):
+            if f.startswith(arch):
+                os.remove(os.path.join(out_dir, f))
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(k), os.path.join(HERE, "chip_smoke.py"),
+             "--tp-worker", *TP_ARGS, "--max-len", str(max_len), "--arch",
+             arch, "--model", str(k), "--dump", tp_npz],
+            capture_output=True, text=True, env=env,
+            timeout=600, cwd=HERE)
+        t_mesh = time.perf_counter() - t0
+        check(run.returncode == 0, f"tp_serve {arch} model {k}: exit "
+              f"{run.returncode}\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+        check(f"[ranks] world {k}, backend gloo" in run.stdout,
+              f"tp_serve {arch}: {run.stdout[-1000:]}")
+        # the same launcher in this process: no mesh
+        t0 = time.perf_counter()
+        serve.main([*TP_ARGS, "--max-len", str(max_len), "--arch", arch,
+                    "--dump", one_npz])
+        free_card()
+        t_one = time.perf_counter() - t0
+        with np.load(tp_npz) as a, np.load(one_npz) as b:
+            steps = [float(np.linalg.norm(x - y) / np.linalg.norm(y))
+                     for x, y in zip(a["logits"], b["logits"])]
+            agree = float((a["logits"].argmax(-1)
+                           == b["logits"].argmax(-1)).mean())
+            tokens_equal = float((a["tokens"] == b["tokens"]).mean())
+        check(max(steps) <= TP_BOUND, f"tp_serve {arch}: teacher-forced "
+              f"logits rel L2 {steps} > {TP_BOUND}")
+        ranks = []
+        for r in range(k):
+            with open(f"{tp_npz}.rank{r}.json") as f:
+                ranks.append(json.load(f))
+        layers = get_config(arch).num_layers
+        sharded = get_config(arch).num_kv_heads % k != 0
+        for rk in ranks:
+            ln, held = rk["launches"], rk["held"]
+            want = layers * ln["decode_steps"]
+            check(ln["gqa_decode"] == want and ln["partial_launches"] ==
+                  (want if sharded else 0) and ln["merge_partials"] ==
+                  (want if sharded else 0),
+                  f"tp_serve {arch} rank {rk['rank']}: launches {ln}, "
+                  f"{want} expected")
+            check(held["k_gqa_split"] + held["k_partial"] == layers
+                  and held["k_merge"] == (layers if sharded else 0),
+                  f"tp_serve {arch} rank {rk['rank']}: held {held}")
+            check(not sharded or held["valid_rows"] is not None,
+                  f"tp_serve {arch} rank {rk['rank']}: no partials held")
+            split = rk["profile"].get("k_gqa_split")
+            check(split is not None and split["launches"] ==
+                  layers * len(TP_PROFILED),
+                  f"tp_serve {arch} rank {rk['rank']}: traced "
+                  f"{rk['profile']}")
+        # the held step's valid rows, by rank and sequence: a sharded
+        # cache must merge valid parts of two or more ranks
+        rows = [rk["held"]["valid_rows"] for rk in ranks]
+        check(not sharded or max(sum(r[i] > 0 for r in rows)
+                                 for i in range(len(rows[0]))) >= 2,
+              f"tp_serve {arch}: valid rows by rank {rows} on one rank")
+        res[arch] = dict(
+            model=k, layers=layers, sequence_sharded=sharded,
+            max_len=max_len, valid_rows=rows,
+            rel_l2=steps, argmax_agree=agree, tokens_equal=tokens_equal,
+            mesh_s=t_mesh, one_process_s=t_one, bound=TP_BOUND,
+            ranks=ranks,
+            launches=sum(rk["launches"]["gqa_decode"] for rk in ranks),
+            partial_launches=sum(rk["launches"]["partial_launches"]
+                                 for rk in ranks),
+            merge_launches=sum(rk["launches"]["merge_partials"]
+                               for rk in ranks),
+            max_abs_err=max(rk["held"]["max_abs_err"] for rk in ranks),
+            bound_us={kern: [rk["held"]["bound_us"][kern] for rk in ranks]
+                      for kern in ranks[0]["held"]["bound_us"]},
+            device_us_per_launch={
+                kern: [rk["profile"][kern]["device_us_per_launch"]
+                       for rk in ranks if kern in rk["profile"]]
+                for kern in ("k_gqa_split", "k_partial", "k_merge",
+                             "k_merge_partials")})
+        print(f"  tp_serve {arch} (1, {k}), {layers} layers, {max_len} "
+              f"cache rows"
+              + (f" by sequence (held step's valid rows by rank {rows})"
+                 if sharded else "") + ": logits rel L2 "
+              f"a step {[f'{x:.3e}' for x in steps]} (bound {TP_BOUND}), "
+              f"argmax agree {agree:.3f}, tokens equal {tokens_equal:.3f}; "
+              f"#5 launches {res[arch]['launches']} (partials "
+              f"{res[arch]['partial_launches']}, cross-rank merges "
+              f"{res[arch]['merge_launches']}), held max abs err "
+              f"{res[arch]['max_abs_err']:.3e}; device us a launch by rank "
+              f"{res[arch]['device_us_per_launch']}, bound (bytes) "
+              f"{res[arch]['bound_us']}; mesh {t_mesh:.1f} s, "
+              f"one process {t_one:.1f} s [{card}]", flush=True)
+        for line in run.stdout.splitlines():
+            if line.startswith("[serve]") or line.startswith("[ranks]"):
+                print(f"    {line}", flush=True)
+    print("phase tp_serve: ok", flush=True)
+    return res
+
+
 # name: (K slabs or None for no mesh, double_buffer, index dtype, oracle)
 SHARD_MGRS = {"a": (None, False, "float32", None),
               "b": (1, True, "float32", "a"),
@@ -4712,6 +5059,10 @@ def main() -> int:
     launched = {k: v for k, v in ops.kernel_launches().items() if v}
     check(not launched, f"mesh_train launched kernels: {launched}")
 
+    # 28. serving on the model axis: torchrun ranks against one process
+    free_card()
+    tp_serve = phase_tp_serve(card)
+
     dl = dense["launches"]
 
     def scan_row(name, source, replaces, r, n_launch):
@@ -4841,7 +5192,19 @@ def main() -> int:
              serve_held_max_abs_err=max(
                  [r["held"]["max_abs_err"] for r in (
                      serve_olmoe, serve_hybrid, serve_whisper,
-                     *serve_zoo.values())])),
+                     *serve_zoo.values())]),
+             tp_serve_launches={a: r["launches"]
+                                for a, r in tp_serve.items()},
+             tp_serve_partial_launches={a: r["partial_launches"]
+                                        for a, r in tp_serve.items()},
+             tp_serve_merge_launches={a: r["merge_launches"]
+                                      for a, r in tp_serve.items()},
+             tp_serve_device_us_per_launch={
+                 a: r["device_us_per_launch"] for a, r in tp_serve.items()},
+             tp_serve_bound_us={a: r["bound_us"]
+                                for a, r in tp_serve.items()},
+             tp_serve_held_max_abs_err=max(
+                 r["max_abs_err"] for r in tp_serve.values())),
         dict(decode_row("mla_decode", "mla_decode.cu",
                         "src/repro/kernels/decode_attention.py:173",
                         "mla", serve_mla["launches"]["mla_decode"],
@@ -4868,6 +5231,7 @@ def main() -> int:
                        mem=mem_out, tier=tier,
                        tier_8192=tier_full, standing=standing,
                        shard=shard, mesh_train=mesh_train,
+                       tp_serve=tp_serve,
                        parity_tier=parity, **train), f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4877,4 +5241,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(sys.argv[2:]))
     sys.exit(main())

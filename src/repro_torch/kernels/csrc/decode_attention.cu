@@ -70,7 +70,15 @@
 // partials in order and writes acc / max(L, 1e-30) — the same result from
 // run to run.
 // The ragged last tile or chunk is masked here; C needs no padding.
-// The C entry points return cudaGetLastError() after the launches.
+// The C entry points return cudaGetLastError() after the launches. With
+// out == nullptr the GQA entries stop after the first kernel and leave its
+// partials (m, l, acc per split or chunk) for the caller: a cache sharded
+// by its sequence over R ranks runs that first kernel on each rank's rows,
+// and merge_partials_* (k_merge alone) takes the R ranks' partials,
+// gathered, as R x nch parts in rank order. There a split or chunk with
+// no valid row reads no k/v row and writes the empty partial (m = -1e30,
+// l = 0, acc = 0), whatever the rest of the sequence holds: a shard with
+// no valid row weighs 0 in the merge and costs its mask bytes alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -250,7 +258,8 @@ __global__ void __launch_bounds__(kThreads)
 k_partial(Seg<T> q1, Seg<T> q2, Seg<T> k1, Seg<T> k2, Seg<T> v,
           const uint8_t* __restrict__ valid, int C, int G, int Gb, int rows,
           float scale, float softcap, float* __restrict__ part_m,
-          float* __restrict__ part_l, float* __restrict__ part_acc) {
+          float* __restrict__ part_l, float* __restrict__ part_acc,
+          bool empty_parts) {
   extern __shared__ __align__(16) float sm[];
   // the merge may launch once every block of this grid runs
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
@@ -267,6 +276,27 @@ k_partial(Seg<T> q1, Seg<T> q2, Seg<T> k1, Seg<T> k2, Seg<T> v,
   float* kt = sm + L.k_off;
   float* vt = sm + L.v_off;
   float* pT = sm + L.p_off;
+  const uint8_t* vrow = valid + static_cast<size_t>(b) * C + c0;
+
+  // partials for another merge: a chunk with no valid row is the empty
+  // partial, and reads no k/v row
+  if (empty_parts) {
+    int any = 0;
+    for (int r = threadIdx.x; r < len; r += kThreads) any |= vrow[r];
+    if (!__syncthreads_or(any)) {
+      for (int i = threadIdx.x; i < Gh * L.Dv; i += kThreads) {
+        const int j = i / L.Dv;
+        const size_t row =
+            (static_cast<size_t>(b) * H + g0 + j) * nch + chunk;
+        part_acc[row * L.Dv + i - j * L.Dv] = 0.f;
+        if (i == j * L.Dv) {
+          part_m[row] = kNegInf;
+          part_l[row] = 0.f;
+        }
+      }
+      return;
+    }
+  }
 
   // queries, transposed into qT[c][j] with vector loads in flight; the pad
   // heads' columns are zero
@@ -284,7 +314,6 @@ k_partial(Seg<T> q1, Seg<T> q2, Seg<T> k1, Seg<T> k2, Seg<T> v,
   // logits: item (head quad hq, row r); a warp shares hq, so the query
   // load is a broadcast
   const int nhq = L.Gp / 4;
-  const uint8_t* vrow = valid + static_cast<size_t>(b) * C + c0;
   for (int i = threadIdx.x; i < len * nhq; i += kThreads) {
     const int hq = i / len, r = i - hq * len;
     const float* krow = kt + r * L.ks;
@@ -380,13 +409,13 @@ int launch(Seg<T> q1, Seg<T> q2, Seg<T> k1, Seg<T> k2, Seg<T> v,
       return e;
     kernel<<<dim3(nch, groups * ((G + Gb - 1) / Gb), B), kThreads, smem,
              st>>>(q1, q2, k1, k2, v, valid, C, G, Gb, rows, scale, softcap,
-                   part_m, part_l, part_acc);
+                   part_m, part_l, part_acc, out == nullptr);
     return cudaGetLastError();
   };
   const bool vec = vec4_ok(q1) && vec4_ok(q2) && vec4_ok(k1) &&
                    vec4_ok(k2) && vec4_ok(v);
   cudaError_t e = vec ? run(k_partial<T, 4>) : run(k_partial<T, 1>);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess || out == nullptr) return e;   // no out: partials
   return dec::launch_merge<T>(groups * G, B, nch, Dv, part_m, part_l,
                               part_acc, out, st);
 }
@@ -451,6 +480,7 @@ struct Args {
   float* part_m;              // [B][H][splits]
   float* part_l;
   float* part_acc;            // [B][H][splits][D]
+  int empty_parts;            // no merge here: an empty range stays empty
 };
 
 // dynamic shared memory: q, the K and V rings, the tile list and flags
@@ -503,10 +533,11 @@ __global__ void __launch_bounds__(kThreads) k_gqa_split(const Args a) {
   int n = n_live;
   if (n == 0) {
     // no valid row here: an empty partial (weight 0 in the merge), unless
-    // no row of the sequence is valid — then every row of the range counts
-    // (the mean of v). The sequence's mask with 8 loads in flight a thread.
-    int any = 0;
-    for (int r0 = tid; r0 < a.C; r0 += 8 * kThreads) {
+    // no row of the sequence is valid and the merge is this launch's own
+    // — then every row of the range counts (the mean of v). The
+    // sequence's mask with 8 loads in flight a thread.
+    int any = a.empty_parts;
+    for (int r0 = tid; !a.empty_parts && r0 < a.C; r0 += 8 * kThreads) {
       uint8_t x[8];
 #pragma unroll
       for (int u = 0; u < 8; ++u)
@@ -704,7 +735,7 @@ int launch(const Args& a, int B, int splits, bf16* out, cudaStream_t st) {
                                 static_cast<int>(smem))) != cudaSuccess)
     return e;
   k_gqa_split<kD><<<dim3(splits, a.Hkv, B), kThreads, smem, st>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = cudaGetLastError()) != cudaSuccess || out == nullptr) return e;
   return dec::launch_merge<bf16>(a.H, B, splits, kD, a.part_m, a.part_l,
                                 a.part_acc, out, st);
 }
@@ -760,9 +791,27 @@ extern "C" int gqa_split_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if (Hkv < 1 || H % Hkv) return cudaErrorInvalidValue;
   const split::Args a{q,     k,       v,      valid,  mask_bs,        C,
                       H,     Hkv,     H / Hkv, tiles_per_split, scale, softcap,
-                      part_m, part_l, part_acc};
+                      part_m, part_l, part_acc, out == nullptr};
   return split::gqa(a, B, D, splits, out, stream);
 }
+
+// k_merge alone, on partials [B][heads][nch] that another launch (or
+// several ranks' launches, gathered) wrote: a plain launch, no PDL
+#define MERGE_ENTRY(SUFFIX, T)                                               \
+  extern "C" int merge_partials_##SUFFIX(int heads, int B, int nch, int Dv, \
+                                         const float* part_m,                \
+                                         const float* part_l,                \
+                                         const float* part_acc, T* out,      \
+                                         void* stream) {                     \
+    if (heads < 1 || B < 1 || nch < 1 || Dv < 1) return cudaErrorInvalidValue; \
+    dec::k_merge<T, false><<<dim3(heads, B), dec::kMergeThreads, 0,              \
+                             static_cast<cudaStream_t>(stream)>>>(           \
+        nch, Dv, part_m, part_l, part_acc, out);                             \
+    return cudaGetLastError();                                               \
+  }
+
+MERGE_ENTRY(f32, float)
+MERGE_ENTRY(bf16, __nv_bfloat16)
 
 #define MLA_ENTRY(SUFFIX, T)                                                 \
   extern "C" int mla_decode_##SUFFIX(                                         \

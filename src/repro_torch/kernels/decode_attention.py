@@ -188,7 +188,8 @@ def _check_gqa_shapes(q, k, v, q_per_kv):
     return b, h, c, hkv, d
 
 
-def _launch_gqa_split(q, k, v, valid, *, scale, softcap, q_per_kv):
+def _launch_gqa_split(q, k, v, valid, *, scale, softcap, q_per_kv,
+                      partials=False):
     b, h, c, hkv, d = _check_gqa_shapes(q, k, v, q_per_kv)
     q, k, v = _operands(q, k, v)
     if any(x.data_ptr() % 16 for x in (q, k, v)):
@@ -198,57 +199,122 @@ def _launch_gqa_split(q, k, v, valid, *, scale, softcap, q_per_kv):
     n = b * h * splits
     scratch = torch.empty(n * (2 + d), dtype=torch.float32, device=q.device)
     base = scratch.data_ptr()
-    out = torch.empty_like(q)
+    out = None if partials else torch.empty_like(q)
     fn = _kernel_fn("gqa_split", q.dtype, _SPLIT_ARGS)
     rc = on_device(q.device, lambda stream: fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), mask_bs,
         b, c, h, hkv, d, splits, per, float(scale), float(softcap or 0.0),
-        base, base + 4 * n, base + 8 * n, out.data_ptr(), stream))
+        base, base + 4 * n, base + 8 * n,
+        None if partials else out.data_ptr(), stream))
     _check_rc(rc, "gqa_decode")
+    if partials:
+        return (scratch[:n].view(b, h, splits),
+                scratch[n:2 * n].view(b, h, splits),
+                scratch[2 * n:].view(b, h, splits, d))
     return out
 
 
-def _launch_gqa(q, k, v, valid, *, scale, softcap, q_per_kv):
+def _launch_gqa(q, k, v, valid, *, scale, softcap, q_per_kv,
+                partials=False):
     b, h, c, hkv, d = _check_gqa_shapes(q, k, v, q_per_kv)
     q, k, v = _operands(q, k, v)
     vmask = _mask(valid, b, c, q.device)
     heads, rows = partial_plan(q_per_kv, d, d, True, _GQA_ROWS)
     pm, pl, pa = _partials(b, h, c, d, rows, q.device)
-    out = torch.empty_like(q)
+    out = None if partials else torch.empty_like(q)
     fn = _kernel_fn("gqa_decode", q.dtype, _GQA_ARGS)
     rc = on_device(q.device, lambda stream: fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), vmask.data_ptr(), b, c, h,
         hkv, d, heads, rows, float(scale), float(softcap or 0.0),
-        pm.data_ptr(), pl.data_ptr(), pa.data_ptr(), out.data_ptr(), stream))
+        pm.data_ptr(), pl.data_ptr(), pa.data_ptr(),
+        None if partials else out.data_ptr(), stream))
     _check_rc(rc, "gqa_decode")
-    return out
+    return (pm, pl, pa) if partials else out
 
 
 def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                valid: torch.Tensor, *, scale: float, softcap: float = 0.0,
-               q_per_kv: int = 1) -> torch.Tensor:
+               q_per_kv: int = 1, partials: bool = False):
     """q (B,1,H,D); k/v (B,C,Hkv,D); valid (B or 1, C) bool → (B,1,H,D)
     in q's dtype. CUDA tensors run the kernel that ``gqa_route`` names,
     CPU tensors the plain version; so do ``meta`` tensors, whose shapes
-    the dry run counts (``launch.dryrun``)."""
+    the dry run counts (``launch.dryrun``).
+
+    ``partials=True`` stops before the merge and returns the first
+    kernel's f32 softmax partials ``(m (B,H,N), l (B,H,N), acc
+    (B,H,N,D))``, one per split or chunk (the plain version: N = 1), for
+    ``merge_partials``: a cache sharded by its sequence runs this on each
+    shard. A split or chunk with no valid row reads no k/v row and gives
+    the empty part (m = -1e30, l = 0, acc = 0), which weighs 0 in the
+    merge; a sequence with no valid row in any shard merges to 0, where
+    the unsharded call gives the mean of v (decode never has one)."""
     if q.device.type == "cuda":
         route = gqa_route(q.dtype, q_per_kv, q.shape[-1])
         launch = (_launch_gqa_split if route == "k_gqa_split"
                   else _launch_gqa)
         out = launch(q, k, v, valid, scale=scale, softcap=softcap,
-                     q_per_kv=q_per_kv)
+                     q_per_kv=q_per_kv, partials=partials)
         gqa_decode.launches += 1
         gqa_decode.route_launches[route] += 1
+        if partials:
+            gqa_decode.partial_launches += 1
         return out
     if q.device.type in ("cpu", "meta"):
-        return ref.decode_attention_ref(q, k, v, valid, scale=scale,
-                                        softcap=softcap, q_per_kv=q_per_kv)
+        fn = (ref.decode_partials_ref if partials
+              else ref.decode_attention_ref)
+        return fn(q, k, v, valid, scale=scale, softcap=softcap,
+                  q_per_kv=q_per_kv)
     raise ValueError(f"no decode attention route for device {q.device}")
 
 
 gqa_decode.launches = 0
 # the launches of each route by its first kernel's name
 gqa_decode.route_launches = {"k_gqa_split": 0, "k_partial": 0}
+# of ``launches``, those that stopped at the partials (``partials=True``)
+gqa_decode.partial_launches = 0
+
+_MERGE_ARGS = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
+
+
+def _launch_merge(m, l, acc, dtype):
+    if dtype not in _SUFFIX:
+        raise TypeError(f"merge_partials writes float32 or bfloat16, got "
+                        f"{dtype}")
+    b, h, n = m.shape
+    d = acc.shape[-1]
+    m, l, acc = (x.to(torch.float32).contiguous() for x in (m, l, acc))
+    out = torch.empty((b, 1, h, d), dtype=dtype, device=m.device)
+    fn = _kernel_fn("merge_partials", dtype, _MERGE_ARGS)
+    rc = on_device(m.device, lambda stream: fn(
+        h, b, n, d, m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+        out.data_ptr(), stream))
+    _check_rc(rc, "merge_partials")
+    return out
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """Merge softmax partials in order: m, l (B, H, N) and acc (B, H, N,
+    D) in f32 (``gqa_decode(..., partials=True)``'s, or several shards'
+    concatenated on N) → (B, 1, H, D) in ``dtype``: acc e^(m - M) summed
+    over N, over l e^(m - M) summed (floored at 1e-30), M = max m. CUDA
+    tensors launch ``k_merge`` (``csrc/decode_common.cuh``), CPU ones the
+    plain version."""
+    b, h, n = m.shape
+    d = acc.shape[-1]
+    if tuple(l.shape) != (b, h, n) or tuple(acc.shape) != (b, h, n, d):
+        raise ValueError(f"partials m {tuple(m.shape)}, l {tuple(l.shape)},"
+                         f" acc {tuple(acc.shape)}")
+    if m.device.type == "cuda":
+        out = _launch_merge(m, l, acc, dtype)
+        merge_partials.launches += 1
+        return out
+    if m.device.type in ("cpu", "meta"):
+        return ref.merge_partials_ref(m, l, acc, dtype)
+    raise ValueError(f"no merge route for device {m.device}")
+
+
+merge_partials.launches = 0
 
 
 def mla_route(dtype: torch.dtype, h: int, r: int, dr: int) -> str:

@@ -53,6 +53,7 @@ _KERNELS = {"fused_retrieve": _sim.fused_retrieve_scan_stack,
             "similarity_scan": _sim.similarity_scan,
             "scene_score": _scene.scene_score,
             "gqa_decode": _decode.gqa_decode,
+            "merge_partials": _decode.merge_partials,
             "mla_decode": _decode.mla_decode}
 
 
@@ -66,6 +67,8 @@ def reset_kernel_launches() -> None:
     """Zero every launch count, and the decode wrappers' counts by route."""
     for fn in _KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "partial_launches"):
+            fn.partial_launches = 0
         for route in getattr(fn, "route_launches", ()):
             fn.route_launches[route] = 0
 
@@ -84,10 +87,16 @@ def count_fine_gather(n_rows: int) -> None:
 
 
 def decode_attention(q, k, v, valid, *, scale: float, softcap: float = 0.0,
-                     q_per_kv: int = 1) -> torch.Tensor:
-    """q (B,1,H,D); k/v (B,C,Hkv,D); valid (B or 1, C) → (B,1,H,D)."""
+                     q_per_kv: int = 1, partials: bool = False):
+    """q (B,1,H,D); k/v (B,C,Hkv,D); valid (B or 1, C) → (B,1,H,D); with
+    ``partials`` the unmerged softmax partials (m, l, acc) instead."""
     return _decode.gqa_decode(q, k, v, valid, scale=scale, softcap=softcap,
-                              q_per_kv=q_per_kv)
+                              q_per_kv=q_per_kv, partials=partials)
+
+
+def merge_partials(m, l, acc, dtype) -> torch.Tensor:
+    """Softmax partials (m, l (B,H,N), acc (B,H,N,D)) → (B,1,H,D)."""
+    return _decode.merge_partials(m, l, acc, dtype)
 
 
 def mla_decode_attention(q_abs, q_rope, ckv, krope, valid, *,

@@ -72,6 +72,42 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ctx.reshape(b, 1, h, v.shape[-1]).to(q.dtype)
 
 
+def decode_partials_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        valid: torch.Tensor, *, scale: float,
+                        softcap: float = 0.0, q_per_kv: int = 1):
+    """``decode_attention_ref``'s softmax stopped before its division, as
+    one part: m (B,H,1) = the max masked logit, l (B,H,1) = sum e^(s - m),
+    acc (B,H,1,D) = sum e^(s - m) v, all f32, over the valid rows: a mask
+    with no valid row gives the empty part, m = -1e30, l = 0, acc = 0."""
+    b, _, h, d = q.shape
+    hkv = k.shape[2]
+    f32 = torch.float32
+    qg = q.reshape(b, hkv, q_per_kv, d).to(f32)
+    logits = torch.matmul(qg, k.to(f32).permute(0, 2, 3, 1)) * scale
+    if softcap and softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    mask = valid.expand(b, valid.shape[-1])
+    logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
+    m = logits.amax(-1, keepdim=True)                      # (B,Hkv,G,1)
+    p = torch.exp(logits - m) * mask[:, None, None, :]
+    acc = torch.matmul(p, v.to(f32).permute(0, 2, 1, 3))   # (B,Hkv,G,D)
+    return (m.reshape(b, h, 1), p.sum(-1).reshape(b, h, 1),
+            acc.reshape(b, h, 1, v.shape[-1]))
+
+
+def merge_partials_ref(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """The merge of N softmax parts: m, l (B,H,N), acc (B,H,N,D) →
+    (B,1,H,D) in ``dtype``: sum acc e^(m - M) / max(sum l e^(m - M),
+    1e-30), M = max m."""
+    f32 = torch.float32
+    m, l, acc = m.to(f32), l.to(f32), acc.to(f32)
+    w = torch.exp(m - m.amax(-1, keepdim=True))            # (B,H,N)
+    den = torch.clamp((l * w).sum(-1), min=1e-30)          # (B,H)
+    out = (acc * w[..., None]).sum(2) / den[..., None]     # (B,H,D)
+    return out[:, None].to(dtype)
+
+
 def mla_decode_attention_ref(q_abs: torch.Tensor, q_rope: torch.Tensor,
                              ckv: torch.Tensor, krope: torch.Tensor,
                              valid: torch.Tensor, *, scale: float

@@ -113,10 +113,49 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return make_abstract_mesh((16, 16), ("data", "model"))
 
 
+def init_ranks(device=None) -> Tuple[torch.device, str]:
+    """Join the process group that ``torchrun`` describes (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, the rendezvous
+    address) → (this rank's device, the backend). On the cards (``device``
+    None or a CUDA device): where there is a card for every local rank,
+    rank r runs on ``cuda:<local rank>`` over NCCL; with fewer cards the
+    ranks share them (``cuda:<local rank % cards>``) over gloo, which
+    takes CUDA tensors through the host (NCCL refuses two ranks on one
+    card). ``device="cpu"``: the CPU over gloo. Prints the choice on rank
+    0: nothing is chosen silently."""
+    import os
+
+    import torch.distributed as dist
+    world = int(os.environ["WORLD_SIZE"])
+    rank = int(os.environ["RANK"])
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if device is not None and torch.device(device).type == "cpu":
+        dev, backend = torch.device("cpu"), "gloo"
+    else:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n == 0:
+            raise RuntimeError("no CUDA device is visible; pass "
+                               "device='cpu' to run the ranks on the CPU")
+        dev = torch.device("cuda", local % n)
+        backend = "nccl" if n >= local_world else "gloo"
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group(backend)
+    if rank == 0:
+        print(f"[ranks] world {world}, backend "
+              f"{dist.get_backend()}, rank 0 on {dev}"
+              + ("" if dev.type == "cpu" else
+                 f" ({torch.cuda.device_count()} card(s) for "
+                 f"{local_world} local ranks)"), flush=True)
+    return dev, dist.get_backend()
+
+
 def to_device_mesh(mesh: Mesh, device_type: str):
     """The ``torch.distributed`` ``DeviceMesh`` of ``mesh``'s axes and
     sizes over the ranks of the initialised process group, which must
-    hold exactly ``mesh.size`` ranks."""
+    hold exactly ``mesh.size`` ranks: row-major, so a ``(data, model)``
+    mesh puts ranks ``[d·K, (d+1)·K)`` on model group d."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     if not dist.is_available() or not dist.is_initialized():
@@ -127,6 +166,13 @@ def to_device_mesh(mesh: Mesh, device_type: str):
                            f"process group has {dist.get_world_size()}")
     return init_device_mesh(device_type, mesh.sizes,
                             mesh_dim_names=mesh.axis_names)
+
+
+def abstract_of(device_mesh) -> Mesh:
+    """The abstract ``Mesh`` of a ``DeviceMesh``'s axes and sizes: what
+    the rule tables read."""
+    return make_abstract_mesh(tuple(device_mesh.shape),
+                              tuple(device_mesh.mesh_dim_names))
 
 
 def data_axes(mesh) -> Tuple[str, ...]:

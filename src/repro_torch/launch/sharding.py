@@ -314,3 +314,200 @@ def to_placements(spec: P, device_mesh) -> List:
         dims = [d for d in range(len(spec)) if axis in spec_axes(spec, d)]
         out.append(Shard(dims[0]) if dims else Replicate())
     return out
+
+
+# ===========================================================================
+# The model axis: a model's parameters and caches placed by the tables
+# ===========================================================================
+
+
+class TensorParallel:
+    """A model's place on a ``("data", "model")`` ``DeviceMesh``: this
+    rank's coordinates, its model and data groups, and the collectives the
+    layers call between their products on local tensors. DTensors hold
+    the parameters and caches (their placements are the tables'); the
+    layers compute on their local shards, so no op pays DTensor's
+    dispatch on the host, which a decode step already waits for.
+
+    All reductions run in float32 and cast back; a gather of bf16 moves
+    its bits unchanged."""
+
+    def __init__(self, device_mesh, device=None):
+        names = tuple(device_mesh.mesh_dim_names)
+        if names != ("data", MODEL):
+            raise ValueError(f"tensor parallelism runs on a ('data', "
+                             f"'model') mesh, not {names}")
+        from repro_torch.launch.mesh import abstract_of
+        self.device_mesh = device_mesh
+        self.mesh = abstract_of(device_mesh)
+        self.device = torch.device(
+            device if device is not None else
+            "cpu" if device_mesh.device_type == "cpu" else
+            f"cuda:{torch.cuda.current_device()}")
+        self.size = device_mesh.size(1)
+        self.rank = device_mesh.get_local_rank(MODEL)
+        self.group = device_mesh.get_group(MODEL)
+        self.data_size = device_mesh.size(0)
+        self.data_rank = device_mesh.get_local_rank("data")
+        self.data_group = device_mesh.get_group("data")
+
+    # -------------------------------------------------------- collectives
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the model axis of each rank's ``x`` (a row-parallel
+        product's partial sums), in float32, cast back to x's dtype."""
+        if self.size == 1:
+            return x
+        import torch.distributed as dist
+        y = x.to(torch.float32, copy=True).contiguous()
+        dist.all_reduce(y, group=self.group)
+        return y.to(x.dtype)
+
+    def _gather(self, x: torch.Tensor, dim: int, group, n: int
+                ) -> torch.Tensor:
+        if n == 1:
+            return x
+        import torch.distributed as dist
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim)
+
+    def gather_model(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The ranks' ``x`` concatenated on ``dim`` in model-rank order."""
+        return self._gather(x, dim, self.group, self.size)
+
+    def stack_model(self, x: torch.Tensor) -> torch.Tensor:
+        """(R, *x.shape): every model rank's ``x``, in rank order."""
+        return self._gather(x[None], 0, self.group, self.size)
+
+    # ------------------------------------------------------------ the batch
+    def batch_sharded(self, b: int) -> bool:
+        """A batch of ``b`` rows is split over the data axis (the tables'
+        rule: the axis divides it), else every data rank holds it all."""
+        return self.data_size > 1 and b % self.data_size == 0
+
+    def batch_rows(self, x: Optional[torch.Tensor]):
+        """This data rank's rows of a global batch (all of them where the
+        batch is not split)."""
+        if x is None or not self.batch_sharded(x.shape[0]):
+            return x
+        n = x.shape[0] // self.data_size
+        return x[self.data_rank * n:(self.data_rank + 1) * n]
+
+    def gather_batch(self, x: torch.Tensor, b: int) -> torch.Tensor:
+        """The global batch of ``b`` rows from each data rank's rows."""
+        if not self.batch_sharded(b):
+            return x
+        return self._gather(x, 0, self.data_group, self.data_size)
+
+    # --------------------------------------------------------- the sequence
+    def seq_bounds(self, n: int) -> Tuple[int, int]:
+        """Rows [lo, hi) of a length-``n`` sequence that this model rank
+        holds: chunks of ceil(n / R), the last ones shorter or empty."""
+        per = -(-n // self.size)
+        lo = min(n, self.rank * per)
+        return lo, min(n, lo + per)
+
+    def gather_seq(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        """The whole length-``n`` sequence (dim 1) from each rank's
+        ``seq_bounds`` rows of it."""
+        if self.size == 1:
+            return x
+        per = -(-n // self.size)
+        if x.shape[1] < per:
+            pad = list(x.shape)
+            pad[1] = per - x.shape[1]
+            x = torch.cat([x, x.new_zeros(pad)], dim=1)
+        return self.gather_model(x, 1)[:, :n]
+
+    # ------------------------------------------------------------ placement
+    def place(self, t: torch.Tensor, spec: P):
+        """``t`` (the whole tensor, or a ``meta`` one: zeros) as a DTensor
+        of this mesh with ``spec``'s placements: this rank's slice, split
+        locally (no collective), copied to storage of its own on the
+        rank's device, so the whole tensor can be freed."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+        placements = to_placements(spec, self.device_mesh)
+        part = distribute_tensor(t, self.device_mesh, placements,
+                                 src_data_rank=None).to_local()
+        local = (torch.zeros(part.shape, dtype=t.dtype, device=self.device)
+                 if part.is_meta else
+                 part.to(self.device, copy=True).contiguous())
+        return DTensor.from_local(local, self.device_mesh, placements,
+                                  run_check=False)
+
+
+def is_placed(t) -> bool:
+    """A DTensor (a placed parameter or cache leaf)."""
+    return hasattr(t, "device_mesh") and hasattr(t, "to_local")
+
+
+def local(t):
+    """A placed tensor's local shard (the same storage), else ``t``."""
+    return t.to_local() if is_placed(t) else t
+
+
+# the families whose serving runs on the model axis (GQA decoders); the
+# rest of the zoo (MLA, MoE, the recurrent families, Whisper) waits
+TP_FAMILIES = ("dense", "vlm")
+
+
+def tp_shard(model, device_mesh, *, mode: str = "serve", device=None):
+    """Place ``model`` (a GQA ``Transformer``) on ``device_mesh``: every
+    parameter becomes a DTensor with ``to_placements(param_spec(...))``
+    — heads, FFN columns and the vocabulary over ``model``, replicated
+    over ``data`` (``mode="serve"``) — in place; the model then computes
+    on its local shards between the layers' collectives. Returns the
+    model."""
+    check_tp_family(model.cfg)
+    tp = TensorParallel(device_mesh, device)
+    place_params(model, tp, mode=mode)
+    model.set_tp(tp)
+    return model
+
+
+def check_tp_family(cfg) -> None:
+    if (cfg.family not in TP_FAMILIES or cfg.attn_type != "gqa"
+            or cfg.moe is not None):
+        raise NotImplementedError(
+            f"{cfg.name}: serving on the model axis runs the GQA "
+            f"decoders (dense, VLM); {cfg.family}/{cfg.attn_type} is not "
+            f"placed yet")
+
+
+def place_params(model, tp: TensorParallel, *, mode: str = "serve"
+                 ) -> None:
+    """Replace each parameter of ``model`` not placed yet by its placed
+    DTensor, in place (a model under construction places what it has)."""
+    from repro_torch.models.params import reference_path
+    for name, p in list(model.named_parameters()):
+        if is_placed(p):
+            continue
+        spec = param_spec(reference_path(model, name), p.shape, tp.mesh,
+                          mode=mode)
+        owner = model
+        *path, leaf = name.split(".")
+        for part in path:
+            owner = getattr(owner, part)
+        setattr(owner, leaf, torch.nn.Parameter(tp.place(p.detach(), spec),
+                                                requires_grad=False))
+
+
+def place_cache(cache, device_mesh, device=None):
+    """A decode cache (``Transformer.init_cache``'s tree, on any device —
+    ``meta`` too, then zeros) with each leaf a DTensor placed by
+    ``cache_specs``: the batch over ``data``; k and v by their KV heads
+    over ``model`` where those divide it, else by their sequence. A
+    placed cache passes through."""
+    tp = device_mesh if isinstance(device_mesh, TensorParallel) else \
+        TensorParallel(device_mesh, device)
+    specs = cache_specs(cache, tp.mesh)
+    return _tree_map(
+        lambda path, leaf: leaf if is_placed(leaf) else tp.place(
+            leaf, _leaf(specs, path)), cache)
+
+
+def _leaf(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree

@@ -88,55 +88,35 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int,
                              device=device)}
 
 
-def _position_embed(cfg: ModelConfig, q, k, positions, mrope_positions):
+def _rope(cfg: ModelConfig, x, positions, mrope_positions):
+    """x (B, S, H, D) rotated at ``positions`` (B, S), or for M-RoPE at
+    ``mrope_positions`` (3, B, S); "learned" / "none": positions are
+    handled at the embedding layer."""
     if cfg.pos_type == "rope":
-        q = apply_rope(q, positions, theta=cfg.rope_theta,
-                       fraction=cfg.rope_fraction)
-        k = apply_rope(k, positions, theta=cfg.rope_theta,
-                       fraction=cfg.rope_fraction)
-    elif cfg.pos_type == "mrope":
+        return apply_rope(x, positions, theta=cfg.rope_theta,
+                          fraction=cfg.rope_fraction)
+    if cfg.pos_type == "mrope":
         assert mrope_positions is not None, "mrope needs (3,B,S) positions"
-        q = apply_mrope(q, mrope_positions, theta=cfg.rope_theta,
-                        sections=cfg.mrope_sections)
-        k = apply_mrope(k, mrope_positions, theta=cfg.rope_theta,
-                        sections=cfg.mrope_sections)
-    # "learned" / "none": positions handled at the embedding layer.
-    return q, k
+        return apply_mrope(x, mrope_positions, theta=cfg.rope_theta,
+                           sections=cfg.mrope_sections)
+    return x
 
 
 # Sequence-parallel attention (the reference's §Perf iteration C): where
 # the heads do not divide the model axis, q is sharded over its sequence
 # on that axis and k, v replicated, so attention stays shard-local. A
-# launcher sets the spec; by default (None) it is off and q, k, v pass
-# through unchanged.
-_SEQ_PARALLEL_SPEC = None     # (data axes, model axis name) or None
+# model placed on the model axis (``launch.sharding.tp_shard``) takes it
+# at train and prefill wherever its KV heads do not divide the axis: the
+# hook gets the model's ``TensorParallel`` and plain local tensors, and
+# the core runs on this rank's rows with their offset into the mask and
+# the RoPE tables.
 
 
-def set_seq_parallel_attn(spec) -> None:
-    """spec: None to disable, or (data axes tuple, model axis name)."""
-    global _SEQ_PARALLEL_SPEC
-    _SEQ_PARALLEL_SPEC = spec
-
-
-def _seq_shard(q, k, v):
-    """q (B, S, H, D) → ``Shard(1)`` on the model axis, k and v
-    ``Replicate`` there; the batch stays ``Shard(0)`` on the data axes.
-    Takes DTensors only: a plain tensor has no mesh to place it on."""
-    if _SEQ_PARALLEL_SPEC is None:
-        return q, k, v
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    daxes, model = _SEQ_PARALLEL_SPEC
-    if not all(isinstance(t, DTensor) for t in (q, k, v)):
-        raise ValueError("sequence-parallel attention takes DTensor q, k, "
-                         "v; set_seq_parallel_attn(None) for plain tensors")
-    mesh = q.device_mesh
-
-    def place(seq):
-        return [seq if a == model else Shard(0) if a in daxes
-                else Replicate() for a in mesh.mesh_dim_names]
-    return (q.redistribute(mesh, place(Shard(1))),
-            k.redistribute(mesh, place(Replicate())),
-            v.redistribute(mesh, place(Replicate())))
+def _seq_shard(q, k, v, tp):
+    """q (B, S, H, D) → this model rank's rows of its sequence
+    (``tp.seq_bounds(S)``); k and v whole (every rank holds them)."""
+    lo, hi = tp.seq_bounds(q.shape[1])
+    return q[:, lo:hi], k, v
 
 
 def _sdpa(q, k, v, mask, scale, softcap, q_per_kv):
@@ -161,16 +141,18 @@ def _sdpa(q, k, v, mask, scale, softcap, q_per_kv):
 
 
 def _sdpa_causal_chunked(q, k, v, scale, softcap, q_per_kv, window,
-                         kv_lengths):
+                         kv_lengths, q_offset: int = 0):
     """Causal SDPA over query chunks; the same math as ``_sdpa`` with a
     causal(+window)(+kv_lengths) mask, with each chunk's fully masked key
-    range skipped."""
+    range skipped. ``q_offset``: the position of q's first row among the
+    keys (a sequence-parallel rank's rows)."""
     b, sq, h, dq = q.shape
     sk = k.shape[1]
     cq = SDPA_Q_CHUNK
     dev = q.device
-    if sq <= cq or sq % cq != 0 or sq != sk:
-        mask = causal_window_mask(sq, sk, window, device=dev)
+    if q_offset or sq <= cq or sq % cq != 0 or sq != sk:
+        mask = causal_window_mask(sq, sk, window, offset=q_offset,
+                                  device=dev)
         if kv_lengths is not None:
             mask = mask[None] & (torch.arange(sk, device=dev)[None, None, :]
                                  < kv_lengths[:, None, None])
@@ -195,26 +177,43 @@ def _sdpa_causal_chunked(q, k, v, scale, softcap, q_per_kv, window,
     return torch.cat(outs, dim=1)
 
 
-def _fill_cache(buf: torch.Tensor, new: torch.Tensor) -> None:
+def _fill_cache(buf: torch.Tensor, new: torch.Tensor, lo: int = 0,
+                c: Optional[int] = None) -> None:
     """Prefill: write the prompt's rows (B, S, ...) into the cache buffer
     (B, C, ...) in place — rows [0, S) when C >= S, else the ring-
     consistent tail (token t at slot t % C). A cache shorter than the
     prompt takes the tail even without a sliding window, as in the
-    reference."""
-    s, c = new.shape[1], buf.shape[1]
+    reference. ``buf`` may hold only rows [lo, lo + its length) of a
+    C-row cache (a shard of its sequence): it gets those rows."""
+    s, cl = new.shape[1], buf.shape[1]
+    c = cl if c is None else c
     if c >= s:
-        buf[:, :s].copy_(new)
+        hi = min(lo + cl, s)
+        if hi > lo:
+            buf[:, :hi - lo].copy_(new[:, lo:hi])
     else:
-        buf.copy_(torch.roll(new[:, s - c:], s % c, dims=1))
+        buf.copy_(torch.roll(new[:, s - c:], s % c, dims=1)[:, lo:lo + cl])
 
 
 def _decode_slots(buf: torch.Tensor, new: torch.Tensor,
-                  cache_pos: torch.Tensor) -> None:
+                  cache_pos: torch.Tensor, lo: int = 0,
+                  c: Optional[int] = None) -> None:
     """Decode: write each sequence's new row (B, 1, ...) at slot
-    ``cache_pos % C`` of its cache, in place."""
-    b, c = buf.shape[0], buf.shape[1]
+    ``cache_pos % C`` of its cache, in place. Where ``buf`` holds only
+    rows [lo, lo + its length) of a C-row cache, only the sequences whose
+    slot falls there are written (no read back to the host)."""
+    b, cl = buf.shape[0], buf.shape[1]
+    c = cl if c is None else c
     slot = torch.remainder(cache_pos.to(torch.long), c)
-    buf[torch.arange(b, device=buf.device), slot] = new[:, 0].to(buf.dtype)
+    rows = torch.arange(b, device=buf.device)
+    row = new[:, 0].to(buf.dtype)
+    if cl == c:
+        buf[rows, slot] = row
+        return
+    at = slot - lo
+    own = ((at >= 0) & (at < cl)).view((b,) + (1,) * (row.dim() - 1))
+    at = at.clamp(0, cl - 1)
+    buf[rows, at] = torch.where(own, row, buf[rows, at])
 
 
 def _decode_valid(cache_pos: torch.Tensor, c: int) -> torch.Tensor:
@@ -224,48 +223,129 @@ def _decode_valid(cache_pos: torch.Tensor, c: int) -> torch.Tensor:
             < n_written[:, None])
 
 
+def _cols(tp, ys, widths):
+    """Column-parallel products' columns from every model rank, where
+    their weights were split (a local width short of its ``widths``
+    entry); one gather where every weight was."""
+    split = [y.shape[-1] < w for y, w in zip(ys, widths)]
+    if not all(split):
+        return [tp.gather_model(y) if s else y for y, s in zip(ys, split)]
+    n = [y.shape[-1] for y in ys]
+    whole = tp.gather_model(torch.cat(ys, dim=-1)).unflatten(
+        -1, (tp.size, sum(n)))
+    return [t.flatten(-2) for t in torch.split(whole, n, dim=-1)]
+
+
+def row_parallel(tp, a: torch.Tensor, w: torch.Tensor, width: int
+                 ) -> torch.Tensor:
+    """a @ w where ``w`` (width, d) may hold only this model rank's rows
+    (the tables split ``wo`` and ``w_down`` on their input dim): the
+    rank's columns of a whole ``a``, or its own ``a``, times its rows,
+    summed over the ranks."""
+    if tp is None or w.shape[0] == width:
+        return a @ w
+    n = w.shape[0]
+    if a.shape[-1] == width:
+        a = a[..., tp.rank * n:(tp.rank + 1) * n]
+    return tp.all_reduce(a @ w)
+
+
+def _merge_shards(tp, part, dtype):
+    """The softmax partials (m, l, acc) of every model rank's sequence
+    shard, gathered in rank order and merged → (B, 1, H, D)."""
+    m, l, acc = part
+    b, h, n, d = acc.shape
+    packed = torch.cat([m[..., None], l[..., None], acc], dim=-1)
+    allp = tp.stack_model(packed).permute(1, 2, 0, 3, 4).reshape(
+        b, h, tp.size * n, d + 2)
+    return kops.merge_partials(allp[..., 0].contiguous(),
+                               allp[..., 1].contiguous(),
+                               allp[..., 2:].contiguous(), dtype)
+
+
 def gqa_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
                   x: torch.Tensor, *, positions: torch.Tensor,
                   mrope_positions: Optional[torch.Tensor] = None,
                   cache: Optional[dict] = None,
                   cache_pos: Optional[torch.Tensor] = None,
                   mode: str = "train",
-                  kv_lengths: Optional[torch.Tensor] = None
+                  kv_lengths: Optional[torch.Tensor] = None,
+                  tp=None, cache_rows: Optional[Tuple[int, int]] = None
                   ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Causal self-attention over x (B, S, d) → ((B, S, d), cache)."""
+    """Causal self-attention over x (B, S, d) → ((B, S, d), cache).
+
+    ``tp``: the model's ``TensorParallel`` where it is placed on the
+    model axis; ``p`` then holds this rank's shards, and the head counts
+    come from their widths. Where the KV heads divide the axis, each rank
+    keeps its own q and KV heads (and cache heads) and the context goes
+    through its rows of ``wo``, summed over the ranks. Where they do not
+    (the tables split ``wk`` through a head, and the cache by its
+    sequence), every rank gathers whole q, k and v; train and prefill run
+    sequence-parallel (``_seq_shard``) and gather the context, decode
+    runs #5 on the rank's cache rows and merges every rank's partials.
+    ``cache_rows`` (lo, C): the cache buffers hold rows [lo, lo + their
+    length) of a C-row cache."""
     b, s, _ = x.shape
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(b, s, h, hd)
-    k = (x @ p["wk"].to(dt)).reshape(b, s, hkv, hd)
-    v = (x @ p["wv"].to(dt)).reshape(b, s, hkv, hd)
+    width = cfg.num_heads * hd
+    heads = tp is None or cfg.num_kv_heads % tp.size == 0
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if not heads:
+        kv = cfg.num_kv_heads * hd
+        q, k, v = _cols(tp, (q, k, v), (width, kv, kv))
+    h, hkv = q.shape[-1] // hd, k.shape[-1] // hd
+    q = q.reshape(b, s, h, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_scale"], cfg.norm_eps)
         k = rms_norm(k, p["k_scale"], cfg.norm_eps)
-    q, k = _position_embed(cfg, q, k, positions, mrope_positions)
     scale = 1.0 / (hd ** 0.5)
+    wo = p["wo"].to(dt)
 
     if mode in ("train", "prefill"):
-        q, k, v = _seq_shard(q, k, v)
+        lo = 0
+        if not heads:                   # q: this rank's rows from here on
+            q, k, v = _seq_shard(q, k, v, tp)
+            lo = tp.seq_bounds(s)[0]
+        rows = slice(lo, lo + q.shape[1])
+        q = _rope(cfg, q, positions[:, rows], None if mrope_positions is None
+                  else mrope_positions[:, :, rows])
+        k = _rope(cfg, k, positions, mrope_positions)
         ctx = _sdpa_causal_chunked(q, k, v, scale, cfg.attn_logit_softcap,
-                                   cfg.q_per_kv, cfg.sliding_window,
-                                   kv_lengths)
+                                   h // hkv, cfg.sliding_window,
+                                   kv_lengths, q_offset=lo)
+        if not heads:
+            ctx = tp.gather_seq(ctx, s)
         if mode == "prefill" and cache is not None:
-            _fill_cache(cache["k"], k)
-            _fill_cache(cache["v"], v)
+            c_lo, c = cache_rows or (0, None)
+            _fill_cache(cache["k"], k, c_lo, c)
+            _fill_cache(cache["v"], v, c_lo, c)
         else:
             cache = None
-        return ctx.reshape(b, s, h * hd) @ p["wo"].to(dt), cache
+        return row_parallel(tp, ctx.reshape(b, s, h * hd), wo, width), cache
 
     # ---- decode: s == 1; cache_pos (B,) per-slot token counts ----------
     assert cache is not None and cache_pos is not None
-    _decode_slots(cache["k"], k, cache_pos)
-    _decode_slots(cache["v"], v, cache_pos)
-    valid = _decode_valid(cache_pos, cache["k"].shape[1])
-    ctx = kops.decode_attention(
-        q, cache["k"].to(dt), cache["v"].to(dt), valid, scale=scale,
-        softcap=cfg.attn_logit_softcap, q_per_kv=cfg.q_per_kv)
-    return ctx.reshape(b, 1, h * hd) @ p["wo"].to(dt), cache
+    q = _rope(cfg, q, positions, mrope_positions)
+    k = _rope(cfg, k, positions, mrope_positions)
+    c_lo, c = cache_rows or (0, cache["k"].shape[1])
+    _decode_slots(cache["k"], k, cache_pos, c_lo, c)
+    _decode_slots(cache["v"], v, cache_pos, c_lo, c)
+    cl = cache["k"].shape[1]
+    valid = _decode_valid(cache_pos, c)[:, c_lo:c_lo + cl]
+    kw = dict(scale=scale, softcap=cfg.attn_logit_softcap, q_per_kv=h // hkv)
+    if cl == c:
+        ctx = kops.decode_attention(q, cache["k"].to(dt), cache["v"].to(dt),
+                                    valid, **kw)
+    else:                   # the rank's shard of the sequence: #5's split
+        ctx = _merge_shards(tp, kops.decode_attention(
+            q, cache["k"].to(dt), cache["v"].to(dt), valid, partials=True,
+            **kw), dt)
+    return row_parallel(tp, ctx.reshape(b, 1, h * hd), wo, width), cache
 
 
 # ===========================================================================
@@ -380,7 +460,6 @@ def mla_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
             b, s, h, m.qk_rope_head_dim)], dim=-1)
-        q, k, v = _seq_shard(q, k, v)
         ctx = _sdpa_causal_chunked(q, k, v, scale, 0.0, 1,
                                    cfg.sliding_window, kv_lengths)
         if mode == "prefill" and cache is not None:

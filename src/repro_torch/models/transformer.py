@@ -60,6 +60,9 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, embed_init, layer_norm,
                                        mlp_apply, mlp_init, rms_norm)
+from repro_torch.launch.sharding import (TensorParallel, check_tp_family,
+                                         is_placed, local, place_cache,
+                                         place_params)
 from repro_torch.util import resolve_device
 
 Cache = Optional[Dict[str, Any]]
@@ -143,6 +146,11 @@ class AttnBlock(nn.Module):
                  d_ff: int, use_moe: bool = False, cross: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.d_ff = d_ff
+        # the model axis (``Transformer.set_tp``): its ``TensorParallel``
+        # and the local shards of ln1, attn, ln2 and mlp
+        self.tp = None
+        self.shards = None
         dtype, dev = _dtype(cfg.param_dtype), gen.device
         self.ln1 = _norm_init(cfg, dtype, dev)
         self.ln2 = _norm_init(cfg, dtype, dev)
@@ -159,36 +167,49 @@ class AttnBlock(nn.Module):
             self.mlp = _params(mlp_init(gen, cfg.d_model, d_ff,
                                         gated=cfg.gated_mlp, dtype=dtype))
 
+    def _part(self, name: str):
+        """A parameter group as the layer computes on it: the local
+        shards on the model axis, else the module's own."""
+        return (getattr(self, name) if self.shards is None
+                else self.shards[name])
+
     def step(self, x: torch.Tensor, *, positions: torch.Tensor,
              mrope_positions: Optional[torch.Tensor] = None,
              cache: Optional[dict] = None,
              cache_pos: Optional[torch.Tensor] = None, mode: str = "train",
              kv_lengths: Optional[torch.Tensor] = None,
-             enc_out: Optional[torch.Tensor] = None
+             enc_out: Optional[torch.Tensor] = None,
+             cache_rows: Optional[Tuple[int, int]] = None
              ) -> Tuple[torch.Tensor, Optional[dict],
                         Optional[torch.Tensor]]:
-        """→ (x, cache, the MoE aux loss or None)."""
+        """→ (x, cache, the MoE aux loss or None). ``cache_rows``: see
+        ``attention.gqa_attention``."""
         cfg = self.cfg
-        h = _norm(cfg, self.ln1, x)
+        h = _norm(cfg, self._part("ln1"), x)
         if cfg.attn_type == "mla":
             a, cache = attn.mla_attention(
                 self.attn, cfg, h, positions=positions, cache=cache,
                 cache_pos=cache_pos, mode=mode, kv_lengths=kv_lengths)
         else:
             a, cache = attn.gqa_attention(
-                self.attn, cfg, h, positions=positions,
+                self._part("attn"), cfg, h, positions=positions,
                 mrope_positions=mrope_positions, cache=cache,
-                cache_pos=cache_pos, mode=mode, kv_lengths=kv_lengths)
+                cache_pos=cache_pos, mode=mode, kv_lengths=kv_lengths,
+                tp=self.tp, cache_rows=cache_rows)
         x = x + a
         if self.cross:
             assert enc_out is not None
             x = x + attn.cross_attention(self.xattn, cfg,
                                          _norm(cfg, self.ln_x, x), enc_out)
-        h = _norm(cfg, self.ln2, x)
+        h = _norm(cfg, self._part("ln2"), x)
         if self.use_moe:
             m, aux = moe_mod.moe_apply(self.moe, cfg, h)
             return x + m, cache, aux
-        return x + mlp_apply(self.mlp, h, cfg.activation), cache, None
+        mlp = self._part("mlp")
+        y = mlp_apply(mlp, h, cfg.activation)
+        if self.tp is not None and mlp["w_down"].shape[0] < self.d_ff:
+            y = self.tp.all_reduce(y)       # the rows of w_down: summed
+        return x + y, cache, None
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """The Whisper encoder's block: bidirectional self-attention with
@@ -263,9 +284,11 @@ class Transformer(nn.Module):
     head (the MEM towers)."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, *,
-                 head: bool = True):
+                 head: bool = True, place: Optional[Callable] = None):
         super().__init__()
         self.cfg = cfg
+        self.tp = None
+        self.shards = None
         self.adtype = _dtype(cfg.dtype)
         dtype, dev = _dtype(cfg.param_dtype), gen.device
         self.embed = nn.Parameter(embed_init(gen, cfg.vocab_size,
@@ -311,11 +334,19 @@ class Transformer(nn.Module):
         else:
             dense_ff = (cfg.moe.dense_d_ff if cfg.moe and cfg.moe.dense_d_ff
                         else cfg.d_ff)
-            self.blocks = nn.ModuleList(
-                [AttnBlock(cfg, gen, d_ff=dense_ff)
-                 for _ in range(self.n_dense)]
-                + [AttnBlock(cfg, gen, d_ff=cfg.d_ff, use_moe=True)
-                   for _ in range(cfg.num_layers - self.n_dense)])
+            # ``place`` (a model built onto the model axis) places what is
+            # built so far before the next block is drawn, so a rank holds
+            # its shards and one block whole, never the whole model
+            if place is not None:
+                place(self)
+            self.blocks = nn.ModuleList()
+            for i in range(cfg.num_layers):
+                moe = i >= self.n_dense
+                self.blocks.append(AttnBlock(
+                    cfg, gen, d_ff=cfg.d_ff if moe else dense_ff,
+                    use_moe=moe))
+                if place is not None:
+                    place(self)
 
     @property
     def kind(self) -> str:
@@ -339,6 +370,22 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def set_tp(self, tp) -> None:
+        """Run on the model axis: ``tp`` (a ``TensorParallel``) after every
+        parameter was placed (``launch.sharding.tp_shard``); the layers
+        then compute on the local shards, kept here once."""
+        def shards(pd):
+            return {k: local(v) for k, v in pd.items()}
+        self.tp = tp
+        for block in self.blocks:
+            block.tp = tp
+            block.shards = {n: shards(getattr(block, n))
+                            for n in ("ln1", "attn", "ln2", "mlp")}
+        self.shards = {"embed": local(self.embed),
+                       "head": (local(self.embed).t() if self.lm_head is None
+                                else local(self.lm_head)),
+                       "final_norm": shards(self.final_norm)}
+
     def hidden(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """The block stack over already-embedded x (B, S, d), positions
         0..S-1, in "train" mode (the reference's ``_apply_decoder``
@@ -352,8 +399,18 @@ class Transformer(nn.Module):
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device=None) -> Dict[str, Any]:
+        """The decode cache (zeros); on the model axis placed by the
+        tables (``launch.sharding.place_cache``), each rank allocating
+        only its shard."""
+        if self.tp is not None:
+            return place_cache(self._cache_tree(batch, max_len, dtype,
+                                                "meta"), self.tp)
+        return self._cache_tree(batch, max_len, dtype,
+                                self.device if device is None else device)
+
+    def _cache_tree(self, batch: int, max_len: int, dtype, device
+                    ) -> Dict[str, Any]:
         cfg = self.cfg
-        device = self.device if device is None else device
         cache: Dict[str, Any] = {
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
         if cfg.pos_type == "mrope":
@@ -404,13 +461,15 @@ class Transformer(nn.Module):
         """Copy a batch-1 cache ``one`` into batch row ``slot`` of
         ``cache`` in place: ``pos``, ``mrope_delta`` and ``enc_out`` have
         the batch on axis 0, the stacked leaves of every group of
-        ``GROUPS`` on axis 1."""
+        ``GROUPS`` on axis 1. Placed caches (the model axis) copy shard to
+        shard: where the batch is split over the data axis, only the rank
+        that holds ``slot`` writes it."""
         for k, v in cache.items():
             if k in GROUPS:
                 for n, buf in v.items():
-                    buf.narrow(1, slot, 1).copy_(one[k][n])
+                    _insert(buf, one[k][n], slot, 1)
             else:
-                v.narrow(0, slot, 1).copy_(one[k])
+                _insert(v, one[k], slot, 0)
 
     # ----------------------------------------------------------------- apply
     def apply(self, tokens: torch.Tensor, *,
@@ -437,6 +496,38 @@ class Transformer(nn.Module):
 
     def _forward(self, tokens, *, vision_embeds, encoder_frames, cache,
                  mode, remat, prompt_lengths):
+        tp = self.tp
+        if tp is None:
+            return self._run(tokens, vision_embeds=vision_embeds,
+                             encoder_frames=encoder_frames, cache=cache,
+                             mode=mode, remat=remat,
+                             prompt_lengths=prompt_lengths)
+        # the model axis: this data rank's rows, the cache's local shards;
+        # logits gathered whole, the new cache positions placed again
+        b = tokens.shape[0]
+        placed = cache
+        rows = None
+        if cache is not None:
+            cache = {k: ({n: local(t) for n, t in v.items()}
+                         if k in GROUPS else local(v))
+                     for k, v in cache.items()}
+            rows = {g: _shard_rows(placed[g]["k"], tp)
+                    for g in GROUPS if g in placed}
+        logits, new, aux = self._run(
+            tp.batch_rows(tokens), vision_embeds=tp.batch_rows(vision_embeds),
+            encoder_frames=None, cache=cache, mode=mode, remat=remat,
+            prompt_lengths=tp.batch_rows(prompt_lengths), cache_rows=rows)
+        logits = tp.gather_batch(logits, b)
+        if new is None:
+            return logits, None, aux
+        out = dict(placed)
+        for k in ("pos", "mrope_delta"):
+            if k in new:
+                out[k] = _rewrap(new[k], placed[k])
+        return logits, out, aux
+
+    def _run(self, tokens, *, vision_embeds, encoder_frames, cache,
+             mode, remat, prompt_lengths, cache_rows=None):
         cfg = self.cfg
         dev = self.device
         tokens = tokens.to(dev)
@@ -486,19 +577,26 @@ class Transformer(nn.Module):
                             else ("moe", i - self.n_dense))
                 x, _, a = _remat(block.step, remat)(
                     x, mrope_positions=mrope_positions,
-                    cache=self._views(cache, group, j), **kw)
+                    cache=self._views(cache, group, j),
+                    cache_rows=cache_rows and cache_rows.get(group), **kw)
                 if a is not None:
                     aux = aux + a
 
-        x = _norm(cfg, self.final_norm, x)
+        x = _norm(cfg, self.final_norm if self.shards is None
+                  else self.shards["final_norm"], x)
         if mode == "prefill":
             if prompt_lengths is not None:
                 idx = (prompt_lengths - 1).to(torch.long)
                 x = x[torch.arange(x.shape[0], device=dev), idx][:, None]
             else:
                 x = x[:, -1:]
-        head = self.embed.t() if self.lm_head is None else self.lm_head
+        if self.shards is not None:
+            head = self.shards["head"]
+        else:
+            head = self.embed.t() if self.lm_head is None else self.lm_head
         logits = x @ head.to(x.dtype)
+        if head.shape[1] < cfg.vocab_size:      # the vocabulary's shards
+            logits = self.tp.gather_model(logits)
         if cache is None:
             return logits, None, aux
         b = tokens.shape[0]
@@ -535,10 +633,26 @@ class Transformer(nn.Module):
         return e
 
     # ------------------------------------------------------------- internals
+    def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``tokens`` in the activation dtype. A
+        table split by its vocabulary (the model axis) gives each rank's
+        rows of its own ids, zeros elsewhere, summed over the ranks."""
+        ids = tokens.long()
+        if self.shards is None:
+            return self.embed.to(self.adtype)[ids]
+        tab = self.shards["embed"]
+        n = tab.shape[0]
+        if n == self.cfg.vocab_size:
+            return tab[ids].to(self.adtype)
+        ids = ids - self.tp.rank * n
+        inside = ((ids >= 0) & (ids < n))[..., None]
+        x = torch.where(inside, tab[ids.clamp(0, n - 1)], 0)
+        return self.tp.all_reduce(x).to(self.adtype)
+
     def _embed(self, tokens, vision_embeds, cache_pos, cached_delta, mode):
         cfg = self.cfg
         b = tokens.shape[0]
-        x = self.embed.to(self.adtype)[tokens.long()]
+        x = self._lookup(tokens)
         if vision_embeds is not None and mode != "decode":
             x = torch.cat([vision_embeds.to(self.adtype), x], dim=1)
         s = x.shape[1]
@@ -583,10 +697,48 @@ class Transformer(nn.Module):
         return pos3[:, None].expand(3, b, s), 0
 
 
-def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
+def _insert(buf, one, slot: int, dim: int) -> None:
+    """Batch row ``slot`` (on ``dim``) of ``buf`` ← ``one`` (batch 1), in
+    place; a placed ``buf`` copies shard to shard, on the data rank that
+    holds the row."""
+    if not is_placed(buf):
+        buf.narrow(dim, slot, 1).copy_(one)
+        return
+    lb, lo = local(buf), local(one)
+    n = lb.shape[dim]
+    r = buf.device_mesh.get_local_rank("data") if n < buf.shape[dim] else 0
+    if r * n <= slot < (r + 1) * n:
+        lb.narrow(dim, slot - r * n, 1).copy_(lo)
+
+
+def _shard_rows(leaf, tp) -> Tuple[int, int]:
+    """(lo, C): a placed (L, B, C, ...) cache leaf's local rows [lo, lo +
+    its length) of its C rows (all of them unless split by sequence)."""
+    c, cl = leaf.shape[2], local(leaf).shape[2]
+    return (0 if cl == c else tp.rank * cl), c
+
+
+def _rewrap(t: torch.Tensor, like):
+    """``t`` (local) placed as ``like`` is."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, like.device_mesh, like.placements,
+                              run_check=False)
+
+
+def init_model(cfg: ModelConfig, seed: int = 0, device=None,
+               mesh=None) -> Transformer:
     """A ``Transformer`` with random weights from ``seed`` on ``device``
     (the reference's scales; not the reference's numbers — load those with
-    ``core.convert.model_params_from_numpy``)."""
+    ``core.convert.model_params_from_numpy``). ``mesh``: a ``("data",
+    "model")`` ``DeviceMesh``; each block is placed on it as it is drawn
+    (``launch.sharding``), so the ranks hold the one-process model's
+    weights, split by the tables."""
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
-    return Transformer(cfg, gen)
+    if mesh is None:
+        return Transformer(cfg, gen)
+    check_tp_family(cfg)
+    tp = TensorParallel(mesh, device)
+    model = Transformer(cfg, gen, place=lambda m: place_params(m, tp))
+    model.set_tp(tp)
+    return model

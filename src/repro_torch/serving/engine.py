@@ -21,6 +21,12 @@ reference's (``repro.serving.engine``):
 
 Decode attention runs through ``kernels.ops``: the hand-written decode
 kernels on the card, their plain versions on the CPU.
+
+On the model axis (``mesh=``, a ``("data", "model")`` ``DeviceMesh``
+under ``torchrun``) the model and its caches are placed by the
+reference's tables (``launch.sharding``): every rank runs the same
+requests in the same order from the same seed, and every rank reads the
+same tokens (the logits come out whole on each).
 """
 
 from __future__ import annotations
@@ -67,8 +73,8 @@ class ServingEngine:
 
     def __init__(self, model: Transformer, *, batch_slots: int = 4,
                  max_len: int = 1024, temperature: float = 0.0,
-                 cache_dtype=torch.bfloat16, seed: int = 0):
-        self.model = model
+                 cache_dtype=torch.bfloat16, seed: int = 0, mesh=None):
+        self.model = _placed(model, mesh)
         self.cfg = model.cfg
         self.device = model.device
         self.batch_slots = batch_slots
@@ -183,9 +189,26 @@ class ServingEngine:
 # ---------------------------------------------------------------------------
 
 
-def make_serve_step(model: Transformer):
-    """Returns serve_step(tokens (B,1), cache) -> (next (B,), cache)."""
+def _placed(model: Transformer, mesh) -> Transformer:
+    """``model``, placed on ``mesh``'s model axis if it is not yet."""
+    if mesh is not None and model.tp is None:
+        from repro_torch.launch.sharding import tp_shard
+        tp_shard(model, mesh)
+    return model
+
+
+def make_serve_step(model: Transformer, mesh=None):
+    """Returns serve_step(tokens (B,1), cache) -> (next (B,), cache).
+    ``mesh``: the model (placed first if it is not) and the cache
+    (``launch.sharding.place_cache``) on a ``("data", "model")``
+    ``DeviceMesh``, as the reference jits its step with ``param_specs(
+    mode="serve")``, ``cache_specs`` and ``batch_specs``."""
+    model = _placed(model, mesh)
+
     def serve_step(tokens, cache):
+        if model.tp is not None:
+            from repro_torch.launch.sharding import place_cache
+            cache = place_cache(cache, model.tp)
         logits, new_cache, _ = model.apply(tokens, cache=cache,
                                            mode="decode")
         return _argmax(logits).to(torch.int32), new_cache

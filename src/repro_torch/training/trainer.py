@@ -69,12 +69,10 @@ def fsdp_shard(model: nn.Module, device_mesh) -> nn.Module:
     from torch.distributed.fsdp import (fully_shard,
                                         register_fsdp_forward_method)
     from torch.distributed.tensor import Shard
-    from repro_torch.launch.mesh import data_axes, make_abstract_mesh
+    from repro_torch.launch.mesh import abstract_of, data_axes
     from repro_torch.launch.sharding import param_specs, spec_axes
-    names = tuple(device_mesh.mesh_dim_names)
     daxes = data_axes(device_mesh)
-    specs = param_specs(model, make_abstract_mesh(device_mesh.shape, names),
-                        mode="train")
+    specs = param_specs(model, abstract_of(device_mesh), mode="train")
     dims = {}
     for name, p in model.named_parameters():
         spec = specs[name]

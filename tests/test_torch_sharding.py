@@ -316,55 +316,29 @@ def test_to_placements_over_a_device_mesh():
 # ------------------------------------------------- sequence-parallel hook
 
 
-def test_seq_parallel_disabled_by_default():
-    assert A._SEQ_PARALLEL_SPEC is None
-    q = torch.zeros((1, 4, 2, 8))
-    q2, k2, v2 = A._seq_shard(q, q, q)
-    assert q2 is q and k2 is q and v2 is q
+class _ModelRank:
+    """A stand-in for a model's ``TensorParallel``: its model rank and
+    axis size, and its sequence bounds (all the hook reads)."""
+
+    def __init__(self, rank, size):
+        self.rank, self.size = rank, size
+
+    seq_bounds = shd.TensorParallel.seq_bounds
 
 
-def test_seq_parallel_refuses_plain_tensors():
-    q = torch.zeros((1, 4, 2, 8))
-    A.set_seq_parallel_attn((("data",), "model"))
-    try:
-        with pytest.raises(ValueError, match="DTensor"):
-            A._seq_shard(q, q, q)
-    finally:
-        A.set_seq_parallel_attn(None)
-
-
-def test_seq_parallel_places_dtensors_on_a_world_of_one():
-    """The hook switched on, over a (1, 1) ``("data", "model")`` mesh of
-    one gloo rank: q leaves as ``Shard(0)`` on data and ``Shard(1)`` (its
-    sequence) on model, k and v ``Replicate`` on model, each holding its
-    input's values; switched off again, the inputs pass through."""
-    import socket
-
-    import torch.distributed as dist
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
-
-    from repro_torch.launch.mesh import to_device_mesh
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=0, world_size=1)
-    try:
-        dm = to_device_mesh(make_abstract_mesh((1, 1), ("data", "model")),
-                            "cpu")
-        g = torch.Generator().manual_seed(0)
-        qkv = [torch.randn(2, 16, 4, 8, generator=g) for _ in range(3)]
-        d = [distribute_tensor(t, dm, [Shard(0), Replicate()]) for t in qkv]
-        A.set_seq_parallel_attn((("data",), "model"))
-        try:
-            out = A._seq_shard(*d)
-        finally:
-            A.set_seq_parallel_attn(None)
-        want = [(Shard(0), Shard(1)), (Shard(0), Replicate()),
-                (Shard(0), Replicate())]
-        for t, o, w in zip(qkv, out, want):
-            assert tuple(o.placements) == w
-            assert torch.equal(o.full_tensor(), t)
-        assert all(a is b for a, b in zip(A._seq_shard(*d), d))
-    finally:
-        dist.destroy_process_group()
+@pytest.mark.parametrize("rank,size,s", [(0, 1, 4), (1, 4, 14), (3, 4, 9)],
+                         ids=["world_of_one", "middle_rank", "empty_rank"])
+def test_seq_parallel_hook_gives_the_rank_rows(rank, size, s):
+    """The hook on plain tensors: q's rows [lo, hi) of this model rank
+    (chunks of ceil(S / R), the last shorter or empty; a world of one
+    keeps them all), k and v themselves; the ranks' rows, in rank order,
+    are q's sequence."""
+    g = torch.Generator().manual_seed(rank)
+    q, k, v = (torch.randn(2, s, 4, 8, generator=g) for _ in range(3))
+    qr, kr, vr = A._seq_shard(q, k, v, _ModelRank(rank, size))
+    lo, hi = _ModelRank(rank, size).seq_bounds(s)
+    assert kr is k and vr is v
+    assert qr.shape == (2, hi - lo, 4, 8) and torch.equal(qr, q[:, lo:hi])
+    rows = [A._seq_shard(q, k, v, _ModelRank(r, size))[0]
+            for r in range(size)]
+    assert torch.equal(torch.cat(rows, 1), q)
