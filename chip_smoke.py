@@ -100,8 +100,16 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 device µs per launch by the profiler; the bf16 MLA case
                 also times k_partial on the same inputs (A, B, B, A), and
                 the host's mirror of k_mla's shared memory is held to the
-                source's layout at every routed shape. bf16 within one bf16 ulp
-                (rtol 2^-7, atol 1e-6), f32 at rtol 1e-5 / atol 1e-6.
+                source's layout at every routed shape. Both kernels'
+                ``partials=True`` on both routes: GQA at Qwen2-VL-7B's
+                widths, MLA at MiniCPM3-4B's and DeepSeek-V2-Lite's, each
+                on the mask with holes (a sequence with none: the empty
+                part) reduced to one part; MLA also on a shard with no
+                valid row whose ckv/krope are NaN (exactly the empty
+                part), and four shards' partials merged by
+                ``merge_partials`` at Dv = 256 and 512. bf16 within one
+                bf16 ulp (rtol 2^-7, atol 1e-6), f32 at rtol 1e-5 / atol
+                1e-6.
                 Alone: ``python3 -c "import torch, chip_smoke;
                 chip_smoke.phase_decode(torch.Generator('cuda')
                 .manual_seed(0))"``;
@@ -287,14 +295,27 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 each rank's 16 rows merged across the ranks by one
                 k_merge a layer; the held step has valid rows on two or
                 more ranks, and a shard with none is the empty part);
-                each against a one-process run of the same seed, the
-                teacher-forced logits within relative L2 ``TP_BOUND`` a
-                step; every #5 launch of the first decode step (each
-                rank's partials reduced to one part) and every
-                cross-rank merge held to the plain versions on every
-                rank (one bf16 ulp); the launches counted over the run;
-                each rank's #5 device µs by the profiler over decode
-                steps 2–4. The
+                the MLA and MoE decoders at full width and depth:
+                DeepSeek-V2-Lite-16B at (1, 4), 64 cache rows (4 heads,
+                16 experts and a quarter of the shared expert a rank;
+                #6's partials on each rank's 16 latent rows, merged
+                across the ranks), MiniCPM3-4B at (1, 2), 64 cache rows
+                (20 heads a rank, #6's partials on 32 rows) and
+                OLMoE-1B-7B at (1, 2), 2048 cache rows (8 KV heads and
+                32 experts a rank, #5 on k_gqa_split);
+                each against a one-process run of the same seed (run
+                first), the teacher-forced logits within relative L2
+                ``TP_BOUND`` a step (an MoE model's with the one
+                process's experts pinned in a second teacher-forced run
+                of the mesh, the bf16 router's flips of the unpinned run
+                counted); every #5 or #6 launch of the first decode step
+                (each rank's partials reduced to one part), every
+                cross-rank merge and every MoE layer's partial (before
+                its all-reduce, against a plain loop over the rank's
+                experts on the global routing) held to the plain
+                versions on every rank (one bf16 ulp); the launches
+                counted over the run; each rank's #5 or #6 device µs by
+                the profiler over decode steps 2–4. The
                 one-process run is the launcher's ``main`` in this
                 process.
 
@@ -303,8 +324,8 @@ Prints the card's name and power limit, one line per phase, the
 Every kernel's launch count is read around the phase that drives its path
 (main: fused retrieval and scene score; dense: the dense scans; serve,
 serve_mla, serve_moe, serve_olmoe, serve_zoo, serve_hybrid, serve_rwkv
-and serve_whisper: the decode kernels; tp_serve: #5 and the cross-rank
-merge in each rank;
+and serve_whisper: the decode kernels; tp_serve: #5 or #6 and the
+cross-rank merge in each rank;
 tier: fused retrieval, two a group; standing: fused retrieval, one a
 committing tick; shard: fused retrieval and the dense stack scan, one a
 slab a group).
@@ -2576,6 +2597,89 @@ def phase_decode_mla(gen, valid, holes):
               flush=True)
         _print_kernel_us(per_kernel)
         del qa, qr, ckv, kr
+    out.update(mla_partials_cases(gen, holes))
+    return out
+
+
+def mla_partials_cases(gen, holes):
+    """#6's partials of a sequence shard (``partials=True``, no merge) on
+    both routes (bf16 on ``k_mla``, f32 on ``k_partial``) at MiniCPM3-4B's
+    (H=40, R=256, Dr=32) and DeepSeek-V2-Lite's (H=16, R=512, Dr=64)
+    widths: the mask with holes (sequence 2 with no valid row: the empty
+    part) held, reduced to one part, to the plain version's; then a shard
+    with no valid row whose ckv and krope are NaN, which must give the
+    empty part exactly (a launch that read a row would carry its NaN).
+    Then the bf16 partials of four shards of the holes mask, merged by
+    ``merge_partials`` (``k_merge`` alone, Dv = R = 256 and 512), held to
+    the plain merge of the same parts and, where a sequence has a valid
+    row, to the unsharded plain version."""
+    import torch
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ref
+    dev = holes.device
+    b, c = holes.shape
+    none = torch.zeros_like(holes)
+    out = {}
+    for wname, h, r, dr, nope in (("minicpm3", 40, 256, 32, 64),
+                                  ("dsv2", 16, 512, 64, 128)):
+        scale = (nope + dr) ** -0.5
+        for dname, dt, route in (("bf16", torch.bfloat16, "k_mla"),
+                                 ("f32", torch.float32, "k_partial")):
+            qa, qr, ckv, kr = (torch.randn(sh, generator=gen, device=dev)
+                               .to(dt) for sh in ((b, 1, h, r), (b, 1, h, dr),
+                                                  (b, c, r), (b, c, dr)))
+            what = f"mla partials {wname} {dname}"
+            before = dict(dk.mla_decode.route_launches)
+            got = dk.mla_decode(qa, qr, ckv, kr, holes, scale=scale,
+                                partials=True)
+            nan = [torch.full_like(x, float("nan")) for x in (ckv, kr)]
+            empty = dk.mla_decode(qa, qr, *nan, none, scale=scale,
+                                  partials=True)
+            torch.cuda.synchronize()
+            ran = {k: n - before[k]
+                   for k, n in dk.mla_decode.route_launches.items()
+                   if n != before[k]}
+            check(ran == {route: 2}, f"{what}: ran {ran}, not {route}")
+            err = hold_parts(got, ref.mla_decode_partials_ref(
+                qa, qr, ckv, kr, holes, scale=scale), ckv, what)
+            m, l, acc = empty
+            check(bool((m == -1e30).all() and (l == 0).all()
+                       and (acc == 0).all()),
+                  f"{what}: a shard with no valid row is not the empty "
+                  f"part (its NaN rows were read)")
+            row = dict(max_abs_err=err, route=route, parts=got[0].shape[-1])
+            if dt == torch.bfloat16:
+                n = c // 4
+                parts = [dk.mla_decode(qa, qr, ckv[:, i:i + n],
+                                       kr[:, i:i + n], holes[:, i:i + n],
+                                       scale=scale, partials=True)
+                         for i in range(0, c, n)]
+                pm, pl, pa = (torch.cat([x[i] for x in parts], dim=2)
+                              for i in range(3))
+                merged = dk.merge_partials(pm, pl, pa, dt)
+                want = ref.merge_partials_ref(pm, pl, pa, dt)
+                torch.testing.assert_close(
+                    merged.float(), want.float(), **BF16_TOL,
+                    msg=lambda e: f"{what} merge: {e}")
+                whole = ref.mla_decode_attention_ref(qa, qr, ckv, kr, holes,
+                                                     scale=scale)
+                live = holes.any(1)
+                torch.testing.assert_close(
+                    merged[live].float(), whole[live].float(), **BF16_TOL,
+                    msg=lambda e: f"{what} merge vs unsharded: {e}")
+                check(bool((merged[~live] == 0).all()),
+                      f"{what} merge: a sequence with no valid row is not 0")
+                out[f"mla_merge_{wname}"] = dict(
+                    max_abs_err=float((merged.float() - want.float())
+                                      .abs().max()), dv=r, parts=pm.shape[-1])
+            out[f"mla_partials_{wname}_{dname}"] = row
+            print(f"phase decode[{what}]: ok  {route}  {row['parts']} parts "
+                  f"a head, one sequence empty, an all-empty NaN shard "
+                  f"exactly empty  max_abs_err {err:.3e}"
+                  + (f"; merge of 4 shards (Dv = {r}, "
+                     f"{out[f'mla_merge_{wname}']['parts']} parts) ok"
+                     if dt == torch.bfloat16 else ""), flush=True)
+            del qa, qr, ckv, kr, nan
     return out
 
 
@@ -3034,8 +3138,8 @@ def hold_moe_layers(engine, label):
     model = engine.model
     orig, calls = moe_mod.moe_apply, []
 
-    def capture(p, cfg, x):
-        y, aux = orig(p, cfg, x)
+    def capture(p, cfg, x, tp=None):
+        y, aux = orig(p, cfg, x, tp)
         calls.append((p, cfg, x, y))
         return y, aux
     tokens = torch.full((engine.batch_slots, 1), 7, device=engine.device)
@@ -4049,8 +4153,18 @@ def phase_mesh_train(card, layers: int = MESH_LAYERS):
 # sequence and #5's partials are merged across the ranks. Its 64 rows
 # give 16 a rank, so the served prompts (55 and 29 tokens) and the
 # teacher-forced ones (19 and 20) put valid rows on two to four ranks,
-# and some shards of a sequence hold none.
-TP_CASES = (("qwen2-vl-7b", 2, 2048), ("glm4-9b", 4, 64))
+# and some shards of a sequence hold none. The MLA and MoE decoders, each
+# at full width and depth: DeepSeek-V2-Lite-16B at (1, 4), 27 layers,
+# 4 of 16 heads, 16 of 64 experts and a quarter of the shared expert a
+# rank, its latent cache by sequence at 16 rows a rank; MiniCPM3-4B at
+# (1, 2), 62 layers, 20 heads a rank (``w_uq`` split), the vocabulary
+# split under tied embeddings, 32 cache rows a rank; OLMoE-1B-7B at (1,
+# 2), 16 layers, the GQA heads path (8 of 16 KV heads a rank) with 32 of
+# 64 experts a rank. #6 runs its partials on each rank's rows and one
+# cross-rank k_merge a layer merges them.
+TP_CASES = (("qwen2-vl-7b", 2, 2048), ("glm4-9b", 4, 64),
+            ("deepseek-v2-lite-16b", 4, 64), ("minicpm3-4b", 2, 64),
+            ("olmoe-1b-7b", 2, 2048))
 TP_ARGS = ("--full", "--param-dtype", "bfloat16", "--requests", "2",
            "--slots", "2", "--max-new", "3")
 # teacher-forced logits, mesh against one process: relative L2 of each
@@ -4062,6 +4176,9 @@ TP_BOUND = 2 ** -4
 # each rank's decode steps under the profiler (the first is held)
 TP_PROFILED = (2, 3, 4)
 BF16_ULP = dict(rtol=2 ** -7, atol=1e-6)
+# the first kernel of each decode launch by its wrapper's name
+TP_FIRST = {"k_gqa_split": "_launch_gqa_split", "k_partial": "_launch_gqa",
+            "k_mla": "_launch_mla_split", "k_partial_mla": "_launch_mla"}
 
 
 def reduced_parts(m, l, acc):
@@ -4094,14 +4211,127 @@ def hold_parts(got, want, v, what) -> float:
     return (ga / den - wa / den).abs().max().item()
 
 
+def moe_rank_plain(p, cfg, x, lo: int):
+    """A rank's partial of an expert-parallel MoE layer, computed plainly,
+    as its all-reduce takes it: the global routing of x, then, as
+    ``moe_plain`` does, each of the rank's experts [lo, lo + its E) that
+    a kept pair reached by ``torch.matmul``, summed per token in f32,
+    plus the rank's columns of the shared expert through its rows of
+    ``w_down`` → (B, S, d) f32."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import activation_fn, mlp_apply
+    b, s, d = x.shape
+    k, dt = cfg.moe.experts_per_token, x.dtype
+    el = p["w_gate"].shape[0]
+    act = activation_fn(cfg.activation)
+    r = moe_mod.route(p, cfg, x, moe_mod.chunk_size(s))
+    xf = x.reshape(b * s, d)
+    ti, kp = r.top_i.reshape(-1, k), r.keep.reshape(-1, k)
+    tw = r.top_w.reshape(-1, k).to(dt).to(torch.float32)
+    y = torch.zeros((b * s, d), dtype=torch.float32, device=x.device)
+    mine = kp & (ti >= lo) & (ti < lo + el)
+    for e in torch.unique(ti[mine]).tolist():
+        rows, slots = ((ti == e) & kp).nonzero(as_tuple=True)
+        j = e - lo
+        h = (act(xf[rows] @ p["w_gate"][j].to(dt))
+             * (xf[rows] @ p["w_up"][j].to(dt)))
+        y[rows] += (h @ p["w_down"][j].to(dt)).to(torch.float32) \
+            * tw[rows, slots][:, None]
+    y = y.reshape(b, s, d)
+    if cfg.moe.num_shared_experts:
+        y = y + mlp_apply(p["shared"], x, cfg.activation).to(torch.float32)
+    return y
+
+
+class TeacherRoutes:
+    """Around ``launch.serve.teacher_forced``: records the (experts, kept)
+    of every ``models.moe.route`` call of the teacher-forced run, in call
+    order, into ``record`` (a path; rank 0 writes it); with ``pin`` (a
+    path of such a record) the run is repeated with each call's experts
+    and kept pairs taken from it, its weights from its own probabilities
+    at those experts (``RouteLog``'s pin), and those logits go to
+    ``pinned`` (a path). Restores ``teacher_forced`` and ``route`` on
+    exit."""
+
+    def __init__(self, record: str, pin: str = "", pinned: str = "",
+                 write: bool = True):
+        self.record, self.pin, self.pinned, self.write = (record, pin,
+                                                          pinned, write)
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+        from repro_torch.launch import serve
+        from repro_torch.models import moe
+        self._tf, self._route = serve.teacher_forced, moe.route
+        tf, route = self._tf, self._route
+
+        def run(model, cfg, **kw):
+            calls = []
+
+            def rec(p, c, x, n):
+                r = route(p, c, x, n)
+                calls.append((r.top_i.cpu(), r.keep.cpu()))
+                return r
+            moe.route = rec
+            try:
+                out = tf(model, cfg, **kw)
+            finally:
+                moe.route = route
+            if self.write:
+                torch.save(calls, self.record)
+            if not self.pin:
+                return out
+            first, i = torch.load(self.pin), [0]
+
+            def pinned(p, c, x, n):
+                r = route(p, c, x, n)
+                top_i, keep = (t.to(r.top_i.device) for t in first[i[0]])
+                i[0] += 1
+                w = r.probs.gather(-1, top_i)
+                return r._replace(top_i=top_i, keep=keep,
+                                  top_w=w / w.sum(-1, keepdim=True))
+            moe.route = pinned
+            try:
+                logits = tf(model, cfg, **kw)[2]
+            finally:
+                moe.route = route
+            check(i[0] == len(first), f"pinned {i[0]} of {len(first)} "
+                  f"routings")
+            if self.write:
+                np.save(self.pinned, logits)
+            return out
+        serve.teacher_forced = run
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import serve
+        from repro_torch.models import moe
+        serve.teacher_forced, moe.route = self._tf, self._route
+
+
+def route_flips(a, b) -> int:
+    """(layer call, batch row, token)s whose kept expert sets differ
+    between two ``TeacherRoutes`` records."""
+    n = 0
+    for (ia, ka), (ib, kb) in zip(a, b):
+        ea = ia.masked_fill(~ka, -1).sort(-1).values
+        eb = ib.masked_fill(~kb, -1).sort(-1).values
+        n += int((ea != eb).any(-1).sum())
+    return n
+
+
 def tp_worker(argv) -> int:
     """One rank of phase tp_serve under ``torchrun``: the serving launcher
-    (``repro_torch.launch.serve.main(argv)``) with every #5 launch of the
-    first decode step captured (the split or chunk kernel, with or
+    (``repro_torch.launch.serve.main(argv)``) with every #5 and #6 launch
+    of the first decode step captured (the split or chunk kernel, with or
     without ``partials``, and each cross-rank ``k_merge``) and held to
-    the plain versions afterwards, and decode steps ``TP_PROFILED`` under
-    the profiler; writes the rank's json beside ``--dump``. Any failure
-    raises: the rank, and so torchrun, exits non-zero."""
+    the plain versions afterwards, every MoE layer of that step captured
+    at its all-reduce (the rank's partial) and held to ``moe_rank_plain``,
+    and decode steps ``TP_PROFILED`` under the profiler; writes the
+    rank's json beside ``--dump``. Any failure raises: the rank, and so
+    torchrun, exits non-zero."""
     import json as _json
     import torch
     from torch.autograd import DeviceType
@@ -4109,10 +4339,11 @@ def tp_worker(argv) -> int:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops, ref
     from repro_torch.launch import serve
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models.transformer import Transformer
     rank = int(os.environ["RANK"])
     st = dict(decode=0, capture=False, prof=None)
-    caps, events = [], []
+    caps, moe_caps, events = [], [], []
 
     def spy(name, fn):
         def run(*a, **kw):
@@ -4124,9 +4355,27 @@ def tp_worker(argv) -> int:
                                     for x in a], dict(kw), keep))
             return out
         return run
-    da._launch_gqa_split = spy("k_gqa_split", da._launch_gqa_split)
-    da._launch_gqa = spy("k_partial", da._launch_gqa)
+    for name, attr in TP_FIRST.items():
+        setattr(da, attr, spy(name, getattr(da, attr)))
     da._launch_merge = spy("k_merge", da._launch_merge)
+    moe_apply = moe_mod.moe_apply
+
+    def moe_spy(p, cfg, x, tp=None):
+        if not st["capture"] or tp is None:
+            return moe_apply(p, cfg, x, tp)
+        seen = []
+
+        def all_reduce(t):
+            seen.append(t.clone())
+            return type(tp).all_reduce(tp, t)
+        tp.all_reduce = all_reduce
+        try:
+            out = moe_apply(p, cfg, x, tp)
+        finally:
+            del tp.all_reduce
+        moe_caps.append((p, cfg, x.clone(), seen[0], tp.rank))
+        return out
+    moe_mod.moe_apply = moe_spy
     apply = Transformer.apply
 
     def traced(self, tokens, **kw):
@@ -4151,18 +4400,26 @@ def tp_worker(argv) -> int:
         return out
     Transformer.apply = traced
     ops.reset_kernel_launches()
-    serve.main(argv)
+    dump = argv[argv.index("--dump") + 1]
+    with TeacherRoutes(f"{dump}.routes.pt", os.environ.get(
+            "TP_PIN_ROUTES", ""), f"{dump}.pinned.npy", write=rank == 0):
+        serve.main(argv)
     launches = dict(gqa_decode=da.gqa_decode.launches,
                     partial_launches=da.gqa_decode.partial_launches,
+                    mla_decode=da.mla_decode.launches,
+                    mla_partial_launches=da.mla_decode.partial_launches,
                     merge_partials=da.merge_partials.launches,
                     routes=dict(da.gqa_decode.route_launches),
+                    mla_routes=dict(da.mla_decode.route_launches),
                     decode_steps=st["decode"])
-    held = dict(k_gqa_split=0, k_partial=0, k_merge=0, partials=0,
-                max_abs_err=0.0, shapes=[], bound_us={}, valid_rows=None)
+    held = dict(k_gqa_split=0, k_partial=0, k_mla=0, k_partial_mla=0,
+                k_merge=0, partials=0, max_abs_err=0.0, shapes=[],
+                bound_us={}, valid_rows=None)
 
     def nbytes(*xs):
         return sum(x.numel() * x.element_size() for x in xs)
     for name, a, kw, out in caps:
+        partials = bool(kw.get("partials"))
         if name == "k_merge":
             m, l, acc, dtype = a
             want = ref.merge_partials_ref(m, l, acc, dtype)
@@ -4170,32 +4427,47 @@ def tp_worker(argv) -> int:
             moved = nbytes(m, l, acc, out)
             key = "k_merge_partials"
         else:
-            q, k, v, valid = a
-            plain = dict(scale=kw["scale"], softcap=kw["softcap"],
-                         q_per_kv=kw["q_per_kv"])
+            mla = name in ("k_mla", "k_partial_mla")
+            if mla:
+                q, qr, k, kr, valid = a
+                plain = dict(scale=kw["scale"])
+                fn = (ref.mla_decode_partials_ref if partials
+                      else ref.mla_decode_attention_ref)
+                operands, v = (q, qr, k, kr, valid), k
+                # a row: its ckv and krope; the queries: q_abs and q_rope
+                row_bytes = (k.shape[-1] + kr.shape[-1]) * k.element_size()
+                q_bytes = nbytes(q, qr)
+            else:
+                q, k, v, valid = a
+                plain = dict(scale=kw["scale"], softcap=kw["softcap"],
+                             q_per_kv=kw["q_per_kv"])
+                fn = (ref.decode_partials_ref if partials
+                      else ref.decode_attention_ref)
+                operands = (q, k, v, valid)
+                row_bytes = 2 * k.shape[2] * k.shape[3] * k.element_size()
+                q_bytes = nbytes(q)
             rows = int(valid.sum())
-            if kw.get("partials"):
+            if partials:
                 held["partials"] += 1
                 got = want = None
-                err = hold_parts(out, ref.decode_partials_ref(
-                    q, k, v, valid, **plain), v, f"rank {rank} {name}")
+                err = hold_parts(out, fn(*operands, **plain), v,
+                                 f"rank {rank} {name}")
                 if held["valid_rows"] is None:
                     held["valid_rows"] = valid.sum(1).tolist()
             else:
-                got, want = out, ref.decode_attention_ref(q, k, v, valid,
-                                                          **plain)
+                got, want = out, fn(*operands, **plain)
                 # the merge's own launch: a sequence with no valid row
-                # takes every row (the mean of v)
+                # takes every row (the mean of the values)
                 rows = int(torch.where(valid.any(1), valid.sum(1),
                                        valid.shape[1]).sum())
             # the bound reads the mask, the valid cache rows and, where
-            # there is one, q, and writes the output: the partials, or the
-            # merged context
-            moved = (nbytes(valid) + (nbytes(q) if rows else 0)
-                     + 2 * rows * k.shape[2] * k.shape[3] * k.element_size()
-                     + (nbytes(*out) if kw.get("partials") else nbytes(out)))
+            # there is one, the queries, and writes the output: the
+            # partials, or the merged context
+            moved = (nbytes(valid) + (q_bytes if rows else 0)
+                     + rows * row_bytes
+                     + (nbytes(*out) if partials else nbytes(out)))
             key = name
-            shape = [list(q.shape), list(k.shape), bool(kw.get("partials"))]
+            shape = [list(q.shape), list(k.shape), partials]
             if shape not in held["shapes"]:
                 held["shapes"].append(shape)
         held[name] += 1
@@ -4206,15 +4478,22 @@ def tp_worker(argv) -> int:
                 got.float(), want.float(), **BF16_ULP,
                 msg=lambda m: f"rank {rank} {name}: {m}")
         held["max_abs_err"] = max(held["max_abs_err"], err)
+    held["moe_layers"], held["moe_max_abs_err"] = len(moe_caps), 0.0
+    for j, (p, cfg, x, part, r) in enumerate(moe_caps):
+        want = moe_rank_plain(p, cfg, x, r * p["w_gate"].shape[0])
+        torch.testing.assert_close(
+            part, want, **BF16_ULP,
+            msg=lambda m: f"rank {rank} moe layer {j}: {m}")
+        held["moe_max_abs_err"] = max(held["moe_max_abs_err"],
+                                      (part - want).abs().max().item())
     us = {}
     for ename, t in events:
         key = ("k_merge_partials" if "k_merge" in ename and "false>" in ename
-               else next((k for k in ("k_gqa_split", "k_partial", "k_merge")
-                          if k in ename), None))
+               else next((k for k in ("k_gqa_split", "k_mla", "k_partial",
+                                      "k_merge") if k in ename), None))
         if key:
             n, tot = us.get(key, (0, 0.0))
             us[key] = (n + 1, tot + t)
-    dump = argv[argv.index("--dump") + 1]
     with open(f"{dump}.rank{rank}.json", "w") as f:
         _json.dump(dict(rank=rank, launches=launches, held=held, profile={
             k: dict(launches=n, device_us=tot, device_us_per_launch=tot / n)
@@ -4225,12 +4504,20 @@ def tp_worker(argv) -> int:
 def phase_tp_serve(card):
     """The serving launcher on the model axis (``python -m
     repro_torch.launch.serve --model K`` under torchrun, ``tp_worker`` in
-    each rank): for each of ``TP_CASES``, the ranks on this card (gloo)
-    and one process of the same seed; their teacher-forced logits within
-    ``TP_BOUND`` (relative L2 a step), every #5 launch of one decode step
-    and every cross-rank merge held on every rank, the launches counted
-    over the run, each rank's #5 device µs by the profiler."""
+    each rank): for each of ``TP_CASES``, one process of the same seed
+    and the ranks on this card (gloo); their teacher-forced logits within
+    ``TP_BOUND`` (relative L2 a step), every #5 or #6 launch of one
+    decode step, every cross-rank merge and every MoE layer's partial
+    held on every rank, the launches counted over the run, each rank's
+    #5 or #6 device µs by the profiler. An MoE model's bf16 router moves
+    experts at near ties (ROADMAP, Queue 3: MoE routing flips), so its
+    mesh also runs the teacher-forced steps with the one process's
+    experts pinned (``TeacherRoutes``): those logits are held to
+    ``TP_BOUND``, and the unpinned ones too unless an expert set
+    flipped (each flip counted and printed), as the serve phases hold
+    the kernel step against the plain one."""
     import numpy as np
+    import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
     out_dir = os.path.join(HERE, "chiprun_out", "tp_serve")
@@ -4240,57 +4527,84 @@ def phase_tp_serve(card):
     for arch, k, max_len in TP_CASES:
         tp_npz = os.path.join(out_dir, f"{arch}_model{k}.npz")
         one_npz = os.path.join(out_dir, f"{arch}_one.npz")
+        one_routes = f"{one_npz}.routes.pt"
         for f in os.listdir(out_dir):
             if f.startswith(arch):
                 os.remove(os.path.join(out_dir, f))
+        cfg = get_config(arch)
+        # the launcher in this process, no mesh; its teacher-forced
+        # routing recorded
+        t0 = time.perf_counter()
+        with TeacherRoutes(one_routes):
+            serve.main([*TP_ARGS, "--max-len", str(max_len), "--arch",
+                        arch, "--dump", one_npz])
+        free_card()
+        t_one = time.perf_counter() - t0
         t0 = time.perf_counter()
         run = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc-per-node", str(k), os.path.join(HERE, "chip_smoke.py"),
              "--tp-worker", *TP_ARGS, "--max-len", str(max_len), "--arch",
              arch, "--model", str(k), "--dump", tp_npz],
-            capture_output=True, text=True, env=env,
-            timeout=600, cwd=HERE)
+            capture_output=True, text=True, timeout=600, cwd=HERE,
+            env=dict(env, TP_PIN_ROUTES=one_routes if cfg.moe else ""))
         t_mesh = time.perf_counter() - t0
         check(run.returncode == 0, f"tp_serve {arch} model {k}: exit "
               f"{run.returncode}\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
         check(f"[ranks] world {k}, backend gloo" in run.stdout,
               f"tp_serve {arch}: {run.stdout[-1000:]}")
-        # the same launcher in this process: no mesh
-        t0 = time.perf_counter()
-        serve.main([*TP_ARGS, "--max-len", str(max_len), "--arch", arch,
-                    "--dump", one_npz])
-        free_card()
-        t_one = time.perf_counter() - t0
+
+        def rel_l2(got, want):
+            return [float(np.linalg.norm(x - y) / np.linalg.norm(y))
+                    for x, y in zip(got, want)]
         with np.load(tp_npz) as a, np.load(one_npz) as b:
-            steps = [float(np.linalg.norm(x - y) / np.linalg.norm(y))
-                     for x, y in zip(a["logits"], b["logits"])]
+            steps = rel_l2(a["logits"], b["logits"])
             agree = float((a["logits"].argmax(-1)
                            == b["logits"].argmax(-1)).mean())
             tokens_equal = float((a["tokens"] == b["tokens"]).mean())
-        check(max(steps) <= TP_BOUND, f"tp_serve {arch}: teacher-forced "
-              f"logits rel L2 {steps} > {TP_BOUND}")
+            pinned = (rel_l2(np.load(f"{tp_npz}.pinned.npy"), b["logits"])
+                      if cfg.moe else None)
+        flips = (route_flips(torch.load(one_routes),
+                             torch.load(f"{tp_npz}.routes.pt"))
+                 if cfg.moe else 0)
+        check(pinned is None or max(pinned) <= TP_BOUND,
+              f"tp_serve {arch}: teacher-forced logits, experts pinned, "
+              f"rel L2 {pinned} > {TP_BOUND}")
+        check(max(steps) <= TP_BOUND or flips,
+              f"tp_serve {arch}: teacher-forced logits rel L2 {steps} > "
+              f"{TP_BOUND} with no routing flip")
         ranks = []
         for r in range(k):
             with open(f"{tp_npz}.rank{r}.json") as f:
                 ranks.append(json.load(f))
-        layers = get_config(arch).num_layers
-        sharded = get_config(arch).num_kv_heads % k != 0
+        layers = cfg.num_layers
+        mla = cfg.attn_type == "mla"
+        # the latent cache splits by its sequence whatever the heads
+        sharded = mla or cfg.num_kv_heads % k != 0
+        kernel, first, partial_key = (
+            ("mla_decode", "k_mla", "mla_partial_launches") if mla else
+            ("gqa_decode", "k_gqa_split", "partial_launches"))
+        other = "gqa_decode" if mla else "mla_decode"
+        moe_layers = (0 if cfg.moe is None
+                      else layers - cfg.moe.first_dense_layers)
         for rk in ranks:
             ln, held = rk["launches"], rk["held"]
             want = layers * ln["decode_steps"]
-            check(ln["gqa_decode"] == want and ln["partial_launches"] ==
-                  (want if sharded else 0) and ln["merge_partials"] ==
-                  (want if sharded else 0),
+            check(ln[kernel] == want and ln[other] == 0
+                  and ln[partial_key] == (want if sharded else 0)
+                  and ln["merge_partials"] == (want if sharded else 0),
                   f"tp_serve {arch} rank {rk['rank']}: launches {ln}, "
                   f"{want} expected")
-            check(held["k_gqa_split"] + held["k_partial"] == layers
-                  and held["k_merge"] == (layers if sharded else 0),
+            firsts = (held["k_mla"] + held["k_partial_mla"] if mla
+                      else held["k_gqa_split"] + held["k_partial"])
+            check(firsts == layers
+                  and held["k_merge"] == (layers if sharded else 0)
+                  and held["moe_layers"] == moe_layers,
                   f"tp_serve {arch} rank {rk['rank']}: held {held}")
             check(not sharded or held["valid_rows"] is not None,
                   f"tp_serve {arch} rank {rk['rank']}: no partials held")
-            split = rk["profile"].get("k_gqa_split")
-            check(split is not None and split["launches"] ==
+            traced = rk["profile"].get(first)
+            check(traced is not None and traced["launches"] ==
                   layers * len(TP_PROFILED),
                   f"tp_serve {arch} rank {rk['rank']}: traced "
                   f"{rk['profile']}")
@@ -4301,35 +4615,47 @@ def phase_tp_serve(card):
                                  for i in range(len(rows[0]))) >= 2,
               f"tp_serve {arch}: valid rows by rank {rows} on one rank")
         res[arch] = dict(
-            model=k, layers=layers, sequence_sharded=sharded,
+            model=k, layers=layers, kernel=kernel, sequence_sharded=sharded,
             max_len=max_len, valid_rows=rows,
-            rel_l2=steps, argmax_agree=agree, tokens_equal=tokens_equal,
+            rel_l2=steps, rel_l2_pinned=pinned, routing_flips=flips,
+            argmax_agree=agree, tokens_equal=tokens_equal,
             mesh_s=t_mesh, one_process_s=t_one, bound=TP_BOUND,
             ranks=ranks,
-            launches=sum(rk["launches"]["gqa_decode"] for rk in ranks),
-            partial_launches=sum(rk["launches"]["partial_launches"]
+            launches=sum(rk["launches"][kernel] for rk in ranks),
+            partial_launches=sum(rk["launches"][partial_key]
                                  for rk in ranks),
             merge_launches=sum(rk["launches"]["merge_partials"]
                                for rk in ranks),
             max_abs_err=max(rk["held"]["max_abs_err"] for rk in ranks),
+            moe_layers_held=sum(rk["held"]["moe_layers"] for rk in ranks),
+            moe_max_abs_err=max(rk["held"]["moe_max_abs_err"]
+                                for rk in ranks),
             bound_us={kern: [rk["held"]["bound_us"][kern] for rk in ranks]
                       for kern in ranks[0]["held"]["bound_us"]},
             device_us_per_launch={
                 kern: [rk["profile"][kern]["device_us_per_launch"]
                        for rk in ranks if kern in rk["profile"]]
-                for kern in ("k_gqa_split", "k_partial", "k_merge",
+                for kern in ("k_gqa_split", "k_mla", "k_partial", "k_merge",
                              "k_merge_partials")})
+        moe = (f", MoE layers held {res[arch]['moe_layers_held']} (max abs "
+               f"err {res[arch]['moe_max_abs_err']:.3e})" if moe_layers
+               else "")
+        pin = ("" if pinned is None else
+               f", experts pinned {[f'{x:.3e}' for x in pinned]} "
+               f"({flips} (layer, slot, token) expert sets flipped "
+               f"unpinned)")
         print(f"  tp_serve {arch} (1, {k}), {layers} layers, {max_len} "
               f"cache rows"
               + (f" by sequence (held step's valid rows by rank {rows})"
                  if sharded else "") + ": logits rel L2 "
-              f"a step {[f'{x:.3e}' for x in steps]} (bound {TP_BOUND}), "
+              f"a step {[f'{x:.3e}' for x in steps]}{pin} (bound "
+              f"{TP_BOUND}), "
               f"argmax agree {agree:.3f}, tokens equal {tokens_equal:.3f}; "
-              f"#5 launches {res[arch]['launches']} (partials "
+              f"{kernel} launches {res[arch]['launches']} (partials "
               f"{res[arch]['partial_launches']}, cross-rank merges "
               f"{res[arch]['merge_launches']}), held max abs err "
-              f"{res[arch]['max_abs_err']:.3e}; device us a launch by rank "
-              f"{res[arch]['device_us_per_launch']}, bound (bytes) "
+              f"{res[arch]['max_abs_err']:.3e}{moe}; device us a launch "
+              f"by rank {res[arch]['device_us_per_launch']}, bound (bytes) "
               f"{res[arch]['bound_us']}; mesh {t_mesh:.1f} s, "
               f"one process {t_one:.1f} s [{card}]", flush=True)
         for line in run.stdout.splitlines():
@@ -5168,6 +5494,21 @@ def main() -> int:
                    f32_device_ms=dec[f"{prefix}_f32"]["device_ms"],
                    f32_bound_ms=dec[f"{prefix}_f32"]["bound_ms"])
         return row
+
+    def tp_row(kernel):
+        # tp_serve's cases whose decode runs ``kernel``
+        cases = {a: r for a, r in tp_serve.items() if r["kernel"] == kernel}
+        return dict(
+            tp_serve_launches={a: r["launches"] for a, r in cases.items()},
+            tp_serve_partial_launches={a: r["partial_launches"]
+                                       for a, r in cases.items()},
+            tp_serve_merge_launches={a: r["merge_launches"]
+                                     for a, r in cases.items()},
+            tp_serve_device_us_per_launch={
+                a: r["device_us_per_launch"] for a, r in cases.items()},
+            tp_serve_bound_us={a: r["bound_us"] for a, r in cases.items()},
+            tp_serve_held_max_abs_err=max(r["max_abs_err"]
+                                          for r in cases.values()))
     kernels += [
         dict(decode_row("gqa_decode", "decode_attention.cu",
                         "src/repro/kernels/decode_attention.py:96",
@@ -5193,31 +5534,24 @@ def main() -> int:
                  [r["held"]["max_abs_err"] for r in (
                      serve_olmoe, serve_hybrid, serve_whisper,
                      *serve_zoo.values())]),
-             tp_serve_launches={a: r["launches"]
-                                for a, r in tp_serve.items()},
-             tp_serve_partial_launches={a: r["partial_launches"]
-                                        for a, r in tp_serve.items()},
-             tp_serve_merge_launches={a: r["merge_launches"]
-                                      for a, r in tp_serve.items()},
-             tp_serve_device_us_per_launch={
-                 a: r["device_us_per_launch"] for a, r in tp_serve.items()},
-             tp_serve_bound_us={a: r["bound_us"]
-                                for a, r in tp_serve.items()},
-             tp_serve_held_max_abs_err=max(
-                 r["max_abs_err"] for r in tp_serve.values())),
+             **tp_row("gqa_decode")),
         dict(decode_row("mla_decode", "mla_decode.cu",
                         "src/repro/kernels/decode_attention.py:173",
                         "mla", serve_mla["launches"]["mla_decode"],
                         ("bf16", "f32", "bf16_holes", "bf16_c2000",
                          "bf16_serve", "bf16_dsv2", "bf16_dsv3",
-                         "bf16_r30")),
+                         "bf16_r30", "partials_minicpm3_bf16",
+                         "partials_minicpm3_f32", "partials_dsv2_bf16",
+                         "partials_dsv2_f32", "merge_minicpm3",
+                         "merge_dsv2")),
              f32_source="src/repro_torch/kernels/csrc/decode_attention.cu",
              partial_device_ms=dec["mla_bf16"]["partial_device_ms"],
              serve_device_us_per_launch=serve_mla["mla_us_per_launch"],
              serve_moe_launches=serve_moe["launches"]["mla_decode"],
              serve_moe_device_us_per_launch=serve_moe[
                  "kernel_us_per_launch"],
-             serve_held_max_abs_err=serve_moe["held"]["max_abs_err"])]
+             serve_held_max_abs_err=serve_moe["held"]["max_abs_err"],
+             **tp_row("mla_decode"))]
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -71,14 +71,15 @@
 // run to run.
 // The ragged last tile or chunk is masked here; C needs no padding.
 // The C entry points return cudaGetLastError() after the launches. With
-// out == nullptr the GQA entries stop after the first kernel and leave its
-// partials (m, l, acc per split or chunk) for the caller: a cache sharded
-// by its sequence over R ranks runs that first kernel on each rank's rows,
-// and merge_partials_* (k_merge alone) takes the R ranks' partials,
-// gathered, as R x nch parts in rank order. There a split or chunk with
-// no valid row reads no k/v row and writes the empty partial (m = -1e30,
-// l = 0, acc = 0), whatever the rest of the sequence holds: a shard with
-// no valid row weighs 0 in the merge and costs its mask bytes alone.
+// out == nullptr the entries (GQA and MLA alike) stop after the first
+// kernel and leave its partials (m, l, acc per split or chunk) for the
+// caller: a cache sharded by its sequence over R ranks runs that first
+// kernel on each rank's rows, and merge_partials_* (k_merge alone) takes
+// the R ranks' partials, gathered, as R x nch parts in rank order. There a
+// split or chunk with no valid row reads no k/v (ckv/krope) row and
+// writes the empty partial (m = -1e30, l = 0, acc = 0), whatever the rest
+// of the sequence holds: a shard with no valid row weighs 0 in the merge
+// and costs its mask bytes alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

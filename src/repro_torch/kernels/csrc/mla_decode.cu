@@ -37,7 +37,11 @@
 //   with no valid row reads the sequence's whole mask: if any row is valid
 //   it writes an empty partial (m = -1e30, l = 0, acc = 0: weight 0 in
 //   the merge), and if none is it walks every tile of its range as masked
-//   rows (the mean of ckv).
+//   rows (the mean of ckv). With out == nullptr (partials for another
+//   merge: a latent cache sharded by its sequence runs this kernel on each
+//   rank's rows, and merge_partials_* takes every rank's partials) such a
+//   block writes the empty partial at once, reading neither the rest of
+//   the mask nor any ckv/krope row: a shard holds no more than its rows.
 // * A cp.async ring of 2 or 3 stages of bf16 tiles, 64 rows x (R + Dr),
 //   the ckv and krope columns side by side in one row, zero-filled past C.
 //   The ckv columns of the same tile are the values: no second read.
@@ -61,7 +65,8 @@
 //   in order, launched as a programmatic dependent of this kernel; it
 //   loads every split's m, l and sums at once, so it waits for memory
 //   once.
-// The C entry point returns cudaGetLastError() after the launches.
+// The C entry point returns cudaGetLastError() after the launches; with
+// out == nullptr it stops after k_mla and leaves the partials.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,6 +105,7 @@ struct Args {
   float* part_m;              // [B][H][splits]
   float* part_l;
   float* part_acc;            // [B][H][splits][R]
+  int empty_parts;            // no merge here: an empty range stays empty
 };
 
 // shared-memory carve-up in bytes (decode_attention.mla_smem_bytes
@@ -178,9 +184,10 @@ __global__ void __launch_bounds__(kThreads, 1) k_mla(const Args a) {
   int n = n_live;
   if (n == 0) {
     // no valid row here: an empty partial, unless no row of the sequence
-    // is valid — then every row of the range counts (the mean of ckv)
-    int any = 0;
-    for (int r0 = tid; r0 < a.C; r0 += 8 * kThreads) {
+    // is valid and the merge is this launch's own — then every row of the
+    // range counts (the mean of ckv)
+    int any = a.empty_parts;
+    for (int r0 = tid; !a.empty_parts && r0 < a.C; r0 += 8 * kThreads) {
       uint8_t x[8];
 #pragma unroll
       for (int u = 0; u < 8; ++u)
@@ -452,7 +459,7 @@ int launch(const Args& a, int B, int groups, int splits, bf16* out,
                                 static_cast<int>(smem))) != cudaSuccess)
     return e;
   k_mla<kMT, kNP><<<dim3(splits, groups, B), kThreads, smem, st>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if ((e = cudaGetLastError()) != cudaSuccess || out == nullptr) return e;
   return dec::launch_merge<bf16>(a.H, B, splits, a.R, a.part_m, a.part_l,
                                  a.part_acc, out, st);
 }
@@ -467,7 +474,8 @@ extern "C" long long mla_smem_bytes(int hg, int R, int Dr, int stages,
 }
 
 // hg: heads a block (a multiple of 16, at most 64); the host's plan gives
-// it with the split count, the tiles a split walks and the ring's stages
+// it with the split count, the tiles a split walks and the ring's stages.
+// out == nullptr: the partials alone (no k_merge)
 extern "C" int mla_split_bf16(const bf16* q_abs, const bf16* q_rope,
                               const bf16* ckv, const bf16* krope,
                               const uint8_t* valid, long long mask_bs, int B,
@@ -485,7 +493,7 @@ extern "C" int mla_split_bf16(const bf16* q_abs, const bf16* q_rope,
     return cudaErrorInvalidValue;
   const Args a{q_abs, q_rope, ckv,   krope,  valid,           mask_bs,
                C,     H,      R,     Dr,     stages,          tiles_per_split,
-               scale, part_m, part_l, part_acc};
+               scale, part_m, part_l, part_acc, out == nullptr};
   const int groups = (H + hg - 1) / hg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (8 * mt + np) {

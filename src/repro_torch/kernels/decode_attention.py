@@ -388,7 +388,8 @@ def _check_mla_shapes(q_abs, q_rope, ckv, krope):
     return b, h, c, r, dr
 
 
-def _launch_mla_split(q_abs, q_rope, ckv, krope, valid, *, scale):
+def _launch_mla_split(q_abs, q_rope, ckv, krope, valid, *, scale,
+                      partials=False):
     b, h, c, r, dr = _check_mla_shapes(q_abs, q_rope, ckv, krope)
     q_abs, q_rope, ckv, krope = _operands(q_abs, q_rope, ckv, krope)
     if any(x.data_ptr() % 16 for x in (q_abs, q_rope, ckv, krope)):
@@ -401,54 +402,75 @@ def _launch_mla_split(q_abs, q_rope, ckv, krope, valid, *, scale):
     n = b * h * splits
     scratch = torch.empty(n * (2 + r), dtype=torch.float32, device=dev)
     base = scratch.data_ptr()
-    out = torch.empty_like(q_abs)
+    out = None if partials else torch.empty_like(q_abs)
     fn = _kernel_fn("mla_split", q_abs.dtype, _MLA_SPLIT_ARGS, _MLA_SOURCE)
     rc = on_device(dev, lambda stream: fn(
         q_abs.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
         krope.data_ptr(), mask.data_ptr(), mask_bs, b, c, h, r, dr, hg,
         stages, splits, per, float(scale), base, base + 4 * n,
-        base + 8 * n, out.data_ptr(), stream))
+        base + 8 * n, None if partials else out.data_ptr(), stream))
     _check_rc(rc, "mla_decode")
+    if partials:
+        return (scratch[:n].view(b, h, splits),
+                scratch[n:2 * n].view(b, h, splits),
+                scratch[2 * n:].view(b, h, splits, r))
     return out
 
 
-def _launch_mla(q_abs, q_rope, ckv, krope, valid, *, scale):
+def _launch_mla(q_abs, q_rope, ckv, krope, valid, *, scale,
+                partials=False):
     b, h, c, r, dr = _check_mla_shapes(q_abs, q_rope, ckv, krope)
     q_abs, q_rope, ckv, krope = _operands(q_abs, q_rope, ckv, krope)
     vmask = _mask(valid, b, c, q_abs.device)
     heads, rows = partial_plan(h, r + dr, r, False, _MLA_ROWS)
     pm, pl, pa = _partials(b, h, c, r, rows, q_abs.device)
-    out = torch.empty_like(q_abs)
+    out = None if partials else torch.empty_like(q_abs)
     fn = _kernel_fn("mla_decode", q_abs.dtype, _MLA_ARGS)
     rc = on_device(q_abs.device, lambda stream: fn(
         q_abs.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(), krope.data_ptr(),
         vmask.data_ptr(), b, c, h, r, dr, heads, rows, float(scale),
-        pm.data_ptr(), pl.data_ptr(), pa.data_ptr(), out.data_ptr(), stream))
+        pm.data_ptr(), pl.data_ptr(), pa.data_ptr(),
+        None if partials else out.data_ptr(), stream))
     _check_rc(rc, "mla_decode")
-    return out
+    return (pm, pl, pa) if partials else out
 
 
 def mla_decode(q_abs: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
-               krope: torch.Tensor, valid: torch.Tensor, *, scale: float
-               ) -> torch.Tensor:
+               krope: torch.Tensor, valid: torch.Tensor, *, scale: float,
+               partials: bool = False):
     """q_abs (B,1,H,R), q_rope (B,1,H,Dr), ckv (B,C,R), krope (B,C,Dr),
     valid (B or 1, C) → latent context (B,1,H,R) in q_abs's dtype. CUDA
     tensors run the kernel that ``mla_route`` names, CPU (and ``meta``)
-    tensors the plain version."""
+    tensors the plain version.
+
+    ``partials=True`` stops before the merge, as ``gqa_decode``'s does:
+    the f32 softmax partials ``(m (B,H,N), l (B,H,N), acc (B,H,N,R))``,
+    one per split or chunk (the plain version: N = 1), for
+    ``merge_partials`` — a latent cache sharded by its sequence runs this
+    on each shard. A split or chunk with no valid row reads no ckv/krope
+    row and gives the empty part (m = -1e30, l = 0, acc = 0); a sequence
+    with no valid row in any shard merges to 0, where the unsharded call
+    gives the mean of ckv (decode never has one)."""
     if q_abs.device.type == "cuda":
         route = mla_route(q_abs.dtype, q_abs.shape[2], q_abs.shape[-1],
                           q_rope.shape[-1])
         launch = _launch_mla_split if route == "k_mla" else _launch_mla
-        out = launch(q_abs, q_rope, ckv, krope, valid, scale=scale)
+        out = launch(q_abs, q_rope, ckv, krope, valid, scale=scale,
+                     partials=partials)
         mla_decode.launches += 1
         mla_decode.route_launches[route] += 1
+        if partials:
+            mla_decode.partial_launches += 1
         return out
     if q_abs.device.type in ("cpu", "meta"):
-        return ref.mla_decode_attention_ref(q_abs, q_rope, ckv, krope, valid,
-                                            scale=scale)
+        fn = (ref.mla_decode_partials_ref if partials
+              else ref.mla_decode_attention_ref)
+        return fn(q_abs, q_rope, ckv, krope, valid, scale=scale)
     raise ValueError(f"no decode attention route for device {q_abs.device}")
 
 
 mla_decode.launches = 0
 # the launches of each route by its first kernel's name
 mla_decode.route_launches = {"k_mla": 0, "k_partial": 0}
+# of ``launches``, those that stopped at the partials (``partials=True``)
+mla_decode.partial_launches = 0

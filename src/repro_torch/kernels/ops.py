@@ -100,10 +100,12 @@ def merge_partials(m, l, acc, dtype) -> torch.Tensor:
 
 
 def mla_decode_attention(q_abs, q_rope, ckv, krope, valid, *,
-                         scale: float) -> torch.Tensor:
+                         scale: float, partials: bool = False):
     """q_abs (B,1,H,R), q_rope (B,1,H,Dr), ckv (B,C,R), krope (B,C,Dr),
-    valid (B or 1, C) → latent context (B,1,H,R)."""
-    return _decode.mla_decode(q_abs, q_rope, ckv, krope, valid, scale=scale)
+    valid (B or 1, C) → latent context (B,1,H,R); with ``partials`` the
+    unmerged softmax partials (m, l, acc) instead."""
+    return _decode.mla_decode(q_abs, q_rope, ckv, krope, valid, scale=scale,
+                              partials=partials)
 
 
 def similarity(query, index, *, tau: float, valid

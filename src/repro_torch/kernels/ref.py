@@ -127,6 +127,27 @@ def mla_decode_attention_ref(q_abs: torch.Tensor, q_rope: torch.Tensor,
     return torch.matmul(probs, ckv32)[:, None].to(q_abs.dtype)
 
 
+def mla_decode_partials_ref(q_abs: torch.Tensor, q_rope: torch.Tensor,
+                            ckv: torch.Tensor, krope: torch.Tensor,
+                            valid: torch.Tensor, *, scale: float):
+    """``mla_decode_attention_ref``'s softmax stopped before its division,
+    as one part: m (B,H,1) = the max masked logit, l (B,H,1) = sum e^(s -
+    m), acc (B,H,1,R) = sum e^(s - m) ckv, all f32, over the valid rows: a
+    mask with no valid row gives the empty part, m = -1e30, l = 0, acc =
+    0."""
+    b = q_abs.shape[0]
+    f32 = torch.float32
+    ckv32 = ckv.to(f32)
+    logits = (torch.matmul(q_abs[:, 0].to(f32), ckv32.transpose(1, 2))
+              + torch.matmul(q_rope[:, 0].to(f32),
+                             krope.to(f32).transpose(1, 2))) * scale
+    mask = valid.expand(b, valid.shape[-1])[:, None, :]
+    logits = torch.where(mask, logits, NEG_INF)               # (B,H,C)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m) * mask
+    return m, p.sum(-1, keepdim=True), torch.matmul(p, ckv32)[:, :, None]
+
+
 # ---------------------------------------------------------------------------
 # cosine similarity + temperature softmax
 # ---------------------------------------------------------------------------

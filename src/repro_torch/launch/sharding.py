@@ -447,18 +447,20 @@ def local(t):
     return t.to_local() if is_placed(t) else t
 
 
-# the families whose serving runs on the model axis (GQA decoders); the
-# rest of the zoo (MLA, MoE, the recurrent families, Whisper) waits
-TP_FAMILIES = ("dense", "vlm")
+# the families whose serving runs on the model axis: the decoders, GQA or
+# MLA, dense or MoE; the recurrent families (Mamba2 hybrid, RWKV6) and
+# Whisper wait (ROADMAP, Queue 1 item 4)
+TP_FAMILIES = ("dense", "vlm", "moe")
 
 
 def tp_shard(model, device_mesh, *, mode: str = "serve", device=None):
-    """Place ``model`` (a GQA ``Transformer``) on ``device_mesh``: every
-    parameter becomes a DTensor with ``to_placements(param_spec(...))``
-    — heads, FFN columns and the vocabulary over ``model``, replicated
-    over ``data`` (``mode="serve"``) — in place; the model then computes
-    on its local shards between the layers' collectives. Returns the
-    model."""
+    """Place ``model`` (a decoder ``Transformer``: GQA or MLA, dense or
+    MoE) on ``device_mesh``: every parameter becomes a DTensor with
+    ``to_placements(param_spec(...))`` — heads, MLA's up-projections,
+    FFN columns, the experts by E and the vocabulary over ``model``,
+    replicated over ``data`` (``mode="serve"``) — in place; the model then
+    computes on its local shards between the layers' collectives. Returns
+    the model."""
     check_tp_family(model.cfg)
     tp = TensorParallel(device_mesh, device)
     place_params(model, tp, mode=mode)
@@ -467,12 +469,14 @@ def tp_shard(model, device_mesh, *, mode: str = "serve", device=None):
 
 
 def check_tp_family(cfg) -> None:
-    if (cfg.family not in TP_FAMILIES or cfg.attn_type != "gqa"
-            or cfg.moe is not None):
+    """Raise ``NotImplementedError`` for a config whose serving has no
+    model-axis path yet."""
+    if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: serving on the model axis runs the GQA "
-            f"decoders (dense, VLM); {cfg.family}/{cfg.attn_type} is not "
-            f"placed yet")
+            f"{cfg.name}: serving on the model axis runs the decoders "
+            f"(dense, VLM, MoE; GQA or MLA); {cfg.family}/{cfg.attn_type} "
+            f"is not placed yet (ROADMAP, Queue 1 item 4: Mamba2/RWKV6 "
+            f"heads, Whisper)")
 
 
 def place_params(model, tp: TensorParallel, *, mode: str = "serve"
@@ -497,8 +501,9 @@ def place_cache(cache, device_mesh, device=None):
     """A decode cache (``Transformer.init_cache``'s tree, on any device —
     ``meta`` too, then zeros) with each leaf a DTensor placed by
     ``cache_specs``: the batch over ``data``; k and v by their KV heads
-    over ``model`` where those divide it, else by their sequence. A
-    placed cache passes through."""
+    over ``model`` where those divide it, else by their sequence; MLA's
+    latent ckv and krope by their sequence, whatever the heads. A placed
+    cache passes through."""
     tp = device_mesh if isinstance(device_mesh, TensorParallel) else \
         TensorParallel(device_mesh, device)
     specs = cache_specs(cache, tp.mesh)

@@ -417,24 +417,45 @@ def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int,
                                  device=device)}
 
 
+def _head_cols(tp, y: torch.Tensor, width: int) -> torch.Tensor:
+    """A column-parallel product's output (``width`` columns, heads
+    contiguous) where the heads divide the model axis: this rank's heads'
+    columns, sliced from a whole ``y`` (a weight the tables replicate,
+    such as DeepSeek-V2-Lite's ``w_q``)."""
+    if tp is None or y.shape[-1] < width:
+        return y
+    n = width // tp.size
+    return y[..., tp.rank * n:(tp.rank + 1) * n]
+
+
+def _whole(tp, w: torch.Tensor, width: int) -> torch.Tensor:
+    """A weight whose columns the tables may split through a head, whole
+    (gathered over the model axis where they did)."""
+    return w if w.shape[-1] == width else tp.gather_model(w)
+
+
 def _mla_qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
-    """The shared projections → q_nope, q_rope, ckv, k_rope."""
+    """The shared projections → q (B, S, ·) before its heads are split
+    (this rank's columns where ``w_uq`` is split), ckv, k_rope."""
     m = cfg.mla
-    b, s, _ = x.shape
-    h = cfg.num_heads
     dt = x.dtype
     if m.q_lora_rank:
         cq = rms_norm(x @ p["w_dq"].to(dt), p["q_norm"], cfg.norm_eps)
-        q = (cq @ p["w_uq"].to(dt)).reshape(b, s, h, m.qk_head_dim)
+        q = cq @ p["w_uq"].to(dt)
     else:
-        q = (x @ p["w_q"].to(dt)).reshape(b, s, h, m.qk_head_dim)
-    q_nope = q[..., : m.qk_nope_head_dim]
-    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
-                        theta=cfg.rope_theta)
+        q = x @ p["w_q"].to(dt)
     ckv = rms_norm(x @ p["w_dkv"].to(dt), p["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope((x @ p["w_kr"].to(dt))[:, :, None, :], positions,
                         theta=cfg.rope_theta)[:, :, 0, :]
-    return q_nope, q_rope, ckv, k_rope
+    return q, ckv, k_rope
+
+
+def _mla_q(cfg: ModelConfig, q: torch.Tensor, positions: torch.Tensor):
+    """q (B, S, H' · qk) → q_nope, q_rope (RoPE'd) of its H' heads."""
+    m = cfg.mla
+    q = q.unflatten(-1, (-1, m.qk_head_dim))
+    return q[..., :m.qk_nope_head_dim], apply_rope(
+        q[..., m.qk_nope_head_dim:], positions, theta=cfg.rope_theta)
 
 
 def mla_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
@@ -442,43 +463,105 @@ def mla_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
                   cache: Optional[dict] = None,
                   cache_pos: Optional[torch.Tensor] = None,
                   mode: str = "train",
-                  kv_lengths: Optional[torch.Tensor] = None
+                  kv_lengths: Optional[torch.Tensor] = None,
+                  tp=None, cache_rows: Optional[Tuple[int, int]] = None
                   ) -> Tuple[torch.Tensor, Optional[dict]]:
     """MLA over x (B, S, d) → ((B, S, d), cache): the expanded-head form
-    for train/prefill, the matrix-absorbed latent form for decode."""
+    for train/prefill, the matrix-absorbed latent form for decode.
+
+    ``tp``: the model's ``TensorParallel`` where it is placed on the
+    model axis (``p`` then holds this rank's shards; ``w_dkv``, ``w_kr``
+    and so ckv and k_rope are whole on every rank, the latent cache split
+    by its sequence). Where the heads divide the axis, each rank keeps its
+    heads of q, k_nope and v (``w_uq``/``w_uk``/``w_uv`` by columns, a
+    replicated ``w_q`` sliced); prefill attends them over the whole prompt
+    and the context goes through the rank's rows of ``wo``, summed over
+    the ranks. Decode gathers every rank's absorbed queries (one packed
+    gather), runs #6's partials on the rank's cache rows, merges every
+    rank's partials and keeps its heads of the latent context. Where the
+    heads do not divide the axis (the tables split those columns through
+    a head), every rank gathers whole q, k_nope and v; prefill runs
+    sequence-parallel (``_seq_shard``) and gathers the context; decode
+    takes ``w_uk`` and ``w_uv`` whole and runs all heads on every rank.
+    ``cache_rows`` (lo, C): the cache buffers hold rows [lo, lo + their
+    length) of a C-row cache."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.num_heads
     dt = x.dtype
     scale = 1.0 / (m.qk_head_dim ** 0.5)
-    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, cfg, x, positions)
+    heads = tp is None or h % tp.size == 0
+    wo = p["wo"].to(dt)
+    width = h * m.v_head_dim
+    q, ckv, k_rope = _mla_qkv(p, cfg, x, positions)
 
     if mode in ("train", "prefill"):
-        k_nope = (ckv @ p["w_uk"].to(dt)).reshape(b, s, h,
-                                                  m.qk_nope_head_dim)
-        v = (ckv @ p["w_uv"].to(dt)).reshape(b, s, h, m.v_head_dim)
+        k_nope = ckv @ p["w_uk"].to(dt)
+        v = ckv @ p["w_uv"].to(dt)
+        widths = (h * m.qk_head_dim, h * m.qk_nope_head_dim, width)
+        if heads:
+            q, k_nope, v = (_head_cols(tp, y, n)
+                            for y, n in zip((q, k_nope, v), widths))
+        else:
+            q, k_nope, v = _cols(tp, (q, k_nope, v), widths)
+        q_nope, q_rope = _mla_q(cfg, q, positions)
+        hl = q_nope.shape[2]
+        k_nope = k_nope.reshape(b, s, hl, m.qk_nope_head_dim)
+        v = v.reshape(b, s, hl, m.v_head_dim)
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-            b, s, h, m.qk_rope_head_dim)], dim=-1)
+            b, s, hl, m.qk_rope_head_dim)], dim=-1)
+        lo = 0
+        if not heads:                   # q: this rank's rows from here on
+            q, k, v = _seq_shard(q, k, v, tp)
+            lo = tp.seq_bounds(s)[0]
         ctx = _sdpa_causal_chunked(q, k, v, scale, 0.0, 1,
-                                   cfg.sliding_window, kv_lengths)
+                                   cfg.sliding_window, kv_lengths,
+                                   q_offset=lo)
+        if not heads:
+            ctx = tp.gather_seq(ctx, s)
         if mode == "prefill" and cache is not None:
-            _fill_cache(cache["ckv"], ckv)
-            _fill_cache(cache["krope"], k_rope)
+            c_lo, c = cache_rows or (0, None)
+            _fill_cache(cache["ckv"], ckv, c_lo, c)
+            _fill_cache(cache["krope"], k_rope, c_lo, c)
         else:
             cache = None
-        return ctx.reshape(b, s, h * m.v_head_dim) @ p["wo"].to(dt), cache
+        return row_parallel(tp, ctx.reshape(b, s, -1), wo, width), cache
 
     # ---- decode: matrix-absorbed latent attention; cache_pos (B,) -------
     assert cache is not None and cache_pos is not None
-    _decode_slots(cache["ckv"], ckv, cache_pos)
-    _decode_slots(cache["krope"], k_rope, cache_pos)
-    valid = _decode_valid(cache_pos, cache["ckv"].shape[1])
-    w_uk = p["w_uk"].to(dt).reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
-    q_abs = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)      # (B,1,H,R)
-    ctx_lat = kops.mla_decode_attention(
-        q_abs, q_rope, cache["ckv"].to(dt), cache["krope"].to(dt), valid,
-        scale=scale)                                          # (B,1,H,R)
-    w_uv = p["w_uv"].to(dt).reshape(m.kv_lora_rank, h, m.v_head_dim)
-    ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, w_uv)
-    return ctx.reshape(b, 1, h * m.v_head_dim) @ p["wo"].to(dt), cache
+    q = _head_cols(tp, q, h * m.qk_head_dim) if heads else _cols(
+        tp, (q,), (h * m.qk_head_dim,))[0]
+    q_nope, q_rope = _mla_q(cfg, q, positions)
+    hl = q_nope.shape[2]
+    w_uk, w_uv = p["w_uk"].to(dt), p["w_uv"].to(dt)
+    if heads:
+        w_uk = _head_cols(tp, w_uk, h * m.qk_nope_head_dim)
+        w_uv = _head_cols(tp, w_uv, width)
+    else:
+        w_uk = _whole(tp, w_uk, h * m.qk_nope_head_dim)
+        w_uv = _whole(tp, w_uv, width)
+    c_lo, c = cache_rows or (0, cache["ckv"].shape[1])
+    _decode_slots(cache["ckv"], ckv, cache_pos, c_lo, c)
+    _decode_slots(cache["krope"], k_rope, cache_pos, c_lo, c)
+    cl = cache["ckv"].shape[1]
+    valid = _decode_valid(cache_pos, c)[:, c_lo:c_lo + cl]
+    q_abs = torch.einsum("bshn,rhn->bshr", q_nope, w_uk.reshape(
+        m.kv_lora_rank, hl, m.qk_nope_head_dim))             # (B,1,H',R)
+    ckv_c, kr_c = cache["ckv"].to(dt), cache["krope"].to(dt)
+    if cl == c:
+        ctx_lat = kops.mla_decode_attention(q_abs, q_rope, ckv_c, kr_c,
+                                            valid, scale=scale)
+    else:               # the rank's shard of the sequence: #6's split
+        if hl < h:      # every head meets every row: the queries of all
+            q_abs, q_rope = torch.split(tp.gather_model(torch.cat(
+                [q_abs, q_rope], dim=-1), 2), [m.kv_lora_rank,
+                                               m.qk_rope_head_dim], dim=-1)
+        ctx_lat = _merge_shards(tp, kops.mla_decode_attention(
+            q_abs, q_rope, ckv_c, kr_c, valid, scale=scale, partials=True),
+            dt)
+        if hl < h:
+            ctx_lat = ctx_lat[:, :, tp.rank * hl:(tp.rank + 1) * hl]
+    ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, w_uv.reshape(
+        m.kv_lora_rank, hl, m.v_head_dim))
+    return row_parallel(tp, ctx.reshape(b, 1, -1), wo, width), cache

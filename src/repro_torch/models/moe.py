@@ -21,6 +21,14 @@ group an expert, so only the experts that received a kept token read
 their weights; the weighted outputs are summed back per token with
 ``index_add_`` in f32. The routing, the sort and the group offsets stay
 on the device: a layer reads nothing back to the host.
+
+On the model axis (``moe_apply(..., tp=)``, the expert-parallel layer)
+the router and x are whole on every rank, so the routing — capacities and
+drops included — is decided once, identically everywhere. Each rank runs
+the kept pairs of its own experts (the tables split the stacked weights
+by their leading E) and its columns of the shared expert through its rows
+of ``w_down``; the two partial sums, in f32, take one all-reduce a layer
+and one cast.
 """
 
 from __future__ import annotations
@@ -115,18 +123,24 @@ def route(p: Mapping[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
 
 
 def _experts(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
-             x: torch.Tensor, r: Routing) -> torch.Tensor:
+             x: torch.Tensor, r: Routing, lo: int = 0) -> torch.Tensor:
     """The kept pairs' expert FFNs, combined by their weights → (B, S, d)
-    in x.dtype. The pairs are sorted by expert and each expert's rows are
-    one group of a grouped product, so an expert no kept pair reached
-    reads no weight; nothing is read back to the host."""
+    in f32. The pairs are sorted by expert and each expert's rows are one
+    group of a grouped product, so an expert no kept pair reached reads no
+    weight; nothing is read back to the host. ``p``'s stacked weights may
+    hold experts [lo, lo + their E) alone (a rank's on the model axis):
+    only the pairs routed to those count, and with none every group is
+    empty."""
     mc = cfg.moe
     b, s, d = x.shape
-    e, k = mc.num_experts, mc.experts_per_token
+    e, k = p["w_gate"].shape[0], mc.experts_per_token
     dt = x.dtype
     act = activation_fn(cfg.activation)
-    # dropped pairs sort after the last expert, outside every group
-    eid = torch.where(r.keep, r.top_i, e).reshape(-1)
+    # dropped pairs, and the pairs of other ranks' experts, sort after the
+    # last expert, outside every group
+    local = r.top_i - lo
+    eid = torch.where(r.keep & (local >= 0) & (local < e), local,
+                      e).reshape(-1)
     order = torch.argsort(eid, stable=True)
     counts = torch.zeros(e + 1, dtype=torch.int64, device=x.device)
     counts.scatter_add_(0, eid, torch.ones_like(eid))
@@ -146,15 +160,34 @@ def _experts(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     ys = torch.where(kept, ys.to(torch.float32), 0.0) * w[:, None]
     y = torch.zeros((b * s, d), dtype=torch.float32, device=x.device)
     y.index_add_(0, tok, ys)
-    return y.to(dt).reshape(b, s, d)
+    return y.reshape(b, s, d)
 
 
 def moe_apply(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
-              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) → (y (B, S, d), aux loss ())."""
+              x: torch.Tensor, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) → (y (B, S, d), aux loss ()). ``tp``: the model's
+    ``TensorParallel`` where ``p`` holds this rank's shards (the experts
+    by E, the shared expert by its hidden columns): the ranks' partial
+    sums, each in f32, are summed by one all-reduce and cast once."""
     mc = cfg.moe
+    dt = x.dtype
     r = route(p, cfg, x, chunk_size(x.shape[1]))
-    y = _experts(p, cfg, x, r)
-    if mc.num_shared_experts:
-        y = y + mlp_apply(p["shared"], x, cfg.activation)
-    return y, r.aux.mean() * mc.router_aux_coef
+    e_loc = p["w_gate"].shape[0]
+    split = tp is not None and e_loc < mc.num_experts
+    y = _experts(p, cfg, x, r, tp.rank * e_loc if split else 0)
+    shared = (mlp_apply(p["shared"], x, cfg.activation)
+              if mc.num_shared_experts else None)
+    sh_split = (shared is not None and tp is not None
+                and p["shared"]["w_down"].shape[0] < mc.shared_d_ff)
+    aux = r.aux.mean() * mc.router_aux_coef
+    if not (split or sh_split):
+        y = y.to(dt)
+        return (y if shared is None else y + shared), aux
+    # the ranks' partial sums in f32: one all-reduce a layer, one cast
+    total = tp.all_reduce((y if split else 0)
+                          + (shared.to(torch.float32) if sh_split else 0))
+    if not split:
+        total = total + y
+    if shared is not None and not sh_split:
+        total = total + shared.to(torch.float32)
+    return total.to(dt), aux

@@ -188,8 +188,9 @@ class AttnBlock(nn.Module):
         h = _norm(cfg, self._part("ln1"), x)
         if cfg.attn_type == "mla":
             a, cache = attn.mla_attention(
-                self.attn, cfg, h, positions=positions, cache=cache,
-                cache_pos=cache_pos, mode=mode, kv_lengths=kv_lengths)
+                self._part("attn"), cfg, h, positions=positions, cache=cache,
+                cache_pos=cache_pos, mode=mode, kv_lengths=kv_lengths,
+                tp=self.tp, cache_rows=cache_rows)
         else:
             a, cache = attn.gqa_attention(
                 self._part("attn"), cfg, h, positions=positions,
@@ -203,7 +204,7 @@ class AttnBlock(nn.Module):
                                          _norm(cfg, self.ln_x, x), enc_out)
         h = _norm(cfg, self._part("ln2"), x)
         if self.use_moe:
-            m, aux = moe_mod.moe_apply(self.moe, cfg, h)
+            m, aux = moe_mod.moe_apply(self._part("moe"), cfg, h, tp=self.tp)
             return x + m, cache, aux
         mlp = self._part("mlp")
         y = mlp_apply(mlp, h, cfg.activation)
@@ -373,14 +374,23 @@ class Transformer(nn.Module):
     def set_tp(self, tp) -> None:
         """Run on the model axis: ``tp`` (a ``TensorParallel``) after every
         parameter was placed (``launch.sharding.tp_shard``); the layers
-        then compute on the local shards, kept here once."""
-        def shards(pd):
-            return {k: local(v) for k, v in pd.items()}
+        then compute on the local shards, kept here once (an MoE block's
+        ``moe`` tree nested as the reference's: ``shared`` under it)."""
+        def shards(mod):
+            out = {}
+            for name, p in mod.named_parameters():
+                *path, leaf = name.split(".")
+                node = out
+                for part in path:
+                    node = node.setdefault(part, {})
+                node[leaf] = local(p)
+            return out
         self.tp = tp
         for block in self.blocks:
             block.tp = tp
+            ffn = "moe" if block.use_moe else "mlp"
             block.shards = {n: shards(getattr(block, n))
-                            for n in ("ln1", "attn", "ln2", "mlp")}
+                            for n in ("ln1", "attn", "ln2", ffn)}
         self.shards = {"embed": local(self.embed),
                        "head": (local(self.embed).t() if self.lm_head is None
                                 else local(self.lm_head)),
@@ -511,7 +521,8 @@ class Transformer(nn.Module):
             cache = {k: ({n: local(t) for n, t in v.items()}
                          if k in GROUPS else local(v))
                      for k, v in cache.items()}
-            rows = {g: _shard_rows(placed[g]["k"], tp)
+            rows = {g: _shard_rows(placed[g]["k" if "k" in placed[g]
+                                             else "ckv"], tp)
                     for g in GROUPS if g in placed}
         logits, new, aux = self._run(
             tp.batch_rows(tokens), vision_embeds=tp.batch_rows(vision_embeds),

@@ -45,6 +45,7 @@ for name in ("repro_torch.serving.engine",
              "repro_torch.launch.serve", "repro_torch.launch.train",
              "repro_torch.launch.dryrun", "repro_torch.launch.specs",
              "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+             "repro_torch.models.attention", "repro_torch.models.moe",
              "repro_torch.core.costmodel",
              "repro_torch.training", "repro_torch.training.trainer",
              "repro_torch.training.checkpoint"):
