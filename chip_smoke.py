@@ -302,13 +302,23 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 across the ranks), MiniCPM3-4B at (1, 2), 64 cache rows
                 (20 heads a rank, #6's partials on 32 rows) and
                 OLMoE-1B-7B at (1, 2), 2048 cache rows (8 KV heads and
-                32 experts a rank, #5 on k_gqa_split);
+                32 experts a rank, #5 on k_gqa_split); the rest of the
+                zoo: Zamba2-2.7B at (1, 4), all 54 layers, 2048 cache
+                rows (20 of 80 Mamba2 heads, 8 of the shared block's 32
+                heads a rank; #5 on k_gqa_split at D = 80, 9 a step),
+                not held, and at 12 layers, held; RWKV6-1.6B at (1, 2)
+                (16 of 32 heads a rank) at full depth, not held, and at
+                4 layers, held; and
+                Whisper-base at (1, 2), 448 cache rows, 1,500 encoder
+                frames a request (4 of 8 heads a rank; #5 at D = 64);
                 each against a one-process run of the same seed (run
                 first), the teacher-forced logits within relative L2
                 ``TP_BOUND`` a step (an MoE model's with the one
                 process's experts pinned in a second teacher-forced run
                 of the mesh, the bf16 router's flips of the unpinned run
-                counted); every #5 or #6 launch of the first decode step
+                counted), a recurrent model's ``ssm`` or ``wkv`` shard
+                after them on every rank within relative L2
+                ``TP_BOUND`` a layer of the one process's heads; every #5 or #6 launch of the first decode step
                 (each rank's partials reduced to one part), every
                 cross-rank merge and every MoE layer's partial (before
                 its all-reduce, against a plain loop over the rank's
@@ -4161,10 +4171,33 @@ def phase_mesh_train(card, layers: int = MESH_LAYERS):
 # split under tied embeddings, 32 cache rows a rank; OLMoE-1B-7B at (1,
 # 2), 16 layers, the GQA heads path (8 of 16 KV heads a rank) with 32 of
 # 64 experts a rank. #6 runs its partials on each rank's rows and one
-# cross-rank k_merge a layer merges them.
-TP_CASES = (("qwen2-vl-7b", 2, 2048), ("glm4-9b", 4, 64),
-            ("deepseek-v2-lite-16b", 4, 64), ("minicpm3-4b", 2, 64),
-            ("olmoe-1b-7b", 2, 2048))
+# cross-rank k_merge a layer merges them. The rest of the zoo: Zamba2-2.7B
+# at (1, 4), 2048 cache rows: 20 of 80 Mamba2 heads, 8 of the shared
+# block's 32 heads and a quarter of its MLP's columns a rank, #5 on
+# k_gqa_split at D = 80 over the rank's heads; served at full depth (54
+# layers, 9 launches a step) with its rel L2 printed, held at 12 layers;
+# RWKV6-1.6B at (1, 2), 16 of 32 heads a rank, served at full depth (24
+# layers) and held at 4. A model's bf16 arithmetic is itself that far
+# from its f32 one at depth (one process, bf16 against f32 activations:
+# Zamba2 3.0 % at 12 layers, 7.2 % at 54; RWKV6 6.4–7.1 % at 4 layers,
+# 106 % at 24), so a second bf16 arithmetic (the mesh's) cannot be held
+# to TP_BOUND at full depth: PERF.md §6, PR 29. Whisper-base at (1, 2),
+# all 6 + 6 layers, held, 448 cache rows (its decoder's own context),
+# 1,500 encoder frames a request, 4 of 8 heads a rank in the encoder,
+# the self and the cross attention, #5 at D = 64.
+# (arch, K, cache rows, layers (None: the config's), logits held)
+TP_CASES = (("qwen2-vl-7b", 2, 2048, None, True),
+            ("glm4-9b", 4, 64, None, True),
+            ("deepseek-v2-lite-16b", 4, 64, None, True),
+            ("minicpm3-4b", 2, 64, None, True),
+            ("olmoe-1b-7b", 2, 2048, None, True),
+            ("zamba2-2.7b", 4, 2048, None, False),
+            ("zamba2-2.7b", 4, 2048, 12, True),
+            ("rwkv6-1.6b", 2, 512, None, False),
+            ("rwkv6-1.6b", 2, 512, 4, True),
+            ("whisper-base", 2, 448, None, True))
+# the recurrent state held after the teacher-forced steps, by family
+TP_STATE = {"hybrid": ("mamba", "ssm"), "ssm": ("rwkv", "wkv")}
 TP_ARGS = ("--full", "--param-dtype", "bfloat16", "--requests", "2",
            "--slots", "2", "--max-new", "3")
 # teacher-forced logits, mesh against one process: relative L2 of each
@@ -4179,6 +4212,14 @@ BF16_ULP = dict(rtol=2 ** -7, atol=1e-6)
 # the first kernel of each decode launch by its wrapper's name
 TP_FIRST = {"k_gqa_split": "_launch_gqa_split", "k_partial": "_launch_gqa",
             "k_mla": "_launch_mla_split", "k_partial_mla": "_launch_mla"}
+
+
+def attn_layers(cfg) -> int:
+    """Attention layers a decode step runs: the hybrid's shared-block
+    applications, none for RWKV6, else every layer."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_period
+    return 0 if cfg.rwkv is not None else cfg.num_layers
 
 
 def reduced_parts(m, l, acc):
@@ -4330,8 +4371,10 @@ def tp_worker(argv) -> int:
     the plain versions afterwards, every MoE layer of that step captured
     at its all-reduce (the rank's partial) and held to ``moe_rank_plain``,
     and decode steps ``TP_PROFILED`` under the profiler; writes the
-    rank's json beside ``--dump``. Any failure raises: the rank, and so
-    torchrun, exits non-zero."""
+    rank's json beside ``--dump`` and, for a recurrent family, its shard
+    of the state after the teacher-forced steps (``$TP_STATE_LEAF``,
+    from ``TP_STATE``). Any failure raises: the rank, and so torchrun,
+    exits non-zero."""
     import json as _json
     import torch
     from torch.autograd import DeviceType
@@ -4342,7 +4385,7 @@ def tp_worker(argv) -> int:
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.transformer import Transformer
     rank = int(os.environ["RANK"])
-    st = dict(decode=0, capture=False, prof=None)
+    st = dict(decode=0, capture=False, prof=None, cache=None)
     caps, moe_caps, events = [], [], []
 
     def spy(name, fn):
@@ -4388,6 +4431,7 @@ def tp_worker(argv) -> int:
                 st["prof"] = profile(activities=[ProfilerActivity.CUDA])
                 st["prof"].__enter__()
         out = apply(self, tokens, **kw)
+        st["cache"] = out[1]
         if dec:
             st["capture"] = False
             if st["prof"] is not None:
@@ -4404,6 +4448,12 @@ def tp_worker(argv) -> int:
     with TeacherRoutes(f"{dump}.routes.pt", os.environ.get(
             "TP_PIN_ROUTES", ""), f"{dump}.pinned.npy", write=rank == 0):
         serve.main(argv)
+    if os.environ.get("TP_STATE_LEAF"):
+        from repro_torch.launch.sharding import local
+        group, leaf = os.environ["TP_STATE_LEAF"].split("/")
+        torch.save(local(st["cache"][group][leaf]).cpu(),
+                   f"{dump}.state.rank{rank}.pt")
+    st["cache"] = None
     launches = dict(gqa_decode=da.gqa_decode.launches,
                     partial_launches=da.gqa_decode.partial_launches,
                     mla_decode=da.mla_decode.launches,
@@ -4515,44 +4565,83 @@ def phase_tp_serve(card):
     experts pinned (``TeacherRoutes``): those logits are held to
     ``TP_BOUND``, and the unpinned ones too unless an expert set
     flipped (each flip counted and printed), as the serve phases hold
-    the kernel step against the plain one."""
+    the kernel step against the plain one. A recurrent family's state
+    after the teacher-forced steps (``TP_STATE``) is held on every rank
+    to the one process's heads, relative L2 ``TP_BOUND`` a layer. A case
+    not held (``TP_CASES``' last field) prints its numbers only. The
+    runs' logits, routings and states go to a temporary directory, each
+    case's removed once it is read (they outgrow ``chiprun_out``)."""
+    import shutil
+    import tempfile
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import serve
-    out_dir = os.path.join(HERE, "chiprun_out", "tp_serve")
-    os.makedirs(out_dir, exist_ok=True)
+    from repro_torch.models.transformer import Transformer
+    out_dir = tempfile.mkdtemp(prefix="tp-serve-")
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
     res = {}
-    for arch, k, max_len in TP_CASES:
-        tp_npz = os.path.join(out_dir, f"{arch}_model{k}.npz")
-        one_npz = os.path.join(out_dir, f"{arch}_one.npz")
+    for arch, k, max_len, layers, held_case in TP_CASES:
+        tag = arch if layers is None else f"{arch}_l{layers}"
+        tp_npz = os.path.join(out_dir, f"{tag}_model{k}.npz")
+        one_npz = os.path.join(out_dir, f"{tag}_one.npz")
         one_routes = f"{one_npz}.routes.pt"
-        for f in os.listdir(out_dir):
-            if f.startswith(arch):
-                os.remove(os.path.join(out_dir, f))
         cfg = get_config(arch)
+        args = [*TP_ARGS, "--max-len", str(max_len), "--arch", arch]
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
+            args += ["--layers", str(layers)]
+        state_leaf = TP_STATE.get(cfg.family)
         # the launcher in this process, no mesh; its teacher-forced
-        # routing recorded
+        # routing recorded, and the cache of its last step kept
         t0 = time.perf_counter()
-        with TeacherRoutes(one_routes):
-            serve.main([*TP_ARGS, "--max-len", str(max_len), "--arch",
-                        arch, "--dump", one_npz])
+        last, apply = {}, Transformer.apply
+
+        def keep(self, tokens, **kw):
+            out = apply(self, tokens, **kw)
+            last["cache"] = out[1]
+            return out
+        Transformer.apply = keep
+        try:
+            with TeacherRoutes(one_routes):
+                serve.main([*args, "--dump", one_npz])
+        finally:
+            Transformer.apply = apply
+        one_state = (None if state_leaf is None else
+                     last["cache"][state_leaf[0]][state_leaf[1]].cpu())
+        last.clear()
         free_card()
         t_one = time.perf_counter() - t0
         t0 = time.perf_counter()
         run = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc-per-node", str(k), os.path.join(HERE, "chip_smoke.py"),
-             "--tp-worker", *TP_ARGS, "--max-len", str(max_len), "--arch",
-             arch, "--model", str(k), "--dump", tp_npz],
+             "--tp-worker", *args, "--model", str(k), "--dump", tp_npz],
             capture_output=True, text=True, timeout=600, cwd=HERE,
-            env=dict(env, TP_PIN_ROUTES=one_routes if cfg.moe else ""))
+            env=dict(env, TP_PIN_ROUTES=one_routes if cfg.moe else "",
+                     TP_STATE_LEAF="/".join(state_leaf or ())))
         t_mesh = time.perf_counter() - t0
-        check(run.returncode == 0, f"tp_serve {arch} model {k}: exit "
+        check(run.returncode == 0, f"tp_serve {tag} model {k}: exit "
               f"{run.returncode}\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+        # each rank's state shard: its heads of the one process's (1, K
+        # mesh: rank r is model rank r), relative L2 a layer
+        state_l2 = None
+        if state_leaf is not None:
+            state_l2 = []
+            heads = one_state.shape[2]
+            for r in range(k):
+                got = torch.load(f"{tp_npz}.state.rank{r}.pt")
+                nh = got.shape[2]
+                lo = r * nh if nh < heads else 0
+                want = one_state[:, :, lo:lo + nh]
+                check(got.shape == want.shape,
+                      f"tp_serve {tag} rank {r}: state {got.shape}, heads "
+                      f"of {one_state.shape}")
+                state_l2.append(((got - want).flatten(1).norm(dim=1)
+                                 / want.flatten(1).norm(dim=1)).tolist())
+        one_state = None
         check(f"[ranks] world {k}, backend gloo" in run.stdout,
-              f"tp_serve {arch}: {run.stdout[-1000:]}")
+              f"tp_serve {tag}: {run.stdout[-1000:]}")
 
         def rel_l2(got, want):
             return [float(np.linalg.norm(x - y) / np.linalg.norm(y))
@@ -4567,61 +4656,72 @@ def phase_tp_serve(card):
         flips = (route_flips(torch.load(one_routes),
                              torch.load(f"{tp_npz}.routes.pt"))
                  if cfg.moe else 0)
-        check(pinned is None or max(pinned) <= TP_BOUND,
-              f"tp_serve {arch}: teacher-forced logits, experts pinned, "
-              f"rel L2 {pinned} > {TP_BOUND}")
-        check(max(steps) <= TP_BOUND or flips,
-              f"tp_serve {arch}: teacher-forced logits rel L2 {steps} > "
-              f"{TP_BOUND} with no routing flip")
+        state_max = (None if state_l2 is None
+                     else max(max(r) for r in state_l2))
+        if held_case:
+            check(pinned is None or max(pinned) <= TP_BOUND,
+                  f"tp_serve {tag}: teacher-forced logits, experts pinned, "
+                  f"rel L2 {pinned} > {TP_BOUND}")
+            check(max(steps) <= TP_BOUND or flips,
+                  f"tp_serve {tag}: teacher-forced logits rel L2 {steps} > "
+                  f"{TP_BOUND} with no routing flip")
+            check(state_max is None or state_max <= TP_BOUND,
+                  f"tp_serve {tag}: {state_leaf} shards' rel L2 a layer by "
+                  f"rank {state_l2} > {TP_BOUND}")
         ranks = []
         for r in range(k):
             with open(f"{tp_npz}.rank{r}.json") as f:
                 ranks.append(json.load(f))
-        layers = cfg.num_layers
+        layers = attn_layers(cfg)
         mla = cfg.attn_type == "mla"
         # the latent cache splits by its sequence whatever the heads
-        sharded = mla or cfg.num_kv_heads % k != 0
+        sharded = layers > 0 and (mla or cfg.num_kv_heads % k != 0)
         kernel, first, partial_key = (
             ("mla_decode", "k_mla", "mla_partial_launches") if mla else
             ("gqa_decode", "k_gqa_split", "partial_launches"))
         other = "gqa_decode" if mla else "mla_decode"
         moe_layers = (0 if cfg.moe is None
-                      else layers - cfg.moe.first_dense_layers)
+                      else cfg.num_layers - cfg.moe.first_dense_layers)
         for rk in ranks:
             ln, held = rk["launches"], rk["held"]
             want = layers * ln["decode_steps"]
             check(ln[kernel] == want and ln[other] == 0
                   and ln[partial_key] == (want if sharded else 0)
                   and ln["merge_partials"] == (want if sharded else 0),
-                  f"tp_serve {arch} rank {rk['rank']}: launches {ln}, "
+                  f"tp_serve {tag} rank {rk['rank']}: launches {ln}, "
                   f"{want} expected")
             firsts = (held["k_mla"] + held["k_partial_mla"] if mla
                       else held["k_gqa_split"] + held["k_partial"])
             check(firsts == layers
                   and held["k_merge"] == (layers if sharded else 0)
                   and held["moe_layers"] == moe_layers,
-                  f"tp_serve {arch} rank {rk['rank']}: held {held}")
+                  f"tp_serve {tag} rank {rk['rank']}: held {held}")
             check(not sharded or held["valid_rows"] is not None,
-                  f"tp_serve {arch} rank {rk['rank']}: no partials held")
+                  f"tp_serve {tag} rank {rk['rank']}: no partials held")
             traced = rk["profile"].get(first)
-            check(traced is not None and traced["launches"] ==
+            check(layers == 0 and traced is None
+                  or traced is not None and traced["launches"] ==
                   layers * len(TP_PROFILED),
-                  f"tp_serve {arch} rank {rk['rank']}: traced "
+                  f"tp_serve {tag} rank {rk['rank']}: traced "
                   f"{rk['profile']}")
         # the held step's valid rows, by rank and sequence: a sharded
         # cache must merge valid parts of two or more ranks
         rows = [rk["held"]["valid_rows"] for rk in ranks]
         check(not sharded or max(sum(r[i] > 0 for r in rows)
                                  for i in range(len(rows[0]))) >= 2,
-              f"tp_serve {arch}: valid rows by rank {rows} on one rank")
-        res[arch] = dict(
-            model=k, layers=layers, kernel=kernel, sequence_sharded=sharded,
+              f"tp_serve {tag}: valid rows by rank {rows} on one rank")
+        kernel = kernel if layers else None     # RWKV6 runs no kernel
+        res[tag] = dict(
+            arch=arch, model=k, layers=cfg.num_layers, attn_layers=layers,
+            kernel=kernel, sequence_sharded=sharded, held=held_case,
             max_len=max_len, valid_rows=rows,
             rel_l2=steps, rel_l2_pinned=pinned, routing_flips=flips,
+            state_rel_l2=state_l2, state_max_rel_l2=state_max,
             argmax_agree=agree, tokens_equal=tokens_equal,
             mesh_s=t_mesh, one_process_s=t_one, bound=TP_BOUND,
             ranks=ranks,
-            launches=sum(rk["launches"][kernel] for rk in ranks),
+            launches=sum(rk["launches"][kernel] for rk in ranks
+                         if kernel),
             partial_launches=sum(rk["launches"][partial_key]
                                  for rk in ranks),
             merge_launches=sum(rk["launches"]["merge_partials"]
@@ -4637,30 +4737,40 @@ def phase_tp_serve(card):
                        for rk in ranks if kern in rk["profile"]]
                 for kern in ("k_gqa_split", "k_mla", "k_partial", "k_merge",
                              "k_merge_partials")})
-        moe = (f", MoE layers held {res[arch]['moe_layers_held']} (max abs "
-               f"err {res[arch]['moe_max_abs_err']:.3e})" if moe_layers
+        r = res[tag]
+        moe = (f", MoE layers held {r['moe_layers_held']} (max abs "
+               f"err {r['moe_max_abs_err']:.3e})" if moe_layers
                else "")
         pin = ("" if pinned is None else
                f", experts pinned {[f'{x:.3e}' for x in pinned]} "
                f"({flips} (layer, slot, token) expert sets flipped "
                f"unpinned)")
-        print(f"  tp_serve {arch} (1, {k}), {layers} layers, {max_len} "
-              f"cache rows"
+        state = ("" if state_l2 is None else
+                 f", {'/'.join(state_leaf)} shards' rel L2 max a layer by "
+                 f"rank {[f'{max(x):.3e}' for x in state_l2]}")
+        kern = ("no decode kernel" if kernel is None else
+                f"{kernel} launches {r['launches']} (partials "
+                f"{r['partial_launches']}, cross-rank merges "
+                f"{r['merge_launches']}), held max abs err "
+                f"{r['max_abs_err']:.3e}")
+        print(f"  tp_serve {tag} (1, {k}), {cfg.num_layers} layers, "
+              f"{max_len} cache rows"
               + (f" by sequence (held step's valid rows by rank {rows})"
                  if sharded else "") + ": logits rel L2 "
-              f"a step {[f'{x:.3e}' for x in steps]}{pin} (bound "
-              f"{TP_BOUND}), "
-              f"argmax agree {agree:.3f}, tokens equal {tokens_equal:.3f}; "
-              f"{kernel} launches {res[arch]['launches']} (partials "
-              f"{res[arch]['partial_launches']}, cross-rank merges "
-              f"{res[arch]['merge_launches']}), held max abs err "
-              f"{res[arch]['max_abs_err']:.3e}{moe}; device us a launch "
-              f"by rank {res[arch]['device_us_per_launch']}, bound (bytes) "
-              f"{res[arch]['bound_us']}; mesh {t_mesh:.1f} s, "
+              f"a step {[f'{x:.3e}' for x in steps]}{pin}{state} ("
+              + (f"bound {TP_BOUND}" if held_case else "not held")
+              + f"), argmax agree {agree:.3f}, tokens equal "
+              f"{tokens_equal:.3f}; {kern}{moe}; device us a launch "
+              f"by rank {r['device_us_per_launch']}, bound (bytes) "
+              f"{r['bound_us']}; mesh {t_mesh:.1f} s, "
               f"one process {t_one:.1f} s [{card}]", flush=True)
         for line in run.stdout.splitlines():
             if line.startswith("[serve]") or line.startswith("[ranks]"):
                 print(f"    {line}", flush=True)
+        for f in os.listdir(out_dir):
+            if f.startswith(f"{tag}_"):
+                os.remove(os.path.join(out_dir, f))
+    shutil.rmtree(out_dir, ignore_errors=True)
     print("phase tp_serve: ok", flush=True)
     return res
 

@@ -8,20 +8,25 @@ encoder frames drawn from the seed, as in the reference's launcher.
       --requests 8 --slots 4 --max-new 16 [--full] [--device cpu] \\
       [--param-dtype bfloat16]
 
-Under ``torchrun`` with ``--model K`` the model serves on a (world / K,
-K) ``("data", "model")`` mesh, placed by the reference's tables (heads,
-FFN columns and the vocabulary over ``model``; the KV cache by its heads,
-or by its sequence where they do not divide K): one card a rank where
-there are enough (NCCL), else every rank on the cards there are (gloo).
-Every rank serves the same requests; rank 0 prints.
+Under ``torchrun`` with ``--model K`` any of the ten serves on a (world
+/ K, K) ``("data", "model")`` mesh, placed by the reference's tables
+(attention, Mamba2 and RWKV6 heads, FFN columns, the experts, the
+vocabulary and the learned positions over ``model``; the KV cache by its
+heads, or by its sequence where they do not divide K; the recurrent
+states by head): one card a rank where there are enough (NCCL), else
+every rank on the cards there are (gloo). Every rank serves the same
+requests; rank 0 prints.
 
   python -m torch.distributed.run --standalone --nproc-per-node 4 \
       -m repro_torch.launch.serve --arch glm4-9b --model 4 [--device cpu]
 
+``--layers N`` cuts the depth to N layers (the config's widths kept).
+
 ``--dump PATH`` also writes (rank 0) an npz of the served tokens and of
-teacher-forced logits: a batch of ``--slots`` prompts prefilled, then
-``TEACHER_STEPS`` decode steps fed fixed tokens, so two runs (one
-process and a mesh) compare step for step.
+teacher-forced logits: a batch of ``--slots`` prompts (with the VLM's
+vision embeddings or Whisper's encoder frames, drawn from the seed)
+prefilled, then ``TEACHER_STEPS`` decode steps fed fixed tokens, so two
+runs (one process and a mesh) compare step for step.
 
 Runs on the CUDA device unless ``--device`` names another one. A prompt
 longer than ``--max-len`` (vision tokens included) fills the cache with
@@ -53,8 +58,9 @@ TEACHER_STEPS = 4
 def teacher_inputs(cfg, *, batch: int, steps: int, seed: int = 1):
     """The inputs of ``teacher_forced``, drawn from ``seed`` (numpy): the
     prompts (B, S) right-padded, their lengths (vision tokens not
-    counted), the fed tokens (steps, B, 1) and, for the VLM, vision
-    embeddings (B, vision_tokens, d)."""
+    counted), the fed tokens (steps, B, 1) and the family's side input:
+    for the VLM vision embeddings (B, vision_tokens, d), for the audio
+    family encoder frames (B, encoder_seq_len, d), else None."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(8, 32, size=batch)
     tok = np.zeros((batch, int(lens.max())), np.int32)
@@ -62,11 +68,13 @@ def teacher_inputs(cfg, *, batch: int, steps: int, seed: int = 1):
         tok[i, :n] = rng.integers(3, cfg.vocab_size, size=n)
     fed = rng.integers(3, cfg.vocab_size, size=(steps, batch, 1)).astype(
         np.int32)
-    vision = None
-    if cfg.family == "vlm":
-        vision = rng.normal(0, 0.02, (batch, cfg.vision_tokens,
-                                      cfg.d_model)).astype(np.float32)
-    return tok, lens, fed, vision
+    side = None
+    if cfg.family in ("vlm", "audio"):
+        n = (cfg.vision_tokens if cfg.family == "vlm"
+             else cfg.encoder_seq_len)
+        side = rng.normal(0, 0.02, (batch, n, cfg.d_model)).astype(
+            np.float32)
+    return tok, lens, fed, side
 
 
 def teacher_forced(model, cfg, *, batch: int, max_len: int, steps: int,
@@ -76,12 +84,14 @@ def teacher_forced(model, cfg, *, batch: int, max_len: int, steps: int,
     tokens drawn from ``seed`` (``teacher_inputs``), the cache in the
     activation dtype → (prompt lengths, fed tokens, logits (1 + steps, B,
     V) as float32 numpy). The same on one process and on a mesh."""
-    tok, lens, fed, vision = teacher_inputs(cfg, batch=batch, steps=steps,
-                                            seed=seed)
+    tok, lens, fed, side = teacher_inputs(cfg, batch=batch, steps=steps,
+                                          seed=seed)
     dev = model.device
-    nv = 0 if vision is None else vision.shape[1]
-    kw = {} if vision is None else {
-        "vision_embeds": torch.from_numpy(vision).to(dev)}
+    vlm = cfg.family == "vlm"
+    nv = side.shape[1] if vlm else 0
+    kw = {} if side is None else {
+        "vision_embeds" if vlm else "encoder_frames":
+            torch.from_numpy(side).to(dev)}
     cache = model.init_cache(batch, max_len, getattr(torch, cfg.dtype))
     logits, cache, _ = model.apply(
         torch.from_numpy(tok).to(dev), cache=cache, mode="prefill",
@@ -103,6 +113,8 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=512)
     ap.add_argument("--full", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     ap.add_argument("--param-dtype", choices=("float32", "bfloat16"),
@@ -117,6 +129,8 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch) if args.full else get_smoke_config(
         args.arch)
     cfg = cfg.replace(param_dtype=args.param_dtype)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     world = int(os.environ.get("WORLD_SIZE", "0"))
     dmesh, rank, device = None, 0, args.device
     if world:

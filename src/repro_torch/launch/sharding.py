@@ -447,20 +447,22 @@ def local(t):
     return t.to_local() if is_placed(t) else t
 
 
-# the families whose serving runs on the model axis: the decoders, GQA or
-# MLA, dense or MoE; the recurrent families (Mamba2 hybrid, RWKV6) and
-# Whisper wait (ROADMAP, Queue 1 item 4)
-TP_FAMILIES = ("dense", "vlm", "moe")
+# the families whose serving runs on the model axis: every one the
+# ``Transformer`` builds — the decoders (GQA or MLA, dense or MoE), the
+# Mamba2 hybrid, RWKV6 (family "ssm") and Whisper ("audio")
+TP_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "audio")
 
 
 def tp_shard(model, device_mesh, *, mode: str = "serve", device=None):
-    """Place ``model`` (a decoder ``Transformer``: GQA or MLA, dense or
-    MoE) on ``device_mesh``: every parameter becomes a DTensor with
+    """Place ``model`` (a ``Transformer`` of any family) on
+    ``device_mesh``: every parameter becomes a DTensor with
     ``to_placements(param_spec(...))`` — heads, MLA's up-projections,
-    FFN columns, the experts by E and the vocabulary over ``model``,
-    replicated over ``data`` (``mode="serve"``) — in place; the model then
-    computes on its local shards between the layers' collectives. Returns
-    the model."""
+    FFN columns, the experts by E, Mamba2's and RWKV6's head projections,
+    the hybrid's shared block, Whisper's encoder and cross attention, and
+    the vocabulary and learned-position tables by their rows over
+    ``model``, replicated over ``data`` (``mode="serve"``) — in place; the
+    model then computes on its local shards between the layers'
+    collectives. Returns the model."""
     check_tp_family(model.cfg)
     tp = TensorParallel(device_mesh, device)
     place_params(model, tp, mode=mode)
@@ -470,13 +472,12 @@ def tp_shard(model, device_mesh, *, mode: str = "serve", device=None):
 
 def check_tp_family(cfg) -> None:
     """Raise ``NotImplementedError`` for a config whose serving has no
-    model-axis path yet."""
+    model-axis path (one of a family the ``Transformer`` does not build:
+    every config of the registry has one)."""
     if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: serving on the model axis runs the decoders "
-            f"(dense, VLM, MoE; GQA or MLA); {cfg.family}/{cfg.attn_type} "
-            f"is not placed yet (ROADMAP, Queue 1 item 4: Mamba2/RWKV6 "
-            f"heads, Whisper)")
+            f"{cfg.name}: serving on the model axis runs the families "
+            f"{TP_FAMILIES}; {cfg.family} has no model-axis path")
 
 
 def place_params(model, tp: TensorParallel, *, mode: str = "serve"
@@ -500,10 +501,13 @@ def place_params(model, tp: TensorParallel, *, mode: str = "serve"
 def place_cache(cache, device_mesh, device=None):
     """A decode cache (``Transformer.init_cache``'s tree, on any device —
     ``meta`` too, then zeros) with each leaf a DTensor placed by
-    ``cache_specs``: the batch over ``data``; k and v by their KV heads
+    ``cache_specs``: the batch over ``data``; k and v (the decoders', the
+    hybrid's ``shared`` and Whisper's ``self`` groups) by their KV heads
     over ``model`` where those divide it, else by their sequence; MLA's
-    latent ckv and krope by their sequence, whatever the heads. A placed
-    cache passes through."""
+    latent ckv and krope by their sequence, whatever the heads; Mamba2's
+    ``ssm`` and ``conv_x`` and RWKV6's ``wkv`` by head where the heads
+    divide it; ``conv_bc``, the token-shift states and ``enc_out`` whole.
+    A placed cache passes through."""
     tp = device_mesh if isinstance(device_mesh, TensorParallel) else \
         TensorParallel(device_mesh, device)
     specs = cache_specs(cache, tp.mesh)

@@ -223,7 +223,7 @@ def _decode_valid(cache_pos: torch.Tensor, c: int) -> torch.Tensor:
             < n_written[:, None])
 
 
-def _cols(tp, ys, widths):
+def gather_cols(tp, ys, widths):
     """Column-parallel products' columns from every model rank, where
     their weights were split (a local width short of its ``widths``
     entry); one gather where every weight was."""
@@ -236,18 +236,32 @@ def _cols(tp, ys, widths):
     return [t.flatten(-2) for t in torch.split(whole, n, dim=-1)]
 
 
+def partial_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w accumulated and returned in float32 (bf16 operands' products
+    are exact in it): a rank's partial sum of a row-parallel product,
+    which the all-reduce sums in f32 and rounds once, as one process
+    rounds its whole product once (R partials rounded to bf16 each would
+    round R + 1 times)."""
+    if a.dtype == torch.float32 and w.dtype == torch.float32:
+        return a @ w
+    if a.is_cuda:
+        return torch.mm(a.reshape(-1, a.shape[-1]), w,
+                        out_dtype=torch.float32).unflatten(0, a.shape[:-1])
+    return a.float() @ w.float()
+
+
 def row_parallel(tp, a: torch.Tensor, w: torch.Tensor, width: int
                  ) -> torch.Tensor:
     """a @ w where ``w`` (width, d) may hold only this model rank's rows
-    (the tables split ``wo`` and ``w_down`` on their input dim): the
-    rank's columns of a whole ``a``, or its own ``a``, times its rows,
-    summed over the ranks."""
+    (the tables split ``wo``, ``w_down``, ``out_proj`` on their input
+    dim): the rank's columns of a whole ``a``, or its own ``a``, times
+    its rows (``partial_product``), summed over the ranks."""
     if tp is None or w.shape[0] == width:
         return a @ w
     n = w.shape[0]
     if a.shape[-1] == width:
         a = a[..., tp.rank * n:(tp.rank + 1) * n]
-    return tp.all_reduce(a @ w)
+    return tp.all_reduce(partial_product(a, w)).to(a.dtype)
 
 
 def _merge_shards(tp, part, dtype):
@@ -295,7 +309,7 @@ def gqa_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     v = x @ p["wv"].to(dt)
     if not heads:
         kv = cfg.num_kv_heads * hd
-        q, k, v = _cols(tp, (q, k, v), (width, kv, kv))
+        q, k, v = gather_cols(tp, (q, k, v), (width, kv, kv))
     h, hkv = q.shape[-1] // hd, k.shape[-1] // hd
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, hkv, hd)
@@ -362,20 +376,54 @@ def cross_attn_init(gen: torch.Generator, cfg: ModelConfig,
             "wo": dense_init(gen, h * hd, d, dtype=dtype)}
 
 
-def cross_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
-                    x: torch.Tensor, enc: torch.Tensor) -> torch.Tensor:
-    """x: (B, Sq, d) decoder states; enc: (B, Sk, d) encoder output; every
-    query sees every encoder frame."""
+def full_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                   x: torch.Tensor, src: torch.Tensor, *, kv_heads: int,
+                   tp=None, seq_parallel: bool = False) -> torch.Tensor:
+    """Every query of x (B, Sq, d) over every row of src (B, Sk, d), no
+    mask and no positions: Whisper's cross attention (src the encoder's
+    output) and its encoder's self-attention (src = x), with ``kv_heads``
+    key/value heads.
+
+    ``tp``: as ``gqa_attention``'s. Where the KV heads divide the model
+    axis each rank keeps its heads and the context goes through its rows
+    of ``wo``, summed over the ranks. Where they do not, every rank
+    gathers whole q, k and v (``gather_cols``); with ``seq_parallel`` it
+    attends its rows of the queries (``_seq_shard``) and gathers the
+    context, else all of them."""
     b, sq, _ = x.shape
-    sk = enc.shape[1]
-    h, hd = cfg.num_heads, cfg.head_dim
-    dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(b, sq, h, hd)
-    k = (enc @ p["wk"].to(dt)).reshape(b, sk, h, hd)
-    v = (enc @ p["wv"].to(dt)).reshape(b, sk, h, hd)
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=x.device)
-    ctx = _sdpa(q, k, v, mask, 1.0 / (hd ** 0.5), 0.0, 1)
-    return ctx.reshape(b, sq, h * hd) @ p["wo"].to(dt)
+    sk = src.shape[1]
+    hd, dt = cfg.head_dim, x.dtype
+    width, kv = cfg.num_heads * hd, kv_heads * hd
+    heads = tp is None or kv_heads % tp.size == 0
+    q = x @ p["wq"].to(dt)
+    k = src @ p["wk"].to(dt)
+    v = src @ p["wv"].to(dt)
+    if not heads and src is x:          # one packed gather
+        q, k, v = gather_cols(tp, (q, k, v), (width, kv, kv))
+    elif not heads:                     # q's rows are not src's
+        q, = gather_cols(tp, (q,), (width,))
+        k, v = gather_cols(tp, (k, v), (kv, kv))
+    h, hkv = q.shape[-1] // hd, k.shape[-1] // hd
+    q = q.reshape(b, sq, h, hd)
+    k = k.reshape(b, sk, hkv, hd)
+    v = v.reshape(b, sk, hkv, hd)
+    split = not heads and seq_parallel
+    if split:
+        q, k, v = _seq_shard(q, k, v, tp)
+    mask = torch.ones((q.shape[1], sk), dtype=torch.bool, device=x.device)
+    ctx = _sdpa(q, k, v, mask, 1.0 / (hd ** 0.5), 0.0, h // hkv)
+    if split:
+        ctx = tp.gather_seq(ctx, sq)
+    return row_parallel(tp, ctx.reshape(b, sq, h * hd), p["wo"].to(dt),
+                        width)
+
+
+def cross_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
+                    x: torch.Tensor, enc: torch.Tensor, tp=None
+                    ) -> torch.Tensor:
+    """x: (B, Sq, d) decoder states; enc: (B, Sk, d) encoder output; every
+    query sees every encoder frame. ``tp``: see ``full_attention``."""
+    return full_attention(p, cfg, x, enc, kv_heads=cfg.num_heads, tp=tp)
 
 
 # ===========================================================================
@@ -503,7 +551,7 @@ def mla_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
             q, k_nope, v = (_head_cols(tp, y, n)
                             for y, n in zip((q, k_nope, v), widths))
         else:
-            q, k_nope, v = _cols(tp, (q, k_nope, v), widths)
+            q, k_nope, v = gather_cols(tp, (q, k_nope, v), widths)
         q_nope, q_rope = _mla_q(cfg, q, positions)
         hl = q_nope.shape[2]
         k_nope = k_nope.reshape(b, s, hl, m.qk_nope_head_dim)
@@ -530,7 +578,7 @@ def mla_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
 
     # ---- decode: matrix-absorbed latent attention; cache_pos (B,) -------
     assert cache is not None and cache_pos is not None
-    q = _head_cols(tp, q, h * m.qk_head_dim) if heads else _cols(
+    q = _head_cols(tp, q, h * m.qk_head_dim) if heads else gather_cols(
         tp, (q,), (h * m.qk_head_dim,))[0]
     q_nope, q_rope = _mla_q(cfg, q, positions)
     hl = q_nope.shape[2]

@@ -89,15 +89,19 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *, gated: bool,
     return p
 
 
-def mlp_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor,
-              act_name: str) -> torch.Tensor:
+def mlp_hidden(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+               act_name: str) -> torch.Tensor:
+    """The MLP's hidden activations, before ``w_down``."""
     act = activation_fn(act_name)
     up = x @ p["w_up"].to(x.dtype)
     if "w_gate" in p:
-        h = act(x @ p["w_gate"].to(x.dtype)) * up
-    else:
-        h = act(up)
-    return h @ p["w_down"].to(x.dtype)
+        return act(x @ p["w_gate"].to(x.dtype)) * up
+    return act(up)
+
+
+def mlp_apply(p: Mapping[str, torch.Tensor], x: torch.Tensor,
+              act_name: str) -> torch.Tensor:
+    return mlp_hidden(p, x, act_name) @ p["w_down"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

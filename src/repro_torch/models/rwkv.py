@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import gather_cols, row_parallel
 from repro_torch.models.layers import dense_init
 
 _MIX = ("w", "k", "v", "r", "g")
@@ -134,25 +135,49 @@ def _group_norm(y: torch.Tensor, scale: torch.Tensor, eps: float
 
 
 def rwkv6_time_mix(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
-                   x: torch.Tensor, state: Optional[dict], mode: str):
+                   x: torch.Tensor, state: Optional[dict], mode: str,
+                   tp=None):
+    """The time mix of x (B, S, d) → ((B, S, d), its new state leaves).
+
+    ``tp``: the model's ``TensorParallel`` where it is placed on the
+    model axis; ``p`` and ``state`` then hold this rank's shards (the
+    tables split ``wr``, ``wk``, ``wv``, ``wg`` and ``decay_w2`` by
+    columns, ``bonus_u``, ``ln_scale`` and the ``wkv`` state by head,
+    ``wo`` by rows; the token-shift mixes and their state are whole).
+    Where the rank's columns are whole heads it runs them, with its
+    slice of ``decay_base``; where they split a head (the heads do not
+    divide the axis: ``bonus_u``, ``ln_scale`` and the state are whole)
+    r, k, v, g and the decay are gathered and every rank runs every
+    head. Either way the output goes through the rank's rows of ``wo``,
+    summed over the ranks."""
     b, s, d = x.shape
     h, hd = _heads(cfg)
     dt, f32 = x.dtype, torch.float32
     prev = state["shift_tm"] if state is not None else None
     xw, xk, xv, xr, xg = _ddlerp(p, x, _shift_delta(x, prev, mode))
 
-    r = (xr @ p["wr"].to(dt)).reshape(b, s, h, hd)
-    k = (xk @ p["wk"].to(dt)).reshape(b, s, h, hd)
-    v = (xv @ p["wv"].to(dt)).reshape(b, s, h, hd)
-    g = F.silu(xg @ p["wg"].to(dt))
-    decay = (p["decay_base"].to(f32)
-             + (torch.tanh(xw @ p["decay_w1"].to(dt))
-                @ p["decay_w2"].to(dt)).to(f32))
-    w = torch.exp(-torch.exp(decay)).reshape(b, s, h, hd)
+    r = xr @ p["wr"].to(dt)
+    k = xk @ p["wk"].to(dt)
+    v = xv @ p["wv"].to(dt)
+    g = xg @ p["wg"].to(dt)
+    dw = torch.tanh(xw @ p["decay_w1"].to(dt)) @ p["decay_w2"].to(dt)
+    n = r.shape[-1]
+    if n % hd:                          # a head split: every head whole
+        r, k, v, g, dw = gather_cols(tp, (r, k, v, g, dw), (d,) * 5)
+        n = d
+    # this rank's channels [lo, lo + n) and heads [h0, h0 + hl)
+    lo = 0 if n == d else tp.rank * n
+    h0, hl = lo // hd, n // hd
+    g = F.silu(g)
+    decay = p["decay_base"].to(f32)[lo:lo + n] + dw.to(f32)
+    w = torch.exp(-torch.exp(decay)).reshape(b, s, hl, hd)
+    r, k, v = (t.reshape(b, s, hl, hd) for t in (r, k, v))
 
+    def mine(t):                        # (H, hd) → the rank's heads
+        return t[h0:h0 + hl] if t.shape[0] > hl else t
     init = (state["wkv"] if state is not None
-            else torch.zeros((b, h, hd, hd), dtype=f32, device=x.device))
-    u = p["bonus_u"].to(f32)
+            else torch.zeros((b, hl, hd, hd), dtype=f32, device=x.device))
+    u = mine(p["bonus_u"]).to(f32)
     if mode == "decode":
         final, y = _wkv_step(init, r[:, 0].to(f32), k[:, 0].to(f32),
                              v[:, 0].to(f32), w[:, 0].to(f32), u)
@@ -160,19 +185,31 @@ def rwkv6_time_mix(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     else:
         y, final = _wkv_scan(r, k, v, w, u, init)
 
-    y = _group_norm(y, p["ln_scale"].to(f32), 64e-5)
-    y = y.reshape(b, s, d).to(dt) * g
-    out = y @ p["wo"].to(dt)
+    y = _group_norm(y, mine(p["ln_scale"]).to(f32), 64e-5)
+    y = y.reshape(b, s, n).to(dt) * g
+    out = row_parallel(tp, y, p["wo"].to(dt), d)
     return out, {"wkv": final, "shift_tm": x[:, -1].to(f32)}
 
 
 def rwkv6_channel_mix(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
-                      x: torch.Tensor, state: Optional[dict], mode: str):
+                      x: torch.Tensor, state: Optional[dict], mode: str,
+                      tp=None):
+    """The channel mix of x (B, S, d) → ((B, S, d), its new state leaf).
+
+    ``tp``: as ``rwkv6_time_mix``'s. The reference's first-match table
+    gives ``cm_wv`` and ``cm_wr`` the rule of ``wv`` and ``wr`` (split
+    by columns), so a rank holds its columns of ``k`` (``cm_wk`` by
+    columns) but needs all of ``k`` for its output columns: ``k`` is
+    gathered, then the rank's output columns are."""
     dt = x.dtype
     prev = state["shift_cm"] if state is not None else None
     sx = _shift_delta(x, prev, mode)
     xk = x + sx * p["cm_mu_k"].to(dt)
     xr = x + sx * p["cm_mu_r"].to(dt)
     k = torch.square(F.relu(xk @ p["cm_wk"].to(dt)))
+    if k.shape[-1] < cfg.d_ff:
+        k = tp.gather_model(k)
     out = torch.sigmoid(xr @ p["cm_wr"].to(dt)) * (k @ p["cm_wv"].to(dt))
+    if out.shape[-1] < cfg.d_model:
+        out = tp.gather_model(out)
     return out, {"shift_cm": x[:, -1].to(torch.float32)}

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import gather_cols, row_parallel
 from repro_torch.models.layers import dense_init, rms_norm
 
 
@@ -144,21 +145,77 @@ def _ssd_chunked(xh, dt, A, B, C, chunk, init_state):
     return (y_diag + y_off).reshape(b, s, h, p), carry
 
 
+def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+               eps: float, tp=None, width: Optional[int] = None
+               ) -> torch.Tensor:
+    """The gated RMSNorm ``rms_norm(y * silu(z), scale)`` over all
+    ``width`` channels. Where y and z hold only this model rank's
+    channels (``scale`` its slice of them), each rank's f32 sum of
+    squares is all-reduced over the model axis before the rsqrt: a norm
+    over the rank's channels alone would be another function."""
+    g = y * F.silu(z)
+    if tp is None or g.shape[-1] == width:
+        return rms_norm(g, scale, eps)
+    f32 = torch.float32
+    g32 = g.to(f32)
+    var = tp.all_reduce((g32 * g32).sum(-1, keepdim=True)) / width
+    return (g32 * torch.rsqrt(var + eps) * scale.to(f32)).to(g.dtype)
+
+
 def mamba2_apply(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
                  x: torch.Tensor, *, cache: Optional[dict] = None,
-                 mode: str = "train") -> Tuple[torch.Tensor, Optional[dict]]:
+                 mode: str = "train", tp=None
+                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x (B, S, d) → ((B, S, d), the new cache leaves or None). Decode
     takes S == 1 and the layer's cache; prefill returns the cache after
-    the prompt."""
+    the prompt.
+
+    ``tp``: the model's ``TensorParallel`` where it is placed on the
+    model axis; ``p`` and the cache then hold this rank's shards (the
+    tables split ``in_z``, ``in_x``, ``in_dt``, the x convolution, its
+    state and the ``ssm`` state by head, ``out_proj`` by rows; ``in_bc``
+    and the B/C convolution are whole, so B and C are). Where the rank's
+    channels are whole heads it runs them: its slices of ``A_log``,
+    ``D``, ``dt_bias`` and ``norm_scale``, the gated norm's sum of
+    squares all-reduced (``gated_norm``), its rows of ``out_proj``
+    summed over the ranks. Where they split a head (the heads do not
+    divide the axis: ``in_dt`` and the ``ssm`` state are whole), the x
+    convolution runs on the rank's channels, x and z are gathered, every
+    rank runs every head and keeps the whole state, and the rank's
+    channels go through its rows of ``out_proj``."""
     sc, d_in, nheads = _dims(cfg)
+    hp = sc.head_dim
     b, s, _ = x.shape
     dt_ = x.dtype
     z = x @ p["in_z"].to(dt_)
     xc = x @ p["in_x"].to(dt_)
     bc = x @ p["in_bc"].to(dt_)
     dt_raw = x @ p["in_dt"].to(dt_)
-    dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"][None, None, :])
-    A = -torch.exp(p["A_log"])
+    # this rank's channels [lo, lo + n) and heads [h0, h0 + hl)
+    n = xc.shape[-1]
+    heads = n % hp == 0
+    lo = 0 if n == d_in else tp.rank * n
+    h0, hl = (lo // hp, n // hp) if heads else (0, nheads)
+    if dt_raw.shape[-1] > hl:
+        dt_raw = dt_raw[..., h0:h0 + hl]
+    heads_of = slice(h0, h0 + hl)
+    dt = F.softplus(dt_raw.to(torch.float32)
+                    + p["dt_bias"][heads_of][None, None, :])
+    A = -torch.exp(p["A_log"][heads_of])
+    Dh = p["D"][heads_of]
+    scale = p["norm_scale"]
+    if heads and n < scale.shape[0]:
+        scale = scale[lo:lo + n]
+
+    def gather(xs, z):
+        # a head split: the ranks' x and z channels, whole
+        if heads:
+            return xs, z
+        return gather_cols(tp, (xs, z), (d_in, d_in))
+
+    def finish(y, z):
+        y = gated_norm(y, z, scale, cfg.norm_eps, tp, d_in)
+        return row_parallel(tp, y, p["out_proj"].to(dt_), d_in)
 
     if mode == "decode":
         assert s == 1 and cache is not None
@@ -166,8 +223,9 @@ def mamba2_apply(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
                                   cache["conv_x"])
         bcs, new_cbc = _causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"],
                                     cache["conv_bc"])
+        xs, z = gather(xs, z)
         Bv, Cv = torch.chunk(bcs, 2, dim=-1)
-        xh = xs.reshape(b, nheads, sc.head_dim).to(torch.float32)
+        xh = xs.reshape(b, hl, hp).to(torch.float32)
         dt1 = dt[:, 0]                                    # (b,h)
         dA = torch.exp(dt1 * A[None, :])
         Bv1 = Bv[:, 0].to(torch.float32)                  # (b,n)
@@ -175,17 +233,17 @@ def mamba2_apply(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
         new_state = (cache["ssm"] * dA[..., None, None]
                      + torch.einsum("bh,bhp,bn->bhpn", dt1, xh, Bv1))
         y = torch.einsum("bhpn,bn->bhp", new_state, Cv1)
-        y = y + p["D"][None, :, None] * xh
-        y = y.reshape(b, 1, d_in).to(dt_)
-        y = rms_norm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
-        return y @ p["out_proj"].to(dt_), {
+        y = y + Dh[None, :, None] * xh
+        y = y.reshape(b, 1, -1).to(dt_)
+        return finish(y, z), {
             "ssm": new_state, "conv_x": new_cx, "conv_bc": new_cbc}
 
     # train / prefill ------------------------------------------------------
     xs, new_cx = _causal_conv(xc, p["conv_x_w"], p["conv_x_b"], None)
     bcs, new_cbc = _causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"], None)
+    xs, z = gather(xs, z)
     Bv, Cv = torch.chunk(bcs, 2, dim=-1)
-    xh = xs.reshape(b, s, nheads, sc.head_dim)
+    xh = xs.reshape(b, s, hl, hp)
     chunk = min(sc.chunk, s)
     # pad to a chunk multiple (padded dt = 0: no state update, no decay)
     pad = (-s) % chunk
@@ -195,10 +253,9 @@ def mamba2_apply(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
         dt = F.pad(dt, (0, 0, 0, pad))
     y, final_state = _ssd_chunked(xh, dt, A, Bv, Cv, chunk, None)
     y = y[:, :s]
-    y = y + p["D"][None, None, :, None] * xh[:, :s].to(torch.float32)
-    y = y.reshape(b, s, d_in).to(dt_)
-    y = rms_norm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(dt_)
+    y = y + Dh[None, None, :, None] * xh[:, :s].to(torch.float32)
+    y = y.reshape(b, s, -1).to(dt_)
+    out = finish(y, z)
     if mode == "prefill" and cache is not None:
         return out, {"ssm": final_state, "conv_x": new_cx,
                      "conv_bc": new_cbc}

@@ -59,7 +59,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, embed_init, layer_norm,
-                                       mlp_apply, mlp_init, rms_norm)
+                                       mlp_hidden, mlp_init, rms_norm)
 from repro_torch.launch.sharding import (TensorParallel, check_tp_family,
                                          is_placed, local, place_cache,
                                          place_params)
@@ -136,7 +136,25 @@ def _write(views: Optional[dict], new: Optional[dict]) -> None:
             views[k].copy_(t)
 
 
-class AttnBlock(nn.Module):
+class _Block(nn.Module):
+    """A layer that runs on the model axis: ``Transformer.set_tp`` gives
+    it the model's ``TensorParallel`` and the local shards of each of its
+    parameter groups (its children), which ``_part`` reads."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.tp = None
+        self.shards = None
+
+    def _part(self, name: str):
+        """A parameter group as the layer computes on it: the local
+        shards on the model axis, else the module's own."""
+        return (getattr(self, name) if self.shards is None
+                else self.shards[name])
+
+
+class AttnBlock(_Block):
     """Pre-norm attention block: ``ln1``, ``attn`` (GQA or MLA), with
     ``cross`` ``ln_x`` and ``xattn`` (cross attention over the encoder's
     output), ``ln2``, and ``mlp`` of ``d_ff`` or, with ``use_moe``,
@@ -144,13 +162,8 @@ class AttnBlock(nn.Module):
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, *,
                  d_ff: int, use_moe: bool = False, cross: bool = False):
-        super().__init__()
-        self.cfg = cfg
+        super().__init__(cfg)
         self.d_ff = d_ff
-        # the model axis (``Transformer.set_tp``): its ``TensorParallel``
-        # and the local shards of ln1, attn, ln2 and mlp
-        self.tp = None
-        self.shards = None
         dtype, dev = _dtype(cfg.param_dtype), gen.device
         self.ln1 = _norm_init(cfg, dtype, dev)
         self.ln2 = _norm_init(cfg, dtype, dev)
@@ -166,12 +179,6 @@ class AttnBlock(nn.Module):
         else:
             self.mlp = _params(mlp_init(gen, cfg.d_model, d_ff,
                                         gated=cfg.gated_mlp, dtype=dtype))
-
-    def _part(self, name: str):
-        """A parameter group as the layer computes on it: the local
-        shards on the model axis, else the module's own."""
-        return (getattr(self, name) if self.shards is None
-                else self.shards[name])
 
     def step(self, x: torch.Tensor, *, positions: torch.Tensor,
              mrope_positions: Optional[torch.Tensor] = None,
@@ -200,67 +207,65 @@ class AttnBlock(nn.Module):
         x = x + a
         if self.cross:
             assert enc_out is not None
-            x = x + attn.cross_attention(self.xattn, cfg,
-                                         _norm(cfg, self.ln_x, x), enc_out)
+            x = x + attn.cross_attention(
+                self._part("xattn"), cfg, _norm(cfg, self._part("ln_x"), x),
+                enc_out, tp=self.tp)
         h = _norm(cfg, self._part("ln2"), x)
         if self.use_moe:
             m, aux = moe_mod.moe_apply(self._part("moe"), cfg, h, tp=self.tp)
             return x + m, cache, aux
+        return x + self._mlp(h), cache, None
+
+    def _mlp(self, h: torch.Tensor) -> torch.Tensor:
+        """The MLP; on the model axis its columns, then the rows of
+        ``w_down`` summed over the ranks."""
         mlp = self._part("mlp")
-        y = mlp_apply(mlp, h, cfg.activation)
-        if self.tp is not None and mlp["w_down"].shape[0] < self.d_ff:
-            y = self.tp.all_reduce(y)       # the rows of w_down: summed
-        return x + y, cache, None
+        return attn.row_parallel(
+            self.tp, mlp_hidden(mlp, h, self.cfg.activation),
+            mlp["w_down"].to(h.dtype), self.d_ff)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """The Whisper encoder's block: bidirectional self-attention with
-        the GQA weights, no positions, then the MLP."""
+        the GQA weights, no positions, then the MLP. On the model axis
+        each rank runs its heads (or, where they do not divide it, its
+        rows of the frames over every head) and its MLP columns."""
         cfg = self.cfg
-        p = self.attn
-        h = _norm(cfg, self.ln1, x)
-        b, s, _ = h.shape
-        hd, dt = cfg.head_dim, h.dtype
-        q = (h @ p["wq"].to(dt)).reshape(b, s, cfg.num_heads, hd)
-        k = (h @ p["wk"].to(dt)).reshape(b, s, cfg.num_kv_heads, hd)
-        v = (h @ p["wv"].to(dt)).reshape(b, s, cfg.num_kv_heads, hd)
-        mask = torch.ones((s, s), dtype=torch.bool, device=x.device)
-        ctx = attn._sdpa(q, k, v, mask, 1.0 / (hd ** 0.5), 0.0,
-                         cfg.q_per_kv)
-        x = x + ctx.reshape(b, s, cfg.num_heads * hd) @ p["wo"].to(dt)
-        h = _norm(cfg, self.ln2, x)
-        return x + mlp_apply(self.mlp, h, cfg.activation)
+        h = _norm(cfg, self._part("ln1"), x)
+        x = x + attn.full_attention(self._part("attn"), cfg, h, h,
+                                    kv_heads=cfg.num_kv_heads, tp=self.tp,
+                                    seq_parallel=True)
+        return x + self._mlp(_norm(cfg, self._part("ln2"), x))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor
                 ) -> torch.Tensor:
         return self.step(x, positions=positions)[0]
 
 
-class MambaBlock(nn.Module):
+class MambaBlock(_Block):
     """Pre-norm Mamba2 block: ``ln``, ``mamba``."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
-        super().__init__()
-        self.cfg = cfg
+        super().__init__(cfg)
         dtype = _dtype(cfg.param_dtype)
         self.ln = _norm_init(cfg, dtype, gen.device)
         self.mamba = _params(ssm_mod.mamba2_init(gen, cfg, dtype))
 
     def step(self, x: torch.Tensor, cache: Optional[dict], mode: str
              ) -> torch.Tensor:
-        y, new = ssm_mod.mamba2_apply(self.mamba, self.cfg,
-                                      _norm(self.cfg, self.ln, x),
-                                      cache=cache, mode=mode)
+        y, new = ssm_mod.mamba2_apply(
+            self._part("mamba"), self.cfg,
+            _norm(self.cfg, self._part("ln"), x), cache=cache, mode=mode,
+            tp=self.tp)
         _write(cache, new)
         return x + y
 
 
-class RWKVBlock(nn.Module):
+class RWKVBlock(_Block):
     """RWKV6 block: ``ln1``, the time mix, ``ln2``, the channel mix (both
     mixes' leaves under ``mix``)."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
-        super().__init__()
-        self.cfg = cfg
+        super().__init__(cfg)
         dtype = _dtype(cfg.param_dtype)
         self.ln1 = _norm_init(cfg, dtype, gen.device)
         self.ln2 = _norm_init(cfg, dtype, gen.device)
@@ -268,12 +273,14 @@ class RWKVBlock(nn.Module):
 
     def step(self, x: torch.Tensor, state: Optional[dict], mode: str
              ) -> torch.Tensor:
-        cfg = self.cfg
+        cfg, mix = self.cfg, self._part("mix")
         y, st_tm = rwkv_mod.rwkv6_time_mix(
-            self.mix, cfg, _norm(cfg, self.ln1, x), state, mode)
+            mix, cfg, _norm(cfg, self._part("ln1"), x), state, mode,
+            tp=self.tp)
         x = x + y
         y, st_cm = rwkv_mod.rwkv6_channel_mix(
-            self.mix, cfg, _norm(cfg, self.ln2, x), state, mode)
+            mix, cfg, _norm(cfg, self._part("ln2"), x), state, mode,
+            tp=self.tp)
         # both mixes read the state before either is written
         _write(state, {**st_tm, **st_cm})
         return x + y
@@ -311,43 +318,41 @@ class Transformer(nn.Module):
         # blocks of the ``dense`` group; the rest form the ``moe`` group
         self.n_dense = min(cfg.moe.first_dense_layers if cfg.moe
                            else cfg.num_layers, cfg.num_layers)
+        # ``place`` (a model built onto the model axis) places what is
+        # built so far before the next block is drawn, so a rank holds its
+        # shards and one block whole, never the whole model
+        placed = place if place is not None else (lambda m: None)
+
+        def build(name: str, make: Callable, n: int):
+            setattr(self, name, nn.ModuleList())
+            for i in range(n):
+                getattr(self, name).append(make(i))
+                placed(self)
+        placed(self)
         if cfg.family == "audio":
             self.enc_pos_embed = nn.Parameter(
                 embed_init(gen, cfg.encoder_seq_len, cfg.d_model, dtype),
                 requires_grad=False)
-            self.enc_blocks = nn.ModuleList(
-                [AttnBlock(cfg, gen, d_ff=cfg.d_ff)
-                 for _ in range(cfg.num_encoder_layers)])
+            build("enc_blocks", lambda i: AttnBlock(cfg, gen, d_ff=cfg.d_ff),
+                  cfg.num_encoder_layers)
             self.enc_final_norm = _norm_init(cfg, dtype, dev)
-            self.blocks = nn.ModuleList(
-                [AttnBlock(cfg, gen, d_ff=cfg.d_ff, cross=True)
-                 for _ in range(cfg.num_layers)])
+            build("blocks", lambda i: AttnBlock(cfg, gen, d_ff=cfg.d_ff,
+                                                cross=True), cfg.num_layers)
         elif cfg.family == "hybrid":
             if cfg.num_layers % cfg.shared_attn_period:
                 raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are "
                                  f"not groups of {cfg.shared_attn_period}")
-            self.blocks = nn.ModuleList([MambaBlock(cfg, gen)
-                                         for _ in range(cfg.num_layers)])
+            build("blocks", lambda i: MambaBlock(cfg, gen), cfg.num_layers)
             self.shared = AttnBlock(cfg, gen, d_ff=cfg.d_ff)
         elif cfg.rwkv is not None:
-            self.blocks = nn.ModuleList([RWKVBlock(cfg, gen)
-                                         for _ in range(cfg.num_layers)])
+            build("blocks", lambda i: RWKVBlock(cfg, gen), cfg.num_layers)
         else:
             dense_ff = (cfg.moe.dense_d_ff if cfg.moe and cfg.moe.dense_d_ff
                         else cfg.d_ff)
-            # ``place`` (a model built onto the model axis) places what is
-            # built so far before the next block is drawn, so a rank holds
-            # its shards and one block whole, never the whole model
-            if place is not None:
-                place(self)
-            self.blocks = nn.ModuleList()
-            for i in range(cfg.num_layers):
-                moe = i >= self.n_dense
-                self.blocks.append(AttnBlock(
-                    cfg, gen, d_ff=cfg.d_ff if moe else dense_ff,
-                    use_moe=moe))
-                if place is not None:
-                    place(self)
+            build("blocks", lambda i: AttnBlock(
+                cfg, gen, d_ff=dense_ff if i < self.n_dense else cfg.d_ff,
+                use_moe=i >= self.n_dense), cfg.num_layers)
+        placed(self)
 
     @property
     def kind(self) -> str:
@@ -374,8 +379,10 @@ class Transformer(nn.Module):
     def set_tp(self, tp) -> None:
         """Run on the model axis: ``tp`` (a ``TensorParallel``) after every
         parameter was placed (``launch.sharding.tp_shard``); the layers
-        then compute on the local shards, kept here once (an MoE block's
-        ``moe`` tree nested as the reference's: ``shared`` under it)."""
+        then compute on the local shards, kept here once: each block's
+        (decoder, encoder, Mamba2, RWKV6 and the hybrid's shared block)
+        by its parameter groups (an MoE block's ``moe`` tree nested as the
+        reference's: ``shared`` under it), and the model's own."""
         def shards(mod):
             out = {}
             for name, p in mod.named_parameters():
@@ -386,15 +393,25 @@ class Transformer(nn.Module):
                 node[leaf] = local(p)
             return out
         self.tp = tp
-        for block in self.blocks:
-            block.tp = tp
-            ffn = "moe" if block.use_moe else "mlp"
-            block.shards = {n: shards(getattr(block, n))
-                            for n in ("ln1", "attn", "ln2", ffn)}
-        self.shards = {"embed": local(self.embed),
-                       "head": (local(self.embed).t() if self.lm_head is None
-                                else local(self.lm_head)),
-                       "final_norm": shards(self.final_norm)}
+        for block in self.modules():
+            if isinstance(block, _Block):
+                block.tp = tp
+                block.shards = {n: shards(c)
+                                for n, c in block.named_children()}
+        self.shards = {"head": (local(self.embed).t() if self.lm_head is None
+                                else local(self.lm_head))}
+        for name in ("embed", "pos_embed", "enc_pos_embed"):
+            if getattr(self, name, None) is not None:
+                self.shards[name] = local(getattr(self, name))
+        for name in ("final_norm", "enc_final_norm"):
+            if hasattr(self, name):
+                self.shards[name] = shards(getattr(self, name))
+
+    def _own(self, name: str):
+        """A model-level parameter (group) as ``_run`` computes on it: its
+        local shard on the model axis, else the module's own."""
+        return getattr(self, name) if self.shards is None \
+            else self.shards[name]
 
     def hidden(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """The block stack over already-embedded x (B, S, d), positions
@@ -521,12 +538,14 @@ class Transformer(nn.Module):
             cache = {k: ({n: local(t) for n, t in v.items()}
                          if k in GROUPS else local(v))
                      for k, v in cache.items()}
-            rows = {g: _shard_rows(placed[g]["k" if "k" in placed[g]
-                                             else "ckv"], tp)
-                    for g in GROUPS if g in placed}
+            # the attention groups' rows (the recurrent ones have none)
+            rows = {g: _shard_rows(placed[g][leaf], tp)
+                    for g in GROUPS if g in placed
+                    for leaf in ("k", "ckv") if leaf in placed[g]}
         logits, new, aux = self._run(
             tp.batch_rows(tokens), vision_embeds=tp.batch_rows(vision_embeds),
-            encoder_frames=None, cache=cache, mode=mode, remat=remat,
+            encoder_frames=tp.batch_rows(encoder_frames), cache=cache,
+            mode=mode, remat=remat,
             prompt_lengths=tp.batch_rows(prompt_lengths), cache_rows=rows)
         logits = tp.gather_batch(logits, b)
         if new is None:
@@ -559,12 +578,13 @@ class Transformer(nn.Module):
         kw = dict(positions=positions, cache_pos=cache_pos, mode=mode,
                   kv_lengths=kv_lengths)
         kind = self.kind
+        rows = cache_rows or {}
         if kind == "audio":
             enc_out = self._encode(encoder_frames, cache, mode, remat)
             for i, block in enumerate(self.blocks):
                 x = _remat(block.step, remat)(
                     x, cache=self._views(cache, "self", i), enc_out=enc_out,
-                    **kw)[0]
+                    cache_rows=rows.get("self"), **kw)[0]
         elif kind == "hybrid":
             period = cfg.shared_attn_period
 
@@ -575,7 +595,8 @@ class Transformer(nn.Module):
                     x = self.blocks[i].step(
                         x, self._views(cache, "mamba", i), mode)
                 return self.shared.step(
-                    x, cache=self._views(cache, "shared", j), **kw)[0]
+                    x, cache=self._views(cache, "shared", j),
+                    cache_rows=rows.get("shared"), **kw)[0]
             for j in range(self.attn_applications):
                 x = _remat(superstep, remat)(x, j)
         elif kind == "rwkv":
@@ -589,12 +610,11 @@ class Transformer(nn.Module):
                 x, _, a = _remat(block.step, remat)(
                     x, mrope_positions=mrope_positions,
                     cache=self._views(cache, group, j),
-                    cache_rows=cache_rows and cache_rows.get(group), **kw)
+                    cache_rows=rows.get(group), **kw)
                 if a is not None:
                     aux = aux + a
 
-        x = _norm(cfg, self.final_norm if self.shards is None
-                  else self.shards["final_norm"], x)
+        x = _norm(cfg, self._own("final_norm"), x)
         if mode == "prefill":
             if prompt_lengths is not None:
                 idx = (prompt_lengths - 1).to(torch.long)
@@ -635,25 +655,27 @@ class Transformer(nn.Module):
             return cache["enc_out"].to(self.adtype)
         assert encoder_frames is not None, "audio needs encoder_frames"
         e = encoder_frames.to(self.device, self.adtype)
-        e = e + self.enc_pos_embed.to(self.adtype)[None, :e.shape[1]]
+        frames = torch.arange(e.shape[1], device=e.device)
+        e = e + self._rows("enc_pos_embed", frames)[None]
         for block in self.enc_blocks:
             e = _remat(block.encode, remat)(e)
-        e = _norm(self.cfg, self.enc_final_norm, e)
+        e = _norm(self.cfg, self._own("enc_final_norm"), e)
         if cache is not None:
             cache["enc_out"].copy_(e)
         return e
 
     # ------------------------------------------------------------- internals
-    def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
-        """The embedding rows of ``tokens`` in the activation dtype. A
-        table split by its vocabulary (the model axis) gives each rank's
-        rows of its own ids, zeros elsewhere, summed over the ranks."""
-        ids = tokens.long()
+    def _rows(self, name: str, ids: torch.Tensor) -> torch.Tensor:
+        """Rows ``ids`` of the table ``name`` (``embed``, ``pos_embed``,
+        ``enc_pos_embed``) in the activation dtype. A table split by its
+        rows (the model axis) gives each rank's rows of its own ids,
+        zeros elsewhere, summed over the ranks."""
+        ids = ids.long()
         if self.shards is None:
-            return self.embed.to(self.adtype)[ids]
-        tab = self.shards["embed"]
+            return getattr(self, name).to(self.adtype)[ids]
+        tab = self.shards[name]
         n = tab.shape[0]
-        if n == self.cfg.vocab_size:
+        if n == getattr(self, name).shape[0]:
             return tab[ids].to(self.adtype)
         ids = ids - self.tp.rank * n
         inside = ((ids >= 0) & (ids < n))[..., None]
@@ -663,7 +685,7 @@ class Transformer(nn.Module):
     def _embed(self, tokens, vision_embeds, cache_pos, cached_delta, mode):
         cfg = self.cfg
         b = tokens.shape[0]
-        x = self._lookup(tokens)
+        x = self._rows("embed", tokens)
         if vision_embeds is not None and mode != "decode":
             x = torch.cat([vision_embeds.to(self.adtype), x], dim=1)
         s = x.shape[1]
@@ -678,9 +700,9 @@ class Transformer(nn.Module):
                 x.device)
         if cfg.pos_type == "learned":
             # a position past the table reads its last row, as the
-            # reference's gather clamps it
-            table = self.pos_embed.to(self.adtype)
-            x = x + table[positions.clamp(max=table.shape[0] - 1)]
+            # reference's gather clamps it (before a split table masks)
+            x = x + self._rows("pos_embed", positions.clamp(
+                max=self.pos_embed.shape[0] - 1))
         return x, positions, mrope_positions, delta
 
     def _mrope_positions(self, b, s, vision_embeds, cache_pos, cached_delta,

@@ -35,7 +35,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.registry import get_smoke_config
+from repro_torch.configs.registry import (ARCH_IDS, get_config,
+                                          get_smoke_config)
 from repro_torch.kernels import decode_attention as tdecode
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import sharding as shd
@@ -413,14 +414,12 @@ def test_reference_weights_on_the_mesh(ranks, twins, arch):
                                **REF_CLOSE)
 
 
-def test_tp_family_check():
-    """The three archs of this slice pass the family check; the Mamba2
-    hybrid, RWKV6 and Whisper still raise ``NotImplementedError``."""
-    for arch in ARCHS:
-        shd.check_tp_family(get_smoke_config(arch))
-    for arch in ("zamba2-2.7b", "rwkv6-1.6b", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            shd.check_tp_family(get_smoke_config(arch))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_tp_family_check(arch):
+    """Every arch of the registry passes the family check, at smoke and
+    full size: each serves on the model axis."""
+    shd.check_tp_family(get_smoke_config(arch))
+    shd.check_tp_family(get_config(arch))
 
 
 # ------------------------------------------------ plain #6 partials
