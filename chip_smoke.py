@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
-12, 15–20, 7, 26, 13, 14, 8, 9, 21–25, 27, 28:
+12, 15–20, 7, 26, 13, 14, 8, 9, 21–25, 27, 28, 29:
 
 1. build      — compile the CUDA kernels from ``src/repro_torch/kernels/
                 csrc`` (one nvcc per source, all started together);
@@ -328,6 +328,27 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 the profiler over decode steps 2–4. The
                 one-process run is the launcher's ``main`` in this
                 process.
+29. tp_train  — training on the model axis: ``python -m
+                repro_torch.launch.train --model 2`` under ``torchrun``
+                with 4 ranks on this card over gloo (each rank this
+                script's ``--train-worker``, around the launcher's
+                ``main``): DeepSeek-LLM-7B at full width cut to 4
+                layers, f32 weights and activations, TF32 off, remat on,
+                3 steps of 4 × 512 tokens (``mesh_train``'s batches) on
+                a (2, 2) mesh — FSDP2 over ``data`` × the port's tensor
+                parallelism over ``model``, every parameter a 2-D
+                DTensor. Rank 0 first runs the same 3 steps in one
+                process on the card (f32: ``mesh_train``'s are bf16);
+                the mesh's losses within rtol ``TRAIN_TP_LOSS`` of its,
+                every parameter after step 3 (gathered whole) within
+                ``TRAIN_TP_UPDATE`` of its update a leaf (relative L2 of
+                the difference over the one process's step-1-to-3
+                movement; AdamW moves the elements whose gradient sits
+                at f32 rounding level by a share of lr), each printed;
+                every rank's model-axis collective bytes by op in each
+                step equal to ``launch.dryrun``'s count for the same
+                config, shape and mesh; no kernel launched; the step
+                times by rank 0's clock.
 
 Prints the card's name and power limit, one line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
@@ -335,7 +356,8 @@ Every kernel's launch count is read around the phase that drives its path
 (main: fused retrieval and scene score; dense: the dense scans; serve,
 serve_mla, serve_moe, serve_olmoe, serve_zoo, serve_hybrid, serve_rwkv
 and serve_whisper: the decode kernels; tp_serve: #5 or #6 and the
-cross-rank merge in each rank;
+cross-rank merge in each rank; mesh_train and tp_train: none (training
+runs no hand-written kernel);
 tier: fused retrieval, two a group; standing: fused retrieval, one a
 committing tick; shard: fused retrieval and the dense stack scan, one a
 slab a group).
@@ -350,6 +372,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -357,6 +380,12 @@ FP32_FLOP_PER_S = 67e12            # H100 SXM, fp32 outside tensor cores
 BF16_TENSOR_FLOP_PER_S = 989e12    # H100 SXM, bf16 on the tensor cores
 S, N, D, Q, T, K = 16, 8192, 768, 8, 32, 8
 TAU = 0.1
+
+
+def elapsed() -> None:
+    """Print the script's seconds so far (between main's phase groups)."""
+    print(f"  [{time.perf_counter() - T_START:.1f} s since start]",
+          flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -4775,6 +4804,243 @@ def phase_tp_serve(card):
     return res
 
 
+# ---------------------------------------------------------------- tp_train
+# Training on the model axis: the training launcher under torchrun, 4
+# ranks on this card, FSDP2 over data × tensor parallelism over model.
+TRAIN_TP_MESH = (2, 2)
+TRAIN_TP_ARGS = ("--arch", "deepseek-7b", "--full", "--layers",
+                 str(MESH_LAYERS), "--dtype", "float32", "--remat",
+                 "--steps", str(MESH_STEPS), "--batch", "4", "--seq",
+                 str(TRAIN_SEQ), "--model", str(TRAIN_TP_MESH[1]))
+TRAIN_TP_LOSS = 1e-5            # rtol of a step's loss
+TRAIN_TP_UPDATE = 1e-2          # ‖p_mesh − p_one‖ / ‖p_one − p_init‖
+
+
+def tp_train_config():
+    """``TRAIN_TP_ARGS``' model: DeepSeek-LLM-7B at full width, cut to
+    ``MESH_LAYERS``, f32 activations."""
+    from repro_torch.configs.registry import get_config
+    return get_config("deepseek-7b").replace(num_layers=MESH_LAYERS,
+                                            dtype="float32")
+
+
+def train_worker(argv) -> int:
+    """One rank of phase tp_train under ``torchrun``: rank 0 first runs
+    the launcher's steps in one process on the card (the same seed,
+    config, batches and hyperparameters) and keeps its losses, its
+    parameters after the last step and each leaf's movement on the host;
+    then every rank runs ``repro_torch.launch.train.main(argv)``, each
+    step timed and its model-axis collective bytes recorded
+    (``TensorParallel.moved``); after it every parameter is gathered whole
+    (``full_tensor``) and rank 0 measures it against its one-process
+    leaf. Writes ``<out>.rank<r>.json``; any failure raises."""
+    import faulthandler
+    import json as _json
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import trainer
+    faulthandler.enable()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = argv[argv.index("--out") + 1]
+    argv = argv[:argv.index("--out")]
+    rank = int(os.environ["RANK"])
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    torch.cuda.set_device(local % torch.cuda.device_count())
+    ref = {}
+    if rank == 0:
+        ref = _one_process_train()
+    held = dict(rank=rank, steps=[], losses=[], bytes=[])
+    st = {}
+    shard = trainer.fsdp_shard
+
+    def keep(model, mesh):
+        st["model"] = shard(model, mesh)
+        return st["model"]
+    trainer.fsdp_shard = keep
+    make = launch_train.make_train_step
+
+    def timed(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(model, opt, batch, i):
+            model.tp.moved = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, opt, m = step(model, opt, batch, i)
+            held["losses"].append(float(m["loss"]))
+            torch.cuda.synchronize()
+            held["steps"].append(time.perf_counter() - t0)
+            held["bytes"].append(dict(model.tp.moved))
+            model.tp.moved = None
+            return model, opt, m
+        return run
+    launch_train.make_train_step = timed
+    destroy = dist.destroy_process_group
+    dist.destroy_process_group = lambda *a, **kw: None
+    ops.reset_kernel_launches()
+    try:
+        launch_train.main(argv)
+    finally:
+        dist.destroy_process_group = destroy
+        trainer.fsdp_shard = shard
+        launch_train.make_train_step = make
+    held["kernel_launches"] = {k: v for k, v in
+                               ops.kernel_launches().items() if v}
+    from repro_torch.launch.sharding import gather_whole
+    worst = {}
+    with torch.no_grad():
+        for name, p in st.pop("model").named_parameters():
+            full = gather_whole(p)
+            if rank == 0:
+                want = ref["final"].pop(name).to(full.device)
+                d = float((full - want).norm())
+                worst[name] = (d / ref["moved"][name] if ref["moved"][name]
+                               else 0.0 if d == 0 else float("inf"))
+                del want
+            del full
+    if rank == 0:
+        held.update(one_losses=ref["losses"], one_steps=ref["steps"],
+                    update_rel_l2=worst)
+    dist.barrier()
+    destroy()
+    with open(f"{out}.rank{rank}.json", "w") as f:
+        _json.dump(held, f)
+    return 0
+
+
+def _one_process_train():
+    """``TRAIN_TP_ARGS``' run in one process on the card, with no mesh:
+    its config, seed-0 weights, batches (the launcher's ``lm_batches``,
+    seed 0) and hyperparameters (its default lr, warm-up and remat) →
+    losses, step seconds, final parameters on the host and ‖final −
+    initial‖ a leaf."""
+    import torch
+    from repro_torch.models.transformer import init_model
+    from repro_torch.training import (TrainHParams, adamw_init,
+                                      make_train_step)
+    cfg = tp_train_config()
+    model = init_model(cfg, seed=0, device="cuda")
+    init = {k: p.detach().to("cpu", copy=True)
+            for k, p in model.named_parameters()}
+    opt = adamw_init(dict(model.named_parameters()))
+    step = make_train_step(cfg, TrainHParams(
+        base_lr=3e-4, warmup=max(MESH_STEPS // 10, 1),
+        total_steps=MESH_STEPS, remat=True))
+    losses, secs = [], []
+    for i, b in enumerate(lm_batches_for(cfg, 4, TRAIN_SEQ, MESH_STEPS,
+                                         seed=0)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, b, i)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    final = {k: p.detach().to("cpu", copy=True)
+             for k, p in model.named_parameters()}
+    moved = {k: float((final[k] - init.pop(k)).norm()) for k in final}
+    del model, opt, step
+    free_card()
+    return dict(losses=losses, steps=secs, final=final, moved=moved)
+
+
+def phase_tp_train(card):
+    """The training launcher on the model axis (``python -m
+    repro_torch.launch.train --model 2`` under torchrun, ``train_worker``
+    in each rank, 4 ranks on this card over gloo): the (2, 2) mesh's
+    losses and parameters after step 3 held to rank 0's one-process run,
+    each rank's model-axis collective bytes a step held to the dry run's
+    count, the step times printed."""
+    import shutil
+    import statistics
+    import tempfile
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_abstract_mesh
+    cfg = tp_train_config()
+    out_dir = tempfile.mkdtemp(prefix="tp-train-")
+    out = os.path.join(out_dir, "tp_train")
+    world = TRAIN_TP_MESH[0] * TRAIN_TP_MESH[1]
+    free_card()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(world), os.path.join(HERE, "chip_smoke.py"),
+         "--train-worker", *TRAIN_TP_ARGS, "--out", out],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    try:
+        # the dry run on the host while the ranks start and train
+        t1 = time.perf_counter()
+        rec = dryrun.lower_combo(
+            "deepseek-7b", ShapeSpec("train_4k", TRAIN_SEQ, 4, "train"),
+            mesh=make_abstract_mesh(TRAIN_TP_MESH, ("data", "model")),
+            cfg=cfg, verbose=False)
+        t_dry = time.perf_counter() - t1
+        stdout, stderr = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    t_run = time.perf_counter() - t0
+    want = {op: v for op, v in
+            rec["model_axis_collective_bytes_per_device"].items() if v}
+    check(want.get("all-reduce", 0) > 0, f"tp_train: dry run {want}")
+    check(proc.returncode == 0, f"tp_train: exit {proc.returncode}\n"
+          f"{stdout[-3000:]}\n{stderr[-5000:]}")
+    check("[ranks] world 4, backend gloo" in stdout
+          and "mesh=(data 2, model 2) fsdp x tp" in stdout,
+          f"tp_train: {stdout[-2000:]}")
+    ranks = []
+    for r in range(world):
+        with open(f"{out}.rank{r}.json") as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+    losses, one = r0["losses"], r0["one_losses"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, one)]
+    worst = max(r0["update_rel_l2"], key=r0["update_rel_l2"].get)
+    upd = r0["update_rel_l2"][worst]
+    check(len(losses) == MESH_STEPS and max(loss_rel) <= TRAIN_TP_LOSS,
+          f"tp_train: losses {losses} vs one process {one}")
+    check(upd <= TRAIN_TP_UPDATE,
+          f"tp_train: parameters after step {MESH_STEPS}: {worst} differs "
+          f"by {upd:.3e} of its update > {TRAIN_TP_UPDATE}")
+    for rk in ranks:
+        check(not rk["kernel_launches"],
+              f"tp_train rank {rk['rank']}: kernels {rk['kernel_launches']}")
+        for i, got in enumerate(rk["bytes"]):
+            got = {op: v for op, v in got.items() if v}
+            check(got == want, f"tp_train rank {rk['rank']} step {i}: "
+                  f"model-axis bytes {got} != dry run's {want}")
+    res = dict(mesh=list(TRAIN_TP_MESH), layers=MESH_LAYERS, losses=losses,
+               one_process_losses=one, loss_rel=loss_rel,
+               update_rel_l2_worst=[worst, upd],
+               update_rel_l2=r0["update_rel_l2"],
+               step_s=r0["steps"], one_process_step_s=r0["one_steps"],
+               step_s_median=statistics.median(r0["steps"][1:]),
+               model_axis_bytes=want,
+               collective_bytes=rec["collective_bytes_per_device"],
+               dryrun_s=t_dry, run_s=t_run, bound_loss=TRAIN_TP_LOSS,
+               bound_update=TRAIN_TP_UPDATE)
+    print(f"phase tp_train: ok  deepseek-7b {MESH_LAYERS} layers f32 at "
+          f"(2, 2), 4 x {TRAIN_SEQ}: losses {losses} vs one process {one} "
+          f"(rel {[f'{x:.2e}' for x in loss_rel]}, bound {TRAIN_TP_LOSS}); "
+          f"params after step {MESH_STEPS}: worst {worst} {upd:.3e} of its "
+          f"update (bound {TRAIN_TP_UPDATE}); model-axis bytes a step "
+          f"{want} on every rank = dry run's; FSDP2 + model axis "
+          f"{rec['collective_bytes_per_device']}; step s {r0['steps']} "
+          f"(median of 2-3 {res['step_s_median']:.3f}), one process "
+          f"{r0['one_steps']}; torchrun {t_run:.1f} s, dry run "
+          f"{t_dry:.1f} s  [{card}]", flush=True)
+    for line in stdout.splitlines():
+        if line.startswith(("[train]", "[ranks]", "step ")):
+            print(f"    {line}", flush=True)
+    return res
+
+
 # name: (K slabs or None for no mesh, double_buffer, index dtype, oracle)
 SHARD_MGRS = {"a": (None, False, "float32", None),
               "b": (1, True, "float32", "a"),
@@ -5358,6 +5624,7 @@ def main() -> int:
     print(f"phase build: ok  nvcc {t_nvcc:.2f} s  (worlds generated in "
           f"{t_worlds:.2f} s)", flush=True)
 
+    elapsed()
     # 2-4, 10. each kernel against its plain version
     fused = phase_fused(gen)
     stages = phase_fused_stages(gen, card)
@@ -5365,6 +5632,7 @@ def main() -> int:
     scene = phase_scene(frames65)
     dec = phase_decode(gen)
 
+    elapsed()
     # 5. the main path, with every launch counter read around it
     cfg = VenusConfig()
     t0 = time.perf_counter()
@@ -5431,9 +5699,11 @@ def main() -> int:
           f"{n_emb / embedder.seconds:.1f} frames/s (init {t_init:.2f} s) "
           f"[{card}]", flush=True)
 
+    elapsed()
     # 6. the dense query path on the main manager
     dense = phase_dense(mgr, worlds, card)
 
+    elapsed()
     # 11-12. serving: Venus retrieval feeding Qwen2-VL-7B, then MiniCPM3-4B
     serve = phase_serve(mgr, card, akr=(results["akr"],
                                         times["queries"]["akr"]))
@@ -5442,16 +5712,19 @@ def main() -> int:
     serve_mla = phase_serve_mla(card)
     torch.cuda.empty_cache()
 
+    elapsed()
     # 15-17. the MoE family and the dense zoo through the engine
     serve_moe = phase_serve_moe(card)
     serve_olmoe = phase_serve_olmoe(card)
     serve_zoo = phase_serve_zoo(card)
 
+    elapsed()
     # 18-20. the rest of the zoo: the Mamba2 hybrid, RWKV6, Whisper
     serve_hybrid = phase_serve_hybrid(card)
     serve_rwkv = phase_serve_rwkv(card)
     serve_whisper = phase_serve_whisper(card)
 
+    elapsed()
     # 7. the int8 arena
     ops.reset_kernel_launches()
     mgr8, res8, _ = run_main_path(
@@ -5465,40 +5738,54 @@ def main() -> int:
     print(f"phase main_int8: ok  launches {l8}", flush=True)
     del mgr8
 
+    elapsed()
     # 26. the sharded, double-buffered memory path
     shard = phase_shard(worlds, card)
     torch.cuda.empty_cache()
 
+    elapsed()
     # 13. the hierarchical tier through the entry points
     tier = phase_tier(embedder, card)
     tier_full = phase_tier_full(card)
     torch.cuda.empty_cache()
 
+    elapsed()
     # 14. standing queries and the spill tier through the entry points
     standing = phase_standing(embedder, worlds, first_pass, card)
     torch.cuda.empty_cache()
 
+    elapsed()
     # 8. MEM card vs CPU, and bf16 vs f32
     mem_out = phase_mem(mem, worlds[1].frames[:4])
     del mem, embedder
 
+    elapsed()
     # 9. a small input through the card and through the plain versions
     parity = phase_parity()
 
+    elapsed()
     # 21-25. training on the card, from an empty card
     free_card()
     train = phase_train(card)
 
+    elapsed()
     # 27. FSDP2 on one card, and the dry run held to it
     ops.reset_kernel_launches()
     mesh_train = phase_mesh_train(card)
     launched = {k: v for k, v in ops.kernel_launches().items() if v}
     check(not launched, f"mesh_train launched kernels: {launched}")
 
+    elapsed()
     # 28. serving on the model axis: torchrun ranks against one process
     free_card()
     tp_serve = phase_tp_serve(card)
 
+    elapsed()
+    # 29. training on the model axis: torchrun ranks against one process
+    free_card()
+    tp_train = phase_tp_train(card)
+
+    elapsed()
     dl = dense["launches"]
 
     def scan_row(name, source, replaces, r, n_launch):
@@ -5675,8 +5962,10 @@ def main() -> int:
                        mem=mem_out, tier=tier,
                        tier_8192=tier_full, standing=standing,
                        shard=shard, mesh_train=mesh_train,
-                       tp_serve=tp_serve,
+                       tp_serve=tp_serve, tp_train=tp_train,
                        parity_tier=parity, **train), f, indent=1)
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5687,4 +5976,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-worker"]:
         sys.exit(tp_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--train-worker"]:
+        sys.exit(train_worker(sys.argv[2:]))
     sys.exit(main())

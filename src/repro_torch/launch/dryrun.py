@@ -23,11 +23,18 @@ for the global batch, and is counted as it runs:
 * ``memory``: argument and output bytes per device from the placements;
   ``temp_bytes``, an estimate: the peak of the meta storage that the
   step's ops created and still held, ÷ (data × model);
-* ``collective_bytes_per_device``: only what the port runs, FSDP2's
+* ``collective_bytes_per_device``: what the port runs, by op, with the
+  reference's ring factors (output bytes × 2.0 for an all-reduce, × 1.0
+  for an all-gather or a reduce-scatter): in the train modes FSDP2's
   parameter all-gathers (two a step: forward, and backward after the
-  reshard) and its gradient reduce-scatter in the train modes, with the
-  reference's ring factors (bytes a device × 1.0 a gathered or
-  scattered output byte). The port runs no tensor-parallel collective.
+  reshard) and its gradient reduce-scatter, from the placements; and,
+  on a mesh whose model axis is larger than 1, the model-axis
+  collectives of the port's tensor-parallel layers
+  (``model_axis_collective_bytes_per_device``), read from one rank's
+  step on the ``meta`` device through ``launch.sharding.RecordingTP``
+  (rank 0, no process group, each parameter its model-axis shard): for
+  train the forward, remat's recompute and the backward's conjugates;
+  for prefill and decode the forward.
 
 Meta tensors are not CUDA tensors, so ``kernels.ops`` takes the plain
 versions: every count is of the plain formulation, whatever kernel runs
@@ -64,8 +71,10 @@ from repro_torch.configs.registry import (ARCH_IDS, combo_is_skipped,
                                           get_config)
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import (Mesh, data_axes, hardware,
+                                     make_abstract_mesh,
                                      make_production_mesh)
 from repro_torch.launch.specs import adapt_config, input_specs, params_shape
+from repro_torch.models.params import reference_path
 from repro_torch.serving.engine import make_prefill_step, make_serve_step
 from repro_torch.training.optim import adamw_init
 from repro_torch.training.trainer import TrainHParams, make_train_step
@@ -73,8 +82,7 @@ from repro_torch.training.trainer import TrainHParams, make_train_step
 _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                 "collective-permute")
 # ring-algorithm traffic factor a gathered or scattered output byte
-_COLL_FACTOR = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
-                "all-to-all": 1.0, "collective-permute": 1.0}
+_COLL_FACTOR = shd.RING_FACTOR
 # FSDP2 all-gathers every parameter in forward, and again in backward
 # after the reshard that follows the forward
 FSDP_GATHERS_A_STEP = 2
@@ -232,6 +240,56 @@ def count_step(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, float]:
             "ops": acct.ops}
 
 
+def rank_model(cfg: ModelConfig, mesh, mode: str):
+    """Rank 0's model of ``cfg`` on ``mesh`` (abstract), on ``meta``:
+    each parameter its model-axis shard by ``mode``'s table (FSDP2
+    gathers the data axes before a layer computes), run through a
+    ``RecordingTP`` of the mesh's (data axes, model) sizes → (model, its
+    ``RecordingTP``)."""
+    sizes = dict(mesh.shape)
+    n_data = 1
+    for a in data_axes(mesh):
+        n_data *= sizes[a]
+    tp = shd.RecordingTP(make_abstract_mesh((n_data, sizes[shd.MODEL]),
+                                            ("data", shd.MODEL)))
+    model = params_shape(cfg)
+    for name, p in list(model.named_parameters()):
+        spec = shd.param_spec(reference_path(model, name), p.shape, mesh,
+                              mode=mode)
+        shd.set_param(model, name, shd.local_shard(
+            p, spec, mesh, model_only=True).contiguous())
+    model.set_tp(tp)
+    return model, tp
+
+
+def model_axis_bytes(cfg: ModelConfig, shape: ShapeSpec, mesh
+                     ) -> Dict[str, float]:
+    """Bytes by op that rank 0's model-axis collectives move in one step
+    of ``cfg`` at ``shape`` on ``mesh`` (the recording of
+    ``rank_model``'s step on ``meta``; zeros on a model axis of 1): the
+    train step with remat over the rank's rows of the global batch, the
+    prefill step or the decode step over the global batch (the model
+    takes its rows)."""
+    out = {k: 0.0 for k in _COLLECTIVES}
+    if dict(mesh.shape).get(shd.MODEL, 1) == 1:
+        return out
+    model, tp = rank_model(cfg, mesh, TRAIN_SHARDING_MODE
+                           if shape.kind == "train" else "serve")
+    specs = input_specs(cfg, shape)
+    if shape.kind == "train":
+        batch = specs["batch"]
+        bspecs = shd.batch_specs(batch, mesh)
+        rows = {k: shd.local_shard(v, bspecs[k], mesh)
+                for k, v in batch.items()}
+        opt = adamw_init(dict(model.named_parameters()))
+        build_step(cfg, shape, model)(model, opt, rows, 0)
+    else:
+        args, _ = _step_args(cfg, shape, model)
+        build_step(cfg, shape, model)(*args)
+    out.update(tp.moved)
+    return out
+
+
 def _shard_factor(spec: shd.P, mesh) -> int:
     sizes = dict(mesh.shape)
     n = 1
@@ -358,16 +416,21 @@ def lower_combo(arch: str, shape: Union[str, ShapeSpec], *,
     def extrap(k):
         return ca[k] + (cb[k] - ca[k]) * scale
 
+    t0 = time.perf_counter()
+    ma = model_axis_bytes(cfg_a, spec, mesh)
+    mb = model_axis_bytes(cfg_b, spec, mesh)
+    t_model = time.perf_counter() - t0
+    model_axis = {k: ma[k] + (mb[k] - ma[k]) * scale for k in _COLLECTIVES}
     placed = placement_bytes(cfg, spec, mesh)
     flops = extrap("flops") / n_dev
     temp = extrap("temp") / n_dev
     hw = hardware()
     peak = (hw["peak_bf16_flops"] if cfg.dtype == "bfloat16"
             else hw["peak_f32_flops"])
-    coll = {k: 0.0 for k in _COLLECTIVES}
+    coll = dict(model_axis)
     if spec.kind == "train":
-        coll["all-gather"] = placed["all-gather"]
-        coll["reduce-scatter"] = placed["reduce-scatter"]
+        coll["all-gather"] += placed["all-gather"]
+        coll["reduce-scatter"] += placed["reduce-scatter"]
     result = {
         "arch": arch,
         "shape": spec.name,
@@ -385,9 +448,18 @@ def lower_combo(arch: str, shape: Union[str, ShapeSpec], *,
         "bytes_accessed_per_device": extrap("bytes") / n_dev,
         "bytes_min_per_device": placed["min"],
         "collective_bytes_per_device": coll,
-        "collective_note": "FSDP2 all-gathers (2 a step) and the gradient "
-                           "reduce-scatter in the train modes; the port "
-                           "runs no tensor-parallel collective",
+        "model_axis_collective_bytes_per_device": model_axis,
+        "model_axis_count_s": round(t_model, 2),
+        "collective_note": "by op, the reference's ring factors (output "
+                           "bytes x 2 an all-reduce, x 1 an all-gather or "
+                           "reduce-scatter): FSDP2's all-gathers (2 a "
+                           "step) and gradient reduce-scatter over the "
+                           "data axes in the train modes, from the "
+                           "placements, plus the model-axis collectives "
+                           "of the tensor-parallel layers, recorded on "
+                           "rank 0's step on meta (train: forward, remat's "
+                           "recompute and the backward's conjugates; "
+                           "prefill and decode: the forward)",
         "memory": {
             "argument_bytes": placed["argument"],
             "output_bytes": placed["output"],

@@ -47,13 +47,21 @@ from repro_torch.launch.mesh import data_axes
 FSDP = "__fsdp__"
 MODEL = "model"
 _BATCH = "__batch__"
+# the reference's ring-algorithm traffic factor a collective's output byte
+# (``repro.launch.dryrun._COLL_FACTOR``)
+RING_FACTOR = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
+               "all-to-all": 1.0, "collective-permute": 1.0}
 
 
 def mesh_axis_size(mesh, axis: str = MODEL) -> int:
-    """Shard count of ``axis`` on ``mesh`` (1 when mesh is None or the
-    axis is absent): the K every sharded memory path branches on."""
+    """Shard count of ``axis`` on ``mesh`` (a ``Mesh`` or a
+    ``DeviceMesh``; 1 when mesh is None or the axis is absent): the K
+    every sharded memory path branches on."""
     if mesh is None:
         return 1
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:                     # a DeviceMesh
+        return dict(zip(names, mesh.shape)).get(axis, 1)
     return dict(mesh.shape).get(axis, 1)
 
 
@@ -178,7 +186,7 @@ def _sanitize(spec: Tuple, shape: Sequence[int], mesh) -> P:
             continue
         n = 1
         for a in (ax if isinstance(ax, tuple) else (ax,)):
-            n *= sizes[a]
+            n *= sizes.get(a, 1)          # an axis the mesh lacks: size 1
         out.append(ax if dim % n == 0 and dim >= n else None)
     return P(*out)
 
@@ -321,6 +329,79 @@ def to_placements(spec: P, device_mesh) -> List:
 # ===========================================================================
 
 
+def _grad(x: torch.Tensor) -> bool:
+    """x is part of an autograd graph (a train step's forward)."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _RowSum(torch.autograd.Function):
+    """The sum of a row-parallel product's partials over the model axis,
+    whose consumer is the same on every rank: the backward is the
+    identity (each rank's partial meets the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp._sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _StatSum(torch.autograd.Function):
+    """The sum over the model axis of a statistic that each rank applies
+    to its own shard: the backward sums each rank's share of the
+    gradient over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp._sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._sum(g), None
+
+
+class _Copy(torch.autograd.Function):
+    """A tensor every model rank holds alike entering each rank's own
+    computation: the forward is the identity, the backward sums the
+    ranks' shares of its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp._sum(g), None
+
+
+class _Gather(torch.autograd.Function):
+    """The ranks' tensors of a group concatenated on ``dim``. Backward:
+    the rank's own slice of the gradient where every rank consumes the
+    gathered tensor alike; with ``scatter`` (a consumer that differs by
+    rank) the ranks' gradients are summed and scattered, each rank
+    keeping its slice (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim, data, scatter):
+        ctx.tp, ctx.dim, ctx.data, ctx.scatter = tp, dim, data, scatter
+        ctx.n = x.shape[dim]
+        return tp._gather(x, dim, data)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        if ctx.scatter:
+            return tp._reduce_scatter(g, ctx.dim, ctx.data), None, None, \
+                None, None
+        rank = tp.data_rank if ctx.data else tp.rank
+        return (g.narrow(ctx.dim, rank * ctx.n, ctx.n), None, None, None,
+                None)
+
+
 class TensorParallel:
     """A model's place on a ``("data", "model")`` ``DeviceMesh``: this
     rank's coordinates, its model and data groups, and the collectives the
@@ -329,8 +410,19 @@ class TensorParallel:
     layers compute on their local shards, so no op pays DTensor's
     dispatch on the host, which a decode step already waits for.
 
-    All reductions run in float32 and cast back; a gather of bf16 moves
-    its bits unchanged."""
+    The collectives carry gradients (autograd functions), so a train step
+    on the model axis trains every parameter: ``all_reduce`` (a
+    row-parallel output), ``all_reduce_stat`` (a statistic each rank
+    applies to its own shard), ``copy`` (a replicated tensor entering the
+    rank's own computation) and the gathers, each with the backward its
+    consumer needs. Outside a graph (serving, ``no_grad``) they run the
+    plain collectives alone. All reductions run in float32 and cast back;
+    a gather of bf16 moves its bits unchanged.
+
+    ``moved``: None, or a dict that each collective this rank runs adds
+    its bytes to, by op, with the reference's ring factors (the dry run's
+    ``collective_bytes``: output bytes × 2 for an all-reduce, × 1 for an
+    all-gather or a reduce-scatter)."""
 
     def __init__(self, device_mesh, device=None):
         names = tuple(device_mesh.mesh_dim_names)
@@ -350,35 +442,93 @@ class TensorParallel:
         self.data_size = device_mesh.size(0)
         self.data_rank = device_mesh.get_local_rank("data")
         self.data_group = device_mesh.get_group("data")
+        self.moved: Optional[Dict[str, float]] = None
+
+    # ------------------------------------------------- the process group
+    def _record(self, op: str, t: torch.Tensor) -> None:
+        if self.moved is not None:
+            self.moved[op] = (self.moved.get(op, 0.0) + t.numel()
+                              * t.element_size() * RING_FACTOR[op])
+
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The f32 sum of ``x`` over the model ranks, cast back."""
+        import torch.distributed as dist
+        y = x.to(torch.float32, copy=True).contiguous()
+        self._record("all-reduce", y)
+        dist.all_reduce(y, group=self.group)
+        return y.to(x.dtype)
+
+    def _gather(self, x: torch.Tensor, dim: int, data: bool = False
+                ) -> torch.Tensor:
+        import torch.distributed as dist
+        group, n = ((self.data_group, self.data_size) if data
+                    else (self.group, self.size))
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        out = torch.cat(parts, dim=dim)
+        self._record("all-gather", out)
+        return out
+
+    def _reduce_scatter(self, g: torch.Tensor, dim: int, data: bool = False
+                        ) -> torch.Tensor:
+        """This rank's slice on ``dim`` of the f32 sum of every rank's
+        ``g``, cast back."""
+        import torch.distributed as dist
+        group, n = ((self.data_group, self.data_size) if data
+                    else (self.group, self.size))
+        parts = [t.contiguous() for t in
+                 torch.chunk(g.to(torch.float32), n, dim=dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=group)
+        self._record("reduce-scatter", out)
+        return out.to(g.dtype)
 
     # -------------------------------------------------------- collectives
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over the model axis of each rank's ``x`` (a row-parallel
-        product's partial sums), in float32, cast back to x's dtype."""
+        product's partial sums), in float32, cast back to x's dtype. Its
+        consumer is the same on every rank, so the backward passes the
+        gradient through."""
         if self.size == 1:
             return x
-        import torch.distributed as dist
-        y = x.to(torch.float32, copy=True).contiguous()
-        dist.all_reduce(y, group=self.group)
-        return y.to(x.dtype)
+        return _RowSum.apply(x, self) if _grad(x) else self._sum(x)
 
-    def _gather(self, x: torch.Tensor, dim: int, group, n: int
-                ) -> torch.Tensor:
+    def all_reduce_stat(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the model axis of a statistic that each rank then
+        applies to its own shard (Mamba2's gated norm): the forward of
+        ``all_reduce``, a backward that sums over the ranks."""
+        if self.size == 1:
+            return x
+        return _StatSum.apply(x, self) if _grad(x) else self._sum(x)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, held alike by every model rank, as it enters this rank's
+        own computation (a column-parallel product, a slice of the rank's
+        heads): the identity, whose backward sums the ranks' gradients.
+        Outside a graph it is ``x`` itself."""
+        if self.size == 1 or not _grad(x):
+            return x
+        return _Copy.apply(x, self)
+
+    def _gathered(self, x, dim, data, scatter, n):
         if n == 1:
             return x
-        import torch.distributed as dist
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x, group=group)
-        return torch.cat(parts, dim=dim)
+        if _grad(x):
+            return _Gather.apply(x, self, dim % x.dim(), data, scatter)
+        return self._gather(x, dim, data)
 
-    def gather_model(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """The ranks' ``x`` concatenated on ``dim`` in model-rank order."""
-        return self._gather(x, dim, self.group, self.size)
+    def gather_model(self, x: torch.Tensor, dim: int = -1, *,
+                     scatter: bool = False) -> torch.Tensor:
+        """The ranks' ``x`` concatenated on ``dim`` in model-rank order.
+        ``scatter``: the consumer differs by rank, so the backward is a
+        reduce-scatter; else it takes the rank's slice."""
+        return self._gathered(x, dim, False, scatter, self.size)
 
     def stack_model(self, x: torch.Tensor) -> torch.Tensor:
-        """(R, *x.shape): every model rank's ``x``, in rank order."""
-        return self._gather(x[None], 0, self.group, self.size)
+        """(R, *x.shape): every model rank's ``x``, in rank order (decode's
+        partials, merged alike on every rank)."""
+        return self._gathered(x[None], 0, False, False, self.size)
 
     # ------------------------------------------------------------ the batch
     def batch_sharded(self, b: int) -> bool:
@@ -395,10 +545,12 @@ class TensorParallel:
         return x[self.data_rank * n:(self.data_rank + 1) * n]
 
     def gather_batch(self, x: torch.Tensor, b: int) -> torch.Tensor:
-        """The global batch of ``b`` rows from each data rank's rows."""
+        """The global batch of ``b`` rows from each data rank's rows (the
+        serving logits, alike on every rank: the backward takes the rank's
+        rows)."""
         if not self.batch_sharded(b):
             return x
-        return self._gather(x, 0, self.data_group, self.data_size)
+        return self._gathered(x, 0, True, False, self.data_size)
 
     # --------------------------------------------------------- the sequence
     def seq_bounds(self, n: int) -> Tuple[int, int]:
@@ -408,9 +560,10 @@ class TensorParallel:
         lo = min(n, self.rank * per)
         return lo, min(n, lo + per)
 
-    def gather_seq(self, x: torch.Tensor, n: int) -> torch.Tensor:
+    def gather_seq(self, x: torch.Tensor, n: int, *, scatter: bool = False
+                   ) -> torch.Tensor:
         """The whole length-``n`` sequence (dim 1) from each rank's
-        ``seq_bounds`` rows of it."""
+        ``seq_bounds`` rows of it; ``scatter`` as ``gather_model``'s."""
         if self.size == 1:
             return x
         per = -(-n // self.size)
@@ -418,23 +571,151 @@ class TensorParallel:
             pad = list(x.shape)
             pad[1] = per - x.shape[1]
             x = torch.cat([x, x.new_zeros(pad)], dim=1)
-        return self.gather_model(x, 1)[:, :n]
+        return self.gather_model(x, 1, scatter=scatter)[:, :n]
 
     # ------------------------------------------------------------ placement
-    def place(self, t: torch.Tensor, spec: P):
+    def place(self, t: torch.Tensor, spec: P, model_only: bool = False):
         """``t`` (the whole tensor, or a ``meta`` one: zeros) as a DTensor
         of this mesh with ``spec``'s placements: this rank's slice, split
         locally (no collective), copied to storage of its own on the
-        rank's device, so the whole tensor can be freed."""
+        rank's device, so the whole tensor can be freed. ``model_only``:
+        a DTensor of the ``model`` sub-mesh, whole over ``data`` (what
+        FSDP2 then shards over ``data``: ``training.trainer.fsdp_shard``)."""
         from torch.distributed.tensor import DTensor, distribute_tensor
-        placements = to_placements(spec, self.device_mesh)
-        part = distribute_tensor(t, self.device_mesh, placements,
+        mesh = self.device_mesh[MODEL] if model_only else self.device_mesh
+        placements = to_placements(spec, mesh)
+        part = distribute_tensor(t, mesh, placements,
                                  src_data_rank=None).to_local()
         local = (torch.zeros(part.shape, dtype=t.dtype, device=self.device)
                  if part.is_meta else
                  part.to(self.device, copy=True).contiguous())
-        return DTensor.from_local(local, self.device_mesh, placements,
-                                  run_check=False)
+        return DTensor.from_local(local, mesh, placements, run_check=False)
+
+
+def model_copy(tp, x: torch.Tensor) -> torch.Tensor:
+    """``x``, held alike by every model rank, as it enters this rank's
+    own computation: ``tp.copy(x)`` in a graph (a train step), ``x``
+    itself off the model axis or outside a graph, where nothing is
+    called."""
+    return tp.copy(x) if tp is not None and _grad(x) else x
+
+
+def stat_sum(tp, x: torch.Tensor) -> torch.Tensor:
+    """The sum over the model axis of a statistic each rank applies to its
+    own shard: ``tp.all_reduce_stat(x)`` in a graph, whose backward sums
+    over the ranks; outside one the plain ``tp.all_reduce``."""
+    return tp.all_reduce_stat(x) if _grad(x) else tp.all_reduce(x)
+
+
+class LocalShard:
+    """One rank's shard of a placed tensor with no process group behind
+    it: the whole tensor's ``shape`` and the rank's local tensor
+    (``to_local``). What ``RecordingTP`` places; the layers read it as a
+    DTensor's local shard."""
+
+    device_mesh = None
+
+    def __init__(self, local: torch.Tensor, shape: Sequence[int]):
+        self._local = local
+        self.shape = torch.Size(shape)
+
+    def to_local(self) -> torch.Tensor:
+        return self._local
+
+
+class RecordingTP(TensorParallel):
+    """A stand-in ``TensorParallel`` of rank 0 of an abstract ``("data",
+    "model")`` mesh, with no process group: its collectives return what
+    rank 0 would receive in shape and dtype (the ``meta`` device's
+    tensors carry nothing else) and add their bytes to ``moved``, by op.
+    The dry run drives one rank's step through it and reads the
+    model-axis collective bytes that the step runs."""
+
+    def __init__(self, mesh, device="meta"):
+        sizes = dict(mesh.shape)
+        if tuple(mesh.axis_names) != ("data", MODEL):
+            raise ValueError(f"a ('data', 'model') mesh, not "
+                             f"{mesh.axis_names}")
+        self.device_mesh = None
+        self.mesh = mesh
+        self.device = torch.device(device)
+        self.size, self.rank = sizes[MODEL], 0
+        self.data_size, self.data_rank = sizes["data"], 0
+        self.group = self.data_group = None
+        self.moved = {op: 0.0 for op in RING_FACTOR}
+
+    def _sum(self, x):
+        y = x.to(torch.float32, copy=True)
+        self._record("all-reduce", y)
+        return y.to(x.dtype)
+
+    def _gather(self, x, dim, data=False):
+        n = self.data_size if data else self.size
+        out = torch.cat([x] * n, dim=dim)
+        self._record("all-gather", out)
+        return out
+
+    def _reduce_scatter(self, g, dim, data=False):
+        n = self.data_size if data else self.size
+        out = torch.chunk(g.to(torch.float32), n, dim=dim)[0].contiguous()
+        self._record("reduce-scatter", out)
+        return out.to(g.dtype)
+
+    def place(self, t, spec, model_only=False):
+        """Rank 0's shard of ``t`` under ``spec`` (over ``model`` alone
+        with ``model_only``), as a ``LocalShard``."""
+        return LocalShard(local_shard(t, spec, self.mesh, model_only),
+                          t.shape)
+
+
+def local_shard(t: torch.Tensor, spec: P, mesh, model_only: bool = False
+                ) -> torch.Tensor:
+    """Rank 0's slice of ``t`` under ``spec`` on the abstract ``mesh``:
+    each dim cut to its first 1/n, n the product of its axes' sizes (the
+    ``model`` axis alone with ``model_only``)."""
+    sizes = dict(mesh.shape)
+    out = t
+    for d in range(len(spec)):
+        n = 1
+        for a in spec_axes(spec, d):
+            if a == MODEL or not model_only:
+                n *= sizes[a]
+        if n > 1:
+            out = out.narrow(d, 0, t.shape[d] // n)
+    return out
+
+
+def gather_whole(t):
+    """A DTensor's whole tensor (``full_tensor``: a collective every rank
+    of its mesh joins), else ``t``. Over gloo the shards of CUDA tensors
+    are gathered on the host (``via_host``): ``full_tensor`` of a 2-D
+    CUDA DTensor over gloo ends the process (SIGSEGV, torch 2.11, ranks
+    sharing a card)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(t, DTensor):
+        return t
+    import torch.distributed as dist
+    mesh = t.device_mesh
+    if mesh.device_type == "cpu" or dist.get_backend(
+            mesh.get_group(0)) != "gloo":
+        return t.full_tensor()
+    return via_host(t).to(t.device)
+
+
+def via_host(t):
+    """``t.full_tensor()`` on the host: the local shard copied to the CPU
+    and gathered on a CPU twin of ``t``'s mesh over the same process
+    groups (gloo takes CPU tensors)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+    mesh = t.device_mesh
+    groups = mesh.get_all_groups()
+    cpu = DeviceMesh.from_group(groups if mesh.ndim > 1 else groups[0],
+                                "cpu", mesh=mesh.mesh,
+                                mesh_dim_names=mesh.mesh_dim_names)
+    return DTensor.from_local(t.to_local().cpu(), cpu, t.placements,
+                              shape=t.shape, stride=t.stride(),
+                              run_check=False).full_tensor()
 
 
 def is_placed(t) -> bool:
@@ -462,7 +743,10 @@ def tp_shard(model, device_mesh, *, mode: str = "serve", device=None):
     the vocabulary and learned-position tables by their rows over
     ``model``, replicated over ``data`` (``mode="serve"``) — in place; the
     model then computes on its local shards between the layers'
-    collectives. Returns the model."""
+    collectives. ``mode="train"``: the same split over ``model``, each
+    parameter a DTensor of the ``model`` sub-mesh, whole over ``data``,
+    for ``training.trainer.fsdp_shard`` to shard over ``data`` by the
+    train table. Returns the model."""
     check_tp_family(model.cfg)
     tp = TensorParallel(device_mesh, device)
     place_params(model, tp, mode=mode)
@@ -490,12 +774,18 @@ def place_params(model, tp: TensorParallel, *, mode: str = "serve"
             continue
         spec = param_spec(reference_path(model, name), p.shape, tp.mesh,
                           mode=mode)
-        owner = model
-        *path, leaf = name.split(".")
-        for part in path:
-            owner = getattr(owner, part)
-        setattr(owner, leaf, torch.nn.Parameter(tp.place(p.detach(), spec),
-                                                requires_grad=False))
+        set_param(model, name, tp.place(p.detach(), spec,
+                                         model_only=mode != "serve"))
+
+
+def set_param(model, name: str, t) -> None:
+    """Replace ``model``'s parameter ``name`` (a dotted path) by a frozen
+    parameter of ``t``."""
+    owner = model
+    *path, leaf = name.split(".")
+    for part in path:
+        owner = getattr(owner, part)
+    setattr(owner, leaf, torch.nn.Parameter(t, requires_grad=False))
 
 
 def place_cache(cache, device_mesh, device=None):

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.sharding import model_copy
 from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
                                        rms_norm)
 
@@ -223,16 +224,28 @@ def _decode_valid(cache_pos: torch.Tensor, c: int) -> torch.Tensor:
             < n_written[:, None])
 
 
-def gather_cols(tp, ys, widths):
+def split_cols(tp, w: torch.Tensor, width: int) -> bool:
+    """The tables split this weight's ``width`` columns over the model
+    axis (its local width is short of them)."""
+    return tp is not None and w.shape[-1] < width
+
+
+def gather_cols(tp, ys, widths, *, scatter: bool = False):
     """Column-parallel products' columns from every model rank, where
     their weights were split (a local width short of its ``widths``
-    entry); one gather where every weight was."""
+    entry); one gather where every weight was. ``scatter``: the consumer
+    differs by rank (a sequence-parallel core's rows), so the gathers'
+    backward is a reduce-scatter, and a product computed whole (alike on
+    every rank) enters it through ``TensorParallel.copy``; else every
+    rank consumes them alike."""
     split = [y.shape[-1] < w for y, w in zip(ys, widths)]
     if not all(split):
-        return [tp.gather_model(y) if s else y for y, s in zip(ys, split)]
+        return [tp.gather_model(y, scatter=scatter) if s
+                else model_copy(tp, y) if scatter else y
+                for y, s in zip(ys, split)]
     n = [y.shape[-1] for y in ys]
-    whole = tp.gather_model(torch.cat(ys, dim=-1)).unflatten(
-        -1, (tp.size, sum(n)))
+    whole = tp.gather_model(torch.cat(ys, dim=-1), scatter=scatter
+                            ).unflatten(-1, (tp.size, sum(n)))
     return [t.flatten(-2) for t in torch.split(whole, n, dim=-1)]
 
 
@@ -250,18 +263,36 @@ def partial_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.float() @ w.float()
 
 
-def row_parallel(tp, a: torch.Tensor, w: torch.Tensor, width: int
-                 ) -> torch.Tensor:
+def row_parallel(tp, a: torch.Tensor, w: torch.Tensor, width: int, *,
+                 scattered: bool = False) -> torch.Tensor:
     """a @ w where ``w`` (width, d) may hold only this model rank's rows
     (the tables split ``wo``, ``w_down``, ``out_proj`` on their input
     dim): the rank's columns of a whole ``a``, or its own ``a``, times
-    its rows (``partial_product``), summed over the ranks."""
+    its rows (``partial_product``), summed over the ranks (the sum's
+    consumer is alike on every rank). A whole ``a`` computed alike on
+    every rank enters the rank's columns through ``TensorParallel.copy``;
+    ``scattered``: it comes from a gather whose backward already
+    reduce-scatters (``gather_seq(..., scatter=True)``)."""
     if tp is None or w.shape[0] == width:
         return a @ w
     n = w.shape[0]
     if a.shape[-1] == width:
+        if not scattered:
+            a = model_copy(tp, a)
         a = a[..., tp.rank * n:(tp.rank + 1) * n]
     return tp.all_reduce(partial_product(a, w)).to(a.dtype)
+
+
+def col_products(tp, x: torch.Tensor, p, weights):
+    """x @ p[name] for each (name, width) of ``weights``, column-parallel
+    products of one input: where the tables split any of their columns,
+    x enters the rank's columns through one ``TensorParallel.copy``
+    shared by the split ones; a whole weight's product stays alike on
+    every rank."""
+    split = [split_cols(tp, p[n], w) for n, w in weights]
+    xc = model_copy(tp, x) if any(split) else x
+    return [(xc if s else x) @ p[n].to(x.dtype)
+            for (n, _), s in zip(weights, split)]
 
 
 def _merge_shards(tp, part, dtype):
@@ -304,21 +335,26 @@ def gqa_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     dt = x.dtype
     width = cfg.num_heads * hd
     heads = tp is None or cfg.num_kv_heads % tp.size == 0
-    q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    kv = cfg.num_kv_heads * hd
+    q, k, v = col_products(tp, x, p, (("wq", width), ("wk", kv),
+                                      ("wv", kv)))
     if not heads:
-        kv = cfg.num_kv_heads * hd
-        q, k, v = gather_cols(tp, (q, k, v), (width, kv, kv))
+        # train and prefill: each rank's query rows attend (a consumer
+        # that differs by rank); decode runs every head alike
+        q, k, v = gather_cols(tp, (q, k, v), (width, kv, kv),
+                              scatter=mode != "decode")
     h, hkv = q.shape[-1] // hd, k.shape[-1] // hd
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, hkv, hd)
     v = v.reshape(b, s, hkv, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_scale"], cfg.norm_eps)
-        k = rms_norm(k, p["k_scale"], cfg.norm_eps)
+        # the replicated scales meet the rank's heads (or its rows)
+        q = rms_norm(q, model_copy(tp, p["q_scale"]), cfg.norm_eps)
+        k = rms_norm(k, model_copy(tp, p["k_scale"]), cfg.norm_eps)
     scale = 1.0 / (hd ** 0.5)
     wo = p["wo"].to(dt)
+    # wo split by its rows: the gathered context enters the rank's rows
+    split_wo = not heads and wo.shape[0] < width
 
     if mode in ("train", "prefill"):
         lo = 0
@@ -333,14 +369,15 @@ def gqa_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
                                    h // hkv, cfg.sliding_window,
                                    kv_lengths, q_offset=lo)
         if not heads:
-            ctx = tp.gather_seq(ctx, s)
+            ctx = tp.gather_seq(ctx, s, scatter=split_wo)
         if mode == "prefill" and cache is not None:
             c_lo, c = cache_rows or (0, None)
             _fill_cache(cache["k"], k, c_lo, c)
             _fill_cache(cache["v"], v, c_lo, c)
         else:
             cache = None
-        return row_parallel(tp, ctx.reshape(b, s, h * hd), wo, width), cache
+        return row_parallel(tp, ctx.reshape(b, s, h * hd), wo, width,
+                            scattered=split_wo), cache
 
     # ---- decode: s == 1; cache_pos (B,) per-slot token counts ----------
     assert cache is not None and cache_pos is not None
@@ -395,27 +432,34 @@ def full_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     hd, dt = cfg.head_dim, x.dtype
     width, kv = cfg.num_heads * hd, kv_heads * hd
     heads = tp is None or kv_heads % tp.size == 0
-    q = x @ p["wq"].to(dt)
-    k = src @ p["wk"].to(dt)
-    v = src @ p["wv"].to(dt)
+    if src is x:
+        q, k, v = col_products(tp, x, p, (("wq", width), ("wk", kv),
+                                          ("wv", kv)))
+    else:
+        q, = col_products(tp, x, p, (("wq", width),))
+        k, v = col_products(tp, src, p, (("wk", kv), ("wv", kv)))
+    # sequence-parallel (the encoder): each rank's query rows attend, a
+    # consumer that differs by rank; else every rank runs every head
+    split = not heads and seq_parallel
     if not heads and src is x:          # one packed gather
-        q, k, v = gather_cols(tp, (q, k, v), (width, kv, kv))
+        q, k, v = gather_cols(tp, (q, k, v), (width, kv, kv), scatter=split)
     elif not heads:                     # q's rows are not src's
-        q, = gather_cols(tp, (q,), (width,))
-        k, v = gather_cols(tp, (k, v), (kv, kv))
+        q, = gather_cols(tp, (q,), (width,), scatter=split)
+        k, v = gather_cols(tp, (k, v), (kv, kv), scatter=split)
     h, hkv = q.shape[-1] // hd, k.shape[-1] // hd
     q = q.reshape(b, sq, h, hd)
     k = k.reshape(b, sk, hkv, hd)
     v = v.reshape(b, sk, hkv, hd)
-    split = not heads and seq_parallel
+    wo = p["wo"].to(dt)
+    split_wo = split and wo.shape[0] < width
     if split:
         q, k, v = _seq_shard(q, k, v, tp)
     mask = torch.ones((q.shape[1], sk), dtype=torch.bool, device=x.device)
     ctx = _sdpa(q, k, v, mask, 1.0 / (hd ** 0.5), 0.0, h // hkv)
     if split:
-        ctx = tp.gather_seq(ctx, sq)
-    return row_parallel(tp, ctx.reshape(b, sq, h * hd), p["wo"].to(dt),
-                        width)
+        ctx = tp.gather_seq(ctx, sq, scatter=split_wo)
+    return row_parallel(tp, ctx.reshape(b, sq, h * hd), wo, width,
+                        scattered=split_wo)
 
 
 def cross_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
@@ -469,11 +513,12 @@ def _head_cols(tp, y: torch.Tensor, width: int) -> torch.Tensor:
     """A column-parallel product's output (``width`` columns, heads
     contiguous) where the heads divide the model axis: this rank's heads'
     columns, sliced from a whole ``y`` (a weight the tables replicate,
-    such as DeepSeek-V2-Lite's ``w_q``)."""
+    such as DeepSeek-V2-Lite's ``w_q``; y, alike on every rank, enters
+    the rank's heads)."""
     if tp is None or y.shape[-1] < width:
         return y
     n = width // tp.size
-    return y[..., tp.rank * n:(tp.rank + 1) * n]
+    return model_copy(tp, y)[..., tp.rank * n:(tp.rank + 1) * n]
 
 
 def _whole(tp, w: torch.Tensor, width: int) -> torch.Tensor:
@@ -482,16 +527,18 @@ def _whole(tp, w: torch.Tensor, width: int) -> torch.Tensor:
     return w if w.shape[-1] == width else tp.gather_model(w)
 
 
-def _mla_qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+def _mla_qkv(p, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+             tp=None):
     """The shared projections → q (B, S, ·) before its heads are split
     (this rank's columns where ``w_uq`` is split), ckv, k_rope."""
     m = cfg.mla
     dt = x.dtype
+    h = cfg.num_heads
     if m.q_lora_rank:
         cq = rms_norm(x @ p["w_dq"].to(dt), p["q_norm"], cfg.norm_eps)
-        q = cq @ p["w_uq"].to(dt)
+        q, = col_products(tp, cq, p, (("w_uq", h * m.qk_head_dim),))
     else:
-        q = x @ p["w_q"].to(dt)
+        q, = col_products(tp, x, p, (("w_q", h * m.qk_head_dim),))
     ckv = rms_norm(x @ p["w_dkv"].to(dt), p["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope((x @ p["w_kr"].to(dt))[:, :, None, :], positions,
                         theta=cfg.rope_theta)[:, :, 0, :]
@@ -541,24 +588,29 @@ def mla_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     heads = tp is None or h % tp.size == 0
     wo = p["wo"].to(dt)
     width = h * m.v_head_dim
-    q, ckv, k_rope = _mla_qkv(p, cfg, x, positions)
+    q, ckv, k_rope = _mla_qkv(p, cfg, x, positions, tp)
 
     if mode in ("train", "prefill"):
-        k_nope = ckv @ p["w_uk"].to(dt)
-        v = ckv @ p["w_uv"].to(dt)
         widths = (h * m.qk_head_dim, h * m.qk_nope_head_dim, width)
+        k_nope, v = col_products(tp, ckv, p, (("w_uk", widths[1]),
+                                              ("w_uv", width)))
         if heads:
             q, k_nope, v = (_head_cols(tp, y, n)
                             for y, n in zip((q, k_nope, v), widths))
         else:
-            q, k_nope, v = gather_cols(tp, (q, k_nope, v), widths)
+            # each rank's query rows attend: a consumer that differs by
+            # rank
+            q, k_nope, v = gather_cols(tp, (q, k_nope, v), widths,
+                                       scatter=True)
         q_nope, q_rope = _mla_q(cfg, q, positions)
         hl = q_nope.shape[2]
         k_nope = k_nope.reshape(b, s, hl, m.qk_nope_head_dim)
         v = v.reshape(b, s, hl, m.v_head_dim)
         q = torch.cat([q_nope, q_rope], dim=-1)
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        # the shared rope key, alike on every rank, meets its heads
+        k = torch.cat([k_nope, model_copy(tp, k_rope)[:, :, None, :].expand(
             b, s, hl, m.qk_rope_head_dim)], dim=-1)
+        split_wo = not heads and wo.shape[0] < width
         lo = 0
         if not heads:                   # q: this rank's rows from here on
             q, k, v = _seq_shard(q, k, v, tp)
@@ -567,14 +619,15 @@ def mla_attention(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
                                    cfg.sliding_window, kv_lengths,
                                    q_offset=lo)
         if not heads:
-            ctx = tp.gather_seq(ctx, s)
+            ctx = tp.gather_seq(ctx, s, scatter=split_wo)
         if mode == "prefill" and cache is not None:
             c_lo, c = cache_rows or (0, None)
             _fill_cache(cache["ckv"], ckv, c_lo, c)
             _fill_cache(cache["krope"], k_rope, c_lo, c)
         else:
             cache = None
-        return row_parallel(tp, ctx.reshape(b, s, -1), wo, width), cache
+        return row_parallel(tp, ctx.reshape(b, s, -1), wo, width,
+                            scattered=split_wo), cache
 
     # ---- decode: matrix-absorbed latent attention; cache_pos (B,) -------
     assert cache is not None and cache_pos is not None

@@ -28,7 +28,10 @@ drops included — is decided once, identically everywhere. Each rank runs
 the kept pairs of its own experts (the tables split the stacked weights
 by their leading E) and its columns of the shared expert through its rows
 of ``w_down``; the two partial sums, in f32, take one all-reduce a layer
-and one cast.
+and one cast. In a train step x and the routing weights enter the rank's
+experts through ``TensorParallel.copy``, so the router's gradient is the
+sum of every rank's experts' share; the aux loss is on the routing that
+every model rank shares.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.sharding import model_copy
 from repro_torch.models.layers import (activation_fn, dense_init, mlp_apply,
                                        mlp_init)
 
@@ -174,11 +178,16 @@ def moe_apply(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     r = route(p, cfg, x, chunk_size(x.shape[1]))
     e_loc = p["w_gate"].shape[0]
     split = tp is not None and e_loc < mc.num_experts
-    y = _experts(p, cfg, x, r, tp.rank * e_loc if split else 0)
-    shared = (mlp_apply(p["shared"], x, cfg.activation)
-              if mc.num_shared_experts else None)
-    sh_split = (shared is not None and tp is not None
+    sh_split = (mc.num_shared_experts > 0 and tp is not None
                 and p["shared"]["w_down"].shape[0] < mc.shared_d_ff)
+    # x, alike on every rank, enters the rank's experts and shared columns
+    xr = model_copy(tp, x) if split or sh_split else x
+    if split:
+        r = r._replace(top_w=model_copy(tp, r.top_w))
+    y = _experts(p, cfg, xr if split else x, r,
+                 tp.rank * e_loc if split else 0)
+    shared = (mlp_apply(p["shared"], xr if sh_split else x, cfg.activation)
+              if mc.num_shared_experts else None)
     aux = r.aux.mean() * mc.router_aux_coef
     if not (split or sh_split):
         y = y.to(dt)

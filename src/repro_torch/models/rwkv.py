@@ -24,7 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import gather_cols, row_parallel
+from repro_torch.launch.sharding import model_copy
+from repro_torch.models.attention import (gather_cols, row_parallel,
+                                          split_cols)
 from repro_torch.models.layers import dense_init
 
 _MIX = ("w", "k", "v", "r", "g")
@@ -149,27 +151,37 @@ def rwkv6_time_mix(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     divide the axis: ``bonus_u``, ``ln_scale`` and the state are whole)
     r, k, v, g and the decay are gathered and every rank runs every
     head. Either way the output goes through the rank's rows of ``wo``,
-    summed over the ranks."""
+    summed over the ranks. In a train step each mix (and the decay
+    LoRA's hidden state) enters the rank's columns through
+    ``TensorParallel.copy``, and so does the replicated ``decay_base``
+    its heads' slice."""
     b, s, d = x.shape
     h, hd = _heads(cfg)
     dt, f32 = x.dtype, torch.float32
     prev = state["shift_tm"] if state is not None else None
     xw, xk, xv, xr, xg = _ddlerp(p, x, _shift_delta(x, prev, mode))
 
-    r = xr @ p["wr"].to(dt)
-    k = xk @ p["wk"].to(dt)
-    v = xv @ p["wv"].to(dt)
-    g = xg @ p["wg"].to(dt)
-    dw = torch.tanh(xw @ p["decay_w1"].to(dt)) @ p["decay_w2"].to(dt)
+    def col(a, name):
+        # a mix, alike on every rank, into the rank's columns of a split
+        # weight
+        w = p[name]
+        return (model_copy(tp, a) if split_cols(tp, w, d) else a) @ w.to(dt)
+    r = col(xr, "wr")
+    k = col(xk, "wk")
+    v = col(xv, "wv")
+    g = col(xg, "wg")
+    dw = col(torch.tanh(xw @ p["decay_w1"].to(dt)), "decay_w2")
     n = r.shape[-1]
-    if n % hd:                          # a head split: every head whole
+    if n % hd:                          # a head split: every head whole,
+        # run alike on every rank
         r, k, v, g, dw = gather_cols(tp, (r, k, v, g, dw), (d,) * 5)
         n = d
     # this rank's channels [lo, lo + n) and heads [h0, h0 + hl)
     lo = 0 if n == d else tp.rank * n
     h0, hl = lo // hd, n // hd
     g = F.silu(g)
-    decay = p["decay_base"].to(f32)[lo:lo + n] + dw.to(f32)
+    base = p["decay_base"] if n == d else model_copy(tp, p["decay_base"])
+    decay = base.to(f32)[lo:lo + n] + dw.to(f32)
     w = torch.exp(-torch.exp(decay)).reshape(b, s, hl, hd)
     r, k, v = (t.reshape(b, s, hl, hd) for t in (r, k, v))
 
@@ -202,14 +214,24 @@ def rwkv6_channel_mix(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     columns) but needs all of ``k`` for its output columns: ``k`` is
     gathered, then the rank's output columns are."""
     dt = x.dtype
+    d = cfg.d_model
     prev = state["shift_cm"] if state is not None else None
     sx = _shift_delta(x, prev, mode)
     xk = x + sx * p["cm_mu_k"].to(dt)
     xr = x + sx * p["cm_mu_r"].to(dt)
-    k = torch.square(F.relu(xk @ p["cm_wk"].to(dt)))
-    if k.shape[-1] < cfg.d_ff:
-        k = tp.gather_model(k)
+    split_k = split_cols(tp, p["cm_wk"], cfg.d_ff)
+    split_v = split_cols(tp, p["cm_wv"], d)
+    k = torch.square(F.relu((model_copy(tp, xk) if split_k else xk)
+                            @ p["cm_wk"].to(dt)))
+    if split_k:
+        # consumed by the rank's output columns of cm_wv where those are
+        # split (a reduce-scatter backward), else alike
+        k = tp.gather_model(k, scatter=split_v)
+    elif split_v:
+        k = model_copy(tp, k)
+    xr = model_copy(tp, xr) if split_cols(tp, p["cm_wr"], d) else xr
     out = torch.sigmoid(xr @ p["cm_wr"].to(dt)) * (k @ p["cm_wv"].to(dt))
-    if out.shape[-1] < cfg.d_model:
+    if out.shape[-1] < d:
+        # the residual takes it alike on every rank
         out = tp.gather_model(out)
     return out, {"shift_cm": x[:, -1].to(torch.float32)}

@@ -20,7 +20,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import gather_cols, row_parallel
+from repro_torch.launch.sharding import model_copy, stat_sum
+from repro_torch.models.attention import (col_products, gather_cols,
+                                          row_parallel)
 from repro_torch.models.layers import dense_init, rms_norm
 
 
@@ -152,13 +154,15 @@ def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     ``width`` channels. Where y and z hold only this model rank's
     channels (``scale`` its slice of them), each rank's f32 sum of
     squares is all-reduced over the model axis before the rsqrt: a norm
-    over the rank's channels alone would be another function."""
+    over the rank's channels alone would be another function. Each rank
+    applies the sum to its own channels, so its backward sums over the
+    ranks too (``launch.sharding.stat_sum``)."""
     g = y * F.silu(z)
     if tp is None or g.shape[-1] == width:
         return rms_norm(g, scale, eps)
     f32 = torch.float32
     g32 = g.to(f32)
-    var = tp.all_reduce((g32 * g32).sum(-1, keepdim=True)) / width
+    var = stat_sum(tp, (g32 * g32).sum(-1, keepdim=True)) / width
     return (g32 * torch.rsqrt(var + eps) * scale.to(f32)).to(g.dtype)
 
 
@@ -182,33 +186,41 @@ def mamba2_apply(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     divide the axis: ``in_dt`` and the ``ssm`` state are whole), the x
     convolution runs on the rank's channels, x and z are gathered, every
     rank runs every head and keeps the whole state, and the rank's
-    channels go through its rows of ``out_proj``."""
+    channels go through its rows of ``out_proj``. In a train step the
+    tensors every rank holds alike — x, B and C, and the replicated
+    per-head ``A_log``, ``D``, ``dt_bias`` and ``norm_scale`` — enter the
+    rank's heads through ``TensorParallel.copy``."""
     sc, d_in, nheads = _dims(cfg)
     hp = sc.head_dim
     b, s, _ = x.shape
     dt_ = x.dtype
-    z = x @ p["in_z"].to(dt_)
-    xc = x @ p["in_x"].to(dt_)
-    bc = x @ p["in_bc"].to(dt_)
-    dt_raw = x @ p["in_dt"].to(dt_)
+    z, xc, bc, dt_raw = col_products(tp, x, p, (
+        ("in_z", d_in), ("in_x", d_in), ("in_bc", 2 * sc.state_dim),
+        ("in_dt", nheads)))
     # this rank's channels [lo, lo + n) and heads [h0, h0 + hl)
     n = xc.shape[-1]
     heads = n % hp == 0
     lo = 0 if n == d_in else tp.rank * n
     h0, hl = (lo // hp, n // hp) if heads else (0, nheads)
+    mine = n < d_in and heads           # the rank's own heads
+
+    def own(t):
+        # a tensor alike on every rank, as the rank's heads take it
+        return model_copy(tp, t) if mine else t
     if dt_raw.shape[-1] > hl:
-        dt_raw = dt_raw[..., h0:h0 + hl]
+        dt_raw = own(dt_raw)[..., h0:h0 + hl]
     heads_of = slice(h0, h0 + hl)
     dt = F.softplus(dt_raw.to(torch.float32)
-                    + p["dt_bias"][heads_of][None, None, :])
-    A = -torch.exp(p["A_log"][heads_of])
-    Dh = p["D"][heads_of]
+                    + own(p["dt_bias"])[heads_of][None, None, :])
+    A = -torch.exp(own(p["A_log"])[heads_of])
+    Dh = own(p["D"])[heads_of]
     scale = p["norm_scale"]
     if heads and n < scale.shape[0]:
-        scale = scale[lo:lo + n]
+        scale = own(scale)[lo:lo + n]
 
     def gather(xs, z):
-        # a head split: the ranks' x and z channels, whole
+        # a head split: the ranks' x and z channels, whole, every head
+        # then run alike on every rank
         if heads:
             return xs, z
         return gather_cols(tp, (xs, z), (d_in, d_in))
@@ -224,6 +236,7 @@ def mamba2_apply(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
         bcs, new_cbc = _causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"],
                                     cache["conv_bc"])
         xs, z = gather(xs, z)
+        bcs = own(bcs)
         Bv, Cv = torch.chunk(bcs, 2, dim=-1)
         xh = xs.reshape(b, hl, hp).to(torch.float32)
         dt1 = dt[:, 0]                                    # (b,h)
@@ -242,6 +255,7 @@ def mamba2_apply(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     xs, new_cx = _causal_conv(xc, p["conv_x_w"], p["conv_x_b"], None)
     bcs, new_cbc = _causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"], None)
     xs, z = gather(xs, z)
+    bcs = own(bcs)
     Bv, Cv = torch.chunk(bcs, 2, dim=-1)
     xh = xs.reshape(b, s, hl, hp)
     chunk = min(sc.chunk, s)

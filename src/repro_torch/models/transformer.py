@@ -60,12 +60,16 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, embed_init, layer_norm,
                                        mlp_hidden, mlp_init, rms_norm)
-from repro_torch.launch.sharding import (TensorParallel, check_tp_family,
-                                         is_placed, local, place_cache,
+from repro_torch.launch.sharding import (LocalShard, TensorParallel,
+                                         check_tp_family, is_placed, local,
+                                         model_copy, place_cache,
                                          place_params)
 from repro_torch.util import resolve_device
 
 Cache = Optional[Dict[str, Any]]
+# the model's own parameters (groups) that ``_run`` reads
+_OWN = ("head", "embed", "pos_embed", "enc_pos_embed", "final_norm",
+        "enc_final_norm")
 # the cache's layer-stacked groups (batch on axis 1)
 GROUPS = ("dense", "moe", "mamba", "shared", "rwkv", "self")
 
@@ -136,6 +140,19 @@ def _write(views: Optional[dict], new: Optional[dict]) -> None:
             views[k].copy_(t)
 
 
+def _local_tree(mod: nn.Module) -> dict:
+    """The local shard of each parameter of ``mod``, nested by the
+    parameter names' paths (an MoE block's ``shared`` under ``moe``)."""
+    out = {}
+    for name, p in mod.named_parameters():
+        *path, leaf = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = local(p)
+    return out
+
+
 class _Block(nn.Module):
     """A layer that runs on the model axis: ``Transformer.set_tp`` gives
     it the model's ``TensorParallel`` and the local shards of each of its
@@ -148,10 +165,16 @@ class _Block(nn.Module):
         self.shards = None
 
     def _part(self, name: str):
-        """A parameter group as the layer computes on it: the local
-        shards on the model axis, else the module's own."""
-        return (getattr(self, name) if self.shards is None
-                else self.shards[name])
+        """A parameter group as the layer computes on it: the module's own
+        off the model axis; on it the local shards — those kept by
+        ``set_tp`` outside a graph, else read now from the live
+        parameters (FSDP2 swaps them around each forward, and a gradient
+        reaches a parameter only through its ``to_local()``)."""
+        if self.tp is None:
+            return getattr(self, name)
+        if self.shards is None or torch.is_grad_enabled():
+            return _local_tree(getattr(self, name))
+        return self.shards[name]
 
 
 class AttnBlock(_Block):
@@ -217,9 +240,12 @@ class AttnBlock(_Block):
         return x + self._mlp(h), cache, None
 
     def _mlp(self, h: torch.Tensor) -> torch.Tensor:
-        """The MLP; on the model axis its columns, then the rows of
-        ``w_down`` summed over the ranks."""
+        """The MLP; on the model axis its columns (h entering them through
+        ``TensorParallel.copy``), then the rows of ``w_down`` summed over
+        the ranks."""
         mlp = self._part("mlp")
+        if attn.split_cols(self.tp, mlp["w_up"], self.d_ff):
+            h = model_copy(self.tp, h)
         return attn.row_parallel(
             self.tp, mlp_hidden(mlp, h, self.cfg.activation),
             mlp["w_down"].to(h.dtype), self.d_ff)
@@ -376,42 +402,46 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def set_tp(self, tp) -> None:
+    def set_tp(self, tp, keep: bool = True) -> None:
         """Run on the model axis: ``tp`` (a ``TensorParallel``) after every
         parameter was placed (``launch.sharding.tp_shard``); the layers
-        then compute on the local shards, kept here once: each block's
-        (decoder, encoder, Mamba2, RWKV6 and the hybrid's shared block)
-        by its parameter groups (an MoE block's ``moe`` tree nested as the
-        reference's: ``shared`` under it), and the model's own."""
-        def shards(mod):
-            out = {}
-            for name, p in mod.named_parameters():
-                *path, leaf = name.split(".")
-                node = out
-                for part in path:
-                    node = node.setdefault(part, {})
-                node[leaf] = local(p)
-            return out
+        then compute on the local shards. With ``keep`` the no-grad paths
+        (serving) read them kept here once, so a decode step pays no
+        DTensor dispatch: each block's (decoder, encoder, Mamba2, RWKV6
+        and the hybrid's shared block) by its parameter groups (an MoE
+        block's ``moe`` tree nested as the reference's: ``shared`` under
+        it), and the model's own. A graph (a train step) reads them live;
+        without ``keep`` (an FSDP2-sharded model, ``training.trainer.
+        fsdp_shard``) every path does."""
         self.tp = tp
         for block in self.modules():
             if isinstance(block, _Block):
                 block.tp = tp
-                block.shards = {n: shards(c)
-                                for n, c in block.named_children()}
-        self.shards = {"head": (local(self.embed).t() if self.lm_head is None
-                                else local(self.lm_head))}
-        for name in ("embed", "pos_embed", "enc_pos_embed"):
-            if getattr(self, name, None) is not None:
-                self.shards[name] = local(getattr(self, name))
-        for name in ("final_norm", "enc_final_norm"):
-            if hasattr(self, name):
-                self.shards[name] = shards(getattr(self, name))
+                block.shards = ({n: _local_tree(c)
+                                 for n, c in block.named_children()}
+                                if keep else None)
+        self.shards = ({n: self._live(n) for n in _OWN
+                        if n == "head" or getattr(self, n, None) is not None}
+                       if keep else None)
+
+    def _live(self, name: str):
+        """A model-level parameter (group) of ``_OWN`` read now: its local
+        shard on the model axis (the head: the tied embedding's
+        transpose, or ``lm_head``), else the module's own."""
+        if name == "head":
+            return (local(self.embed).t() if self.lm_head is None
+                    else local(self.lm_head))
+        t = getattr(self, name)
+        if isinstance(t, torch.Tensor):
+            return local(t)
+        return t if self.tp is None else _local_tree(t)
 
     def _own(self, name: str):
-        """A model-level parameter (group) as ``_run`` computes on it: its
-        local shard on the model axis, else the module's own."""
-        return getattr(self, name) if self.shards is None \
-            else self.shards[name]
+        """A model-level parameter (group) as ``_run`` computes on it:
+        kept or live as ``_Block._part`` reads a block's."""
+        if self.shards is None or torch.is_grad_enabled():
+            return self._live(name)
+        return self.shards[name]
 
     def hidden(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """The block stack over already-embedded x (B, S, d), positions
@@ -524,13 +554,16 @@ class Transformer(nn.Module):
     def _forward(self, tokens, *, vision_embeds, encoder_frames, cache,
                  mode, remat, prompt_lengths):
         tp = self.tp
-        if tp is None:
+        if tp is None or mode == "train":
+            # train mode on the model axis: the caller gives this data
+            # rank's rows (the trainer's batch) and takes its logits
             return self._run(tokens, vision_embeds=vision_embeds,
                              encoder_frames=encoder_frames, cache=cache,
                              mode=mode, remat=remat,
                              prompt_lengths=prompt_lengths)
-        # the model axis: this data rank's rows, the cache's local shards;
-        # logits gathered whole, the new cache positions placed again
+        # serving on the model axis: this data rank's rows, the cache's
+        # local shards; logits gathered whole, the new cache positions
+        # placed again
         b = tokens.shape[0]
         placed = cache
         rows = None
@@ -621,13 +654,15 @@ class Transformer(nn.Module):
                 x = x[torch.arange(x.shape[0], device=dev), idx][:, None]
             else:
                 x = x[:, -1:]
-        if self.shards is not None:
-            head = self.shards["head"]
+        head = self._own("head")
+        if head.shape[1] < cfg.vocab_size:
+            # the vocabulary's shards: x enters the rank's columns; the
+            # logits, gathered whole, meet the same loss on every rank
+            # (the backward takes the rank's columns)
+            logits = self.tp.gather_model(model_copy(self.tp, x)
+                                          @ head.to(x.dtype))
         else:
-            head = self.embed.t() if self.lm_head is None else self.lm_head
-        logits = x @ head.to(x.dtype)
-        if head.shape[1] < cfg.vocab_size:      # the vocabulary's shards
-            logits = self.tp.gather_model(logits)
+            logits = x @ head.to(x.dtype)
         if cache is None:
             return logits, None, aux
         b = tokens.shape[0]
@@ -671,16 +706,22 @@ class Transformer(nn.Module):
         rows (the model axis) gives each rank's rows of its own ids,
         zeros elsewhere, summed over the ranks."""
         ids = ids.long()
-        if self.shards is None:
+        if self.tp is None:
             return getattr(self, name).to(self.adtype)[ids]
-        tab = self.shards[name]
+        tab = self._own(name)
         n = tab.shape[0]
-        if n == getattr(self, name).shape[0]:
+        if n == self._table_rows(name):
             return tab[ids].to(self.adtype)
         ids = ids - self.tp.rank * n
         inside = ((ids >= 0) & (ids < n))[..., None]
         x = torch.where(inside, tab[ids.clamp(0, n - 1)], 0)
         return self.tp.all_reduce(x).to(self.adtype)
+
+    def _table_rows(self, name: str) -> int:
+        """The whole row count of the table ``name``."""
+        cfg = self.cfg
+        return {"embed": cfg.vocab_size, "pos_embed": cfg.max_seq_len,
+                "enc_pos_embed": cfg.encoder_seq_len}[name]
 
     def _embed(self, tokens, vision_embeds, cache_pos, cached_delta, mode):
         cfg = self.cfg
@@ -752,26 +793,31 @@ def _shard_rows(leaf, tp) -> Tuple[int, int]:
 
 
 def _rewrap(t: torch.Tensor, like):
-    """``t`` (local) placed as ``like`` is."""
+    """``t`` (local) placed as ``like`` is (a ``LocalShard`` with no
+    process group: the dry run's)."""
+    if isinstance(like, LocalShard):
+        return LocalShard(t, like.shape)
     from torch.distributed.tensor import DTensor
     return DTensor.from_local(t, like.device_mesh, like.placements,
                               run_check=False)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device=None,
-               mesh=None) -> Transformer:
+               mesh=None, mode: str = "serve") -> Transformer:
     """A ``Transformer`` with random weights from ``seed`` on ``device``
     (the reference's scales; not the reference's numbers — load those with
     ``core.convert.model_params_from_numpy``). ``mesh``: a ``("data",
     "model")`` ``DeviceMesh``; each block is placed on it as it is drawn
-    (``launch.sharding``), so the ranks hold the one-process model's
-    weights, split by the tables."""
+    (``launch.sharding``, by ``mode``'s table: "serve", or "train" for
+    ``training.trainer.fsdp_shard`` to shard next), so the ranks hold the
+    one-process model's weights, split by the tables."""
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(seed)
     if mesh is None:
         return Transformer(cfg, gen)
     check_tp_family(cfg)
     tp = TensorParallel(mesh, device)
-    model = Transformer(cfg, gen, place=lambda m: place_params(m, tp))
+    model = Transformer(cfg, gen,
+                        place=lambda m: place_params(m, tp, mode=mode))
     model.set_tp(tp)
     return model

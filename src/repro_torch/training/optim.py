@@ -86,7 +86,11 @@ def _square_sum(x: torch.Tensor) -> torch.Tensor:
 def global_norm(tree: Union[Mapping[str, torch.Tensor],
                             Iterable[torch.Tensor]]) -> torch.Tensor:
     """sqrt(Σ over every leaf of Σ x²), in f32; the global norm of
-    DTensor leaves, whatever their sharding."""
+    DTensor leaves, whatever their sharding: each element once, a leaf
+    replicated over a mesh axis (a norm over ``model``) counted once, as
+    the sum of a ``Replicate`` dim is one rank's value — the model ranks'
+    gradients of such a leaf agree (``launch.sharding.TensorParallel``'s
+    collectives)."""
     leaves = tree.values() if isinstance(tree, Mapping) else tree
     return torch.sqrt(sum(_square_sum(x) for x in leaves))
 

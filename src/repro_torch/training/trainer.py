@@ -12,17 +12,26 @@ layer body is checkpointed, as the reference's ``jax.checkpoint``
 (``Transformer.apply(remat=)``): the same gradients for less activation
 memory.
 
-FSDP2 training over a ``DeviceMesh``: the caller shards the model once
-with ``fsdp_shard`` (the reference's ``param_specs(mode="train")``
-placement over the mesh's data axes) and then makes its AdamW state
-with ``adamw_init``, whose moments are DTensors placed as their
-parameters (the reference's ``opt_specs``); ``make_train_step(mesh=)``
-trains it. Each rank runs its rows of the global batch, FSDP2's
-reduce-scatter (a mean over the ranks) runs in the backward hooks, the
-clip's norm is global (``optim.global_norm``), and the loss, NLL,
-accuracy and MoE aux come back as means over the ranks. The MoE aux
-loss is each rank's own routing statistic, so an MoE arch's step is not
-the single-process step at every world size.
+Training over a ``("data", "model")`` ``DeviceMesh`` of (D, K), the
+reference's ``param_specs(mode="train")``: FSDP2 over ``data`` × the
+port's tensor parallelism over ``model``. The caller places the model
+on the model axis (``launch.sharding.tp_shard(model, mesh,
+mode="train")``, or ``init_model(..., mesh=, mode="train")``) where K >
+1, shards it once with ``fsdp_shard`` (each parameter then a 2-D
+DTensor: the train table's FSDP dim over ``data``, its TP dim over
+``model``) and then makes its AdamW state with ``adamw_init``, whose
+moments are DTensors placed as their parameters (the reference's
+``opt_specs``); ``make_train_step(mesh=)`` trains it. Each data rank
+runs its rows of the global batch (the K model ranks of a data rank the
+same rows: one loss), the layers' model-axis collectives carry the
+gradients (``launch.sharding.TensorParallel``), FSDP2's reduce-scatter
+(a mean over ``data``) runs in the backward hooks, and the clip's norm
+is global (``optim.global_norm``: each element once, a leaf replicated
+over ``model`` counted once). The metrics ``loss``, ``nll``,
+``accuracy`` and ``moe_aux`` come back as means over ``data`` only;
+``lr`` and ``grad_norm`` are the same on every rank. The MoE aux loss
+is each data rank's own routing statistic, so an MoE arch's step at D >
+1 is not the single-process step (at D = 1 it is, whatever K).
 """
 
 from __future__ import annotations
@@ -59,19 +68,39 @@ def _on(batch: Mapping, dev: torch.device) -> dict:
 
 def fsdp_shard(model: nn.Module, device_mesh) -> nn.Module:
     """Shard ``model`` (a ``Transformer``) in place with FSDP2 over the
-    data axes of ``device_mesh``: ``fully_shard`` on each block (their
+    data axis of ``device_mesh``: ``fully_shard`` on each block (their
     ``step`` and ``encode`` registered as forward methods), then on the
-    root (``apply``). Each parameter is split on the dim that the
-    reference's ``param_specs(mode="train")`` gives its FSDP axes; where
-    that table gives none (norms, scalars, a dim the axes do not divide),
-    FSDP2's default ``Shard(0)`` (the reference replicates those). The
+    root (``apply``). Where the mesh's model axis is larger than 1 the
+    model must be placed on it first (``launch.sharding.tp_shard(model,
+    device_mesh, mode="train")``: each parameter a DTensor of the
+    ``model`` sub-mesh), and FSDP2 takes the ``data`` sub-mesh, so each
+    parameter becomes a 2-D DTensor. Each parameter is split over
+    ``data`` on the dim that the reference's ``param_specs(mode=
+    "train")`` gives its FSDP axes; where that table gives none (norms,
+    scalars, a dim the axes do not divide, the vocabulary table), FSDP2's
+    default ``Shard(0)`` — the reference replicates those; on a dim that
+    the model axis splits too, FSDP2 interleaves the two
+    (``_StridedShard``). The model's layers then read their shards live
+    at every forward (``Transformer.set_tp(keep=False)``). The
     parameters are unfrozen first."""
     from torch.distributed.fsdp import (fully_shard,
                                         register_fsdp_forward_method)
     from torch.distributed.tensor import Shard
     from repro_torch.launch.mesh import abstract_of, data_axes
-    from repro_torch.launch.sharding import param_specs, spec_axes
+    from repro_torch.launch.sharding import (mesh_axis_size, param_specs,
+                                             spec_axes)
     daxes = data_axes(device_mesh)
+    if len(daxes) != 1:
+        raise ValueError(f"FSDP runs over one data axis; the mesh has "
+                         f"{daxes}")
+    tp = getattr(model, "tp", None)
+    if mesh_axis_size(device_mesh) > 1 and tp is None:
+        raise ValueError("on a mesh whose model axis is larger than 1, "
+                         "fsdp_shard takes a model placed by tp_shard("
+                         "model, mesh, mode='train')")
+    if tp is not None and tp.device_mesh is not device_mesh:
+        raise ValueError("fsdp_shard takes the DeviceMesh the model was "
+                         "placed on")
     specs = param_specs(model, abstract_of(device_mesh), mode="train")
     dims = {}
     for name, p in model.named_parameters():
@@ -80,9 +109,6 @@ def fsdp_shard(model: nn.Module, device_mesh) -> nn.Module:
                 if set(spec_axes(spec, d)) & set(daxes)]
         if fsdp:
             dims[id(p)] = Shard(fsdp[0])
-    if len(daxes) != 1:
-        raise ValueError(f"FSDP runs over one data axis; the mesh has "
-                         f"{daxes}")
     kw = dict(mesh=device_mesh[daxes[0]], reshard_after_forward=True,
               shard_placement_fn=lambda p: dims.get(id(p)))
     model.requires_grad_(True)
@@ -94,6 +120,8 @@ def fsdp_shard(model: nn.Module, device_mesh) -> nn.Module:
                     register_fsdp_forward_method(block, method)
     fully_shard(model, **kw)
     register_fsdp_forward_method(model, "apply")
+    if tp is not None:
+        model.set_tp(tp, keep=False)
     return model
 
 
@@ -107,12 +135,35 @@ def _rank_means(metrics: Metrics, group) -> Metrics:
     return {k: v / n for k, v in zip(keys, vals)}
 
 
+def _check_placed(model: nn.Module, device_mesh) -> None:
+    """Refuse a model the step cannot train on ``device_mesh``: one not
+    sharded by ``fsdp_shard``, one without the model axis on a mesh whose
+    model axis is larger than 1, and, without a mesh, one placed on a
+    mesh (only a dry run's ``RecordingTP`` runs a rank's step alone)."""
+    from repro_torch.launch.sharding import RecordingTP, mesh_axis_size
+    tp = getattr(model, "tp", None)
+    if device_mesh is None:
+        if tp is not None and not isinstance(tp, RecordingTP):
+            raise ValueError("a model placed on the model axis trains with "
+                             "make_train_step(mesh=) after fsdp_shard")
+        return
+    from torch.distributed.fsdp import FSDPModule
+    if not isinstance(model, FSDPModule):
+        raise ValueError("make_train_step(mesh=) trains a model "
+                         "sharded by fsdp_shard(model, mesh)")
+    if mesh_axis_size(device_mesh) > 1 and tp is None:
+        raise ValueError("make_train_step(mesh=) on a model axis larger "
+                         "than 1 trains a model placed by tp_shard(model, "
+                         "mesh, mode='train') before fsdp_shard")
+
+
 def _step(loss_fn: Callable, hp: TrainHParams, device_mesh=None
           ) -> Callable:
     """The step shared by both factories: ``loss_fn(model, batch)`` →
     (loss, metrics); gradients, the schedule, AdamW; the metrics are
     means over the ranks of ``device_mesh``'s data axis when one is
-    given (the model sharded over it by ``fsdp_shard``)."""
+    given (the model sharded over it by ``fsdp_shard``; the model axis's
+    ranks hold one loss)."""
     group = None
     if device_mesh is not None:
         from repro_torch.launch.mesh import data_axes
@@ -124,11 +175,7 @@ def _step(loss_fn: Callable, hp: TrainHParams, device_mesh=None
 
     def train_step(model: nn.Module, opt_state: AdamWState, batch: Mapping,
                    step) -> Tuple[nn.Module, AdamWState, Metrics]:
-        if group is not None:
-            from torch.distributed.fsdp import FSDPModule
-            if not isinstance(model, FSDPModule):
-                raise ValueError("make_train_step(mesh=) trains a model "
-                                 "sharded by fsdp_shard(model, mesh)")
+        _check_placed(model, device_mesh)
         params = dict(model.named_parameters())
         dev = next(iter(params.values())).device
         model.requires_grad_(True)
@@ -196,9 +243,12 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(),
     the logits over them are dropped) or ``encoder_frames`` (audio).
     Loss: ``lm_loss``; metrics ``loss``, ``nll``, ``accuracy``,
     ``moe_aux``, ``lr``, ``grad_norm``. ``mesh``: a ``torch.distributed``
-    ``DeviceMesh`` with the reference's axis names, over which the
-    caller sharded the model (``fsdp_shard``) before ``adamw_init``;
-    each rank's batch is its rows of the global batch."""
+    ``DeviceMesh`` with the reference's axis names (``("data",
+    "model")``, or ``data`` alone), over which the caller placed the
+    model (``tp_shard(mode="train")`` where the model axis is larger
+    than 1, then ``fsdp_shard``) before ``adamw_init``; each rank's batch
+    is its data rank's rows of the global batch, and the metrics are
+    means over ``data``."""
     return _step(lambda model, batch: lm_loss(cfg, model, batch,
                                               remat=hp.remat), hp, mesh)
 
