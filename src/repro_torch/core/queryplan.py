@@ -36,7 +36,6 @@ keys, hence the same targets, as the reference.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import (Callable, Dict, List, Mapping, NamedTuple, Optional,
                     Sequence, Tuple, Union)
@@ -44,6 +43,7 @@ from typing import (Callable, Dict, List, Mapping, NamedTuple, Optional,
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import retrieval as rt
 from repro_torch.core import tiering
 from repro_torch.core.memory import VenusMemory
@@ -365,17 +365,16 @@ def execute_plan(manager, plan: QueryPlan, *, fused: bool = True,
     Results come back in the plan's spec order."""
     specs = plan.specs
     results: List[Optional[QueryResult]] = [None] * len(specs)
-    t0 = time.perf_counter()
     missing = [j for j, s in enumerate(specs) if s.embedding is None]
     embedded: Dict[int, np.ndarray] = {}
-    if missing:
-        embs = manager.embedder.embed_queries(
-            [specs[j].text for j in missing])
-        embedded = {j: np.asarray(embs[i], np.float32)
-                    for i, j in enumerate(missing)}
-    t_embed = time.perf_counter() - t0
+    with obs.span("query.embed", queries=len(missing)) as sp:
+        if missing:
+            embs = manager.embedder.embed_queries(
+                [specs[j].text for j in missing])
+            embedded = {j: np.asarray(embs[i], np.float32)
+                        for i, j in enumerate(missing)}
     for group in plan.groups:
-        _execute_group(manager, group, specs, embedded, results, t_embed,
+        _execute_group(manager, group, specs, embedded, results, sp.seconds,
                        fused=fused, coarse=coarse)
     return results
 
@@ -463,72 +462,72 @@ def _execute_group(manager, group: ExecutionGroup, specs, embedded,
     keys = _group_keys(manager, group, specs, qmax, lanes)
 
     # --- the group's scan: ONE launch, or the two of a two-stage group ---
-    t0 = time.perf_counter()
-    stack = manager.memory_stack(lanes)
-    arena = stack.arena_view()
-    ts = None
-    q_dev = torch.from_numpy(q_stack).to(dev)
-    if use_fused:
-        if keys is not None:
-            targets = rt.targets_from_keys(keys, k.budget, dev)
-        else:       # top-k ignores the draw epilogue: one dummy target
-            targets = torch.zeros((ln, qmax, 1), dtype=torch.float32,
-                                  device=dev)
-        n_topk = k.budget if strat.name == "topk" else 1
-        # two-stage once the tier holds history: the same targets as the
-        # flat path, so the session chains advance alike
-        if coarse and arena is not None and arena.has_consolidated():
-            ts = tiering.two_stage_retrieve(arena, q_dev, targets,
-                                            tau=k.tau, n_topk=n_topk,
-                                            topb=cfg.coarse_topb)
-            fr = ts.fr
-            manager.io_stats["two_stage_groups"] += 1
+    with obs.span("query.scan", queries=len(group.indices)) as sp:
+        stack = manager.memory_stack(lanes)
+        arena = stack.arena_view()
+        ts = None
+        q_dev = torch.from_numpy(q_stack).to(dev)
+        if use_fused:
+            if keys is not None:
+                targets = rt.targets_from_keys(keys, k.budget, dev)
+            else:       # top-k ignores the draw epilogue: one dummy target
+                targets = torch.zeros((ln, qmax, 1), dtype=torch.float32,
+                                      device=dev)
+            n_topk = k.budget if strat.name == "topk" else 1
+            # two-stage once the tier holds history: the same targets as the
+            # flat path, so the session chains advance alike
+            if coarse and arena is not None and arena.has_consolidated():
+                ts = tiering.two_stage_retrieve(arena, q_dev, targets,
+                                                tau=k.tau, n_topk=n_topk,
+                                                topb=cfg.coarse_topb)
+                fr = ts.fr
+                manager.io_stats["two_stage_groups"] += 1
+            else:
+                fr = stack.fused_retrieve(q_dev, targets, tau=k.tau,
+                                          n_topk=n_topk)
         else:
-            fr = stack.fused_retrieve(q_dev, targets, tau=k.tau,
-                                      n_topk=n_topk)
-    else:
-        sims, probs = stack.search(q_dev, tau=k.tau)
-    if len(sids) == 1:   # single-session group: per-session accounting
-        manager.io_stats["scans"] += 1
-        manager.sessions[sids[0]].memory.io_stats["scans"] += 1
-    else:
-        manager.io_stats["fused_scans"] += 1
-    manager.io_stats["group_scans"] += 1
-    if arena is not None and arena.n_shards > 1:    # one launch a slab
-        manager.io_stats["sharded_group_scans"] += 1
-    timings["similarity"] = time.perf_counter() - t0
+            sims, probs = stack.search(q_dev, tau=k.tau)
+        if len(sids) == 1:   # single-session group: per-session accounting
+            manager.io_stats["scans"] += 1
+            manager.sessions[sids[0]].memory.io_stats["scans"] += 1
+        else:
+            manager.io_stats["fused_scans"] += 1
+        manager.io_stats["group_scans"] += 1
+        if arena is not None and arena.n_shards > 1:    # one launch a slab
+            manager.io_stats["sharded_group_scans"] += 1
+    timings["similarity"] = sp.seconds
 
     # --- strategy post-processing + expansion ----------------------------
-    t0 = time.perf_counter()
-    if use_fused:
-        out = _fused_output(strat, k, fr, (ln, qmax), ts is not None)
-    else:
-        emb_stack, valid = stack.device_stack()
-        out = strat.run(StrategyContext(
-            sims=sims, probs=probs, valid=valid, emb=emb_stack, keys=keys,
-            total_frames=np.asarray(
-                [manager.sessions[s].stats["frames_seen"]
-                 if s is not None else 0 for s in lanes], np.int64),
-            key=k, qcount=qcount))
-    ok = out.valid
-    if strat.expand == "members":
-        u = torch.from_numpy(VenusMemory.expand_u(cfg.seed, k.budget)
-                             ).to(dev)
-        if ts is not None:      # draws index the candidate tables
-            fids, ok = tiering.expand_candidates(
-                ts.cand_members, ts.cand_counts, out.draws, out.valid, u)
+    with obs.span("query.expand", queries=len(group.indices)) as sp:
+        if use_fused:
+            out = _fused_output(strat, k, fr, (ln, qmax), ts is not None)
         else:
-            fids, ok = stack.expand_members(out.draws, out.valid, u)
-        manager.io_stats["device_expands"] += 1
-    elif ts is not None:                    # top-k over the candidates
-        fids = tiering.gather_candidate_ifr(ts.cand_ifr, out.draws)
-    elif strat.expand == "index":
-        fids = stack.gather_index_frames(out.draws)
-    else:                                   # raw: draws ARE frame ids
-        fids = out.draws
-    fids_np, ok_np = fids.cpu().numpy(), ok.cpu().numpy()
-    draws_np = out.draws.cpu().numpy()
-    timings["sample_expand"] = time.perf_counter() - t0
+            emb_stack, valid = stack.device_stack()
+            out = strat.run(StrategyContext(
+                sims=sims, probs=probs, valid=valid, emb=emb_stack, keys=keys,
+                total_frames=np.asarray(
+                    [manager.sessions[s].stats["frames_seen"]
+                     if s is not None else 0 for s in lanes], np.int64),
+                key=k, qcount=qcount))
+        ok = out.valid
+        if strat.expand == "members":
+            u = torch.from_numpy(VenusMemory.expand_u(cfg.seed, k.budget)
+                                 ).to(dev)
+            if ts is not None:      # draws index the candidate tables
+                fids, ok = tiering.expand_candidates(
+                    ts.cand_members, ts.cand_counts, out.draws, out.valid, u)
+            else:
+                fids, ok = stack.expand_members(out.draws, out.valid, u)
+            manager.io_stats["device_expands"] += 1
+        elif ts is not None:                    # top-k over the candidates
+            fids = tiering.gather_candidate_ifr(ts.cand_ifr, out.draws)
+        elif strat.expand == "index":
+            fids = stack.gather_index_frames(out.draws)
+        else:                                   # raw: draws ARE frame ids
+            fids = out.draws
+        fids_np, ok_np = fids.cpu().numpy(), ok.cpu().numpy()
+        draws_np = out.draws.cpu().numpy()
+    timings["sample_expand"] = sp.seconds
 
     for sid in sids:
         si = lane_of[sid]

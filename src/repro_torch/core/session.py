@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
 import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -41,6 +40,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.aux_models import AuxModel, build_aux_prompt
 from repro_torch.core.clustering import cluster_partition, frame_vectors
 from repro_torch.core.memory import (ArenaStackView, FrameStore, MemoryArena,
@@ -189,9 +189,10 @@ class SessionState:
 def segment_stage(state: SessionState, chunk: np.ndarray) -> List[Partition]:
     """① archive the chunk (host), score and segment it (device)."""
     chunk = np.asarray(chunk, np.float32)
-    state.frames.append(chunk)
+    with obs.span("ingest.upload", sid=state.sid, bytes=chunk.nbytes):
+        state.frames.append(chunk)
+        dev_chunk = torch.from_numpy(chunk).to(state.device)
     state.stats["frames_seen"] += len(chunk)
-    dev_chunk = torch.from_numpy(chunk).to(state.device)
     closed = state.segmenter.ingest(dev_chunk)
     state.pending.extend(dev_chunk.unbind(0))
     return closed
@@ -206,13 +207,16 @@ def cluster_stage(state: SessionState, part: Partition,
     cfg = state.cfg
     lo = part.start - state.pending_base
     hi = part.end - state.pending_base
-    pframes = torch.stack(state.pending[lo:hi])
-    vecs = frame_vectors(pframes, cfg.cluster_pool)
-    res = cluster_partition(vecs, threshold=cfg.cluster_threshold,
-                            max_clusters=cfg.max_clusters_per_partition)
-    n = int(res.n_clusters)
-    assign = res.assignments.cpu().numpy()
-    index_local = res.index_frames[:n].cpu().numpy()
+    with obs.span("ingest.partition", sid=state.sid,
+                  frames=hi - lo) as sp:
+        pframes = torch.stack(state.pending[lo:hi])
+        vecs = frame_vectors(pframes, cfg.cluster_pool)
+        res = cluster_partition(vecs, threshold=cfg.cluster_threshold,
+                                max_clusters=cfg.max_clusters_per_partition)
+        n = int(res.n_clusters)
+        assign = res.assignments.cpu().numpy()
+        index_local = res.index_frames[:n].cpu().numpy()
+        sp.set(clusters=n)
     scene_id = state.stats["partitions"]
     members = [part.start + np.nonzero(assign == c)[0] for c in range(n)]
     aux_texts = None
@@ -267,8 +271,9 @@ def commit_jobs(sessions: Mapping[int, SessionState], embedder,
         aux = []
         for j in jobs:
             aux.extend(j.aux_texts or [""] * len(j.frame_ids))
-    embs = np.asarray(embedder.embed_frames(frames, aux, frame_ids=ids),
-                      np.float32)
+    with obs.span("ingest.embed", keyframes=len(ids)):
+        embs = np.asarray(embedder.embed_frames(frames, aux, frame_ids=ids),
+                          np.float32)
     arenas = {id(a): a for a in
               (sessions[j.sid].memory.arena for j in jobs) if a is not None}
     new_by_sid: Dict[int, List[np.ndarray]] = {}
@@ -413,27 +418,28 @@ class SessionManager:
     def ingest_tick(self, chunks: Mapping[int, np.ndarray]
                     ) -> Dict[str, float]:
         """Consume one chunk per stream; embed everything that closed
-        across ALL streams in one batched call. Returns stage timings
-        (host clock; each stage ends in a device→host read, so the device
-        work of the stage is inside it)."""
-        t0 = time.perf_counter()
-        closed_by_sid = {sid: segment_stage(self.sessions[sid], chunk)
-                         for sid, chunk in chunks.items()}
-        t_seg = time.perf_counter()
+        across ALL streams in one batched call. Returns the seconds of
+        its stage spans (``ingest.segment``, ``ingest.cluster``,
+        ``ingest.embed_insert``; each stage ends in a device→host read,
+        so the device work of the stage is inside it)."""
+        with obs.span("ingest.segment") as seg:
+            closed_by_sid = {sid: segment_stage(self.sessions[sid], chunk)
+                             for sid, chunk in chunks.items()}
         jobs: List[EmbedJob] = []
-        for sid, closed in closed_by_sid.items():
-            st = self.sessions[sid]
-            for part in closed:
-                jobs.append(cluster_stage(st, part, self.aux_models,
-                                          self.annotation_fn))
-            release_pending(st, closed)
-        t_clu = time.perf_counter()
-        n_emb = commit_jobs(self.sessions, self.embedder, jobs,
-                            standing=self.standing, io_stats=self.io_stats)
-        n_trim = self._trim_archives(chunks.keys())
-        t_emb = time.perf_counter()
-        return {"segment": t_seg - t0, "cluster": t_clu - t_seg,
-                "embed_insert": t_emb - t_clu, "embedded": float(n_emb),
+        with obs.span("ingest.cluster") as clu:
+            for sid, closed in closed_by_sid.items():
+                st = self.sessions[sid]
+                for part in closed:
+                    jobs.append(cluster_stage(st, part, self.aux_models,
+                                              self.annotation_fn))
+                release_pending(st, closed)
+        with obs.span("ingest.embed_insert") as emb:
+            n_emb = commit_jobs(self.sessions, self.embedder, jobs,
+                                standing=self.standing,
+                                io_stats=self.io_stats)
+            n_trim = self._trim_archives(chunks.keys())
+        return {"segment": seg.seconds, "cluster": clu.seconds,
+                "embed_insert": emb.seconds, "embedded": float(n_emb),
                 "trimmed": float(n_trim)}
 
     def flush(self, sids: Optional[Sequence[int]] = None) -> None:

@@ -41,13 +41,13 @@ session (``_trigger_step``, over every evaluated spec at once):
 from __future__ import annotations
 
 import heapq
-import time
 from dataclasses import dataclass, replace
 from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.memory import quantise_rows
 from repro_torch.core.queryplan import QuerySpec, build_plan
 from repro_torch.kernels import ops as kops
@@ -55,8 +55,8 @@ from repro_torch.util import pow2_bucket, resolve_device
 
 # masked top-k slots carry -1e30; anything above this is a scored row
 _VALID_SCORE = -1e29
-# the host-clock stages of ``evaluate`` that ``StandingRegistry.seconds``
-# adds up
+# the stages of ``evaluate``, each the span ``standing.<stage>``, whose
+# seconds ``StandingRegistry.seconds`` adds up
 STAGES = ("slab", "upload", "launch", "readback", "trigger")
 
 
@@ -113,8 +113,9 @@ def _pow2(n: int) -> int:
 class StandingRegistry:
     """A manager's standing queries and their alert queue. All state is on
     the host; a committing tick costs one slab launch and the trigger
-    step, on ``device``. ``seconds`` adds up ``evaluate``'s host-clock
-    time by stage (``STAGES``)."""
+    step, on ``device``. ``seconds`` adds up the durations of
+    ``evaluate``'s stage spans (``standing.<stage>`` for each of
+    ``STAGES``)."""
 
     def __init__(self, cfg, device=None):
         self.cfg = cfg
@@ -209,89 +210,89 @@ class StandingRegistry:
                 and sum(len(p) for p in new_by_sid[sid])]
         if not live:
             return []
-        t0 = time.perf_counter()
-        # --- the (G, pow2(n), d) slab of new rows, from the host mirrors
-        d = len(next(iter(self.entries.values())).embedding)
-        ents = [[self.entries[i] for i in self.by_sid[sid]]
-                for sid, _ in live]
-        phys = [np.concatenate([np.asarray(p, np.int64) for p in plist])
-                for _, plist in live]
-        g = len(live)
-        n_pad = _pow2(max(len(p) for p in phys))
-        q_pad = _pow2(max(len(e) for e in ents))
-        k = min(n_pad, max(e.budget for es in ents for e in es))
-        slab = np.zeros((g, n_pad, d), np.float32)
-        q_stack = np.zeros((g, q_pad, d), np.float32)
-        sizes = np.zeros((g,), np.int32)
-        ifr = np.zeros((g, n_pad), np.int64)
-        for gi, ((sid, _), p) in enumerate(zip(live, phys)):
-            mem = sessions[sid].memory
-            slab[gi, :len(p)] = mem._emb[p]
-            ifr[gi, :len(p)] = mem._index_frame[p]
-            sizes[gi] = len(p)
-            for qi, e in enumerate(ents[gi]):
-                q_stack[gi, qi] = e.embedding
-        index = slab
-        if getattr(self.cfg, "index_dtype", "float32") == "int8":
-            # the arena's own int8 rows, bit for bit (scales cancel under
-            # the kernel's row normalisation)
-            index, _ = quantise_rows(slab)
-        t1 = time.perf_counter()
-        dev = self.device
-        index_d = torch.from_numpy(index).to(dev)
-        q_d = torch.from_numpy(q_stack).to(dev)
-        sizes_d = torch.from_numpy(sizes).to(dev)
-        targets = torch.zeros((g, q_pad, 1), dtype=torch.float32, device=dev)
-        t2 = time.perf_counter()
-        # --- ONE fused launch over the slab, never the arena
-        fr = kops.fused_retrieve_stack(
-            q_d, index_d, tau=float(getattr(self.cfg, "tau", 0.1)),
-            valid=sizes_d, targets=targets, n_topk=k, tier="standing")
-        t3 = time.perf_counter()
-        tv = fr.topk_v.cpu().numpy()          # (G, Q, K) masked cosines
-        ti = fr.topk_i.cpu().numpy()          # (G, Q, K) slab rows
-        t4 = time.perf_counter()
-        # --- the trigger step over every evaluated spec
-        flat = [(gi, qi, e) for gi, es in enumerate(ents)
-                for qi, e in enumerate(es)]
-        l_pad = _pow2(len(flat))
-        score = np.full((l_pad,), -np.inf, np.float32)
-        armed = np.zeros((l_pad,), bool)
-        cooldown = np.zeros((l_pad,), np.int32)
-        thr = np.full((l_pad,), np.inf, np.float32)
-        hys = np.zeros((l_pad,), np.float32)
-        cdt = np.zeros((l_pad,), np.int32)
-        for li, (gi, qi, e) in enumerate(flat):
-            score[li] = tv[gi, qi, 0]
-            armed[li] = e.armed
-            cooldown[li] = e.cooldown
-            thr[li] = e.threshold
-            hys[li] = e.hysteresis
-            cdt[li] = e.cooldown_ticks
-        fire, supp, armed_out, cd_out = (
-            x.cpu().numpy() for x in _trigger_step(
-                *(torch.from_numpy(a).to(dev)
-                  for a in (score, armed, cooldown, thr, hys, cdt))))
-        fired: List[Alert] = []
-        n_supp = 0
-        for li, (gi, qi, e) in enumerate(flat):
-            e.armed = bool(armed_out[li])
-            e.cooldown = int(cd_out[li])
-            n_supp += int(supp[li])
-            if not fire[li]:
-                continue
-            kk = min(e.budget, k)
-            vals = tv[gi, qi, :kk]
-            sel = (vals >= e.threshold) & (vals > _VALID_SCORE)
-            fired.append(Alert(
-                sid=e.sid, spec_id=e.spec_id,
-                frame_ids=ifr[gi, ti[gi, qi, :kk][sel]],
-                score=float(tv[gi, qi, 0]), tick=self.tick,
-                priority=e.priority))
-        t5 = time.perf_counter()
-        for stage, dt in zip(STAGES, (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
-                                      t5 - t4)):
-            self.seconds[stage] += dt
+        stage = [obs.span(f"standing.{name}") for name in STAGES]
+        with stage[0]:
+            # --- the (G, pow2(n), d) slab of new rows, from the host mirrors
+            d = len(next(iter(self.entries.values())).embedding)
+            ents = [[self.entries[i] for i in self.by_sid[sid]]
+                    for sid, _ in live]
+            phys = [np.concatenate([np.asarray(p, np.int64) for p in plist])
+                    for _, plist in live]
+            g = len(live)
+            n_pad = _pow2(max(len(p) for p in phys))
+            q_pad = _pow2(max(len(e) for e in ents))
+            k = min(n_pad, max(e.budget for es in ents for e in es))
+            slab = np.zeros((g, n_pad, d), np.float32)
+            q_stack = np.zeros((g, q_pad, d), np.float32)
+            sizes = np.zeros((g,), np.int32)
+            ifr = np.zeros((g, n_pad), np.int64)
+            for gi, ((sid, _), p) in enumerate(zip(live, phys)):
+                mem = sessions[sid].memory
+                slab[gi, :len(p)] = mem._emb[p]
+                ifr[gi, :len(p)] = mem._index_frame[p]
+                sizes[gi] = len(p)
+                for qi, e in enumerate(ents[gi]):
+                    q_stack[gi, qi] = e.embedding
+            index = slab
+            if getattr(self.cfg, "index_dtype", "float32") == "int8":
+                # the arena's own int8 rows, bit for bit (scales cancel under
+                # the kernel's row normalisation)
+                index, _ = quantise_rows(slab)
+        with stage[1]:
+            dev = self.device
+            index_d = torch.from_numpy(index).to(dev)
+            q_d = torch.from_numpy(q_stack).to(dev)
+            sizes_d = torch.from_numpy(sizes).to(dev)
+            targets = torch.zeros((g, q_pad, 1), dtype=torch.float32,
+                                  device=dev)
+        with stage[2]:
+            # --- ONE fused launch over the slab, never the arena
+            fr = kops.fused_retrieve_stack(
+                q_d, index_d, tau=float(getattr(self.cfg, "tau", 0.1)),
+                valid=sizes_d, targets=targets, n_topk=k, tier="standing")
+        with stage[3]:
+            tv = fr.topk_v.cpu().numpy()          # (G, Q, K) masked cosines
+            ti = fr.topk_i.cpu().numpy()          # (G, Q, K) slab rows
+        with stage[4]:
+            # --- the trigger step over every evaluated spec
+            flat = [(gi, qi, e) for gi, es in enumerate(ents)
+                    for qi, e in enumerate(es)]
+            l_pad = _pow2(len(flat))
+            score = np.full((l_pad,), -np.inf, np.float32)
+            armed = np.zeros((l_pad,), bool)
+            cooldown = np.zeros((l_pad,), np.int32)
+            thr = np.full((l_pad,), np.inf, np.float32)
+            hys = np.zeros((l_pad,), np.float32)
+            cdt = np.zeros((l_pad,), np.int32)
+            for li, (gi, qi, e) in enumerate(flat):
+                score[li] = tv[gi, qi, 0]
+                armed[li] = e.armed
+                cooldown[li] = e.cooldown
+                thr[li] = e.threshold
+                hys[li] = e.hysteresis
+                cdt[li] = e.cooldown_ticks
+            fire, supp, armed_out, cd_out = (
+                x.cpu().numpy() for x in _trigger_step(
+                    *(torch.from_numpy(a).to(dev)
+                      for a in (score, armed, cooldown, thr, hys, cdt))))
+            fired: List[Alert] = []
+            n_supp = 0
+            for li, (gi, qi, e) in enumerate(flat):
+                e.armed = bool(armed_out[li])
+                e.cooldown = int(cd_out[li])
+                n_supp += int(supp[li])
+                if not fire[li]:
+                    continue
+                kk = min(e.budget, k)
+                vals = tv[gi, qi, :kk]
+                sel = (vals >= e.threshold) & (vals > _VALID_SCORE)
+                fired.append(Alert(
+                    sid=e.sid, spec_id=e.spec_id,
+                    frame_ids=ifr[gi, ti[gi, qi, :kk][sel]],
+                    score=float(tv[gi, qi, 0]), tick=self.tick,
+                    priority=e.priority))
+        for name, sp in zip(STAGES, stage):
+            self.seconds[name] += sp.seconds
         if io_stats is not None:
             io_stats["alerts_fired"] = (io_stats.get("alerts_fired", 0)
                                         + len(fired))

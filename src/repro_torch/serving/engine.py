@@ -15,9 +15,12 @@ reference's (``repro.serving.engine``):
   audio request's encoder output — into the slot in place;
 * decoding is greedy, or, with ``temperature > 0``, a Gumbel-max draw
   whose noise comes from the reference's key chain (``kernels.prng``);
-* ``timings`` keeps the host-clock seconds of every prefill and decode
-  step; each ends where the step reads its tokens back, so the device
-  work is in it and no synchronisation is added.
+* ``timings`` keeps the seconds of every prefill and decode step, the
+  durations of their spans (``engine.prefill``, one a request, with its
+  ``rid``, ``tokens`` and the seconds it ``waited`` since submission;
+  ``engine.decode``, with the active ``slots``); each ends where the
+  step reads its tokens back, so the device work is in it and no
+  synchronisation is added.
 
 Decode attention runs through ``kernels.ops``: the hand-written decode
 kernels on the card, their plain versions on the CPU.
@@ -38,6 +41,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import prng
 from repro_torch.models.transformer import Transformer
 from repro_torch.util import pow2_bucket
@@ -136,15 +140,17 @@ class ServingEngine:
             buf[:s] = toks              # right-pad
             ve = batch1(req.vision_embeds)
             nv = 0 if ve is None else ve.shape[1]
-            t0 = time.perf_counter()
-            nxt, one_cache = self._prefill(
-                torch.from_numpy(buf)[None].to(dev),
-                torch.tensor([s + nv], dtype=torch.int32, device=dev), ve,
-                batch1(req.encoder_frames))
-            self.model.insert_slot(self.cache, one_cache, slot)
-            req.generated.append(int(nxt[0]))
-            req.first_token_at = time.perf_counter()
-            self.timings["prefill"].append(req.first_token_at - t0)
+            with obs.span("engine.prefill", rid=req.rid,
+                          tokens=s + nv) as sp:
+                sp.set(waited=sp.t0 - req.submitted_at)
+                nxt, one_cache = self._prefill(
+                    torch.from_numpy(buf)[None].to(dev),
+                    torch.tensor([s + nv], dtype=torch.int32, device=dev),
+                    ve, batch1(req.encoder_frames))
+                self.model.insert_slot(self.cache, one_cache, slot)
+                req.generated.append(int(nxt[0]))
+            req.first_token_at = sp.t1
+            self.timings["prefill"].append(sp.seconds)
             self._slot_req[slot] = req
 
     def step(self) -> int:
@@ -157,10 +163,10 @@ class ServingEngine:
         tokens = np.full((self.batch_slots, 1), PAD, np.int32)
         for i in active:
             tokens[i, 0] = self._slot_req[i].generated[-1]
-        t0 = time.perf_counter()
-        nxt = self._decode(torch.from_numpy(tokens).to(self.device))
-        nxt = nxt.cpu().numpy()
-        self.timings["decode"].append(time.perf_counter() - t0)
+        with obs.span("engine.decode", slots=len(active)) as sp:
+            nxt = self._decode(torch.from_numpy(tokens).to(self.device))
+            nxt = nxt.cpu().numpy()
+        self.timings["decode"].append(sp.seconds)
         for i in active:
             r = self._slot_req[i]
             r.generated.append(int(nxt[i]))

@@ -17,13 +17,13 @@ batching. The scan operand is the manager's grow-in-place arena, so
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.pipeline import patch_projection, patchify
 from repro_torch.core.queryplan import QueryPlan, QuerySpec
 from repro_torch.core.session import SessionManager
@@ -114,19 +114,22 @@ class VenusService:
         """Compile the tick's queries into ONE plan, retrieve, build the
         VLM requests and enqueue them on the engine in arrival order.
         Every request's ``submitted_at`` is the moment this call began, so
-        its TTFT covers retrieval and the vision tokens too."""
-        arrived = time.perf_counter()
-        results = self.manager.execute(self.plan(queries))
-        reqs: List[Request] = []
-        for q, res in zip(queries, results):
-            q.frame_ids = res.frame_ids
-            req = Request(
-                rid=q.rid, tokens=np.asarray(q.prompt_tokens, np.int32),
-                max_new_tokens=q.max_new_tokens,
-                vision_embeds=self._vision_embeds(q.sid, res.frame_ids),
-                submitted_at=arrived)
-            reqs.append(req)
-            self.engine.submit(req)
+        its TTFT covers retrieval and the vision tokens too. The call is
+        the span ``service.submit`` (its requests' ``rids``, the number
+        of ``questions``)."""
+        with obs.span("service.submit", rids=tuple(q.rid for q in queries),
+                      questions=len(queries)) as sp:
+            results = self.manager.execute(self.plan(queries))
+            reqs: List[Request] = []
+            for q, res in zip(queries, results):
+                q.frame_ids = res.frame_ids
+                req = Request(
+                    rid=q.rid, tokens=np.asarray(q.prompt_tokens, np.int32),
+                    max_new_tokens=q.max_new_tokens,
+                    vision_embeds=self._vision_embeds(q.sid, res.frame_ids),
+                    submitted_at=sp.t0)
+                reqs.append(req)
+                self.engine.submit(req)
         return reqs
 
     def answer(self, queries: Sequence[StreamQuery]) -> List[Request]:
