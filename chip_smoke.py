@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
-12, 15–20, 7, 26, 13, 14, 8, 9, 21–25, 27, 28, 29:
+Phases (any failure exits non-zero), run in the order 1–4, 30, 10, 5, 6,
+11, 12, 15–20, 7, 26, 13, 14, 8, 9, 21–25, 27, 28, 29:
 
 1. build      — compile the CUDA kernels from ``src/repro_torch/kernels/
                 csrc`` (one nvcc per source, all started together);
@@ -349,11 +349,22 @@ Phases (any failure exits non-zero), run in the order 1–4, 10, 5, 6, 11,
                 step equal to ``launch.dryrun``'s count for the same
                 config, shape and mesh; no kernel launched; the step
                 times by rank 0's clock.
+30. cluster   — the clustering kernel (``csrc/cluster.cu``) against its
+                plain version: frames of the benchmark's world (d =
+                2,352, K = 16) at T = 1, 2, 61 and 256; n reaching K (K
+                = 4); d = 48; more than 16 clusters on chip and in
+                device memory; the device-memory route at d = 9,408. n,
+                assignments and counts equal, index frames but for a
+                two-member tie, centroids at rtol 1e-5 / atol 1e-6; the
+                T = 61 partition timed (device µs by the profiler).
+                Alone: ``python3 -c "import chip_smoke;
+                chip_smoke.phase_cluster()"``.
 
 Prints the card's name and power limit, one line per phase, the
 ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": ...}``.
 Every kernel's launch count is read around the phase that drives its path
-(main: fused retrieval and scene score; dense: the dense scans; serve,
+(main: fused retrieval, scene score and clustering, one launch a
+partition; dense: the dense scans; serve,
 serve_mla, serve_moe, serve_olmoe, serve_zoo, serve_hybrid, serve_rwkv
 and serve_whisper: the decode kernels; tp_serve: #5 or #6 and the
 cross-rank merge in each rank; mesh_train and tp_train: none (training
@@ -1172,6 +1183,123 @@ def phase_scene(frames_np):
           "scene: prev is not the table's frames 1..64 bit for bit")
     check(torch.equal(got_of["unaligned"], got_of["table"]),
           "scene: the unaligned view differs from the table's frames")
+    return out
+
+
+def cluster_cases():
+    """The clustering kernel's cases → [(name, vecs (T, d) on the card,
+    threshold, K, route)]: frames of camera 0 of the benchmark's world
+    (``perfbench/traffic/ingest-16cam.json``, seed 7) pooled 8 × 8 (d =
+    2,352) at the cell's threshold 0.35 and K = 16, T = 1, 2, 61 and 256
+    (four chunks); the 256 frames at K = 4 (n reaches K); d = 48 blobs
+    (T = 40, K = 8) and d = 48 noise at threshold 0.1 (n reaches K = 4);
+    more than 16 clusters, one reduction a chunk of 16: d = 48 at K = 40
+    on chip and d = 2,352 at K = 40 in device memory; and the device-
+    memory route at the cell's K: frames pooled 4 × 4 (d = 9,408)."""
+    import torch
+    from perfbench.world import CameraWorld
+    from repro_torch.core.clustering import frame_vectors
+    with open(os.path.join(HERE, "perfbench", "traffic",
+                           "ingest-16cam.json")) as f:
+        traffic = json.load(f)
+    world = CameraWorld.from_traffic(traffic, 7, "cuda")
+    frames = torch.cat([world.render(0, c) for c in range(4)])   # 256
+    v8 = frame_vectors(frames, 8).contiguous()
+    v4 = frame_vectors(frames[:61], 4).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    centres = 5.0 * torch.arange(4, device="cuda")[:, None] + torch.rand(
+        (4, 48), generator=gen, device="cuda")
+    blobs = (centres.repeat_interleave(10, 0)
+             + 0.01 * torch.randn((40, 48), generator=gen, device="cuda"))
+    noise = 10.0 * torch.randn((64, 48), generator=gen, device="cuda")
+    return [("t1", v8[:1], 0.35, 16, "smem"),
+            ("t2", v8[:2], 0.35, 16, "smem"),
+            ("t61", v8[:61], 0.35, 16, "smem"),
+            ("t256", v8, 0.35, 16, "smem"),
+            ("t256_k4", v8, 0.35, 4, "smem"),
+            ("d48_blobs", blobs, 1.0, 8, "smem"),
+            ("d48_k4", noise, 0.1, 4, "smem"),
+            ("d48_k40", noise, 0.1, 40, "smem"),
+            ("t256_k40_global", v8, 0.02, 40, "global"),
+            ("d9408_global", v4, 0.35, 16, "global")]
+
+
+def phase_cluster():
+    """The clustering kernel (``csrc/cluster.cu``) against its plain
+    version in every case of ``cluster_cases``: n, assignments and counts
+    equal; index frames equal but where a cluster of two members ties
+    (ROADMAP "Two-member clusters tie on the index frame"); centroids at
+    rtol 1e-5 / atol 1e-6; each case one launch on the route it names,
+    its shared memory held to the source's count. The T = 61 partition
+    (the cell's ≈ 61 frames a partition) timed: the kernel's device µs by
+    the profiler, the wrapper's wall ms and the plain loop's."""
+    import torch
+    from repro_torch.core.clustering import cluster_partition
+    from repro_torch.kernels import cluster, ref
+    out = {}
+    for name, vecs, thr, k, route in cluster_cases():
+        t, d = vecs.shape
+        plan = cluster.cluster_plan(t, d, k)
+        check(plan.route == route, f"cluster {name}: plan {plan}, not "
+                                   f"route {route}")
+        check(plan.smem == cluster.kernel_smem_bytes(
+            d, k, plan.threads, route == "smem"),
+            f"cluster {name}: the plan's shared memory is not the source's")
+        before = cluster.cluster_partition.launches
+        run_k = lambda: cluster_partition(vecs, threshold=thr,
+                                          max_clusters=k)
+        got = run_k()
+        want = ref.cluster_partition_ref(vecs, thr, k)
+        torch.cuda.synchronize()
+        check(cluster.cluster_partition.launches == before + 1,
+              f"cluster {name}: the kernel did not launch once")
+        w_assign, w_n, w_cent, w_counts, w_index = want
+        n = int(w_n)
+        check(int(got.n_clusters) == n, f"cluster {name}: n "
+                                        f"{int(got.n_clusters)} != {n}")
+        check(torch.equal(got.assignments, w_assign),
+              f"cluster {name}: assignments differ at "
+              f"{torch.nonzero(got.assignments != w_assign)[:8].tolist()}")
+        check(torch.equal(got.counts, w_counts),
+              f"cluster {name}: counts {got.counts.tolist()} != "
+              f"{w_counts.tolist()}")
+        ties = [c for c in range(k) if int(got.index_frames[c])
+                != int(w_index[c])]
+        check(all(c < n and int(w_counts[c]) == 2 for c in ties),
+              f"cluster {name}: index frames differ outside a two-member "
+              f"tie at clusters {ties}")
+        err = float((got.centroids - w_cent).abs().max())
+        check(torch.allclose(got.centroids, w_cent, rtol=1e-5, atol=1e-6),
+              f"cluster {name}: centroids max abs err {err:.3e}")
+        row = dict(t=t, d=d, k=k, threshold=thr, n=n, plan=plan._asdict(),
+                   two_member_ties=len(ties), max_abs_err=err)
+        if name == "t61":
+            b, by = bound_ms(t * d * 4 + k * d * 4 + (1 + t + k) * 4,
+                             3.0 * t * k * d)
+            row.update(ms=cuda_ms(run_k, reps=50, warmup=3),
+                       plain_ms=cuda_ms(lambda: ref.cluster_partition_ref(
+                           vecs, thr, k), reps=3),
+                       bound_ms=b, bound_by=by,
+                       kernel_us=kernel_us(run_k, reps=50))
+            us = (row["kernel_us"] or {}).get("k_cluster")
+            row["device_us"] = us
+            print(f"phase cluster[{name}]: ok  kernel {row['ms']:.4f} ms "
+                  f"wall, device "
+                  + ("not measured" if us is None else
+                     f"{us:.2f} us = {us / t:.3f} us a frame")
+                  + f" against the serial floor aimed at {3 * t} us (3 us "
+                  f"a frame)  plain {row['plain_ms']:.3f} ms  bytes bound "
+                  f"{b:.5f} ms ({by})  n {n}  plan {tuple(plan)}",
+                  flush=True)
+            _print_kernel_us(row["kernel_us"])
+        else:
+            print(f"phase cluster[{name}]: ok  T={t} d={d} K={k} n={n}  "
+                  f"two-member ties {len(ties)}  max_abs_err {err:.3e}  "
+                  f"plan {tuple(plan)}", flush=True)
+        out[name] = row
+    out["launches"] = cluster.cluster_partition.launches
+    print(f"phase cluster: ok  {len(out) - 1} cases, one launch each; "
+          f"{out['launches']} launches with the timed ones", flush=True)
     return out
 
 
@@ -5630,6 +5758,7 @@ def main() -> int:
     stages = phase_fused_stages(gen, card)
     sim = phase_similarity(gen)
     scene = phase_scene(frames65)
+    clus = phase_cluster()
     dec = phase_decode(gen)
 
     elapsed()
@@ -5657,6 +5786,9 @@ def main() -> int:
     check(launches["fused_retrieve"] == 4,
           f"one fused launch per group: {launches}")
     check(launches["scene_score"] > 0, f"scene score launched: {launches}")
+    check(launches["cluster_partition"] == sum(
+        mgr[s].stats["partitions"] for s in range(S)),
+        f"one cluster launch a partition: {launches}")
     check(counts["fused_draw_launches"] == 4, f"scan counts {counts}")
     check(mgr.io_stats["stack_rebuilds"] == 0, "stack_rebuilds == 0")
     check(mgr.arena.emb.shape == (S, cfg.memory_capacity, D),
@@ -5872,7 +6004,18 @@ def main() -> int:
              main_device_us=st["device_us"],
              plain_ms=scene["table"]["plain_ms"],
              bound_ms=scene["table"]["bound_ms"],
-             bound_by=scene["table"]["bound_by"], library_ms=None)]
+             bound_by=scene["table"]["bound_by"], library_ms=None),
+        dict(name="cluster_partition", route="cuda",
+             source="src/repro_torch/kernels/csrc/cluster.cu",
+             replaces="none: the reference's lax.scan "
+                      "(src/repro/core/clustering.py)",
+             launches=launches["cluster_partition"],
+             max_abs_err=max(v["max_abs_err"] for n, v in clus.items()
+                             if n != "launches"),
+             ms=clus["t61"]["ms"], device_us=clus["t61"]["device_us"],
+             plain_ms=clus["t61"]["plain_ms"],
+             bound_ms=clus["t61"]["bound_ms"],
+             bound_by=clus["t61"]["bound_by"], library_ms=None)]
 
     def decode_row(name, source, replaces, prefix, n_launch, cases):
         r = dec[f"{prefix}_bf16"]
@@ -5954,6 +6097,7 @@ def main() -> int:
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=kernels, fused=fused,
                        fused_stages=stages, similarity=sim, scene=scene,
+                       cluster=clus,
                        decode=dec, main=times, dense=dense, serve=serve,
                        serve_mla=serve_mla, serve_moe=serve_moe,
                        serve_olmoe=serve_olmoe, serve_zoo=serve_zoo,

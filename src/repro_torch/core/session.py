@@ -50,6 +50,7 @@ from repro_torch.core.queryplan import (QueryPlan, QueryResult, QuerySpec,
 from repro_torch.core.scene import Partition, StreamSegmenter
 from repro_torch.core.standing import Alert, StandingRegistry
 from repro_torch.kernels import prng
+from repro_torch.kernels.cluster import cluster_route
 from repro_torch.util import resolve_device
 
 _LIVE_MANAGERS: "weakref.WeakSet" = weakref.WeakSet()
@@ -211,12 +212,15 @@ def cluster_stage(state: SessionState, part: Partition,
                   frames=hi - lo) as sp:
         pframes = torch.stack(state.pending[lo:hi])
         vecs = frame_vectors(pframes, cfg.cluster_pool)
+        kmax = cfg.max_clusters_per_partition
         res = cluster_partition(vecs, threshold=cfg.cluster_threshold,
-                                max_clusters=cfg.max_clusters_per_partition)
-        n = int(res.n_clusters)
-        assign = res.assignments.cpu().numpy()
-        index_local = res.index_frames[:n].cpu().numpy()
-        sp.set(clusters=n)
+                                max_clusters=kmax)
+        packed = res.packed.cpu().numpy()       # the one read-back
+        t, n = hi - lo, int(packed[0])
+        assign = packed[1:1 + t]
+        index_local = packed[1 + t:1 + t + n]
+        sp.set(clusters=n, route=cluster_route(vecs.device, t,
+                                               vecs.shape[1], kmax))
     scene_id = state.stats["partitions"]
     members = [part.start + np.nonzero(assign == c)[0] for c in range(n)]
     aux_texts = None

@@ -22,7 +22,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("fused_retrieve.cu", "similarity_scan.cu", "similarity_scan_2d.cu",
-           "decode_attention.cu", "mla_decode.cu", "scene_score.cu")
+           "decode_attention.cu", "mla_decode.cu", "scene_score.cu",
+           "cluster.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

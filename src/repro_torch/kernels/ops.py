@@ -25,6 +25,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.kernels import cluster as _cluster
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import ref
 from repro_torch.kernels import scene_score as _scene
@@ -52,6 +53,7 @@ _KERNELS = {"fused_retrieve": _sim.fused_retrieve_scan_stack,
             "similarity_scan_stack": _sim.similarity_scan_stack,
             "similarity_scan": _sim.similarity_scan,
             "scene_score": _scene.scene_score,
+            "cluster_partition": _cluster.cluster_partition,
             "gqa_decode": _decode.gqa_decode,
             "merge_partials": _decode.merge_partials,
             "mla_decode": _decode.mla_decode}

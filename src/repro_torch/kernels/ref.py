@@ -3,7 +3,7 @@
 Each function is the correctness reference of one hand-written kernel
 (``similarity.py``: fused retrieval and the dense scan;
 ``scene_score.py``: scene score; ``decode_attention.py``: GQA and MLA
-decode) and the path a CPU tensor takes through ``kernels.ops``. They may
+decode; ``cluster.py``: a partition's incremental clustering) and the path a CPU tensor takes through ``kernels.ops``. They may
 materialise what the kernels keep on chip; what they return is exactly
 the kernels' contract.
 """
@@ -308,3 +308,46 @@ def scene_score_ref(frames: torch.Tensor, weights: Sequence[float],
         return phi
     return torch.cat([torch.zeros(1, dtype=torch.float32,
                                   device=frames.device), phi])
+
+
+# ---------------------------------------------------------------------------
+# incremental clustering of one partition
+# ---------------------------------------------------------------------------
+
+
+def cluster_partition_ref(vecs: torch.Tensor, threshold: float,
+                          max_clusters: int) -> Tuple[torch.Tensor, ...]:
+    """vecs (T, d) f32 → (assignments (T,) int32, n_clusters () int32,
+    centroids (K, d), counts (K,), index_frames (K,) int32): the
+    reference's ``lax.scan`` as a loop of tensor ops a frame, on the
+    vectors' device, with no host synchronisation per frame: the fp32
+    distance, first-minimum ``argmin`` ties and the overflow rule."""
+    t, d = vecs.shape
+    kmax = int(max_clusters)
+    dev = vecs.device
+    sums = torch.zeros((kmax, d), dtype=torch.float32, device=dev)
+    counts = torch.zeros((kmax,), dtype=torch.float32, device=dev)
+    n = torch.zeros((), dtype=torch.int64, device=dev)
+    lanes = torch.arange(kmax, device=dev)
+    inf = torch.tensor(float("inf"), device=dev)
+    assignments = torch.zeros((t,), dtype=torch.int64, device=dev)
+    for i in range(t):
+        v = vecs[i]
+        means = sums / torch.clamp(counts, min=1.0)[:, None]
+        dist = torch.sqrt(((means - v[None]) ** 2).sum(-1) + 1e-12)
+        dist = torch.where(lanes < n, dist, inf)
+        nearest = torch.argmin(dist)                # first minimum
+        near_ok = dist[nearest] <= threshold
+        make_new = (~near_ok & (n < kmax)) | (n == 0)
+        cid = torch.where(make_new, n, nearest)
+        sums.index_add_(0, cid[None], v[None])
+        counts.index_add_(0, cid[None], torch.ones(1, device=dev))
+        n = n + make_new.to(torch.int64)
+        assignments[i] = cid
+    centroids = sums / torch.clamp(counts, min=1.0)[:, None]
+    d2 = ((vecs[:, None, :] - centroids[None, :, :]) ** 2).sum(-1)  # (T,K)
+    member = assignments[:, None] == lanes[None, :]
+    d2 = torch.where(member, d2, inf)
+    index_frames = torch.argmin(d2, dim=0).to(torch.int32)
+    return (assignments.to(torch.int32), n.to(torch.int32), centroids,
+            counts, index_frames)

@@ -144,6 +144,14 @@ def test_cluster_partition_matches_reference(case, world_pair):
                                   max_clusters=kmax)
     n = int(want.n_clusters)
     assert int(got.n_clusters) == n
+    # a CPU tensor takes the plain loop; the integers are views of the one
+    # buffer the host reads back
+    assert tops.kernel_launches()["cluster_partition"] == 0
+    t = len(vecs)
+    np.testing.assert_array_equal(
+        got.packed.numpy(), np.concatenate([[n], got.assignments.numpy(),
+                                            got.index_frames.numpy()]))
+    assert got.packed.shape == (1 + t + kmax,)
     np.testing.assert_array_equal(got.assignments.numpy(),
                                   np.asarray(want.assignments))
     np.testing.assert_array_equal(got.index_frames[:n].numpy(),
@@ -153,6 +161,78 @@ def test_cluster_partition_matches_reference(case, world_pair):
     np.testing.assert_allclose(got.centroids.numpy(),
                                np.asarray(want.centroids),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("device,t,d,k,route,threads", [
+    ("cuda", 61, 2352, 16, "smem", 608),      # the cell: 224² pooled 8 × 8
+    ("cuda", 1, 48, 4, "smem", 32),
+    ("cuda", 256, 2352, 22, "smem", 608),     # 230,072 B of 232,448
+    ("cuda", 61, 2352, 23, "global", 608),    # 239,568 B
+    ("cuda", 61, 9408, 16, "global", 1024),   # 224² pooled 4 × 4
+    ("cpu", 61, 2352, 16, "plain", None)])
+def test_cluster_route_is_planned_from_the_shapes(device, t, d, k, route,
+                                                 threads):
+    """The clustering route is a function of (T, d, K) and the device:
+    the K × d means on chip where they fit in a block's 227 KB with the
+    ring of two frames and the block's small state, else in device
+    memory; a CPU tensor takes the plain loop."""
+    from repro_torch.kernels import cluster as tcluster
+    assert tcluster.cluster_route(torch.device(device), t, d, k) == route
+    if device == "cpu":
+        return
+    plan = tcluster.cluster_plan(t, d, k)
+    assert plan.threads == threads
+    on_chip = tcluster.cluster_smem_bytes(d, k, threads, True)
+    assert (on_chip <= 227 * 1024) == (route == "smem")
+    assert plan.smem == (on_chip if route == "smem" else
+                         tcluster.cluster_smem_bytes(d, k, threads, False))
+    assert k * d * 4 <= plan.smem or route == "global"
+
+
+def test_cluster_launch_count_is_listed_and_reset():
+    from repro_torch.kernels import cluster as tcluster
+    assert tops.kernel_launches()["cluster_partition"] == 0
+    tcluster.cluster_partition.launches = 7
+    assert tops.kernel_launches()["cluster_partition"] == 7
+    tops.reset_kernel_launches()
+    assert tcluster.cluster_partition.launches == 0
+    with pytest.raises(ValueError):
+        tcluster.cluster_plan(1, 2352, 0)
+
+
+@pytest.mark.parametrize("scene", [0, 1, 2])
+def test_cluster_stage_reads_back_the_reference_job(world_pair, scene):
+    """``cluster_stage`` reads the clustering back in one copy and gives
+    the embed job the reference's clusters: the scene id, the index
+    frames' absolute ids and each cluster's members."""
+    from repro_torch.core.scene import Partition
+    from repro_torch.core.session import SessionState, cluster_stage
+    tw, _ = world_pair
+    cfg = VenusConfig(memory_capacity=64)
+    st = SessionState(0, cfg, 8, device="cpu")
+    st.stats["partitions"] = scene
+    sc = tw.scenes[scene]
+    frames = _t(tw.frames[:sc.end])
+    st.pending = list(frames.unbind(0))
+    job = cluster_stage(st, Partition(sc.start, sc.end))
+    want = jclu.cluster_partition(
+        jclu.frame_vectors(jnp.asarray(tw.frames[sc.start:sc.end]),
+                           cfg.cluster_pool),
+        threshold=cfg.cluster_threshold,
+        max_clusters=cfg.max_clusters_per_partition)
+    n = int(want.n_clusters)
+    assign = np.asarray(want.assignments)
+    assert job.scene_id == scene and job.sid == 0
+    np.testing.assert_array_equal(
+        job.frame_ids, sc.start + np.asarray(want.index_frames)[:n])
+    assert len(job.member_lists) == n
+    for c in range(n):
+        np.testing.assert_array_equal(job.member_lists[c],
+                                      sc.start + np.nonzero(assign == c)[0])
+    np.testing.assert_array_equal(job.frames.numpy(),
+                                  tw.frames[job.frame_ids])
+    assert st.stats["partitions"] == scene + 1
+    assert st.stats["clusters"] == n
 
 
 # ---------------------------------------------------------------------------
